@@ -1,0 +1,407 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (sbsim_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (each prints its own lines; any failure exits non-zero):
+  0. CUDA runtime, nvcc and card (name and power limit, from nvidia-smi).
+  1. Build the CUDA kernels K1 (fdm_cheby) and K2 (fdm_jacobi) from
+     sbsim_tpu_torch/csrc with nvcc for sm_90a.
+  2. Each kernel against its plain PyTorch version on the card, at the
+     12-zone (B=64) and 126-room (B=16, 189x124) plan shapes, with and
+     without fused convection and with a capped iteration limit: fields,
+     iteration counts and converged flags must be bitwise equal.
+  3. The main path at full width: sb1_config(num_days_in_episode=2),
+     reset, then 32 step_batched(solver="pallas_cheby") steps at 12 zones
+     B=2048 and at 126 rooms B=512 (layout="auto"), then 8 "pallas_env"
+     steps at 12 zones B=2048. Launch counts must equal the steps; fields
+     and observations finite, rewards in [-1, 0]. Env-steps/s from CUDA
+     events; each kernel and its plain version timed alone on the main
+     path's own inputs, with the bound the card could reach; and a
+     torch.profiler breakdown of 4 more steps (device busy and idle share,
+     kernels by device time).
+  4. Wiring: 3 steps at 12 zones B=64 through the kernels and through the
+     plain versions on the card give bitwise-equal states.
+  5. A {"kernels": [...]} line, then the last line
+     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
+
+It refuses to run without a CUDA device and never falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# Published H100 peaks at the full power limit (NVIDIA data sheets):
+# (memory bytes/s, float32 FLOP/s outside the tensor cores).
+_PEAKS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12), "SXM": (3.35e12, 67e12)}
+_PLANS = {
+    "12zone": dict(),
+    "126room": dict(plan=(9, 14, 12), layout="auto"),
+}
+
+
+def fail(msg: str) -> None:
+    print(f"FAILED: {msg}", flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def peaks(name: str):
+    for key, value in _PEAKS.items():
+        if key in name:
+            return key, value
+    return "SXM", _PEAKS["SXM"]  # "NVIDIA H100 80GB HBM3" is the SXM part
+
+
+def make_env(which: str, device):
+    from sbsim_tpu_torch.core import geometry
+    from sbsim_tpu_torch.envs import building_env, presets
+
+    spec = _PLANS[which]
+    kw = {}
+    if "plan" in spec:
+        nx, ny, cvs = spec["plan"]
+        kw = dict(
+            floor_plan=geometry.make_synthetic_office_plan(nx, ny, room_cvs=cvs),
+            layout=spec["layout"],
+        )
+    cfg = presets.sb1_config(num_days_in_episode=2, **kw)
+    return building_env.BuildingEnv(cfg, device=device)
+
+
+def seeded_inputs(env, batch: int, seed: int):
+    """Seeded numpy fields on the card, as kernel inputs + convection."""
+    import numpy as np
+    import torch
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    rs = np.random.default_rng(seed)
+    shape = (batch,) + env.geom.shape
+    dev = env.device
+    t = lambda a: torch.as_tensor(a, device=dev)
+    temp = t((294.0 + rs.normal(0, 2.0, shape)).astype(np.float32))
+    q = t(rs.uniform(0.0, 50.0, shape).astype(np.float32))
+    t_inf = t(rs.uniform(270.0, 300.0, batch).astype(np.float32))
+    h = t(np.full(batch, env.config.weather.convection_coefficient, np.float32))
+    keys = rs.integers(0, 2**32, (batch, 2), dtype=np.uint64).astype(np.int64)
+    inp = fdm_cuda.kernel_inputs(temp, q, t_inf, h, env.coeffs)
+    return inp, conv_inputs(env, t(keys))
+
+
+def conv_inputs(env, keys):
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    return fdm_cuda.ConvInputs(
+        offsets=env.convection.offsets,
+        lead=env._conv_lead,
+        foll=env._conv_foll,
+        word_params=env._conv_word_params,
+        keys=keys,
+    )
+
+
+def run_kernel(name, env, inp, conv, limit, plain=False):
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    kw = dict(threshold=env.config.convergence_threshold, iteration_limit=limit,
+              conv=conv)
+    if name == "fdm_cheby":
+        kw.update(spectral_radius=env._spectral_radius,
+                  check_every=env.config.cheby_check_every)
+        fn = fdm_cuda.fdm_cheby_plain if plain else fdm_cuda.fdm_cheby_cuda
+    else:
+        fn = fdm_cuda.fdm_jacobi_plain if plain else fdm_cuda.fdm_jacobi_cuda
+    return fn(inp, **kw)
+
+
+def compare(label, got, want) -> float:
+    import torch
+
+    (a, ai, ac), (b, bi, bc) = got, want
+    torch.cuda.synchronize()
+    err = float((a - b).abs().max())
+    same = torch.equal(a, b) and torch.equal(ai, bi) and torch.equal(ac, bc)
+    print(f"  {label}: max|dT|={err:.3e} iters kernel={ai.tolist()[:6]}"
+          f" plain={bi.tolist()[:6]} converged={int(ac.sum())}/{ac.numel()}"
+          f" {'bitwise equal' if same else 'DIFFERENT'}", flush=True)
+    if not same:
+        fail(f"{label}: kernel and plain version differ")
+    return err
+
+
+def time_call(fn, reps: int) -> float:
+    """Milliseconds per call, CUDA events around `reps` calls after one
+    warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(inp, conv, n_iter, method, bw, flops):
+    """Least time for the work: each input read once and the output written
+    once, or the operations this run's data needed (its iteration counts)
+    at the card's peak for their type; the larger of the two.
+
+    Float32: per Jacobi update 4 mul, 4 add, 1 div; per residual sample
+    sub, abs, max; per Chebyshev recombination sub, mul, add. Int32 (at
+    half the float32 rate): the mix32 word, two fmix32 rounds (6 ops each)
+    and 2 xors per plane, and per round a lane extract, compare and the
+    two-partner select (7 ops)."""
+    b, h, w = inp.temp.shape
+    cells = h * w
+    nbytes = 4 * cells * b * 4  # temp, const, denom in; field out
+    nbytes += cells * 4 * 5 + cells * 4 * 2  # stencil planes, lead/foll words
+    nbytes += b * (4 + 16 + 8)  # tinf, keys, iteration count and flag
+    total_iters = float(n_iter.double().sum())
+    if method == "fdm_cheby":
+        # sub-iterations (a residual sampled at most every one), plus J(x0)
+        # with its residual and the emitted J(x_f)
+        f_ops = cells * (15.0 * total_iters + (12.0 + 9.0) * b)
+    else:
+        f_ops = cells * 12.0 * total_iters
+    i_ops = 0.0
+    if conv is not None:
+        _, n_planes, _, _ = conv.word_params
+        i_ops = cells * b * (14.0 * n_planes + 7.0 * len(conv.offsets))
+    t_bytes = nbytes / bw * 1e3
+    t_ops = (f_ops / flops + i_ops / (flops / 2)) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def profile_steps(env, state, acts, solver, steps, tag):
+    """Device time by kernel over `steps` main-path steps (torch.profiler),
+    the device's busy and idle share of the wall time, launches per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            state, _ = env.step_batched(state, acts[i % len(acts)], solver=solver)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print(f"  profile: the profiler saw no device time {tag}", flush=True)
+        return
+    by_name = {}
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + us)
+    busy = sum(t for _, t in by_name.values())
+    print(f"  profile over {steps} steps: wall {wall_us / steps / 1e3:.3f} ms/step, device busy "
+          f"{busy / steps / 1e3:.3f} ms/step ({busy / wall_us:.1%}; idle {1 - busy / wall_us:.1%}), "
+          f"{len(kernels) / steps:.0f} kernel launches/step {tag}", flush=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    for kname, (n, t) in top:
+        print(f"    {t / steps / 1e3:8.4f} ms/step {n / steps:6.1f}x  {kname[:90]}", flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available; nothing was run", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(REPO, "sbsim_tpu_torch")):
+        print("chip_smoke: sbsim_tpu_torch/ not found beside this script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import numpy as np
+    from sbsim_tpu_torch import convert, rng
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    # ---- Phase 0 ---------------------------------------------------------
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    tag = f"[{card}]"
+    nvcc = subprocess.run([fdm_cuda._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[-1]
+    print(f"phase 0: torch {torch.__version__} cuda {torch.version.cuda}; nvcc: {nvcc}; "
+          f"card: {card}; devices: {torch.cuda.device_count()}", flush=True)
+    peak_key, (bw, flops) = peaks(name)
+    print(f"  bound uses the H100 {peak_key} peaks: {bw / 1e12} TB/s, "
+          f"{flops / 1e12} TFLOP/s float32", flush=True)
+    dev = torch.device("cuda", 0)
+
+    # ---- Phase 1 ---------------------------------------------------------
+    t0 = time.time()
+    path = fdm_cuda.build()
+    lib = fdm_cuda._library()
+    print(f"phase 1: built {os.path.relpath(path, REPO)} in {time.time() - t0:.1f} s; "
+          f"max cells {lib.fdm_max_cells()}", flush=True)
+    for line in fdm_cuda.build_log.splitlines():
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
+            print("  ptxas:", line.strip(), flush=True)
+
+    # ---- Phase 2 ---------------------------------------------------------
+    print("phase 2: kernels vs plain versions on the card", flush=True)
+    envs = {}
+    max_err = {"fdm_cheby": 0.0, "fdm_jacobi": 0.0}
+    for which, batch in (("12zone", 64), ("126room", 16)):
+        env = envs[which] = make_env(which, dev)
+        print(f" {which}: grid {env.geom.shape}, B={batch}, "
+              f"rounds={len(env.convection.offsets)}, rho={env._spectral_radius:.6f}",
+              flush=True)
+        for kname in ("fdm_cheby", "fdm_jacobi"):
+            for fused, limit in ((False, 100), (True, 100), (True, 3)):
+                inp, conv = seeded_inputs(env, batch, seed=limit + fused)
+                conv = conv if fused else None
+                got = run_kernel(kname, env, inp, conv, limit)
+                want = run_kernel(kname, env, inp, conv, limit, plain=True)
+                label = f"{kname} fused={fused} limit={limit}"
+                max_err[kname] = max(max_err[kname], compare(label, got, want))
+                if limit == 3 and bool(got[2].any()):
+                    fail(f"{label}: capped solve reported converged")
+    # ---- Phase 3 ---------------------------------------------------------
+    print("phase 3: main path at full width", flush=True)
+    runs = (("12zone", 2048, "pallas_cheby", 32), ("126room", 512, "pallas_cheby", 32),
+            ("12zone", 2048, "pallas_env", 8))
+    kernel_of = {"pallas_cheby": "fdm_cheby", "pallas_env": "fdm_jacobi"}
+    launches = {"fdm_cheby": 0, "fdm_jacobi": 0}
+    timing = {}
+    for which, batch, solver, steps in runs:
+        env = envs[which]
+        keys = rng.split(rng.PRNGKey(7, device=dev), batch)
+        state, obs = env.reset(keys)
+        acts = torch.as_tensor(
+            np.random.default_rng(11).uniform(-1, 1, (steps, batch, env.n_actions)),
+            dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        fdm_cuda.reset_launch_counts()
+        events = []
+        rewards = []
+        for i in range(steps):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            state, out = env.step_batched(state, acts[i], solver=solver)
+            e.record()
+            events.append((s, e))
+            rewards.append(out.reward)
+        torch.cuda.synchronize()
+        counts = dict(fdm_cuda.launch_counts)
+        kname = kernel_of[solver]
+        launches[kname] += counts[kname]
+        if counts[kname] != steps or sum(counts.values()) != steps:
+            fail(f"{which} {solver}: launch counts {counts} != {steps} steps")
+        r = torch.stack(rewards)
+        if not (torch.isfinite(state.temp).all() and torch.isfinite(out.observation).all()):
+            fail(f"{which} {solver}: non-finite field or observation")
+        if out.observation.shape != (batch, env.obs_dim) or state.temp.shape != (batch,) + env.geom.shape:
+            fail(f"{which} {solver}: unexpected shapes")
+        if not (torch.isfinite(r).all() and (r >= -1).all() and (r <= 0).all()):
+            fail(f"{which} {solver}: rewards outside [-1, 0]")
+        ms = [s.elapsed_time(e) for s, e in events[2:]]  # first two warm up
+        med = statistics.median(ms)
+        iters = state.fdm_iterations.float()
+        print(f" {which} B={batch} {solver}: {steps} steps, launches {counts}; "
+              f"median step {med:.3f} ms -> {batch / med * 1e3:,.0f} env-steps/s; "
+              f"iterations mean {float(iters.mean()):.1f} max {int(iters.max())}; "
+              f"converged {int(state.fdm_converged.sum())}/{batch}; reward mean "
+              f"{float(r.mean()):.4f} {tag}", flush=True)
+        # The kernel alone, and its plain version, on this path's own inputs.
+        pre, conv_keys = env._step_pre(state, acts[-1])
+        inp = fdm_cuda.kernel_inputs(state.temp, state.input_q, pre["ambient"],
+                                     pre["h_conv"], env.coeffs)
+        conv = conv_inputs(env, conv_keys)
+        limit = env.config.iteration_limit
+        got = run_kernel(kname, env, inp, conv, limit)
+        want = run_kernel(kname, env, inp, conv, limit, plain=True)
+        err = compare(f"{kname} at {which} B={batch}", got, want)
+        max_err[kname] = max(max_err[kname], err)
+        k_ms = time_call(lambda: run_kernel(kname, env, inp, conv, limit), 20)
+        p_ms = time_call(lambda: run_kernel(kname, env, inp, conv, limit, plain=True), 3)
+        b_ms, b_by = bound_ms(inp, conv, got[1], kname, bw, flops)
+        print(f"  {kname} alone: {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}) -> {b_ms / k_ms:.1%} of bound {tag}", flush=True)
+        profile_steps(env, state, acts, solver, 4, tag)
+        key = (kname, which)
+        if key not in timing:
+            timing[key] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                               batch=batch, env_steps_per_s=batch / med * 1e3)
+
+    # ---- Phase 4 ---------------------------------------------------------
+    print("phase 4: wiring, kernels vs plain versions through step_batched", flush=True)
+    env = envs["12zone"]
+    for solver in ("pallas_cheby", "pallas_env"):
+        finals = []
+        for plain in (False, True):
+            saved = fdm_cuda.fdm_cheby_cuda, fdm_cuda.fdm_jacobi_cuda
+            if plain:
+                fdm_cuda.fdm_cheby_cuda = fdm_cuda.fdm_cheby_plain
+                fdm_cuda.fdm_jacobi_cuda = fdm_cuda.fdm_jacobi_plain
+            try:
+                state, _ = env.reset(rng.split(rng.PRNGKey(5, device=dev), 64))
+                acts = torch.as_tensor(np.random.default_rng(3).uniform(-1, 1, (3, 64, 2)),
+                                       dtype=torch.float32, device=dev)
+                outs = []
+                for i in range(3):
+                    state, out = env.step_batched(state, acts[i], solver=solver)
+                    outs.append(torch.cat([out.observation, out.reward[:, None]], 1))
+            finally:
+                fdm_cuda.fdm_cheby_cuda, fdm_cuda.fdm_jacobi_cuda = saved
+            finals.append((convert.env_state_to_numpy(state), torch.stack(outs).cpu().numpy()))
+        (sa, oa), (sb, ob) = finals
+        flat = lambda d, p="": [(p + k, v) for k, v in d.items() if not isinstance(v, dict)] + [
+            x for k, v in d.items() if isinstance(v, dict) for x in flat(v, k + ".")]
+        diff = [k for (k, a), (_, b) in zip(flat(sa), flat(sb)) if not np.array_equal(a, b)]
+        if diff or not np.array_equal(oa, ob):
+            fail(f"wiring {solver}: kernel and plain runs differ in {diff or 'outputs'}")
+        print(f"  {solver}: 3 steps B=64, states and outputs bitwise equal", flush=True)
+
+    # ---- Phase 5 ---------------------------------------------------------
+    replaces = {
+        "fdm_cheby": "sbsim_tpu/physics/fdm_pallas.py:630",
+        "fdm_jacobi": "sbsim_tpu/physics/fdm_pallas.py:207",
+    }
+    kernels = []
+    for kname in ("fdm_cheby", "fdm_jacobi"):
+        t = timing[(kname, "12zone")]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "sbsim_tpu_torch/csrc/fdm_kernels.cu",
+            "replaces": replaces[kname], "launches": launches[kname],
+            "max_abs_err": max_err[kname], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            "shape": f"12zone B={t['batch']}",
+        })
+    extra = timing.get(("fdm_cheby", "126room"))
+    if extra:
+        print(f"fdm_cheby at 126room B={extra['batch']}: {extra['ms']:.4f} ms, plain "
+              f"{extra['plain_ms']:.3f} ms, bound {extra['bound_ms']:.4f} ms {tag}")
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,415 @@
+// FDM convergence loops for Hopper (sm_90a): one env per thread block.
+//
+// Replaces the Pallas TPU kernels of sbsim_tpu/physics/fdm_pallas.py:
+//   fdm_cheby_kernel  <- _fdm_cheby_kernel_interleaved (:630) and its E=1
+//                        form _fdm_cheby_kernel (:279): Chebyshev
+//                        semi-iteration of the Jacobi map, residual sampled
+//                        every `check_every` sub-iterations, then J(x), the
+//                        in-kernel mix32 decision word and the swap rounds.
+//   fdm_jacobi_kernel <- _fdm_kernel (:207): Jacobi while
+//                        it < limit and max|dx| > threshold, then the same
+//                        convection epilogue.
+// Zone/grid statistics are not computed here: the caller folds them from
+// the output (physics/gridstats.py), with bitwise the same sums.
+//
+// Bound: a step must read temp, const and denom and write the output, one
+// (H, W) float plane each per env (the five coefficient planes and the two
+// convection word planes are shared by the batch and stay in L2): at the
+// sb1 shapes 4 x 13,936 B x 2048 envs (12 zones, 34 us at 3.35 TB/s) or
+// 4 x 93,744 B x 512 envs (126 rooms, 57 us). The arithmetic of the ~9
+// Chebyshev sub-iterations an env needs there is of the same order at the
+// float32 peak (about 40 us and 70 us), so neither bound dominates.
+//
+// Design: the iterate and its partner plane live in dynamic shared memory
+// for the whole loop (2 x 13.9 KB, or 2 x 93.7 KB = 187.5 KB at 126 rooms,
+// under the 227 KB a block may use), so global memory is read once and
+// written once per env; const, denom and the shared planes are re-read
+// through the read-only cache. Each block loops on its own env until it
+// converges, so batch composition cannot change a result (no padding,
+// no freezing masks). The max-reduction runs only where the stopping rule
+// samples it (every Jacobi iteration; the last sub-iteration of each
+// Chebyshev chunk) and is exact (max does not depend on order).
+//
+// Numerics: built with -fmad=false and IEEE division, every cell update is
+// the plain PyTorch version's sequence of float32 operations
+// (physics/fdm_cuda.py: fdm_jacobi_plain / fdm_cheby_plain), so the kernels
+// equal them bitwise: a_r*x_r + a_l*x_l + a_b*x_b + a_t*x_t + const, then
+// / denom; the Chebyshev update omega*(jx - x_prev) + x_prev, then the
+// exterior re-pin.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxRounds = 32;
+constexpr int kMaxThreads = 1024;
+
+struct ConvArgs {
+  int n_rounds;  // 0: no convection epilogue
+  int lane_bits;
+  int q;
+  int dy[kMaxRounds];
+  int dx[kMaxRounds];
+};
+
+struct Planes {
+  const float* temp;   // (B, H, W)
+  const float* cnst;   // (B, H, W)
+  const float* denom;  // (B, H, W)
+  const float* tinf;   // (B,)
+  const float* a_r;    // (H, W) shared
+  const float* a_l;
+  const float* a_b;
+  const float* a_t;
+  const float* ext;    // (H, W) 1.0 at exterior CVs
+  const uint32_t* lead;  // (H, W) packed lead masks
+  const uint32_t* foll;  // (H, W) packed follower masks
+  const int64_t* keys;   // (B, 2) uint32 values
+  float* out;            // (B, H, W)
+  int32_t* iters;        // (B,)
+  int32_t* converged;    // (B,)
+  int H, W;
+  int edge_fill;
+};
+
+// max that propagates NaN, as jnp.max / torch.amax do.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int off = 16; off > 0; off >>= 1) {
+    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, off));
+  }
+  return v;
+}
+
+// Block-wide max; every thread gets the result. Contains two barriers, so
+// it also orders the shared-memory writes before it against reads after.
+__device__ float block_max(float v, float* red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = (blockDim.x + 31) >> 5;
+  v = warp_max(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float w = lane < n_warps ? red[lane] : 0.0f;
+    w = warp_max(w);
+    if (lane == 0) red[32] = w;
+  }
+  __syncthreads();
+  return red[32];
+}
+
+// One Jacobi update of cell c from plane x.
+__device__ __forceinline__ float jacobi_cell(const float* x, int c, int y,
+                                             int xc, const Planes& p,
+                                             const float* cnst,
+                                             const float* denom, float tinf) {
+  const int H = p.H, W = p.W;
+  float xr, xl, xb, xt;
+  if (p.edge_fill) {
+    xr = xc + 1 < W ? x[c + 1] : tinf;
+    xl = xc > 0 ? x[c - 1] : tinf;
+    xb = y + 1 < H ? x[c + W] : tinf;
+    xt = y > 0 ? x[c - W] : tinf;
+  } else {
+    // Rolls: wraparound reads land only in exterior cells, whose
+    // coefficients are folded to (a = 0, denom = 1, const = tinf).
+    xr = x[xc + 1 < W ? c + 1 : c + 1 - W];
+    xl = x[xc > 0 ? c - 1 : c - 1 + W];
+    xb = x[y + 1 < H ? c + W : xc];
+    xt = x[y > 0 ? c - W : (H - 1) * W + xc];
+  }
+  float num = __ldg(p.a_r + c) * xr;
+  num = num + __ldg(p.a_l + c) * xl;
+  num = num + __ldg(p.a_b + c) * xb;
+  num = num + __ldg(p.a_t + c) * xt;
+  num = num + __ldg(cnst + c);
+  const float v = num / __ldg(denom + c);
+  if (p.edge_fill && __ldg(p.ext + c) > 0.0f) return tinf;
+  return v;
+}
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x = (x ^ (x >> 16)) * 0x85EBCA6Bu;
+  x = (x ^ (x >> 13)) * 0xC2B2AE35u;
+  return x ^ (x >> 16);
+}
+
+// Bit r of the mix32 decision word of `cell` (decision_word_from_key).
+__device__ __forceinline__ bool swap_decision(uint32_t cell, int r,
+                                              uint32_t k0, uint32_t k1,
+                                              int hw, const ConvArgs& cv) {
+  const int lanes = 32 / cv.lane_bits;
+  const int plane = r / lanes;
+  const int lane = r - plane * lanes;
+  const uint32_t idx = cell + (uint32_t)plane * (uint32_t)hw;
+  const uint32_t bits = fmix32(fmix32(idx ^ k0) ^ k1);
+  const uint32_t mask = (1u << cv.lane_bits) - 1u;
+  return ((bits >> (cv.lane_bits * lane)) & mask) < (uint32_t)cv.q;
+}
+
+// The R swap rounds (_kernel_apply_swaps): each round reads the field as
+// it was before the round, so rounds ping-pong between the two planes.
+// Returns the plane that holds the result.
+__device__ float* apply_swaps(float* src, float* dst, const Planes& p,
+                              const ConvArgs& cv, uint32_t k0, uint32_t k1) {
+  const int H = p.H, W = p.W, hw = H * W;
+  for (int r = 0; r < cv.n_rounds; ++r) {
+    const uint32_t bit = 1u << r;
+    const int dy = cv.dy[r], dx = cv.dx[r];
+    for (int c = threadIdx.x; c < hw; c += blockDim.x) {
+      const int y = c / W, xc = c - y * W;
+      float v = src[c];
+      if ((__ldg(p.lead + c) & bit) && swap_decision(c, r, k0, k1, hw, cv)) {
+        // lead: take the follower's value, x[y + dy, x + dx]
+        const int yy = (y + dy + H) % H, xx = (xc + dx + W) % W;
+        v = src[yy * W + xx];
+      }
+      if (__ldg(p.foll + c) & bit) {
+        // follower of the lead at (y - dy, x - dx): swap if that lead does
+        const int yy = (y - dy + H) % H, xx = (xc - dx + W) % W;
+        const int lead_cell = yy * W + xx;
+        if (swap_decision(lead_cell, r, k0, k1, hw, cv)) v = src[lead_cell];
+      }
+      dst[c] = v;
+    }
+    __syncthreads();
+    float* t = src;
+    src = dst;
+    dst = t;
+  }
+  return src;
+}
+
+__device__ void epilogue(float* field, float* spare, const Planes& p,
+                         const ConvArgs& cv, int n_iter, bool conv) {
+  const int b = blockIdx.x;
+  const int hw = p.H * p.W;
+  if (cv.n_rounds > 0) {
+    const uint32_t k0 = (uint32_t)p.keys[2 * b];
+    const uint32_t k1 = (uint32_t)p.keys[2 * b + 1];
+    field = apply_swaps(field, spare, p, cv, k0, k1);
+  }
+  float* out = p.out + (size_t)b * hw;
+  for (int c = threadIdx.x; c < hw; c += blockDim.x) out[c] = field[c];
+  if (threadIdx.x == 0) {
+    p.iters[b] = n_iter;
+    p.converged[b] = conv ? 1 : 0;
+  }
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+    fdm_jacobi_kernel(Planes p, ConvArgs cv, float threshold, int limit) {
+  extern __shared__ float smem[];
+  __shared__ float red[33];
+  const int b = blockIdx.x;
+  const int W = p.W, hw = p.H * p.W;
+  const float* cnst = p.cnst + (size_t)b * hw;
+  const float* denom = p.denom + (size_t)b * hw;
+  const float tinf = p.tinf[b];
+  float* x = smem;
+  float* xn = smem + hw;
+  const float* t0 = p.temp + (size_t)b * hw;
+  for (int c = threadIdx.x; c < hw; c += blockDim.x) x[c] = t0[c];
+  __syncthreads();
+
+  float delta = threshold + 1.0f;
+  int it = 0;
+  while (it < limit && delta > threshold) {
+    float m = 0.0f;
+    for (int c = threadIdx.x; c < hw; c += blockDim.x) {
+      const int y = c / W;
+      const float v = jacobi_cell(x, c, y, c - y * W, p, cnst, denom, tinf);
+      xn[c] = v;
+      m = nan_max(m, fabsf(v - x[c]));
+    }
+    delta = block_max(m, red);
+    float* t = x;
+    x = xn;
+    xn = t;
+    ++it;
+  }
+  epilogue(x, xn, p, cv, it, delta <= threshold);
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+    fdm_cheby_kernel(Planes p, ConvArgs cv, float threshold, int limit,
+                     float rho2, float omega0, int check_every) {
+  extern __shared__ float smem[];
+  __shared__ float red[33];
+  const int b = blockIdx.x;
+  const int W = p.W, hw = p.H * p.W;
+  const float* cnst = p.cnst + (size_t)b * hw;
+  const float* denom = p.denom + (size_t)b * hw;
+  const float tinf = p.tinf[b];
+  float* x_prev = smem;
+  float* x = smem + hw;
+  const float* t0 = p.temp + (size_t)b * hw;
+  for (int c = threadIdx.x; c < hw; c += blockDim.x) x_prev[c] = t0[c];
+  __syncthreads();
+
+  // x1 = J(x0), delta0 = max |x1 - x0|.
+  float m = 0.0f;
+  for (int c = threadIdx.x; c < hw; c += blockDim.x) {
+    const int y = c / W;
+    const float v = jacobi_cell(x_prev, c, y, c - y * W, p, cnst, denom, tinf);
+    x[c] = v;
+    m = nan_max(m, fabsf(v - x_prev[c]));
+  }
+  float delta = block_max(m, red);
+  bool done = delta <= threshold;
+  int it = 1;
+  int n_iter = 1;
+  float omega = omega0;
+  while (it < limit && !done) {
+    for (int k = 0; k < check_every; ++k) {
+      const float omega_next = 1.0f / (1.0f - rho2 * omega / 4.0f);
+      const bool sample = k == check_every - 1;
+      m = 0.0f;
+      for (int c = threadIdx.x; c < hw; c += blockDim.x) {
+        const int y = c / W;
+        const float jx = jacobi_cell(x, c, y, c - y * W, p, cnst, denom, tinf);
+        const float xp = x_prev[c];
+        float v = omega_next * (jx - xp) + xp;
+        if (__ldg(p.ext + c) > 0.0f) v = tinf;
+        if (sample) m = nan_max(m, fabsf(jx - x[c]));
+        // x_next overwrites x_prev in place: cell c reads only x_prev[c].
+        x_prev[c] = v;
+      }
+      if (sample) {
+        delta = block_max(m, red);
+      } else {
+        __syncthreads();
+      }
+      float* t = x_prev;
+      x_prev = x;
+      x = t;
+      ++it;
+      omega = omega_next;
+    }
+    n_iter = it;
+    done = delta <= threshold;
+  }
+  // Emit J(x_final) into the spare plane.
+  for (int c = threadIdx.x; c < hw; c += blockDim.x) {
+    const int y = c / W;
+    x_prev[c] = jacobi_cell(x, c, y, c - y * W, p, cnst, denom, tinf);
+  }
+  __syncthreads();
+  epilogue(x_prev, x, p, cv, n_iter, done);
+}
+
+int block_threads(int hw) {
+  int t = ((hw / 8 + 31) / 32) * 32;
+  if (t < 128) t = 128;
+  if (t > kMaxThreads) t = kMaxThreads;
+  return t;
+}
+
+ConvArgs make_conv_args(const int* offsets, int n_rounds, int lane_bits,
+                        int q) {
+  ConvArgs cv = {};
+  cv.n_rounds = n_rounds;
+  cv.lane_bits = lane_bits;
+  cv.q = q;
+  for (int r = 0; r < n_rounds; ++r) {
+    cv.dy[r] = offsets[2 * r];
+    cv.dx[r] = offsets[2 * r + 1];
+  }
+  return cv;
+}
+
+template <typename Kernel>
+int prepare(Kernel kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return (int)err;
+}
+
+Planes make_planes(const float* temp, const float* cnst, const float* denom,
+                   const float* tinf, const float* a_r, const float* a_l,
+                   const float* a_b, const float* a_t, const float* ext,
+                   const uint32_t* lead, const uint32_t* foll,
+                   const int64_t* keys, float* out, int32_t* iters,
+                   int32_t* converged, int H, int W, int edge_fill) {
+  Planes p;
+  p.temp = temp;
+  p.cnst = cnst;
+  p.denom = denom;
+  p.tinf = tinf;
+  p.a_r = a_r;
+  p.a_l = a_l;
+  p.a_b = a_b;
+  p.a_t = a_t;
+  p.ext = ext;
+  p.lead = lead;
+  p.foll = foll;
+  p.keys = keys;
+  p.out = out;
+  p.iters = iters;
+  p.converged = converged;
+  p.H = H;
+  p.W = W;
+  p.edge_fill = edge_fill;
+  return p;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Largest H * W the kernels accept (two planes in shared memory).
+int fdm_max_cells() { return (232448 - 1024) / (2 * (int)sizeof(float)); }
+
+// `offsets` is a host array of 2 * n_rounds ints (dy, dx per round);
+// `keys` may be null when n_rounds == 0. Returns cudaGetLastError().
+int fdm_jacobi_launch(const float* temp, const float* cnst, const float* denom,
+                      const float* tinf, const float* a_r, const float* a_l,
+                      const float* a_b, const float* a_t, const float* ext,
+                      const uint32_t* lead, const uint32_t* foll,
+                      const int64_t* keys, float* out, int32_t* iters,
+                      int32_t* converged, int B, int H, int W, int edge_fill,
+                      float threshold, int limit, const int* offsets,
+                      int n_rounds, int lane_bits, int q, void* stream) {
+  if (n_rounds < 0 || n_rounds > kMaxRounds) return (int)cudaErrorInvalidValue;
+  const size_t smem = 2 * (size_t)H * W * sizeof(float);
+  int err = prepare(fdm_jacobi_kernel, smem);
+  if (err) return err;
+  Planes p = make_planes(temp, cnst, denom, tinf, a_r, a_l, a_b, a_t, ext,
+                         lead, foll, keys, out, iters, converged, H, W,
+                         edge_fill);
+  ConvArgs cv = make_conv_args(offsets, n_rounds, lane_bits, q);
+  fdm_jacobi_kernel<<<B, block_threads(H * W), smem, (cudaStream_t)stream>>>(
+      p, cv, threshold, limit);
+  return (int)cudaGetLastError();
+}
+
+int fdm_cheby_launch(const float* temp, const float* cnst, const float* denom,
+                     const float* tinf, const float* a_r, const float* a_l,
+                     const float* a_b, const float* a_t, const float* ext,
+                     const uint32_t* lead, const uint32_t* foll,
+                     const int64_t* keys, float* out, int32_t* iters,
+                     int32_t* converged, int B, int H, int W, int edge_fill,
+                     float threshold, int limit, float rho2, float omega0,
+                     int check_every, const int* offsets, int n_rounds,
+                     int lane_bits, int q, void* stream) {
+  if (n_rounds < 0 || n_rounds > kMaxRounds || check_every < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = 2 * (size_t)H * W * sizeof(float);
+  int err = prepare(fdm_cheby_kernel, smem);
+  if (err) return err;
+  Planes p = make_planes(temp, cnst, denom, tinf, a_r, a_l, a_b, a_t, ext,
+                         lead, foll, keys, out, iters, converged, H, W,
+                         edge_fill);
+  ConvArgs cv = make_conv_args(offsets, n_rounds, lane_bits, q);
+  fdm_cheby_kernel<<<B, block_threads(H * W), smem, (cudaStream_t)stream>>>(
+      p, cv, threshold, limit, rho2, omega0, check_every);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

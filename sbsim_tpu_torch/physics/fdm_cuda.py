@@ -1,0 +1,534 @@
+"""Hand-written CUDA kernels for the FDM convergence loop (Hopper, sm_90a).
+
+Counterpart of sbsim_tpu/physics/fdm_pallas.py. Two kernels live in
+csrc/fdm_kernels.cu:
+
+  fdm_cheby  (K1) replaces _fdm_cheby_kernel_interleaved (fdm_pallas.py:630)
+             and its one-env form _fdm_cheby_kernel (:279): the Chebyshev
+             semi-iteration of the Jacobi map with the residual sampled
+             every `check_every` sub-iterations, J(x) emitted for the final
+             iterate, then the mix32 swap-convection rounds.
+  fdm_jacobi (K2) replaces _fdm_kernel (:207): Jacobi while
+             it < limit and max|dx| > threshold, then the same convection.
+
+Each kernel keeps one env's iterate and its partner plane in shared memory
+for the whole solve, so a step reads temp/const/denom once and writes the
+field once (the bound is in the note at the top of the source).
+Each env loops until its own stopping rule holds, so a result does not
+depend on the other envs of the batch and no padding or freezing is needed.
+
+Zone/grid statistics are not emitted by the kernels: the caller folds them
+from the output with physics/gridstats.py (the same sums).
+
+Beside each kernel is its plain PyTorch version (fdm_cheby_plain,
+fdm_jacobi_plain) on the same inputs, with the same float32 operation
+sequence; built with -fmad=false and IEEE division the kernels equal them
+bitwise. `fdm_step_cuda` takes the plain version only for tensors on the
+CPU; for CUDA tensors it launches the kernel or raises.
+
+The library is compiled with nvcc at first use into `_build/` beside this
+package (a content hash of the source names the .so) and loaded with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from sbsim_tpu_torch.physics import convection as convection_lib
+from sbsim_tpu_torch.physics import fdm
+from sbsim_tpu_torch.physics.fdm import StencilCoefficients
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG_DIR, "csrc", "fdm_kernels.cu")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# Launches per kernel; a wrapper adds one where it launches its kernel.
+launch_counts = {"fdm_cheby": 0, "fdm_jacobi": 0}
+# nvcc's output of the last build in this process (ptxas register/smem use).
+build_log = ""
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path() -> str:
+    with open(SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"fdm_kernels_{digest.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compiles csrc/fdm_kernels.cu unless its library is built already;
+    returns the library's path. Raises if nvcc fails."""
+    global build_log
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+        capture_output=True,
+        text=True,
+    )
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
+    os.replace(tmp, path)
+    return path
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        planes = [ptr] * 15 + [i32] * 4  # 15 pointers, B, H, W, edge_fill
+        conv = [ptr, i32, i32, i32, ptr]  # offsets, n_rounds, lane_bits, q, stream
+        lib.fdm_jacobi_launch.argtypes = planes + [f32, i32] + conv
+        lib.fdm_jacobi_launch.restype = i32
+        lib.fdm_cheby_launch.argtypes = planes + [f32, i32, f32, f32, i32] + conv
+        lib.fdm_cheby_launch.restype = i32
+        lib.fdm_max_cells.restype = i32
+        _lib = lib
+    return _lib
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelInputs:
+    """The kernels' inputs: per-env (B, H, W) planes, shared (H, W) planes.
+
+    With `edge_fill` False (a ring-exterior plan) the exterior pin is folded
+    into the coefficients as the JAX package does (a* = 0, denom = 1,
+    const = t_inf at exterior cells), and the stencil reads wrap around.
+    """
+
+    temp: torch.Tensor  # f32 (B, H, W)
+    const: torch.Tensor  # f32 (B, H, W)
+    denom: torch.Tensor  # f32 (B, H, W)
+    tinf: torch.Tensor  # f32 (B,)
+    a_r: torch.Tensor  # f32 (H, W)
+    a_l: torch.Tensor
+    a_b: torch.Tensor
+    a_t: torch.Tensor
+    ext: torch.Tensor  # f32 (H, W), 1.0 at exterior cells
+    edge_fill: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvInputs:
+    """The fused mix32 swap convection: static round offsets, packed
+    lead/follower masks (int32 planes holding the uint32 bits), the mix32
+    decision-word parameters and the raw per-env step keys (B, 2) int64."""
+
+    offsets: Tuple[Tuple[int, int], ...]
+    lead: torch.Tensor  # i32 (H, W)
+    foll: torch.Tensor  # i32 (H, W)
+    word_params: Tuple[int, int, int, int]
+    keys: torch.Tensor  # i64 (B, 2) uint32 values
+
+
+def packed_plane(words, device) -> torch.Tensor:
+    """A packed uint32 mask plane (numpy uint32, or a tensor of its values)
+    as the int32 tensor with the same bits that the kernels read."""
+    if torch.is_tensor(words) and words.dtype == torch.int32:
+        return words.to(device)
+    if torch.is_tensor(words):
+        words = words.cpu().numpy()
+    bits = np.ascontiguousarray(np.asarray(words).astype(np.uint32).view(np.int32))
+    return torch.as_tensor(bits, device=device)
+
+
+def kernel_inputs(
+    temp: torch.Tensor,
+    input_q: torch.Tensor,
+    t_inf: torch.Tensor,
+    h_conv: torch.Tensor,
+    coeffs: StencilCoefficients,
+) -> KernelInputs:
+    """Per-step const/denom planes and the stencil planes, with the same
+    float32 arithmetic as fdm_step_pallas (:877-895)."""
+    const, denom = fdm.step_planes(temp, input_q, t_inf, h_conv, coeffs)
+    tinf3 = t_inf.view(-1, 1, 1)
+    ext_b = coeffs.exterior_mask
+    a_r, a_l, a_b, a_t = coeffs.a_r, coeffs.a_l, coeffs.a_b, coeffs.a_t
+    edge_fill = not coeffs.ring_exterior
+    if not edge_fill:
+        a_r, a_l, a_b, a_t = (torch.where(ext_b, 0.0, a) for a in (a_r, a_l, a_b, a_t))
+        denom = torch.where(ext_b, 1.0, denom)
+        const = torch.where(ext_b, tinf3, const)
+    return KernelInputs(
+        temp=temp.to(torch.float32).contiguous(),
+        const=const.contiguous(),
+        denom=denom.contiguous(),
+        tinf=t_inf.to(torch.float32).contiguous(),
+        a_r=a_r.contiguous(),
+        a_l=a_l.contiguous(),
+        a_b=a_b.contiguous(),
+        a_t=a_t.contiguous(),
+        ext=ext_b.to(torch.float32).contiguous(),
+        edge_fill=edge_fill,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (the kernels' arithmetic, op for op)
+# ---------------------------------------------------------------------------
+
+
+def _shift(x: torch.Tensor, dim: int, shift: int, fill: torch.Tensor) -> torch.Tensor:
+    """y[i] = x[i - shift] along `dim`, vacated slots = fill (B,)."""
+    rolled = torch.roll(x, shift, dim)
+    n = x.shape[dim]
+    idx = torch.arange(n, device=x.device)
+    mask = idx < shift if shift > 0 else idx >= n + shift
+    mask = mask.view(-1, 1) if dim == x.ndim - 2 else mask
+    return torch.where(mask, fill.view(-1, 1, 1), rolled)
+
+
+def jacobi_update(x: torch.Tensor, inp: KernelInputs) -> torch.Tensor:
+    """One Jacobi update (fdm_pallas._jacobi_update): the four neighbor
+    products summed left to right, plus const, then / denom."""
+    if inp.edge_fill:
+        f = inp.tinf
+        xr, xl = _shift(x, 2, -1, f), _shift(x, 2, 1, f)
+        xb, xt = _shift(x, 1, -1, f), _shift(x, 1, 1, f)
+    else:
+        xr, xl = torch.roll(x, -1, 2), torch.roll(x, 1, 2)
+        xb, xt = torch.roll(x, -1, 1), torch.roll(x, 1, 1)
+    num = inp.a_r * xr + inp.a_l * xl + inp.a_b * xb + inp.a_t * xt + inp.const
+    out = num / inp.denom
+    if inp.edge_fill:
+        out = torch.where(inp.ext > 0, inp.tinf.view(-1, 1, 1), out)
+    return out
+
+
+def _max_abs(d: torch.Tensor) -> torch.Tensor:
+    return d.abs().amax(dim=(-2, -1))
+
+
+def convect(x: torch.Tensor, conv: Optional[ConvInputs]) -> torch.Tensor:
+    if conv is None:
+        return x
+    word = convection_lib.decision_word_from_key(
+        conv.keys, conv.word_params, tuple(x.shape[-2:])
+    )
+    mask = lambda a: a.to(torch.int64) & 0xFFFFFFFF
+    return convection_lib.apply_swaps_with_word(
+        x, conv.offsets, mask(conv.lead), mask(conv.foll), word
+    )
+
+
+def fdm_jacobi_plain(
+    inp: KernelInputs,
+    *,
+    threshold: float,
+    iteration_limit: int,
+    conv: Optional[ConvInputs] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K2: per env, Jacobi while it < limit and
+    max|dx| > threshold (frozen envs keep their field), then convection.
+    Returns (field, n_iter int32 (B,), converged bool (B,))."""
+    thr = torch.tensor(threshold, dtype=torch.float32, device=inp.temp.device)
+    x = inp.temp
+    batch = x.shape[0]
+    delta = torch.full((batch,), threshold + 1.0, dtype=torch.float32, device=x.device)
+    iters = torch.zeros(batch, dtype=torch.int32, device=x.device)
+    for it in range(iteration_limit):
+        active = delta > thr
+        if not bool(active.any()):
+            break
+        x_new = jacobi_update(x, inp)
+        d = _max_abs(x_new - x)
+        x = torch.where(active.view(-1, 1, 1), x_new, x)
+        delta = torch.where(active, d, delta)
+        iters = torch.where(active, it + 1, iters)
+    return convect(x, conv), iters, delta <= thr
+
+
+def chebyshev_omegas(spectral_radius: float, n: int) -> Tuple[float, list]:
+    """(omega0, [omega_1 .. omega_n]) as float32 values: omega0 in Python
+    double then rounded (fdm_pallas.py:698), the recurrence
+    omega <- 1 / (1 - rho^2 omega / 4) in float32 (:707-709)."""
+    rho2 = float(spectral_radius) ** 2
+    omega0 = np.float32(1.0 / (1.0 - rho2 / 2.0))
+    rho2_f = np.float32(rho2)
+    out, omega = [], omega0
+    one, four = np.float32(1.0), np.float32(4.0)
+    for _ in range(n):
+        omega = one / (one - rho2_f * omega / four)
+        out.append(omega)
+    return omega0, out
+
+
+def fdm_cheby_plain(
+    inp: KernelInputs,
+    *,
+    threshold: float,
+    iteration_limit: int,
+    spectral_radius: float,
+    check_every: int = 1,
+    conv: Optional[ConvInputs] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K1, the freeze semantics of
+    _fdm_cheby_kernel_interleaved: the residual is sampled at the last
+    sub-iteration of each chunk of `check_every`, an env freezes at chunk
+    boundaries, and J(x) of the final iterate is emitted, then convection.
+    Returns (field, n_iter int32 (B,), converged bool (B,))."""
+    check_every = max(1, int(check_every))
+    dev = inp.temp.device
+    thr = torch.tensor(threshold, dtype=torch.float32, device=dev)
+    ext = inp.ext > 0
+    tinf3 = inp.tinf.view(-1, 1, 1)
+    x_prev = inp.temp
+    x = jacobi_update(x_prev, inp)
+    done = _max_abs(x - x_prev) <= thr
+    batch = x.shape[0]
+    iters = torch.ones(batch, dtype=torch.int32, device=dev)
+    it = 1
+    n_sub = max(0, iteration_limit - 1) + check_every
+    _, omegas = chebyshev_omegas(spectral_radius, n_sub)
+    while it < iteration_limit and not bool(done.all()):
+        active = (~done).view(-1, 1, 1)
+        for _ in range(check_every):
+            w = torch.tensor(omegas[it - 1], device=dev)
+            jx = jacobi_update(x, inp)
+            delta = _max_abs(jx - x)
+            x_next = w * (jx - x_prev) + x_prev
+            x_next = torch.where(ext, tinf3, x_next)
+            x_prev = torch.where(active, x, x_prev)
+            x = torch.where(active, x_next, x)
+            it += 1
+        iters = torch.where(~done, it, iters)
+        done = done | (delta <= thr)
+    return convect(jacobi_update(x, inp), conv), iters, done
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_inputs(inp: KernelInputs, conv: Optional[ConvInputs]) -> Tuple[int, int, int]:
+    b, h, w = inp.temp.shape
+    per_env = (inp.temp, inp.const, inp.denom)
+    shared = (inp.a_r, inp.a_l, inp.a_b, inp.a_t, inp.ext)
+    for t in per_env + shared + (inp.tinf,):
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous float32 CUDA tensors")
+        if t.device != inp.temp.device:
+            raise ValueError("kernel inputs must lie on one device")
+    if any(t.shape != (b, h, w) for t in per_env) or inp.tinf.shape != (b,):
+        raise ValueError("per-env inputs must be (B, H, W) and tinf (B,)")
+    if any(t.shape != (h, w) for t in shared):
+        raise ValueError("shared stencil planes must be (H, W)")
+    if h * w > _library().fdm_max_cells():
+        raise ValueError(f"grid {h}x{w} does not fit two planes in shared memory")
+    if conv is not None:
+        if len(conv.offsets) > 32:
+            raise ValueError("at most 32 convection rounds")
+        for t, shape, dtype in (
+            (conv.lead, (h, w), torch.int32),
+            (conv.foll, (h, w), torch.int32),
+            (conv.keys, (b, 2), torch.int64),
+        ):
+            if t.shape != shape or t.dtype != dtype or t.device != inp.temp.device:
+                raise ValueError(
+                    "lead/foll must be int32 (H, W) and keys int64 (B, 2), "
+                    "on the kernel's device"
+                )
+            if not t.is_contiguous():
+                raise ValueError("lead/foll/keys must be contiguous")
+    return b, h, w
+
+
+def _launch_args(inp: KernelInputs, conv: Optional[ConvInputs], out, iters, conv_flag):
+    b, h, w = inp.temp.shape
+    if conv is not None:
+        offsets = (ctypes.c_int * (2 * len(conv.offsets)))(
+            *[v for o in conv.offsets for v in o]
+        )
+        n_rounds = len(conv.offsets)
+        _, _, lane_bits, q = conv.word_params
+        ptrs = (conv.lead.data_ptr(), conv.foll.data_ptr(), conv.keys.data_ptr())
+    else:
+        offsets, n_rounds, lane_bits, q = None, 0, 8, 0
+        ptrs = (None, None, None)
+    planes = [
+        inp.temp.data_ptr(), inp.const.data_ptr(), inp.denom.data_ptr(),
+        inp.tinf.data_ptr(), inp.a_r.data_ptr(), inp.a_l.data_ptr(),
+        inp.a_b.data_ptr(), inp.a_t.data_ptr(), inp.ext.data_ptr(),
+        *ptrs, out.data_ptr(), iters.data_ptr(), conv_flag.data_ptr(),
+        b, h, w, int(inp.edge_fill),
+    ]
+    stream = torch.cuda.current_stream(inp.temp.device).cuda_stream
+    return planes, [offsets, n_rounds, lane_bits, q, stream]
+
+
+def _outputs(inp: KernelInputs):
+    b = inp.temp.shape[0]
+    dev = inp.temp.device
+    return (
+        torch.empty_like(inp.temp),
+        torch.empty(b, dtype=torch.int32, device=dev),
+        torch.empty(b, dtype=torch.int32, device=dev),
+    )
+
+
+def fdm_jacobi_cuda(
+    inp: KernelInputs,
+    *,
+    threshold: float,
+    iteration_limit: int,
+    conv: Optional[ConvInputs] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launches K2 (fdm_jacobi_kernel). Same results as fdm_jacobi_plain."""
+    _check_inputs(inp, conv)
+    out, iters, flag = _outputs(inp)
+    planes, tail = _launch_args(inp, conv, out, iters, flag)
+    err = _library().fdm_jacobi_launch(
+        *planes, float(threshold), int(iteration_limit), *tail
+    )
+    if err:
+        raise RuntimeError(f"fdm_jacobi launch failed: CUDA error {err}")
+    launch_counts["fdm_jacobi"] += 1
+    return out, iters, flag > 0
+
+
+def fdm_cheby_cuda(
+    inp: KernelInputs,
+    *,
+    threshold: float,
+    iteration_limit: int,
+    spectral_radius: float,
+    check_every: int = 1,
+    conv: Optional[ConvInputs] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launches K1 (fdm_cheby_kernel). Same results as fdm_cheby_plain."""
+    _check_inputs(inp, conv)
+    out, iters, flag = _outputs(inp)
+    planes, tail = _launch_args(inp, conv, out, iters, flag)
+    rho2 = float(spectral_radius) ** 2
+    omega0, _ = chebyshev_omegas(spectral_radius, 0)
+    err = _library().fdm_cheby_launch(
+        *planes, float(threshold), int(iteration_limit),
+        float(np.float32(rho2)), float(omega0), max(1, int(check_every)),
+        *tail,
+    )
+    if err:
+        raise RuntimeError(f"fdm_cheby launch failed: CUDA error {err}")
+    launch_counts["fdm_cheby"] += 1
+    return out, iters, flag > 0
+
+
+def fdm_step_cuda(
+    temp: torch.Tensor,  # (B, H, W)
+    input_q: torch.Tensor,  # (B, H, W)
+    t_inf: torch.Tensor,  # (B,)
+    h_conv: torch.Tensor,  # (B,)
+    coeffs: StencilCoefficients,
+    *,
+    convergence_threshold: float,
+    iteration_limit: int,
+    block_envs: int = 1,
+    method: str = "jacobi",
+    spectral_radius: float = 0.0,
+    conv_offsets: Tuple[Tuple[int, int], ...] = (),
+    conv_lead: Optional[torch.Tensor] = None,  # (H, W) packed lead masks
+    conv_foll: Optional[torch.Tensor] = None,  # (H, W) packed follower masks
+    conv_word: Optional[torch.Tensor] = None,  # (B, H, W) precomputed words
+    conv_keys: Optional[torch.Tensor] = None,  # (B, 2) raw per-env step keys
+    conv_word_params=None,  # convection.decision_word_params output
+    stat_layout=None,
+    check_every: int = 1,
+    block_mode: str = "stack",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The batched FDM step of fdm_step_pallas, with its signature.
+
+    Returns (new_temp, iterations, converged); `converged` is the residual
+    criterion itself, so with check_every > 1 the count may exceed the
+    limit by up to check_every - 1 while converged. method "jacobi" runs K2,
+    "chebyshev" K1. With `conv_offsets`, the mix32 swap rounds run in the
+    kernel on the solved field, their decision words made from `conv_keys`.
+
+    `block_envs` is a launch choice of the TPU kernels; here each env has
+    its own thread block. Not ported yet (they raise): block_mode "stack"
+    with block_envs > 1 (the 3-D stack bodies), a precomputed `conv_word`
+    plane (the threefry decision words), and in-kernel `stat_layout`.
+    fdm_step_pallas's unused `conv_params` argument is left out.
+    """
+    if block_mode not in ("stack", "interleave"):
+        raise ValueError(f"unknown block_mode: {block_mode!r}")
+    if method not in ("jacobi", "chebyshev"):
+        raise ValueError(f"unknown method: {method!r}")
+    if block_mode == "interleave" and method != "chebyshev":
+        block_envs = 1  # fdm_pallas.py:855-860: Jacobi runs the solo kernel
+    if block_mode == "stack" and int(block_envs) > 1:
+        raise NotImplementedError(
+            "block_mode='stack' with block_envs > 1 (_fdm_kernel_block / "
+            "_fdm_cheby_kernel_block) is not ported yet"
+        )
+    if stat_layout is not None:
+        raise NotImplementedError(
+            "in-kernel statistics are not ported; fold them with gridstats"
+        )
+    conv = None
+    if conv_offsets:
+        if conv_word is not None or conv_word_params is None or conv_keys is None:
+            raise NotImplementedError(
+                "only in-kernel mix32 decision words (conv_keys + "
+                "conv_word_params) are ported"
+            )
+        conv = ConvInputs(
+            offsets=tuple(tuple(int(v) for v in o) for o in conv_offsets),
+            lead=packed_plane(conv_lead, temp.device),
+            foll=packed_plane(conv_foll, temp.device),
+            word_params=tuple(conv_word_params),
+            keys=conv_keys.to(temp.device, torch.int64).contiguous(),
+        )
+    inp = kernel_inputs(temp, input_q, t_inf, h_conv, coeffs)
+    on_cpu = temp.device.type == "cpu"
+    if method == "chebyshev":
+        fn = fdm_cheby_plain if on_cpu else fdm_cheby_cuda
+        return fn(
+            inp,
+            threshold=convergence_threshold,
+            iteration_limit=iteration_limit,
+            spectral_radius=spectral_radius,
+            check_every=check_every,
+            conv=conv,
+        )
+    fn = fdm_jacobi_plain if on_cpu else fdm_jacobi_cuda
+    return fn(
+        inp,
+        threshold=convergence_threshold,
+        iteration_limit=iteration_limit,
+        conv=conv,
+    )

@@ -1,0 +1,98 @@
+"""The port's CUDA kernels on the card (marked `cuda`; skipped without one).
+
+Run on a machine with an NVIDIA Hopper GPU and nvcc, without the JAX test
+configuration:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Each kernel must equal its plain PyTorch version bitwise (fields,
+iteration counts, converged flags), count its launches, and refuse inputs
+it does not take. This file imports no JAX.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sbsim_tpu_torch import rng
+from sbsim_tpu_torch.envs import building_env, presets
+from sbsim_tpu_torch.physics import fdm_cuda
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def env():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the kernels are sm_90a CUDA)")
+    return building_env.BuildingEnv(presets.sb1_config(num_days_in_episode=1))
+
+
+def _inputs(env, batch, seed):
+    rs = np.random.default_rng(seed)
+    shape = (batch,) + env.geom.shape
+    t = lambda a: torch.as_tensor(a, device=env.device)
+    inp = fdm_cuda.kernel_inputs(
+        t((294.0 + rs.normal(0, 2.0, shape)).astype(np.float32)),
+        t(rs.uniform(0.0, 50.0, shape).astype(np.float32)),
+        t(rs.uniform(270.0, 300.0, batch).astype(np.float32)),
+        t(np.full(batch, 100.0, np.float32)),
+        env.coeffs,
+    )
+    conv = fdm_cuda.ConvInputs(
+        offsets=env.convection.offsets, lead=env._conv_lead, foll=env._conv_foll,
+        word_params=env._conv_word_params,
+        keys=t(rs.integers(0, 2**32, (batch, 2), dtype=np.uint64).astype(np.int64)),
+    )
+    return inp, conv
+
+
+@pytest.mark.parametrize("limit", [100, 3])
+@pytest.mark.parametrize("fused", [False, True])
+def test_cheby_kernel_equals_plain(env, fused, limit):
+    inp, conv = _inputs(env, 16, seed=limit)
+    kw = dict(threshold=0.1, iteration_limit=limit, spectral_radius=env._spectral_radius,
+              check_every=4, conv=conv if fused else None)
+    before = fdm_cuda.launch_counts["fdm_cheby"]
+    got = fdm_cuda.fdm_cheby_cuda(inp, **kw)
+    assert fdm_cuda.launch_counts["fdm_cheby"] == before + 1
+    want = fdm_cuda.fdm_cheby_plain(inp, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool(got[2].all()) == (limit == 100)
+
+
+@pytest.mark.parametrize("limit", [100, 3])
+@pytest.mark.parametrize("fused", [False, True])
+def test_jacobi_kernel_equals_plain(env, fused, limit):
+    inp, conv = _inputs(env, 16, seed=limit + 1)
+    kw = dict(threshold=0.1, iteration_limit=limit, conv=conv if fused else None)
+    got = fdm_cuda.fdm_jacobi_cuda(inp, **kw)
+    want = fdm_cuda.fdm_jacobi_plain(inp, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_kernel_refuses_wrong_inputs(env):
+    inp, _ = _inputs(env, 2, seed=0)
+    bad = fdm_cuda.KernelInputs(**{**inp.__dict__, "temp": inp.temp.double()})
+    with pytest.raises(ValueError):
+        fdm_cuda.fdm_jacobi_cuda(bad, threshold=0.1, iteration_limit=5)
+    cpu = fdm_cuda.KernelInputs(**{**inp.__dict__, "temp": inp.temp.cpu()})
+    with pytest.raises(ValueError):
+        fdm_cuda.fdm_cheby_cuda(cpu, threshold=0.1, iteration_limit=5,
+                                spectral_radius=0.9)
+
+
+def test_env_steps_through_the_kernels(env):
+    state, _ = env.reset(rng.split(rng.PRNGKey(1, device=env.device), 8))
+    fdm_cuda.reset_launch_counts()
+    actions = torch.zeros((8, env.n_actions), device=env.device)
+    for solver in ("pallas_cheby", "pallas_env"):
+        state, out = env.step_batched(state, actions, solver=solver)
+    assert fdm_cuda.launch_counts == {"fdm_cheby": 1, "fdm_jacobi": 1}
+    assert env.resolve_solver(8) == "pallas_env"
+    assert torch.isfinite(state.temp).all()
+    assert ((out.reward >= -1) & (out.reward <= 0)).all()

@@ -1,0 +1,92 @@
+"""Guards of the port: it imports no JAX, runs on a CUDA device unless told
+otherwise, and makes no kernel launch on the CPU."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from sbsim_tpu_torch import rng
+from sbsim_tpu_torch.envs import building_env, presets
+from sbsim_tpu_torch.physics import fdm_cuda
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import sbsim_tpu_torch
+for m in pkgutil.walk_packages(sbsim_tpu_torch.__path__, "sbsim_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+chip_smoke.make_env, chip_smoke.main
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "pandas", "sbsim_tpu"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax_flax_pandas():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_env_without_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = presets.two_zone_test_config()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        building_env.BuildingEnv(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        building_env.BuildingEnv(cfg, device="cuda")
+
+
+def test_chip_smoke_refuses_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    assert chip_smoke.main() != 0
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """Without the rest of the repo beside it the script exits non-zero
+    (here also for want of a card)."""
+    src = os.path.join(REPO, "chip_smoke.py")
+    dst = tmp_path / "chip_smoke.py"
+    dst.write_text(open(src).read())
+    proc = subprocess.run([sys.executable, str(dst)], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=""))
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+@pytest.mark.parametrize("solver", ["pallas_cheby", "pallas_env", "xla_jacobi"])
+def test_cpu_run_makes_no_kernel_launch(solver):
+    env = building_env.BuildingEnv(presets.two_zone_test_config(), device="cpu")
+    fdm_cuda.reset_launch_counts()
+    state, obs = env.reset(rng.split(rng.PRNGKey(0), 2))
+    actions = torch.zeros((2, env.n_actions))
+    for _ in range(2):
+        state, out = env.step_batched(state, actions, solver=solver)
+    assert fdm_cuda.launch_counts == {"fdm_cheby": 0, "fdm_jacobi": 0}
+    assert torch.isfinite(state.temp).all() and torch.isfinite(out.observation).all()
+    assert out.observation.shape == (2, env.obs_dim)
+    assert np.all((out.reward.numpy() >= -1) & (out.reward.numpy() <= 0))
+
+
+def test_kernel_source_and_build_flags():
+    """The kernels build from the package's own source for sm_90a with
+    exact float32 arithmetic (no FMA contraction, IEEE division)."""
+    assert os.path.exists(fdm_cuda.SOURCE)
+    flags = " ".join(fdm_cuda.NVCC_FLAGS)
+    assert "code=sm_90a" in flags and "-fmad=false" in flags
+    assert "use_fast_math" not in flags
+    assert os.path.basename(fdm_cuda.library_path()).startswith("fdm_kernels_")
