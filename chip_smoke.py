@@ -9,20 +9,35 @@ Phases (each prints its own lines; any failure exits non-zero):
      sbsim_tpu_torch/csrc with nvcc for sm_90a.
   2. Each kernel against its plain PyTorch version on the card, at the
      12-zone (B=64) and 126-room (B=16, 189x124) plan shapes, with and
-     without fused convection and with a capped iteration limit: fields,
-     iteration counts and converged flags must be bitwise equal.
+     without fused convection, with a capped iteration limit, and with the
+     zone-statistics epilogue (also with windows that need several passes
+     of its scratch plane): fields, iteration counts, converged flags and
+     zone/grid sums must be bitwise equal.
   3. The main path at full width: sb1_config(num_days_in_episode=2),
      reset, then 32 step_batched(solver="pallas_cheby") steps at 12 zones
      B=2048 and at 126 rooms B=512 (layout="auto"), then 8 "pallas_env"
-     steps at 12 zones B=2048. Launch counts must equal the steps; fields
+     steps at 12 zones B=2048 (K2 with its statistics epilogue, by the
+     env's kernel-stats rule). Launch counts must equal the steps; fields
      and observations finite, rewards in [-1, 0]. Env-steps/s from CUDA
      events; each kernel and its plain version timed alone on the main
-     path's own inputs, with the bound the card could reach; and a
-     torch.profiler breakdown of 4 more steps (device busy and idle share,
-     kernels by device time).
+     path's own inputs (K1 also with its statistics epilogue), with the
+     bound the card could reach; and a torch.profiler breakdown of 4 more
+     steps (device busy and idle share, kernels by device time).
   4. Wiring: 3 steps at 12 zones B=64 through the kernels and through the
      plain versions on the card give bitwise-equal states.
-  5. A {"kernels": [...]} line, then the last line
+  5. Training at full width: SACTrainer on sb1_config(num_days_in_episode=2)
+     with recipe_for(env, n_envs=64, batch_size=256, replay_capacity=50_000,
+     updates_per_env_step=1, seed_steps=0) (examples/train_sac.py's recipe;
+     the env step is K2 with in-kernel zone statistics): init, 16
+     schedule-table seeding steps, 32 train_steps, evaluate(n_steps=8,
+     n_envs=4). K2 launches must equal the env steps taken, the in-kernel
+     zone means must equal the fold bitwise on the last state, the losses be
+     finite, alpha have left 1.0 and the replay hold 48 transitions per env.
+     Env-steps/s and SAC updates/s from CUDA events, and a torch.profiler
+     split of one train_step into its env step and its update. Then 3
+     train_steps at n_envs=8 through the kernels and through the plain
+     versions on the card: env states and replay contents bitwise equal.
+  6. A {"kernels": [...]} line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 It refuses to run without a CUDA device and never falls back to the CPU.
@@ -115,11 +130,29 @@ def conv_inputs(env, keys):
     )
 
 
-def run_kernel(name, env, inp, conv, limit, plain=False):
+def wide_stats(env, seed: int):
+    """Statistics with windows too large for one pass of the epilogue's
+    scratch plane (12 random-mask zones of 30 x 40 cells on the 52 x 67
+    grid, 14,400 cells against 3,484), so it folds them in several passes."""
+    import numpy as np
+    from sbsim_tpu_torch.physics import gridstats
+
+    rs = np.random.default_rng(seed)
+    (h, w), (hc, wc), z = env.geom.shape, (30, 40), 12
+    masks = (rs.uniform(size=(z, hc, wc)) < 0.7).astype(np.float32)
+    layout = gridstats.ZoneStatLayout(
+        masks=masks, sizes=masks.sum(axis=(1, 2)),
+        row0=tuple(int(v) for v in rs.integers(0, h - hc + 1, z)),
+        col0=tuple(int(v) for v in rs.integers(0, w - wc + 1, z)),
+        window=(hc, wc), grid_n=float(h * w))
+    return gridstats.ZoneStats(layout, env.device)
+
+
+def run_kernel(name, env, inp, conv, limit, plain=False, stats=None):
     from sbsim_tpu_torch.physics import fdm_cuda
 
     kw = dict(threshold=env.config.convergence_threshold, iteration_limit=limit,
-              conv=conv)
+              conv=conv, stats=stats)
     if name == "fdm_cheby":
         kw.update(spectral_radius=env._spectral_radius,
                   check_every=env.config.cheby_check_every)
@@ -130,14 +163,24 @@ def run_kernel(name, env, inp, conv, limit, plain=False):
 
 
 def compare(label, got, want) -> float:
+    """Kernel result against the plain version's: field, iteration counts,
+    converged flags and, where present, the zone/grid sums, all bitwise."""
     import torch
 
-    (a, ai, ac), (b, bi, bc) = got, want
+    (a, ai, ac), (b, bi, bc) = got[:3], want[:3]
     torch.cuda.synchronize()
     err = float((a - b).abs().max())
     same = torch.equal(a, b) and torch.equal(ai, bi) and torch.equal(ac, bc)
+    note = ""
+    if len(got) > 3:
+        gs, ws = got[3], want[3]
+        sums_same = torch.equal(gs.zone_sums, ws.zone_sums) and torch.equal(
+            gs.grid_sums, ws.grid_sums)
+        same = same and sums_same
+        note = (f" sums ({gs.zone_sums.shape[1]} zones + grid) max|d|="
+                f"{float((gs.zone_sums - ws.zone_sums).abs().max()):.3e}")
     print(f"  {label}: max|dT|={err:.3e} iters kernel={ai.tolist()[:6]}"
-          f" plain={bi.tolist()[:6]} converged={int(ac.sum())}/{ac.numel()}"
+          f" plain={bi.tolist()[:6]} converged={int(ac.sum())}/{ac.numel()}{note}"
           f" {'bitwise equal' if same else 'DIFFERENT'}", flush=True)
     if not same:
         fail(f"{label}: kernel and plain version differ")
@@ -160,7 +203,7 @@ def time_call(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(inp, conv, n_iter, method, bw, flops):
+def bound_ms(inp, conv, n_iter, method, bw, flops, stats=None):
     """Least time for the work: each input read once and the output written
     once, or the operations this run's data needed (its iteration counts)
     at the card's peak for their type; the larger of the two.
@@ -169,12 +212,19 @@ def bound_ms(inp, conv, n_iter, method, bw, flops):
     sub, abs, max; per Chebyshev recombination sub, mul, add. Int32 (at
     half the float32 rate): the mix32 word, two fmix32 rounds (6 ops each)
     and 2 xors per plane, and per round a lane extract, compare and the
-    two-partner select (7 ops)."""
+    two-partner select (7 ops). Statistics epilogue: per env Z * hc * wc
+    mask multiplies and about as many adds, H * W adds for the grid sum;
+    the masks and window origins read once, B * (Z + 1) sums written."""
     b, h, w = inp.temp.shape
     cells = h * w
     nbytes = 4 * cells * b * 4  # temp, const, denom in; field out
     nbytes += cells * 4 * 5 + cells * 4 * 2  # stencil planes, lead/foll words
     nbytes += b * (4 + 16 + 8)  # tinf, keys, iteration count and flag
+    stat_ops = 0.0
+    if stats is not None:
+        z, hc, wc = stats.masks.shape
+        nbytes += z * hc * wc * 4 + z * 8 + b * (z + 1) * 4
+        stat_ops = b * (2.0 * z * hc * wc + cells)
     total_iters = float(n_iter.double().sum())
     if method == "fdm_cheby":
         # sub-iterations (a residual sampled at most every one), plus J(x0)
@@ -182,6 +232,7 @@ def bound_ms(inp, conv, n_iter, method, bw, flops):
         f_ops = cells * (15.0 * total_iters + (12.0 + 9.0) * b)
     else:
         f_ops = cells * 12.0 * total_iters
+    f_ops += stat_ops
     i_ops = 0.0
     if conv is not None:
         _, n_planes, _, _ = conv.word_params
@@ -223,6 +274,139 @@ def profile_steps(env, state, acts, solver, steps, tag):
         print(f"    {t / steps / 1e3:8.4f} ms/step {n / steps:6.1f}x  {kname[:90]}", flush=True)
 
 
+def _check_equal_trees(label, a, b) -> None:
+    import numpy as np
+
+    flat = lambda d, p="": [(p + k, v) for k, v in d.items() if not isinstance(v, dict)] + [
+        x for k, v in d.items() if isinstance(v, dict) for x in flat(v, p + k + ".")]
+    diff = [k for (k, x), (_, y) in zip(flat(a), flat(b)) if not np.array_equal(x, y)]
+    if diff:
+        fail(f"{label}: kernel and plain runs differ in {diff}")
+
+
+def _profile_window(fn, label, tag):
+    """Device busy time and launches of one call of fn (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels)
+    print(f"    {label}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+          f"(idle {1 - busy / wall_us:.1%}), {len(kernels)} kernel launches {tag}", flush=True)
+    return out
+
+
+def training_phase(env, max_err, tag) -> int:
+    """SACTrainer at full width through K2; returns K2's launches in it."""
+    import numpy as np
+    import torch
+    from sbsim_tpu_torch import convert, rng
+    from sbsim_tpu_torch.agents import schedule_policy, train
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    print("phase 5: SAC training at full width", flush=True)
+    n_envs, seed_steps, train_steps, eval_steps = 64, 16, 32, 8
+    config = train.recipe_for(env, n_envs=n_envs, batch_size=256, replay_capacity=50_000,
+                              updates_per_env_step=1, seed_steps=0)
+    trainer = train.SACTrainer(env, config)
+    if trainer.env.resolve_solver(n_envs, solver=config.env_solver) != "pallas_env":
+        fail("training does not resolve to the pallas_env solver (K2)")
+    state = trainer.init(rng.PRNGKey(0, device=env.device))
+    table = schedule_policy.build_schedule_actions(env)
+    seed = trainer.seed_with_actions(state, table)
+    torch.cuda.synchronize()
+    fdm_cuda.reset_launch_counts()
+    for _ in range(seed_steps):
+        state, _ = seed(state)
+    events, metrics = [], []
+    for _ in range(train_steps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        state, m = trainer.train_step(state)
+        e.record()
+        events.append((s, e))
+        metrics.append(m)
+    ret = trainer.evaluate(state.sac, rng.PRNGKey(1, device=env.device), n_steps=eval_steps,
+                           n_envs=4)
+    torch.cuda.synchronize()
+    counts = dict(fdm_cuda.launch_counts)
+    env_steps = seed_steps + train_steps + eval_steps
+    if counts != {"fdm_cheby": 0, "fdm_jacobi": env_steps}:
+        fail(f"training: launch counts {counts} != {env_steps} K2 env steps")
+    last = state.env_states
+    if not (torch.equal(last.zone_means, env._stats.zone_means(last.temp))
+            and torch.equal(last.grid_mean, env._stats.grid_mean(last.temp))):
+        fail("training: in-kernel zone/grid means differ from the fold")
+    losses = torch.stack([torch.stack([m["critic_loss"], m["actor_loss"], m["alpha_loss"]])
+                          for m in metrics])
+    alpha = float(metrics[-1]["alpha"])
+    if not bool(torch.isfinite(losses).all()) or not np.isfinite(float(ret)):
+        fail("training: non-finite losses or return")
+    if alpha == 1.0:
+        fail("training: alpha never left 1.0")
+    if int(state.replay.size) != seed_steps + train_steps or state.env_steps != n_envs * (
+            seed_steps + train_steps):
+        fail(f"training: replay size {int(state.replay.size)} / env steps {state.env_steps}")
+    ms = [s.elapsed_time(e) for s, e in events[2:]]
+    med = statistics.median(ms)
+    total = sum(ms)
+    print(f" 12zone n_envs={n_envs} batch=256: launches {counts}; {train_steps} train_steps, "
+          f"median {med:.3f} ms -> {n_envs / med * 1e3:,.0f} env-steps/s, "
+          f"{1e3 / med:,.1f} SAC updates/s (mean over {len(ms)} steps: "
+          f"{n_envs * len(ms) / total * 1e3:,.0f} env-steps/s, {len(ms) / total * 1e3:,.1f} "
+          f"updates/s); critic loss {float(losses[-1, 0]):.4f}, actor loss "
+          f"{float(losses[-1, 1]):.4f}, alpha {alpha:.6f}, eval return {float(ret):.4f}; "
+          f"replay {int(state.replay.size)}/env {tag}", flush=True)
+    # One train_step split into its env step (collect) and its update.
+    print("  profile of one train_step:", flush=True)
+    policy = lambda obs, key: trainer.learner.act(state.sac, obs, key)
+    state, _ = _profile_window(lambda: trainer.collect_step(state, policy), "env step", tag)
+    _profile_window(lambda: trainer.update(state), "SAC update", tag)
+    # K2 alone at the training shape, with the statistics epilogue.
+    pre, conv_keys = env._step_pre(
+        last, torch.zeros(n_envs, env.n_actions, device=env.device))
+    inp = fdm_cuda.kernel_inputs(last.temp, last.input_q, pre["ambient"], pre["h_conv"],
+                                 env.coeffs)
+    conv = conv_inputs(env, conv_keys)
+    limit = env.config.iteration_limit
+    got = run_kernel("fdm_jacobi", env, inp, conv, limit, stats=env._stats)
+    want = run_kernel("fdm_jacobi", env, inp, conv, limit, plain=True, stats=env._stats)
+    max_err["fdm_jacobi"] = max(max_err["fdm_jacobi"],
+                                compare(f"fdm_jacobi at training B={n_envs}", got, want))
+    k_ms = time_call(lambda: run_kernel("fdm_jacobi", env, inp, conv, limit,
+                                        stats=env._stats), 20)
+    print(f"  fdm_jacobi alone at B={n_envs}: {k_ms:.4f} ms {tag}", flush=True)
+
+    # Wiring: the same 3 train_steps through the kernels and the plain versions.
+    small = train.SACTrainer(env, train.recipe_for(env, n_envs=8, batch_size=64,
+                                                   replay_capacity=800, seed_steps=0))
+    finals = []
+    for plain in (False, True):
+        saved = fdm_cuda.fdm_jacobi_cuda
+        if plain:
+            fdm_cuda.fdm_jacobi_cuda = fdm_cuda.fdm_jacobi_plain
+        try:
+            st = small.init(rng.PRNGKey(2, device=env.device))
+            for _ in range(3):
+                st, _ = small.train_step(st)
+        finally:
+            fdm_cuda.fdm_jacobi_cuda = saved
+        tree = convert.train_state_to_numpy(st, small)
+        finals.append({"env_states": tree["env_states"], "replay": tree["replay"],
+                       "sac": tree["sac"]})
+    _check_equal_trees("training wiring", *finals)
+    print("  wiring: 3 train_steps at n_envs=8, env states, replay and SAC state bitwise "
+          "equal through K2 and through its plain version", flush=True)
+    return counts["fdm_jacobi"]
+
+
 def main() -> int:
     import torch
 
@@ -233,6 +417,10 @@ def main() -> int:
         print("chip_smoke: sbsim_tpu_torch/ not found beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    # Full float32 matrix products (no TF32) in the SAC networks.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     import numpy as np
     from sbsim_tpu_torch import convert, rng
     from sbsim_tpu_torch.physics import fdm_cuda
@@ -269,16 +457,26 @@ def main() -> int:
         print(f" {which}: grid {env.geom.shape}, B={batch}, "
               f"rounds={len(env.convection.offsets)}, rho={env._spectral_radius:.6f}",
               flush=True)
+        cases = ((False, 100, False), (True, 100, False), (True, 3, False),
+                 (False, 100, True), (True, 100, True))
         for kname in ("fdm_cheby", "fdm_jacobi"):
-            for fused, limit in ((False, 100), (True, 100), (True, 3)):
-                inp, conv = seeded_inputs(env, batch, seed=limit + fused)
+            for fused, limit, with_stats in cases:
+                inp, conv = seeded_inputs(env, batch, seed=limit + fused + 2 * with_stats)
                 conv = conv if fused else None
-                got = run_kernel(kname, env, inp, conv, limit)
-                want = run_kernel(kname, env, inp, conv, limit, plain=True)
-                label = f"{kname} fused={fused} limit={limit}"
+                stats = env._stats if with_stats else None
+                got = run_kernel(kname, env, inp, conv, limit, stats=stats)
+                want = run_kernel(kname, env, inp, conv, limit, plain=True, stats=stats)
+                label = f"{kname} fused={fused} limit={limit} stats={with_stats}"
                 max_err[kname] = max(max_err[kname], compare(label, got, want))
                 if limit == 3 and bool(got[2].any()):
                     fail(f"{label}: capped solve reported converged")
+            if which == "12zone":
+                inp, conv = seeded_inputs(env, batch, seed=9)
+                stats = wide_stats(env, seed=9)
+                got = run_kernel(kname, env, inp, conv, 100, stats=stats)
+                want = run_kernel(kname, env, inp, conv, 100, plain=True, stats=stats)
+                compare(f"{kname} fused=True stats=12 zones of 30x40 (several passes)",
+                        got, want)
     # ---- Phase 3 ---------------------------------------------------------
     print("phase 3: main path at full width", flush=True)
     runs = (("12zone", 2048, "pallas_cheby", 32), ("126room", 512, "pallas_cheby", 32),
@@ -331,15 +529,31 @@ def main() -> int:
                                      pre["h_conv"], env.coeffs)
         conv = conv_inputs(env, conv_keys)
         limit = env.config.iteration_limit
-        got = run_kernel(kname, env, inp, conv, limit)
-        want = run_kernel(kname, env, inp, conv, limit, plain=True)
-        err = compare(f"{kname} at {which} B={batch}", got, want)
+        # The statistics epilogue runs where the main path runs it (K2 here).
+        stats = env._stats if solver == "pallas_env" else None
+        got = run_kernel(kname, env, inp, conv, limit, stats=stats)
+        want = run_kernel(kname, env, inp, conv, limit, plain=True, stats=stats)
+        err = compare(f"{kname} at {which} B={batch} stats={stats is not None}", got, want)
         max_err[kname] = max(max_err[kname], err)
-        k_ms = time_call(lambda: run_kernel(kname, env, inp, conv, limit), 20)
-        p_ms = time_call(lambda: run_kernel(kname, env, inp, conv, limit, plain=True), 3)
-        b_ms, b_by = bound_ms(inp, conv, got[1], kname, bw, flops)
+        k_ms = time_call(lambda: run_kernel(kname, env, inp, conv, limit, stats=stats), 20)
+        p_ms = time_call(
+            lambda: run_kernel(kname, env, inp, conv, limit, plain=True, stats=stats), 3)
+        b_ms, b_by = bound_ms(inp, conv, got[1], kname, bw, flops, stats)
         print(f"  {kname} alone: {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms "
               f"({b_by}) -> {b_ms / k_ms:.1%} of bound {tag}", flush=True)
+        if kname == "fdm_cheby" and which == "12zone":
+            # K1 as the one-env _fdm_cheby_kernel with its statistics epilogue
+            # (block_envs == 1), on the same inputs.
+            st = env._stats
+            got_s = run_kernel(kname, env, inp, conv, limit, stats=st)
+            want_s = run_kernel(kname, env, inp, conv, limit, plain=True, stats=st)
+            compare(f"{kname} at {which} B={batch} stats=True", got_s, want_s)
+            s_ms = time_call(lambda: run_kernel(kname, env, inp, conv, limit, stats=st), 20)
+            s_plain = time_call(
+                lambda: run_kernel(kname, env, inp, conv, limit, plain=True, stats=st), 3)
+            s_bound, s_by = bound_ms(inp, conv, got_s[1], kname, bw, flops, st)
+            print(f"  {kname} with statistics alone: {s_ms:.4f} ms, plain {s_plain:.3f} ms, "
+                  f"bound {s_bound:.4f} ms ({s_by}) {tag}", flush=True)
         profile_steps(env, state, acts, solver, 4, tag)
         key = (kname, which)
         if key not in timing:
@@ -368,14 +582,15 @@ def main() -> int:
                 fdm_cuda.fdm_cheby_cuda, fdm_cuda.fdm_jacobi_cuda = saved
             finals.append((convert.env_state_to_numpy(state), torch.stack(outs).cpu().numpy()))
         (sa, oa), (sb, ob) = finals
-        flat = lambda d, p="": [(p + k, v) for k, v in d.items() if not isinstance(v, dict)] + [
-            x for k, v in d.items() if isinstance(v, dict) for x in flat(v, k + ".")]
-        diff = [k for (k, a), (_, b) in zip(flat(sa), flat(sb)) if not np.array_equal(a, b)]
-        if diff or not np.array_equal(oa, ob):
-            fail(f"wiring {solver}: kernel and plain runs differ in {diff or 'outputs'}")
+        _check_equal_trees(f"wiring {solver}", sa, sb)
+        if not np.array_equal(oa, ob):
+            fail(f"wiring {solver}: kernel and plain runs differ in outputs")
         print(f"  {solver}: 3 steps B=64, states and outputs bitwise equal", flush=True)
 
     # ---- Phase 5 ---------------------------------------------------------
+    launches["fdm_jacobi"] += training_phase(envs["12zone"], max_err, tag)
+
+    # ---- Phase 6 ---------------------------------------------------------
     replaces = {
         "fdm_cheby": "sbsim_tpu/physics/fdm_pallas.py:630",
         "fdm_jacobi": "sbsim_tpu/physics/fdm_pallas.py:207",

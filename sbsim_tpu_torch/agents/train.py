@@ -1,0 +1,267 @@
+"""Training loop: batched rollout + replay + SAC updates.
+
+Port of sbsim_tpu/agents/train.py, which replaces the reference's
+Actor/Learner/Reverb triangle (SAC_Demo.ipynb cells 28-48): N envs step in
+lockstep on the device (`BuildingEnv.step_batched`, whose FDM solve is the
+CUDA kernel K2 on the card), the transitions stream into the device replay
+ring, and K SAC gradient steps run per env step.
+
+The rng schedule is the JAX package's key for key (threefry, bitwise equal
+to jax.random), so a TrainState carried over from it takes the same steps.
+The two JAX-side branches become host branches: `_maybe_reset` resets only
+when some env finished (it reads `done.any()`, one device sync per env
+step), and the update gate reads the host-side `env_steps` count. The
+distributed ShardHooks are not ported here.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Callable, Dict, Tuple, Union
+
+import numpy as np
+import torch
+
+from sbsim_tpu_torch import rng as rng_lib
+from sbsim_tpu_torch.agents import replay as replay_lib
+from sbsim_tpu_torch.agents.replay import ReplayState, ShardedReplayState, Transition
+from sbsim_tpu_torch.agents.sac import SACConfig, SACLearner, SACState
+from sbsim_tpu_torch.envs.building_env import BuildingEnv, EnvState
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    n_envs: int = 16
+    replay_capacity: int = 50_000  # total across envs
+    batch_size: int = 256
+    updates_per_env_step: int = 1
+    seed_steps: int = 1_000  # env steps before learning starts
+    # "per_env": one sub-ring per env; "flat": a single ring.
+    replay_layout: str = "per_env"
+    # FDM path of the batched rollout (BuildingEnv.step_batched): "auto" is
+    # the CUDA kernel K2 ("pallas_env") on the card, the plain solver on
+    # the CPU.
+    env_solver: str = "auto"
+    sac: SACConfig = SACConfig()
+
+
+# Zone count at or above which the full-scale recipe adds the temperature
+# floor (the JAX package's 126-room collapse ablation, artifacts/RESULTS.md).
+FULL_SCALE_ZONE_THRESHOLD = 100
+FULL_SCALE_MIN_ALPHA = 0.01
+
+
+def recipe_for(
+    env: BuildingEnv,
+    n_envs: int = 64,
+    batch_size: int = 256,
+    **overrides,
+) -> TrainConfig:
+    """The documented training recipe for a building, gated on its scale:
+    the reference SAC recipe below FULL_SCALE_ZONE_THRESHOLD zones, plus
+    min_alpha=0.01 at and above it. Keyword overrides replace TrainConfig
+    fields; pass sac=SACConfig(...) to replace the SAC recipe entirely."""
+    if "sac" not in overrides:
+        sac = SACConfig()
+        if env.n_zones >= FULL_SCALE_ZONE_THRESHOLD:
+            sac = dataclasses.replace(sac, min_alpha=FULL_SCALE_MIN_ALPHA)
+        overrides["sac"] = sac
+    return TrainConfig(n_envs=n_envs, batch_size=batch_size, **overrides)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainState:
+    env_states: EnvState  # batched (B, ...)
+    last_obs: torch.Tensor  # (B, obs_dim)
+    replay: Union[ShardedReplayState, ReplayState]
+    sac: SACState
+    rng: torch.Tensor  # (2,) threefry key
+    env_steps: int  # total env steps taken
+
+    def replace(self, **changes) -> "TrainState":
+        return dataclasses.replace(self, **changes)
+
+
+def _select(mask: torch.Tensor, new, old):
+    """Field by field: `new` where the (B,) mask holds, else `old`."""
+    if dataclasses.is_dataclass(new):
+        return dataclasses.replace(old, **{
+            f.name: _select(mask, getattr(new, f.name), getattr(old, f.name))
+            for f in dataclasses.fields(new)
+        })
+    return torch.where(mask.view(mask.shape + (1,) * (new.dim() - 1)), new, old)
+
+
+def _zero_metrics(sac: SACState) -> Dict[str, torch.Tensor]:
+    zero = torch.zeros((), dtype=torch.float32, device=sac.log_alpha.device)
+    return {
+        "critic_loss": zero, "actor_loss": zero, "alpha_loss": zero,
+        "alpha": torch.exp(sac.log_alpha), "q1_mean": zero, "q2_mean": zero,
+        "entropy": zero,
+    }
+
+
+class SACTrainer:
+    def __init__(self, env: BuildingEnv, config: TrainConfig = TrainConfig()):
+        self.env = env
+        self.config = config
+        if config.replay_layout not in ("per_env", "flat"):
+            raise ValueError(f"unknown replay_layout: {config.replay_layout}")
+        if config.replay_layout == "per_env" and config.batch_size % config.n_envs != 0:
+            raise ValueError(
+                f"batch_size={config.batch_size} must be a multiple of "
+                f"n_envs={config.n_envs} under the per_env replay layout "
+                "(stratified sampling draws batch_size//n_envs slots per "
+                "env); otherwise the effective batch would silently differ"
+            )
+        self.learner = SACLearner(env.obs_dim, env.n_actions, config.sac, device=env.device)
+        self._solver = config.env_solver
+
+    @property
+    def device(self) -> torch.device:
+        return self.env.device
+
+    def _step_v(self, states: EnvState, actions: torch.Tensor):
+        return self.env.step_batched(states, actions, solver=self._solver)
+
+    def with_solver(self, solver: str) -> "SACTrainer":
+        """A trainer clone whose env step runs an explicit FDM solver."""
+        clone = copy.copy(self)
+        clone._solver = solver
+        return clone
+
+    def init(self, key: torch.Tensor) -> TrainState:
+        key = key.to(self.device, torch.int64)
+        k_env, k_sac, k_rng = rng_lib.split(key, 3)
+        env_states, obs = self.env.reset(rng_lib.split(k_env, self.config.n_envs))
+        cfg = self.config
+        if cfg.replay_layout == "per_env":
+            replay = replay_lib.init_sharded_replay(
+                cfg.n_envs, max(1, cfg.replay_capacity // cfg.n_envs),
+                self.env.obs_dim, self.env.n_actions, device=self.device,
+            )
+        else:
+            replay = replay_lib.init_replay(
+                cfg.replay_capacity, self.env.obs_dim, self.env.n_actions,
+                device=self.device,
+            )
+        return TrainState(
+            env_states=env_states,
+            last_obs=obs,
+            replay=replay,
+            sac=self.learner.init(k_sac),
+            rng=k_rng,
+            env_steps=0,
+        )
+
+    # ------------------------------------------------------------------
+
+    def _maybe_reset(
+        self, env_states: EnvState, obs: torch.Tensor, done: torch.Tensor, key: torch.Tensor
+    ) -> Tuple[EnvState, torch.Tensor]:
+        """Resets envs that finished their episode (masked select), only
+        when some env did (episodes are hundreds of steps)."""
+        if not bool(done.any()):
+            return env_states, obs
+        fresh_states, fresh_obs = self.env.reset(rng_lib.split(key, self.config.n_envs))
+        return _select(done, fresh_states, env_states), _select(done, fresh_obs, obs)
+
+    def collect_step(
+        self,
+        state: TrainState,
+        action_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One lockstep env transition for all envs, appended to replay."""
+        rng, k_act, k_reset = rng_lib.split(state.rng, 3)
+        actions = action_fn(state.last_obs, k_act)
+        env_states, out = self._step_v(state.env_states, actions)
+        discount = torch.where(
+            out.done,
+            torch.zeros((), device=self.device),
+            torch.tensor(self.env.config.discount_factor, dtype=torch.float32,
+                         device=self.device),
+        )
+        batch = Transition(
+            obs=state.last_obs, action=actions, reward=out.reward,
+            discount=discount, next_obs=out.observation,
+        )
+        if isinstance(state.replay, ShardedReplayState):
+            replay = replay_lib.add_batch_sharded(state.replay, batch)
+        else:
+            replay = replay_lib.add_batch(state.replay, batch)
+        env_states, obs = self._maybe_reset(env_states, out.observation, out.done, k_reset)
+        new_state = state.replace(
+            env_states=env_states,
+            last_obs=obs,
+            replay=replay,
+            rng=rng,
+            env_steps=state.env_steps + self.config.n_envs,
+        )
+        return new_state, {"reward_mean": torch.mean(out.reward)}
+
+    def _sample(self, replay, key: torch.Tensor) -> Transition:
+        if isinstance(replay, ShardedReplayState):
+            return replay_lib.sample_sharded(replay, key, self.config.batch_size)
+        return replay_lib.sample(replay, key, self.config.batch_size)
+
+    def update(self, state: TrainState) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """The K SAC updates of one train step (zero metrics before
+        `seed_steps` env steps), each on a fresh replay sample."""
+        rng, k_updates = rng_lib.split(state.rng)
+        update_keys = rng_lib.split(k_updates, self.config.updates_per_env_step)
+        sac = state.sac
+        metrics = _zero_metrics(sac)
+        if state.env_steps >= self.config.seed_steps:
+            for key in update_keys:
+                k_sample, k_update = rng_lib.split(key)
+                batch = self._sample(state.replay, k_sample)
+                sac, metrics = self.learner.update(sac, batch, k_update)
+        return state.replace(sac=sac, rng=rng), metrics
+
+    def train_step(self, state: TrainState) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One env step (policy actions) + K SAC updates."""
+
+        def policy(obs, key):
+            return self.learner.act(state.sac, obs, key)
+
+        state, metrics = self.collect_step(state, policy)
+        state, update_metrics = self.update(state)
+        metrics.update(update_metrics)
+        return state, metrics
+
+    def seed_with_actions(
+        self, state: TrainState, action_table: np.ndarray
+    ) -> Callable[[TrainState], Tuple[TrainState, Dict[str, torch.Tensor]]]:
+        """Returns a collect-step fn driven by a per-step action table (the
+        schedule-policy replay bootstrap, SAC_Demo.ipynb cells 34-40)."""
+        del state
+        table = torch.as_tensor(np.asarray(action_table), dtype=torch.float32,
+                                device=self.device)
+
+        def step_fn(st: TrainState):
+            def policy(obs, key):
+                t = st.env_states.step_idx.to(torch.int64)
+                return table[torch.clamp(t, 0, table.shape[0] - 1)]
+
+            return self.collect_step(st, policy)
+
+        return step_fn
+
+    # ------------------------------------------------------------------
+
+    def evaluate(
+        self, sac: SACState, key: torch.Tensor, n_steps: int, n_envs: int = 4
+    ) -> torch.Tensor:
+        """Mean undiscounted return of the greedy policy over n_steps."""
+        env_states, obs = self.env.reset(rng_lib.split(key.to(self.device), n_envs))
+        total = torch.zeros(n_envs, dtype=torch.float32, device=self.device)
+        rewards = []
+        for _ in range(n_steps):
+            actions = self.learner.act_greedy(sac, obs)
+            env_states, out = self._step_v(env_states, actions)
+            obs = out.observation
+            rewards.append(out.reward)
+        if rewards:
+            total = torch.stack(rewards).sum(dim=0)
+        return torch.mean(total)

@@ -9,8 +9,13 @@
 //   fdm_jacobi_kernel <- _fdm_kernel (:207): Jacobi while
 //                        it < limit and max|dx| > threshold, then the same
 //                        convection epilogue.
-// Zone/grid statistics are not computed here: the caller folds them from
-// the output (physics/gridstats.py), with bitwise the same sums.
+// Statistics epilogue (replaces _kernel_grid_stats, :137, which both solo
+// bodies reach at :273 and :372): with a stat layout, the kernel also folds
+// the final field while it is still in shared memory -- each zone's
+// (hc, wc) window times its mask, then the whole grid -- in the
+// halve-with-leftover order of physics/gridstats.py (columns first, then
+// rows, odd leftovers added last), and writes (B, Z) zone sums and (B,)
+// grid sums, bitwise the fold's.
 //
 // Bound: a step must read temp, const and denom and write the output, one
 // (H, W) float plane each per env (the five coefficient planes and the two
@@ -19,6 +24,10 @@
 // 4 x 93,744 B x 512 envs (126 rooms, 57 us). The arithmetic of the ~9
 // Chebyshev sub-iterations an env needs there is of the same order at the
 // float32 peak (about 40 us and 70 us), so neither bound dominates.
+//
+// The epilogue adds Z * hc * wc multiplies and about as many adds per env
+// (at 12 zones of 14 x 14, 2,352 each against ~3,484 x 12 flops of one
+// Jacobi sweep) and writes B * (Z + 1) floats.
 //
 // Design: the iterate and its partner plane live in dynamic shared memory
 // for the whole loop (2 x 13.9 KB, or 2 x 93.7 KB = 187.5 KB at 126 rooms,
@@ -71,6 +80,16 @@ struct Planes {
   int32_t* converged;    // (B,)
   int H, W;
   int edge_fill;
+};
+
+// Zone/grid statistics of the final field; n_zones == 0 disables them.
+struct StatArgs {
+  const float* masks;    // (Z, hc, wc) 1.0 on the zone's cells in its window
+  const int32_t* row0;   // (Z,) window origins
+  const int32_t* col0;   // (Z,)
+  float* zone_sums;      // (B, Z)
+  float* grid_sums;      // (B,)
+  int n_zones, hc, wc;
 };
 
 // max that propagates NaN, as jnp.max / torch.amax do.
@@ -185,14 +204,85 @@ __device__ float* apply_swaps(float* src, float* dst, const Planes& p,
   return src;
 }
 
+// In-place halve-with-leftover fold (gridstats._fold_axis) of `rows`
+// sequences of length n, block-wide: element e of sequence g lives at
+// a[g * gs + e * es]. Each level adds the upper half onto the lower half;
+// an odd level first moves its last element into the leftover sum, which
+// lives in the slot of the first odd level's last element (no later level
+// touches it) and is added to element 0 at the end. Every add pairs the
+// same two values as the plain version's, so the sums are bitwise equal.
+// The caller synchronises before; the fold synchronises after itself.
+__device__ void fold_rows(float* a, int rows, int n, int gs, int es) {
+  int acc = -1;
+  while (n > 1) {
+    if (n & 1) {
+      if (acc < 0) {
+        acc = n - 1;
+      } else {
+        for (int g = threadIdx.x; g < rows; g += blockDim.x) {
+          a[g * gs + acc * es] += a[g * gs + (n - 1) * es];
+        }
+      }
+      --n;
+    }
+    const int half = n >> 1;
+    for (int t = threadIdx.x; t < rows * half; t += blockDim.x) {
+      const int g = t / half, j = t - g * half;
+      a[g * gs + j * es] += a[g * gs + (j + half) * es];
+    }
+    __syncthreads();
+    n = half;
+  }
+  if (acc >= 0) {
+    for (int g = threadIdx.x; g < rows; g += blockDim.x) {
+      a[g * gs] += a[g * gs + acc * es];
+    }
+    __syncthreads();
+  }
+}
+
+// Zone sums from `field` (left intact) with `scratch` as the windows'
+// workspace, as many zones at a time as fit in one plane; then the grid sum
+// folded in place in `field`.
+__device__ void grid_stats(float* field, float* scratch, const Planes& p,
+                           const StatArgs& st) {
+  const int b = blockIdx.x;
+  const int W = p.W, hw = p.H * p.W;
+  const int win = st.hc * st.wc;
+  const int group = max(1, min(st.n_zones, hw / win));
+  for (int z0 = 0; z0 < st.n_zones; z0 += group) {
+    const int g = min(group, st.n_zones - z0);
+    for (int t = threadIdx.x; t < g * win; t += blockDim.x) {
+      const int zi = t / win, e = t - zi * win;
+      const int z = z0 + zi;
+      const int r = e / st.wc, c = e - r * st.wc;
+      const int cell = (__ldg(st.row0 + z) + r) * W + __ldg(st.col0 + z) + c;
+      scratch[t] = field[cell] * __ldg(st.masks + (size_t)z * win + e);
+    }
+    __syncthreads();
+    fold_rows(scratch, g * st.hc, st.wc, st.wc, 1);  // columns
+    fold_rows(scratch, g, st.hc, win, st.wc);        // then rows
+    for (int zi = threadIdx.x; zi < g; zi += blockDim.x) {
+      st.zone_sums[(size_t)b * st.n_zones + z0 + zi] = scratch[zi * win];
+    }
+    __syncthreads();
+  }
+  fold_rows(field, p.H, W, W, 1);
+  fold_rows(field, 1, p.H, 0, W);
+  if (threadIdx.x == 0) st.grid_sums[b] = field[0];
+}
+
 __device__ void epilogue(float* field, float* spare, const Planes& p,
-                         const ConvArgs& cv, int n_iter, bool conv) {
+                         const ConvArgs& cv, const StatArgs& st, int n_iter,
+                         bool conv) {
   const int b = blockIdx.x;
   const int hw = p.H * p.W;
   if (cv.n_rounds > 0) {
     const uint32_t k0 = (uint32_t)p.keys[2 * b];
     const uint32_t k1 = (uint32_t)p.keys[2 * b + 1];
-    field = apply_swaps(field, spare, p, cv, k0, k1);
+    float* result = apply_swaps(field, spare, p, cv, k0, k1);
+    if (result != field) spare = field;
+    field = result;
   }
   float* out = p.out + (size_t)b * hw;
   for (int c = threadIdx.x; c < hw; c += blockDim.x) out[c] = field[c];
@@ -200,10 +290,15 @@ __device__ void epilogue(float* field, float* spare, const Planes& p,
     p.iters[b] = n_iter;
     p.converged[b] = conv ? 1 : 0;
   }
+  if (st.n_zones > 0) {
+    __syncthreads();  // the field is written out before the grid fold
+    grid_stats(field, spare, p, st);
+  }
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
-    fdm_jacobi_kernel(Planes p, ConvArgs cv, float threshold, int limit) {
+    fdm_jacobi_kernel(Planes p, ConvArgs cv, StatArgs st, float threshold,
+                      int limit) {
   extern __shared__ float smem[];
   __shared__ float red[33];
   const int b = blockIdx.x;
@@ -233,12 +328,12 @@ __global__ void __launch_bounds__(kMaxThreads)
     xn = t;
     ++it;
   }
-  epilogue(x, xn, p, cv, it, delta <= threshold);
+  epilogue(x, xn, p, cv, st, it, delta <= threshold);
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
-    fdm_cheby_kernel(Planes p, ConvArgs cv, float threshold, int limit,
-                     float rho2, float omega0, int check_every) {
+    fdm_cheby_kernel(Planes p, ConvArgs cv, StatArgs st, float threshold,
+                     int limit, float rho2, float omega0, int check_every) {
   extern __shared__ float smem[];
   __shared__ float red[33];
   const int b = blockIdx.x;
@@ -300,7 +395,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     x_prev[c] = jacobi_cell(x, c, y, c - y * W, p, cnst, denom, tinf);
   }
   __syncthreads();
-  epilogue(x_prev, x, p, cv, n_iter, done);
+  epilogue(x_prev, x, p, cv, st, n_iter, done);
 }
 
 int block_threads(int hw) {
@@ -321,6 +416,21 @@ ConvArgs make_conv_args(const int* offsets, int n_rounds, int lane_bits,
     cv.dx[r] = offsets[2 * r + 1];
   }
   return cv;
+}
+
+StatArgs make_stat_args(const float* masks, const int32_t* row0,
+                        const int32_t* col0, float* zone_sums,
+                        float* grid_sums, int n_zones, int hc, int wc) {
+  StatArgs st;
+  st.masks = masks;
+  st.row0 = row0;
+  st.col0 = col0;
+  st.zone_sums = zone_sums;
+  st.grid_sums = grid_sums;
+  st.n_zones = n_zones;
+  st.hc = hc;
+  st.wc = wc;
+  return st;
 }
 
 template <typename Kernel>
@@ -366,7 +476,9 @@ extern "C" {
 int fdm_max_cells() { return (232448 - 1024) / (2 * (int)sizeof(float)); }
 
 // `offsets` is a host array of 2 * n_rounds ints (dy, dx per round);
-// `keys` may be null when n_rounds == 0. Returns cudaGetLastError().
+// `keys` may be null when n_rounds == 0, and the stat pointers when
+// n_zones == 0 (the window must fit the grid: hc <= H, wc <= W).
+// Returns cudaGetLastError().
 int fdm_jacobi_launch(const float* temp, const float* cnst, const float* denom,
                       const float* tinf, const float* a_r, const float* a_l,
                       const float* a_b, const float* a_t, const float* ext,
@@ -374,8 +486,14 @@ int fdm_jacobi_launch(const float* temp, const float* cnst, const float* denom,
                       const int64_t* keys, float* out, int32_t* iters,
                       int32_t* converged, int B, int H, int W, int edge_fill,
                       float threshold, int limit, const int* offsets,
-                      int n_rounds, int lane_bits, int q, void* stream) {
+                      int n_rounds, int lane_bits, int q,
+                      const float* masks, const int32_t* row0,
+                      const int32_t* col0, float* zone_sums, float* grid_sums,
+                      int n_zones, int hc, int wc, void* stream) {
   if (n_rounds < 0 || n_rounds > kMaxRounds) return (int)cudaErrorInvalidValue;
+  if (n_zones < 0 || (n_zones > 0 && (hc < 1 || wc < 1 || hc > H || wc > W))) {
+    return (int)cudaErrorInvalidValue;
+  }
   const size_t smem = 2 * (size_t)H * W * sizeof(float);
   int err = prepare(fdm_jacobi_kernel, smem);
   if (err) return err;
@@ -383,8 +501,10 @@ int fdm_jacobi_launch(const float* temp, const float* cnst, const float* denom,
                          lead, foll, keys, out, iters, converged, H, W,
                          edge_fill);
   ConvArgs cv = make_conv_args(offsets, n_rounds, lane_bits, q);
+  StatArgs st = make_stat_args(masks, row0, col0, zone_sums, grid_sums,
+                               n_zones, hc, wc);
   fdm_jacobi_kernel<<<B, block_threads(H * W), smem, (cudaStream_t)stream>>>(
-      p, cv, threshold, limit);
+      p, cv, st, threshold, limit);
   return (int)cudaGetLastError();
 }
 
@@ -396,8 +516,14 @@ int fdm_cheby_launch(const float* temp, const float* cnst, const float* denom,
                      int32_t* converged, int B, int H, int W, int edge_fill,
                      float threshold, int limit, float rho2, float omega0,
                      int check_every, const int* offsets, int n_rounds,
-                     int lane_bits, int q, void* stream) {
+                     int lane_bits, int q, const float* masks,
+                     const int32_t* row0, const int32_t* col0,
+                     float* zone_sums, float* grid_sums, int n_zones, int hc,
+                     int wc, void* stream) {
   if (n_rounds < 0 || n_rounds > kMaxRounds || check_every < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n_zones < 0 || (n_zones > 0 && (hc < 1 || wc < 1 || hc > H || wc > W))) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = 2 * (size_t)H * W * sizeof(float);
@@ -407,8 +533,10 @@ int fdm_cheby_launch(const float* temp, const float* cnst, const float* denom,
                          lead, foll, keys, out, iters, converged, H, W,
                          edge_fill);
   ConvArgs cv = make_conv_args(offsets, n_rounds, lane_bits, q);
+  StatArgs st = make_stat_args(masks, row0, col0, zone_sums, grid_sums,
+                               n_zones, hc, wc);
   fdm_cheby_kernel<<<B, block_threads(H * W), smem, (cudaStream_t)stream>>>(
-      p, cv, threshold, limit, rho2, omega0, check_every);
+      p, cv, st, threshold, limit, rho2, omega0, check_every);
   return (int)cudaGetLastError();
 }
 

@@ -21,8 +21,11 @@ threefry (bitwise equal to jax.random), and every tensor lives on the env's
 
 The FDM solve of `step_batched` is one batched call: the hand-written CUDA
 kernels (physics/fdm_cuda.py) for the "pallas_*" solver names, the plain
-batched solvers (physics/fdm.py) for "xla_*". Zone/grid statistics always
-come from the gridstats fold after the solve.
+batched solvers (physics/fdm.py) for "xla_*". Zone/grid statistics come
+from the kernel's epilogue where the JAX package's rule takes them from
+its kernel (solo kernels, the final field in the kernel, at most
+`kernel_stats_max_zones` zones), else from the gridstats fold after the
+solve; the sums are bitwise the same either way.
 """
 
 from __future__ import annotations
@@ -252,6 +255,29 @@ class BuildingEnv:
     def obs_dim(self) -> int:
         return self.obs_layout.n_fields
 
+    @property
+    def n_zones(self) -> int:
+        return self.geom.n_zones
+
+    @property
+    def steps_per_episode(self) -> int:
+        return self.tables.n_steps
+
+    def default_action(self, default_setpoints: Dict[str, float]) -> np.ndarray:
+        """Normalized action vector for given native setpoints
+        (environment.py:575-589)."""
+        out = []
+        for _, field, n in self.action_entries:
+            native = default_setpoints[field]
+            ratio = (native - n.min_native_value) / (
+                n.max_native_value - n.min_native_value
+            )
+            out.append(
+                ratio * (n.max_normalized_value - n.min_normalized_value)
+                + n.min_normalized_value
+            )
+        return np.asarray(out, np.float32)
+
     # ------------------------------------------------------------------
     # Batched env functions
     # ------------------------------------------------------------------
@@ -353,6 +379,22 @@ class BuildingEnv:
             and conv.enabled
             and conv.method == "swap"
         )
+        # The JAX package's rule (building_env.py:436-447): statistics come
+        # from the kernel when it holds the final field (convection fused or
+        # off), the zones fit, and the kernel is not the interleaved K1.
+        interleaved = (
+            solver == "pallas_cheby"
+            and self.config.pallas_block_envs > 1
+            and self.config.pallas_block_mode == "interleave"
+        )
+        kernel_stats = (
+            solver.startswith("pallas")
+            and not interleaved
+            and (fuse_conv or not conv.enabled)
+            and self.geom.n_zones
+            <= min(fdm_cuda.MAX_STAT_ZONES, self.config.kernel_stats_max_zones)
+        )
+        new_zm = new_gm = None
         if solver.startswith("pallas"):
             kwargs = dict(
                 convergence_threshold=self.config.convergence_threshold,
@@ -374,7 +416,9 @@ class BuildingEnv:
                     conv_keys=conv_keys,
                     conv_word_params=self._conv_word_params,
                 )
-            new_temp, n_iter, converged = fdm_cuda.fdm_step_cuda(
+            if kernel_stats:
+                kwargs.update(stat_layout=self._stats)
+            result = fdm_cuda.fdm_step_cuda(
                 states.temp,
                 states.input_q,
                 pre["ambient"],
@@ -382,6 +426,11 @@ class BuildingEnv:
                 self.coeffs,
                 **kwargs,
             )
+            new_temp, n_iter, converged = result[:3]
+            if kernel_stats:
+                sums = result[3]
+                new_zm = sums.zone_sums / self._stats.sizes
+                new_gm = sums.grid_sums / self.zone_stats.grid_n
         else:
             new_temp, converged, n_iter = self._solve_fdm(
                 states.temp,
@@ -395,7 +444,8 @@ class BuildingEnv:
                 offsets=conv.offsets, lead=self._conv_lead, foll=self._conv_foll,
                 word_params=self._conv_word_params, keys=conv_keys,
             ))
-        new_zm, new_gm = self._grid_stats(new_temp)
+        if new_zm is None:
+            new_zm, new_gm = self._grid_stats(new_temp)
         return self._step_post(
             states, pre, new_temp, converged, n_iter, new_zm, new_gm
         )

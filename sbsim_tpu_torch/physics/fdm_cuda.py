@@ -17,8 +17,10 @@ field once (the bound is in the note at the top of the source).
 Each env loops until its own stopping rule holds, so a result does not
 depend on the other envs of the batch and no padding or freezing is needed.
 
-Zone/grid statistics are not emitted by the kernels: the caller folds them
-from the output with physics/gridstats.py (the same sums).
+With a zone-statistics layout both kernels also emit the zone and grid
+sums of the final field from shared memory (the epilogue that replaces
+_kernel_grid_stats, fdm_pallas.py:137), in the fold order of
+physics/gridstats.py, so the sums equal the fold's bitwise.
 
 Beside each kernel is its plain PyTorch version (fdm_cheby_plain,
 fdm_jacobi_plain) on the same inputs, with the same float32 operation
@@ -38,7 +40,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -46,6 +48,11 @@ import torch
 from sbsim_tpu_torch.physics import convection as convection_lib
 from sbsim_tpu_torch.physics import fdm
 from sbsim_tpu_torch.physics.fdm import StencilCoefficients
+from sbsim_tpu_torch.physics.gridstats import ZoneStatLayout, ZoneStats
+
+# Zone sums fill one 128-lane row of the TPU kernels' stats tile; the port
+# keeps their limit (fdm_pallas.py:944-949).
+MAX_STAT_ZONES = 128
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "fdm_kernels.cu")
@@ -111,10 +118,12 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         planes = [ptr] * 15 + [i32] * 4  # 15 pointers, B, H, W, edge_fill
-        conv = [ptr, i32, i32, i32, ptr]  # offsets, n_rounds, lane_bits, q, stream
-        lib.fdm_jacobi_launch.argtypes = planes + [f32, i32] + conv
+        conv = [ptr, i32, i32, i32]  # offsets, n_rounds, lane_bits, q
+        # masks, row0, col0, zone_sums, grid_sums, n_zones, hc, wc, stream
+        stats = [ptr] * 5 + [i32] * 3 + [ptr]
+        lib.fdm_jacobi_launch.argtypes = planes + [f32, i32] + conv + stats
         lib.fdm_jacobi_launch.restype = i32
-        lib.fdm_cheby_launch.argtypes = planes + [f32, i32, f32, f32, i32] + conv
+        lib.fdm_cheby_launch.argtypes = planes + [f32, i32, f32, f32, i32] + conv + stats
         lib.fdm_cheby_launch.restype = i32
         lib.fdm_max_cells.restype = i32
         _lib = lib
@@ -153,6 +162,20 @@ class ConvInputs:
     foll: torch.Tensor  # i32 (H, W)
     word_params: Tuple[int, int, int, int]
     keys: torch.Tensor  # i64 (B, 2) uint32 values
+
+
+class GridSums(NamedTuple):
+    """Statistics of the final field: the sums whose means the env keeps."""
+
+    zone_sums: torch.Tensor  # f32 (B, Z)
+    grid_sums: torch.Tensor  # f32 (B,)
+
+
+def fold_stats(x: torch.Tensor, stats: Optional[ZoneStats]) -> Optional[GridSums]:
+    """The plain statistics: the gridstats fold of the final field."""
+    if stats is None:
+        return None
+    return GridSums(stats.zone_sums(x), stats.grid_sum(x))
 
 
 def packed_plane(words, device) -> torch.Tensor:
@@ -252,10 +275,12 @@ def fdm_jacobi_plain(
     threshold: float,
     iteration_limit: int,
     conv: Optional[ConvInputs] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    stats: Optional[ZoneStats] = None,
+) -> Tuple[torch.Tensor, ...]:
     """Plain version of K2: per env, Jacobi while it < limit and
     max|dx| > threshold (frozen envs keep their field), then convection.
-    Returns (field, n_iter int32 (B,), converged bool (B,))."""
+    Returns (field, n_iter int32 (B,), converged bool (B,)), and with
+    `stats` also the GridSums of the field."""
     thr = torch.tensor(threshold, dtype=torch.float32, device=inp.temp.device)
     x = inp.temp
     batch = x.shape[0]
@@ -270,7 +295,13 @@ def fdm_jacobi_plain(
         x = torch.where(active.view(-1, 1, 1), x_new, x)
         delta = torch.where(active, d, delta)
         iters = torch.where(active, it + 1, iters)
-    return convect(x, conv), iters, delta <= thr
+    x = convect(x, conv)
+    return _result(x, iters, delta <= thr, fold_stats(x, stats))
+
+
+def _result(x, iters, converged, sums: Optional[GridSums]):
+    """(field, iters, converged), with the sums appended when there are."""
+    return (x, iters, converged) if sums is None else (x, iters, converged, sums)
 
 
 def chebyshev_omegas(spectral_radius: float, n: int) -> Tuple[float, list]:
@@ -296,12 +327,14 @@ def fdm_cheby_plain(
     spectral_radius: float,
     check_every: int = 1,
     conv: Optional[ConvInputs] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    stats: Optional[ZoneStats] = None,
+) -> Tuple[torch.Tensor, ...]:
     """Plain version of K1, the freeze semantics of
     _fdm_cheby_kernel_interleaved: the residual is sampled at the last
     sub-iteration of each chunk of `check_every`, an env freezes at chunk
     boundaries, and J(x) of the final iterate is emitted, then convection.
-    Returns (field, n_iter int32 (B,), converged bool (B,))."""
+    Returns (field, n_iter int32 (B,), converged bool (B,)), and with
+    `stats` also the GridSums of the field."""
     check_every = max(1, int(check_every))
     dev = inp.temp.device
     thr = torch.tensor(threshold, dtype=torch.float32, device=dev)
@@ -328,7 +361,8 @@ def fdm_cheby_plain(
             it += 1
         iters = torch.where(~done, it, iters)
         done = done | (delta <= thr)
-    return convect(jacobi_update(x, inp), conv), iters, done
+    x = convect(jacobi_update(x, inp), conv)
+    return _result(x, iters, done, fold_stats(x, stats))
 
 
 # ---------------------------------------------------------------------------
@@ -336,7 +370,9 @@ def fdm_cheby_plain(
 # ---------------------------------------------------------------------------
 
 
-def _check_inputs(inp: KernelInputs, conv: Optional[ConvInputs]) -> Tuple[int, int, int]:
+def _check_inputs(
+    inp: KernelInputs, conv: Optional[ConvInputs], stats: Optional[ZoneStats] = None
+) -> Tuple[int, int, int]:
     b, h, w = inp.temp.shape
     per_env = (inp.temp, inp.const, inp.denom)
     shared = (inp.a_r, inp.a_l, inp.a_b, inp.a_t, inp.ext)
@@ -366,10 +402,31 @@ def _check_inputs(inp: KernelInputs, conv: Optional[ConvInputs]) -> Tuple[int, i
                 )
             if not t.is_contiguous():
                 raise ValueError("lead/foll/keys must be contiguous")
+    if stats is not None:
+        z, hc, wc = stats.masks.shape
+        if z > MAX_STAT_ZONES:
+            raise ValueError(f"kernel statistics take at most {MAX_STAT_ZONES} zones; got {z}")
+        rows, cols = stats.layout.row0, stats.layout.col0
+        if not (1 <= hc and 1 <= wc and min(rows) >= 0 and min(cols) >= 0
+                and max(rows) + hc <= h and max(cols) + wc <= w):
+            raise ValueError("zone windows must lie inside the grid")
+        for t, shape, dtype in (
+            (stats.masks, (z, hc, wc), torch.float32),
+            (stats.row0, (z,), torch.int32),
+            (stats.col0, (z,), torch.int32),
+        ):
+            if t.shape != shape or t.dtype != dtype or t.device != inp.temp.device:
+                raise ValueError(
+                    "stat masks must be float32 (Z, hc, wc) and row0/col0 "
+                    "int32 (Z,), on the kernel's device"
+                )
+            if not t.is_contiguous():
+                raise ValueError("stat masks and origins must be contiguous")
     return b, h, w
 
 
-def _launch_args(inp: KernelInputs, conv: Optional[ConvInputs], out, iters, conv_flag):
+def _launch_args(inp: KernelInputs, conv: Optional[ConvInputs], stats, out, iters,
+                 conv_flag, sums: Optional[GridSums]):
     b, h, w = inp.temp.shape
     if conv is not None:
         offsets = (ctypes.c_int * (2 * len(conv.offsets)))(
@@ -388,17 +445,30 @@ def _launch_args(inp: KernelInputs, conv: Optional[ConvInputs], out, iters, conv
         *ptrs, out.data_ptr(), iters.data_ptr(), conv_flag.data_ptr(),
         b, h, w, int(inp.edge_fill),
     ]
+    if stats is not None:
+        z, hc, wc = stats.masks.shape
+        stat_args = [stats.masks.data_ptr(), stats.row0.data_ptr(), stats.col0.data_ptr(),
+                     sums.zone_sums.data_ptr(), sums.grid_sums.data_ptr(), z, hc, wc]
+    else:
+        stat_args = [None] * 5 + [0, 0, 0]
     stream = torch.cuda.current_stream(inp.temp.device).cuda_stream
-    return planes, [offsets, n_rounds, lane_bits, q, stream]
+    return planes, [offsets, n_rounds, lane_bits, q, *stat_args, stream]
 
 
-def _outputs(inp: KernelInputs):
+def _outputs(inp: KernelInputs, stats: Optional[ZoneStats]):
     b = inp.temp.shape[0]
     dev = inp.temp.device
+    sums = None
+    if stats is not None:
+        sums = GridSums(
+            torch.empty(b, stats.masks.shape[0], dtype=torch.float32, device=dev),
+            torch.empty(b, dtype=torch.float32, device=dev),
+        )
     return (
         torch.empty_like(inp.temp),
         torch.empty(b, dtype=torch.int32, device=dev),
         torch.empty(b, dtype=torch.int32, device=dev),
+        sums,
     )
 
 
@@ -408,18 +478,19 @@ def fdm_jacobi_cuda(
     threshold: float,
     iteration_limit: int,
     conv: Optional[ConvInputs] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    stats: Optional[ZoneStats] = None,
+) -> Tuple[torch.Tensor, ...]:
     """Launches K2 (fdm_jacobi_kernel). Same results as fdm_jacobi_plain."""
-    _check_inputs(inp, conv)
-    out, iters, flag = _outputs(inp)
-    planes, tail = _launch_args(inp, conv, out, iters, flag)
+    _check_inputs(inp, conv, stats)
+    out, iters, flag, sums = _outputs(inp, stats)
+    planes, tail = _launch_args(inp, conv, stats, out, iters, flag, sums)
     err = _library().fdm_jacobi_launch(
         *planes, float(threshold), int(iteration_limit), *tail
     )
     if err:
         raise RuntimeError(f"fdm_jacobi launch failed: CUDA error {err}")
     launch_counts["fdm_jacobi"] += 1
-    return out, iters, flag > 0
+    return _result(out, iters, flag > 0, sums)
 
 
 def fdm_cheby_cuda(
@@ -430,11 +501,12 @@ def fdm_cheby_cuda(
     spectral_radius: float,
     check_every: int = 1,
     conv: Optional[ConvInputs] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    stats: Optional[ZoneStats] = None,
+) -> Tuple[torch.Tensor, ...]:
     """Launches K1 (fdm_cheby_kernel). Same results as fdm_cheby_plain."""
-    _check_inputs(inp, conv)
-    out, iters, flag = _outputs(inp)
-    planes, tail = _launch_args(inp, conv, out, iters, flag)
+    _check_inputs(inp, conv, stats)
+    out, iters, flag, sums = _outputs(inp, stats)
+    planes, tail = _launch_args(inp, conv, stats, out, iters, flag, sums)
     rho2 = float(spectral_radius) ** 2
     omega0, _ = chebyshev_omegas(spectral_radius, 0)
     err = _library().fdm_cheby_launch(
@@ -445,7 +517,7 @@ def fdm_cheby_cuda(
     if err:
         raise RuntimeError(f"fdm_cheby launch failed: CUDA error {err}")
     launch_counts["fdm_cheby"] += 1
-    return out, iters, flag > 0
+    return _result(out, iters, flag > 0, sums)
 
 
 def fdm_step_cuda(
@@ -466,22 +538,26 @@ def fdm_step_cuda(
     conv_word: Optional[torch.Tensor] = None,  # (B, H, W) precomputed words
     conv_keys: Optional[torch.Tensor] = None,  # (B, 2) raw per-env step keys
     conv_word_params=None,  # convection.decision_word_params output
-    stat_layout=None,
+    stat_layout: Union[ZoneStatLayout, ZoneStats, None] = None,
     check_every: int = 1,
     block_mode: str = "stack",
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, ...]:
     """The batched FDM step of fdm_step_pallas, with its signature.
 
-    Returns (new_temp, iterations, converged); `converged` is the residual
-    criterion itself, so with check_every > 1 the count may exceed the
-    limit by up to check_every - 1 while converged. method "jacobi" runs K2,
-    "chebyshev" K1. With `conv_offsets`, the mix32 swap rounds run in the
-    kernel on the solved field, their decision words made from `conv_keys`.
+    Returns (new_temp, iterations, converged), or with `stat_layout` (a
+    gridstats.ZoneStatLayout, or its ZoneStats already on the device)
+    (new_temp, iterations, converged, GridSums): the zone and grid sums of
+    the final field, computed in the kernel's epilogue (the plain version's
+    fold on CPU tensors). `converged` is the residual criterion itself, so
+    with check_every > 1 the count may exceed the limit by up to
+    check_every - 1 while converged. method "jacobi" runs K2, "chebyshev"
+    K1. With `conv_offsets`, the mix32 swap rounds run in the kernel on the
+    solved field, their decision words made from `conv_keys`.
 
     `block_envs` is a launch choice of the TPU kernels; here each env has
     its own thread block. Not ported yet (they raise): block_mode "stack"
-    with block_envs > 1 (the 3-D stack bodies), a precomputed `conv_word`
-    plane (the threefry decision words), and in-kernel `stat_layout`.
+    with block_envs > 1 (the 3-D stack bodies) and a precomputed
+    `conv_word` plane (the threefry decision words).
     fdm_step_pallas's unused `conv_params` argument is left out.
     """
     if block_mode not in ("stack", "interleave"):
@@ -495,10 +571,12 @@ def fdm_step_cuda(
             "block_mode='stack' with block_envs > 1 (_fdm_kernel_block / "
             "_fdm_cheby_kernel_block) is not ported yet"
         )
-    if stat_layout is not None:
-        raise NotImplementedError(
-            "in-kernel statistics are not ported; fold them with gridstats"
-        )
+    stats = stat_layout
+    if isinstance(stat_layout, ZoneStatLayout):
+        stats = ZoneStats(stat_layout, temp.device)
+    if stats is not None and stats.masks.shape[0] > MAX_STAT_ZONES:
+        raise ValueError(f"kernel statistics take at most {MAX_STAT_ZONES} zones; "
+                         f"got {stats.masks.shape[0]}")
     conv = None
     if conv_offsets:
         if conv_word is not None or conv_word_params is None or conv_keys is None:
@@ -524,6 +602,7 @@ def fdm_step_cuda(
             spectral_radius=spectral_radius,
             check_every=check_every,
             conv=conv,
+            stats=stats,
         )
     fn = fdm_jacobi_plain if on_cpu else fdm_jacobi_cuda
     return fn(
@@ -531,4 +610,5 @@ def fdm_step_cuda(
         threshold=convergence_threshold,
         iteration_limit=iteration_limit,
         conv=conv,
+        stats=stats,
     )

@@ -102,8 +102,11 @@ class ZoneStats:
         self.layout = layout
         self.rows = torch.as_tensor(rows[:, :, None], device=device)
         self.cols = torch.as_tensor(cols[:, None, :], device=device)
-        self.masks = torch.as_tensor(layout.masks, device=device)
+        self.masks = torch.as_tensor(layout.masks, device=device).contiguous()
         self.sizes = torch.as_tensor(layout.sizes, device=device)
+        # Window origins as the kernels' statistics epilogue reads them.
+        self.row0 = torch.tensor(layout.row0, dtype=torch.int32, device=device)
+        self.col0 = torch.tensor(layout.col0, dtype=torch.int32, device=device)
 
     def zone_sums(self, temp: torch.Tensor) -> torch.Tensor:
         """(B, H, W) fields -> (B, Z) per-zone sums."""
@@ -113,6 +116,10 @@ class ZoneStats:
     def zone_means(self, temp: torch.Tensor) -> torch.Tensor:
         return self.zone_sums(temp) / self.sizes
 
+    def grid_sum(self, temp: torch.Tensor) -> torch.Tensor:
+        """(B, H, W) fields -> (B,) whole-grid sums."""
+        return fold_sum_2d(temp)[..., 0, 0]
+
     def grid_mean(self, temp: torch.Tensor) -> torch.Tensor:
         """(B, H, W) fields -> (B,) whole-grid means."""
-        return fold_sum_2d(temp)[..., 0, 0] / self.layout.grid_n
+        return self.grid_sum(temp) / self.layout.grid_n

@@ -5,7 +5,8 @@ Reproduces jax 0.9.0 with `jax_threefry_partitionable=True` (its default):
   * `split(key, n)`: subkey i = threefry2x32(key, (0, i));
   * `bits(key, shape)`: element i = x0 ^ x1 of threefry2x32(key, (0, i)),
     i the row-major flat index;
-  * `uniform(key, shape)`: f32 in [0, 1) from the top 23 bits.
+  * `uniform(key, shape, minval, maxval)`: f32 from the top 23 bits;
+  * `normal(key, shape)` and `randint(key, shape, minval, maxval)`.
 
 Keys are int64 tensors holding uint32 values, with a trailing axis of 2 and
 any leading batch shape; every function vectorises over the batch. PyTorch
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -81,8 +83,102 @@ def bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     return (b0 ^ b1).reshape(key.shape[:-1] + shape)
 
 
-def uniform(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """(..., 2) keys -> (..., *shape) float32 uniforms in [0, 1)."""
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c rounded once, as XLA's fused multiply-add gives it.
+
+    a * b is exact in float64; the float64 sum is rounded to odd (TwoSum
+    error, then the last bit forced to 1 where the sum was inexact), so the
+    final rounding to float32 is the correctly rounded fused result."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c = c.to(torch.float64)
+    s = p + c
+    bv = s - p
+    err = (p - (s - bv)) + (c - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def uniform(
+    key: torch.Tensor,
+    shape: Sequence[int],
+    minval: float = 0.0,
+    maxval: float = 1.0,
+) -> torch.Tensor:
+    """(..., 2) keys -> (..., *shape) float32 uniforms in [minval, maxval).
+
+    jax.random.uniform: floats in [1, 2) from the top 23 bits, minus one,
+    then max(minval, f * (maxval - minval) + minval) with the multiply-add
+    fused (as XLA compiles it)."""
     mant = (bits(key, shape) >> 9) | 0x3F800000
     floats = mant.to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp(floats, min=0.0)
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    return torch.maximum(lo, _fma_f32(floats, hi - lo, lo))
+
+
+# XLA's float32 ErfInv (Giles, "Approximating the erfinv function", 2010):
+# polynomial coefficients for w < 5 and w >= 5, highest order first.
+_ERFINV_SMALL = (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+    0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941,
+)
+_ERFINV_LARGE = (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+    0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682,
+)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function as XLA computes it (not torch.erfinv,
+    whose float32 results differ by tens of ulps)."""
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    coeff = lambda i: torch.where(
+        small,
+        torch.tensor(_ERFINV_SMALL[i], dtype=torch.float32, device=x.device),
+        torch.tensor(_ERFINV_LARGE[i], dtype=torch.float32, device=x.device),
+    )
+    p = coeff(0)
+    for i in range(1, len(_ERFINV_SMALL)):
+        p = coeff(i) + p * w
+    return torch.where(x.abs() == 1.0, x * torch.inf, p * x)
+
+
+def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """(..., 2) keys -> (..., *shape) float32 standard normals:
+    sqrt(2) * erfinv(u), u uniform on (nextafter(-1, 0), 1), as
+    jax.random.normal (within a few float32 ulps: XLA fuses the erfinv
+    polynomial's multiply-adds)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0)
+    return torch.tensor(np.sqrt(2.0), dtype=torch.float32, device=key.device) * erfinv(u)
+
+
+def randint(
+    key: torch.Tensor,
+    shape: Sequence[int],
+    minval,
+    maxval,
+) -> torch.Tensor:
+    """(2,) key -> int32 integers in [minval, maxval) of `shape`, as
+    jax.random.randint (jax._src.random._randint): 64 random bits per value
+    from the two halves of split(key), reduced modulo the span with uint32
+    wraparound (int64 masked to 32 bits). `minval` and
+    `maxval` are ints or int tensors that broadcast to `shape`."""
+    if key.dim() != 1:
+        raise ValueError("randint takes one (2,) key")
+    dev = key.device
+    i32 = torch.iinfo(torch.int32)
+    lo = torch.as_tensor(minval, device=dev).to(torch.int64).clamp(i32.min, i32.max)
+    hi = torch.as_tensor(maxval, device=dev).to(torch.int64).clamp(i32.min, i32.max)
+    k1, k2 = split(key)
+    higher, lower = bits(k1, shape), bits(k2, shape)
+    span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & MASK32)
+    multiplier = (2**16) % span
+    multiplier = ((multiplier * multiplier) & MASK32) % span
+    offset = (((higher % span) * multiplier) & MASK32) + (lower % span)
+    offset = (offset & MASK32) % span
+    return (lo + offset).to(torch.int32)

@@ -6,8 +6,9 @@ configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Each kernel must equal its plain PyTorch version bitwise (fields,
-iteration counts, converged flags), count its launches, and refuse inputs
-it does not take. This file imports no JAX.
+iteration counts, converged flags, and the zone/grid sums of the
+statistics epilogue), count its launches, and refuse inputs it does not
+take. This file imports no JAX.
 """
 
 import numpy as np
@@ -16,7 +17,7 @@ import torch
 
 from sbsim_tpu_torch import rng
 from sbsim_tpu_torch.envs import building_env, presets
-from sbsim_tpu_torch.physics import fdm_cuda
+from sbsim_tpu_torch.physics import fdm_cuda, gridstats
 
 pytestmark = pytest.mark.cuda
 
@@ -75,6 +76,52 @@ def test_jacobi_kernel_equals_plain(env, fused, limit):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("kernel", ["fdm_jacobi", "fdm_cheby"])
+def test_stats_epilogue_equals_plain(env, kernel, fused):
+    inp, conv = _inputs(env, 16, seed=7 + fused)
+    stats = env._stats
+    kw = dict(threshold=0.1, iteration_limit=100, conv=conv if fused else None, stats=stats)
+    if kernel == "fdm_cheby":
+        kw.update(spectral_radius=env._spectral_radius, check_every=4)
+        got, want = fdm_cuda.fdm_cheby_cuda(inp, **kw), fdm_cuda.fdm_cheby_plain(inp, **kw)
+    else:
+        got, want = fdm_cuda.fdm_jacobi_cuda(inp, **kw), fdm_cuda.fdm_jacobi_plain(inp, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    assert got[3].zone_sums.shape == (16, env.n_zones)
+    assert torch.equal(got[3].zone_sums, want[3].zone_sums)
+    assert torch.equal(got[3].grid_sums, want[3].grid_sums)
+    assert torch.equal(got[3].zone_sums, stats.zone_sums(got[0]))
+
+
+@pytest.mark.parametrize("kernel", ["fdm_jacobi", "fdm_cheby"])
+def test_stats_epilogue_in_several_passes(env, kernel):
+    """Windows too large for one pass of the scratch plane (12 zones of
+    30 x 40 on the 52 x 67 grid) fold in several passes, still bitwise."""
+    rs = np.random.default_rng(3)
+    h, w = env.geom.shape
+    masks = (rs.uniform(size=(12, 30, 40)) < 0.7).astype(np.float32)
+    layout = gridstats.ZoneStatLayout(
+        masks=masks, sizes=masks.sum(axis=(1, 2)),
+        row0=tuple(int(v) for v in rs.integers(0, h - 30 + 1, 12)),
+        col0=tuple(int(v) for v in rs.integers(0, w - 40 + 1, 12)),
+        window=(30, 40), grid_n=float(h * w))
+    stats = gridstats.ZoneStats(layout, env.device)
+    inp, conv = _inputs(env, 8, seed=5)
+    kw = dict(threshold=0.1, iteration_limit=100, conv=conv, stats=stats)
+    if kernel == "fdm_cheby":
+        kw.update(spectral_radius=env._spectral_radius, check_every=4)
+        got, want = fdm_cuda.fdm_cheby_cuda(inp, **kw), fdm_cuda.fdm_cheby_plain(inp, **kw)
+    else:
+        got, want = fdm_cuda.fdm_jacobi_cuda(inp, **kw), fdm_cuda.fdm_jacobi_plain(inp, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[3].zone_sums, want[3].zone_sums)
+    assert torch.equal(got[3].grid_sums, want[3].grid_sums)
+
+
 def test_kernel_refuses_wrong_inputs(env):
     inp, _ = _inputs(env, 2, seed=0)
     bad = fdm_cuda.KernelInputs(**{**inp.__dict__, "temp": inp.temp.double()})
@@ -95,4 +142,7 @@ def test_env_steps_through_the_kernels(env):
     assert fdm_cuda.launch_counts == {"fdm_cheby": 1, "fdm_jacobi": 1}
     assert env.resolve_solver(8) == "pallas_env"
     assert torch.isfinite(state.temp).all()
+    # pallas_env took its statistics from the kernel: they are the fold's.
+    assert torch.equal(state.zone_means, env._stats.zone_means(state.temp))
+    assert torch.equal(state.grid_mean, env._stats.grid_mean(state.temp))
     assert ((out.reward >= -1) & (out.reward <= 0)).all()

@@ -1,5 +1,6 @@
-"""Guards of the port: it imports no JAX, runs on a CUDA device unless told
-otherwise, and makes no kernel launch on the CPU."""
+"""Guards of the port: it imports no JAX (nor flax, optax, orbax, pandas or
+the JAX package), runs on a CUDA device unless told otherwise, and makes no
+kernel launch on the CPU."""
 
 import os
 import subprocess
@@ -18,18 +19,22 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import sbsim_tpu_torch
-for m in pkgutil.walk_packages(sbsim_tpu_torch.__path__, "sbsim_tpu_torch."):
-    importlib.import_module(m.name)
+names = [m.name for m in pkgutil.walk_packages(sbsim_tpu_torch.__path__, "sbsim_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+agents = {"networks", "replay", "sac", "exploration", "schedule_policy", "train", "policies"}
+missing = agents - {n.split(".")[-1] for n in names if n.startswith("sbsim_tpu_torch.agents.")}
 import chip_smoke
-chip_smoke.make_env, chip_smoke.main
+chip_smoke.make_env, chip_smoke.main, chip_smoke.training_phase
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "flax", "pandas", "sbsim_tpu"))
-print(bad)
-sys.exit(1 if bad else 0)
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "pandas",
+                                    "sbsim_tpu"))
+print(bad, sorted(missing))
+sys.exit(1 if bad or missing else 0)
 """
 
 
-def test_port_and_chip_smoke_import_no_jax_flax_pandas():
+def test_port_agents_and_chip_smoke_import_no_jax_flax_optax_orbax_pandas():
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -43,6 +48,18 @@ def test_env_without_device_needs_cuda(monkeypatch):
         building_env.BuildingEnv(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         building_env.BuildingEnv(cfg, device="cuda")
+
+
+def test_agents_without_device_need_cuda(monkeypatch, tmp_path):
+    from sbsim_tpu_torch.agents import policies, sac
+
+    learner = sac.SACLearner(4, 2, device="cpu")
+    policies.save_policy(str(tmp_path), learner, learner.init(rng.PRNGKey(0)), ["a", "b"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sac.SACLearner(4, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        policies.load_policy(str(tmp_path))
 
 
 def test_chip_smoke_refuses_without_cuda(monkeypatch):
@@ -90,3 +107,20 @@ def test_kernel_source_and_build_flags():
     assert "code=sm_90a" in flags and "-fmad=false" in flags
     assert "use_fast_math" not in flags
     assert os.path.basename(fdm_cuda.library_path()).startswith("fdm_kernels_")
+
+
+def test_cpu_training_makes_no_kernel_launch():
+    """The trainer on CPU tensors takes the kernels' plain versions, the
+    statistics epilogue's included."""
+    from sbsim_tpu_torch.agents import train
+
+    env = building_env.BuildingEnv(presets.two_zone_test_config(), device="cpu")
+    trainer = train.SACTrainer(env, train.recipe_for(
+        env, n_envs=2, batch_size=4, seed_steps=0, env_solver="pallas_env"))
+    fdm_cuda.reset_launch_counts()
+    state = trainer.init(rng.PRNGKey(0))
+    for _ in range(2):
+        state, metrics = trainer.train_step(state)
+    assert fdm_cuda.launch_counts == {"fdm_cheby": 0, "fdm_jacobi": 0}
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert int(state.replay.size) == 2 and state.env_steps == 4

@@ -252,7 +252,9 @@ def test_wrapper_refuses_unported_layouts(plan):
     with pytest.raises(NotImplementedError):
         fdm_cuda.fdm_step_cuda(*args, block_envs=2, block_mode="stack", **FDM_KW)
     with pytest.raises(NotImplementedError):
-        fdm_cuda.fdm_step_cuda(*args, stat_layout=object(), **FDM_KW)
+        # A precomputed (threefry) decision-word plane is not ported.
+        fdm_cuda.fdm_step_cuda(*args, conv_offsets=((0, 1),),
+                               conv_word=torch.zeros(temp.shape, dtype=torch.int64), **FDM_KW)
     with pytest.raises(ValueError):
         # The kernel launchers take CUDA tensors only; no CPU fallback.
         fdm_cuda.fdm_jacobi_cuda(
