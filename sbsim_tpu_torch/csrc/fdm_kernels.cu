@@ -1,16 +1,25 @@
-// FDM convergence loops for Hopper (sm_90a): one env per thread block.
+// FDM convergence loops for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of sbsim_tpu/physics/fdm_pallas.py:
-//   fdm_cheby_kernel  <- _fdm_cheby_kernel_interleaved (:630) and its E=1
-//                        form _fdm_cheby_kernel (:279): Chebyshev
+//   fdm_cheby_kernel  (K1) <- _fdm_cheby_kernel_interleaved (:630) and its
+//                        E=1 form _fdm_cheby_kernel (:279): Chebyshev
 //                        semi-iteration of the Jacobi map, residual sampled
 //                        every `check_every` sub-iterations, then J(x), the
-//                        in-kernel mix32 decision word and the swap rounds.
-//   fdm_jacobi_kernel <- _fdm_kernel (:207): Jacobi while
+//                        decision word and the swap rounds. One env per
+//                        thread block.
+//   fdm_jacobi_kernel (K2) <- _fdm_kernel (:207): Jacobi while
 //                        it < limit and max|dx| > threshold, then the same
-//                        convection epilogue.
-// Statistics epilogue (replaces _kernel_grid_stats, :137, which both solo
-// bodies reach at :273 and :372): with a stat layout, the kernel also folds
+//                        convection epilogue. One env per thread block.
+//   fdm_jacobi_block_kernel (K3) <- _fdm_kernel_block (:416) and
+//   fdm_cheby_block_kernel  (K4) <- _fdm_cheby_kernel_block (:505): the
+//                        stack layout, E envs per thread block sharing one
+//                        loop (see "Block kernels" below).
+// The decision word of the swap rounds is the mix32 hash of the env's key,
+// made in the kernel, or, when the wrapper passes a (B, H, W) word plane
+// (the threefry words), read from that plane (_kernel_conv_word, :192).
+// Statistics epilogue (replaces _kernel_grid_stats, :137, which the solo
+// bodies reach at :273 and :372 and the block bodies through
+// _block_write_stats, :404): with a stat layout, the kernel also folds
 // the final field while it is still in shared memory -- each zone's
 // (hc, wc) window times its mask, then the whole grid -- in the
 // halve-with-leftover order of physics/gridstats.py (columns first, then
@@ -29,11 +38,11 @@
 // (at 12 zones of 14 x 14, 2,352 each against ~3,484 x 12 flops of one
 // Jacobi sweep) and writes B * (Z + 1) floats.
 //
-// Design: the iterate and its partner plane live in dynamic shared memory
-// for the whole loop (2 x 13.9 KB, or 2 x 93.7 KB = 187.5 KB at 126 rooms,
-// under the 227 KB a block may use), so global memory is read once and
-// written once per env; const, denom and the shared planes are re-read
-// through the read-only cache. Each block loops on its own env until it
+// Design of K1/K2: the iterate and its partner plane live in dynamic
+// shared memory for the whole loop (2 x 13.9 KB, or 2 x 93.7 KB = 187.5 KB
+// at 126 rooms, under the 227 KB a block may use), so global memory is read
+// once and written once per env; const, denom and the shared planes are
+// re-read through the read-only cache. Each block loops on its own env until it
 // converges, so batch composition cannot change a result (no padding,
 // no freezing masks). The max-reduction runs only where the stopping rule
 // samples it (every Jacobi iteration; the last sub-iteration of each
@@ -41,10 +50,30 @@
 //
 // Numerics: built with -fmad=false and IEEE division, every cell update is
 // the plain PyTorch version's sequence of float32 operations
-// (physics/fdm_cuda.py: fdm_jacobi_plain / fdm_cheby_plain), so the kernels
-// equal them bitwise: a_r*x_r + a_l*x_l + a_b*x_b + a_t*x_t + const, then
-// / denom; the Chebyshev update omega*(jx - x_prev) + x_prev, then the
-// exterior re-pin.
+// (physics/fdm_cuda.py: fdm_jacobi_plain / fdm_cheby_plain and their block
+// forms), so the kernels equal them bitwise: a_r*x_r + a_l*x_l + a_b*x_b +
+// a_t*x_t + const, then / denom; the Chebyshev update
+// omega*(jx - x_prev) + x_prev, then the exterior re-pin.
+//
+// Block kernels (K3, K4). One thread block holds E envs: each env's iterate
+// and its partner plane in dynamic shared memory (2 x H x W floats per
+// env, so E <= 8 at 52 x 67 and E = 1 at 189 x 124; the wrapper clamps E).
+// Each thread owns a fixed set of cells; per cell it reads the shared
+// stencil planes once and applies them to every active env of the block.
+// Per-env residual maxima stay in registers and are reduced for all E envs
+// in one block pass (one pair of barriers per sample, not E). The loop runs
+// while it < limit and any env of the block is active; an env whose
+// residual met the threshold is frozen (skipped, its planes no longer
+// swapped: a per-env parity bit says which slot holds its iterate), which
+// equals the JAX select. Chebyshev samples the freeze only at the end of a
+// chunk of `check_every` sub-iterations, and omega is one schedule for the
+// block (all envs start at it = 1). Slots past B are inactive from the
+// start. So each env's result equals K1/K2's for that env, bitwise.
+// Bound as above (the same bytes and operations; a word plane adds 4 B per
+// cell per env). The trade: at E = 8 one block of 1024 threads takes an
+// SM's shared memory, and its 59-64 registers per thread allow one block
+// per SM at every E > 2, where K1 runs four blocks of 448 threads per SM
+// (fdm_blocks_per_sm reports it). The epilogue runs env by env.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,6 +104,7 @@ struct Planes {
   const uint32_t* lead;  // (H, W) packed lead masks
   const uint32_t* foll;  // (H, W) packed follower masks
   const int64_t* keys;   // (B, 2) uint32 values
+  const uint32_t* words;  // (B, H, W) decision words, or null (mix32 keys)
   float* out;            // (B, H, W)
   int32_t* iters;        // (B,)
   int32_t* converged;    // (B,)
@@ -122,11 +152,27 @@ __device__ float block_max(float v, float* red) {
   return red[32];
 }
 
+// The shared stencil coefficients of one cell.
+struct Stencil {
+  float ar, al, ab, at;
+  bool ext;
+};
+
+__device__ __forceinline__ Stencil load_stencil(const Planes& p, int c) {
+  Stencil k;
+  k.ar = __ldg(p.a_r + c);
+  k.al = __ldg(p.a_l + c);
+  k.ab = __ldg(p.a_b + c);
+  k.at = __ldg(p.a_t + c);
+  k.ext = __ldg(p.ext + c) > 0.0f;
+  return k;
+}
+
 // One Jacobi update of cell c from plane x.
-__device__ __forceinline__ float jacobi_cell(const float* x, int c, int y,
-                                             int xc, const Planes& p,
-                                             const float* cnst,
-                                             const float* denom, float tinf) {
+__device__ __forceinline__ float jacobi_at(const float* x, int c, int y,
+                                           int xc, const Planes& p,
+                                           const Stencil& k, float cnst,
+                                           float denom, float tinf) {
   const int H = p.H, W = p.W;
   float xr, xl, xb, xt;
   if (p.edge_fill) {
@@ -142,14 +188,22 @@ __device__ __forceinline__ float jacobi_cell(const float* x, int c, int y,
     xb = x[y + 1 < H ? c + W : xc];
     xt = x[y > 0 ? c - W : (H - 1) * W + xc];
   }
-  float num = __ldg(p.a_r + c) * xr;
-  num = num + __ldg(p.a_l + c) * xl;
-  num = num + __ldg(p.a_b + c) * xb;
-  num = num + __ldg(p.a_t + c) * xt;
-  num = num + __ldg(cnst + c);
-  const float v = num / __ldg(denom + c);
-  if (p.edge_fill && __ldg(p.ext + c) > 0.0f) return tinf;
+  float num = k.ar * xr;
+  num = num + k.al * xl;
+  num = num + k.ab * xb;
+  num = num + k.at * xt;
+  num = num + cnst;
+  const float v = num / denom;
+  if (p.edge_fill && k.ext) return tinf;
   return v;
+}
+
+__device__ __forceinline__ float jacobi_cell(const float* x, int c, int y,
+                                             int xc, const Planes& p,
+                                             const float* cnst,
+                                             const float* denom, float tinf) {
+  return jacobi_at(x, c, y, xc, p, load_stencil(p, c), __ldg(cnst + c),
+                   __ldg(denom + c), tinf);
 }
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
@@ -158,10 +212,13 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   return x ^ (x >> 16);
 }
 
-// Bit r of the mix32 decision word of `cell` (decision_word_from_key).
+// Bit r of the decision word of `cell`: read from the env's word plane
+// `wrd` when there is one, else the mix32 word (decision_word_from_key).
 __device__ __forceinline__ bool swap_decision(uint32_t cell, int r,
                                               uint32_t k0, uint32_t k1,
-                                              int hw, const ConvArgs& cv) {
+                                              int hw, const ConvArgs& cv,
+                                              const uint32_t* wrd) {
+  if (wrd != nullptr) return (__ldg(wrd + cell) >> r) & 1u;
   const int lanes = 32 / cv.lane_bits;
   const int plane = r / lanes;
   const int lane = r - plane * lanes;
@@ -175,7 +232,8 @@ __device__ __forceinline__ bool swap_decision(uint32_t cell, int r,
 // it was before the round, so rounds ping-pong between the two planes.
 // Returns the plane that holds the result.
 __device__ float* apply_swaps(float* src, float* dst, const Planes& p,
-                              const ConvArgs& cv, uint32_t k0, uint32_t k1) {
+                              const ConvArgs& cv, uint32_t k0, uint32_t k1,
+                              const uint32_t* wrd) {
   const int H = p.H, W = p.W, hw = H * W;
   for (int r = 0; r < cv.n_rounds; ++r) {
     const uint32_t bit = 1u << r;
@@ -183,7 +241,7 @@ __device__ float* apply_swaps(float* src, float* dst, const Planes& p,
     for (int c = threadIdx.x; c < hw; c += blockDim.x) {
       const int y = c / W, xc = c - y * W;
       float v = src[c];
-      if ((__ldg(p.lead + c) & bit) && swap_decision(c, r, k0, k1, hw, cv)) {
+      if ((__ldg(p.lead + c) & bit) && swap_decision(c, r, k0, k1, hw, cv, wrd)) {
         // lead: take the follower's value, x[y + dy, x + dx]
         const int yy = (y + dy + H) % H, xx = (xc + dx + W) % W;
         v = src[yy * W + xx];
@@ -192,7 +250,9 @@ __device__ float* apply_swaps(float* src, float* dst, const Planes& p,
         // follower of the lead at (y - dy, x - dx): swap if that lead does
         const int yy = (y - dy + H) % H, xx = (xc - dx + W) % W;
         const int lead_cell = yy * W + xx;
-        if (swap_decision(lead_cell, r, k0, k1, hw, cv)) v = src[lead_cell];
+        if (swap_decision(lead_cell, r, k0, k1, hw, cv, wrd)) {
+          v = src[lead_cell];
+        }
       }
       dst[c] = v;
     }
@@ -245,8 +305,7 @@ __device__ void fold_rows(float* a, int rows, int n, int gs, int es) {
 // workspace, as many zones at a time as fit in one plane; then the grid sum
 // folded in place in `field`.
 __device__ void grid_stats(float* field, float* scratch, const Planes& p,
-                           const StatArgs& st) {
-  const int b = blockIdx.x;
+                           const StatArgs& st, int b) {
   const int W = p.W, hw = p.H * p.W;
   const int win = st.hc * st.wc;
   const int group = max(1, min(st.n_zones, hw / win));
@@ -272,27 +331,29 @@ __device__ void grid_stats(float* field, float* scratch, const Planes& p,
   if (threadIdx.x == 0) st.grid_sums[b] = field[0];
 }
 
+// Convection, the output and the statistics of env b's final field; the
+// caller writes the iteration count and flag.
 __device__ void epilogue(float* field, float* spare, const Planes& p,
-                         const ConvArgs& cv, const StatArgs& st, int n_iter,
-                         bool conv) {
-  const int b = blockIdx.x;
+                         const ConvArgs& cv, const StatArgs& st, int b) {
   const int hw = p.H * p.W;
   if (cv.n_rounds > 0) {
-    const uint32_t k0 = (uint32_t)p.keys[2 * b];
-    const uint32_t k1 = (uint32_t)p.keys[2 * b + 1];
-    float* result = apply_swaps(field, spare, p, cv, k0, k1);
+    uint32_t k0 = 0, k1 = 0;
+    const uint32_t* wrd = nullptr;
+    if (p.words != nullptr) {
+      wrd = p.words + (size_t)b * hw;
+    } else {
+      k0 = (uint32_t)p.keys[2 * b];
+      k1 = (uint32_t)p.keys[2 * b + 1];
+    }
+    float* result = apply_swaps(field, spare, p, cv, k0, k1, wrd);
     if (result != field) spare = field;
     field = result;
   }
   float* out = p.out + (size_t)b * hw;
   for (int c = threadIdx.x; c < hw; c += blockDim.x) out[c] = field[c];
-  if (threadIdx.x == 0) {
-    p.iters[b] = n_iter;
-    p.converged[b] = conv ? 1 : 0;
-  }
   if (st.n_zones > 0) {
     __syncthreads();  // the field is written out before the grid fold
-    grid_stats(field, spare, p, st);
+    grid_stats(field, spare, p, st, b);
   }
 }
 
@@ -328,7 +389,11 @@ __global__ void __launch_bounds__(kMaxThreads)
     xn = t;
     ++it;
   }
-  epilogue(x, xn, p, cv, st, it, delta <= threshold);
+  if (threadIdx.x == 0) {
+    p.iters[b] = it;
+    p.converged[b] = delta <= threshold ? 1 : 0;
+  }
+  epilogue(x, xn, p, cv, st, b);
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
@@ -395,7 +460,266 @@ __global__ void __launch_bounds__(kMaxThreads)
     x_prev[c] = jacobi_cell(x, c, y, c - y * W, p, cnst, denom, tinf);
   }
   __syncthreads();
-  epilogue(x_prev, x, p, cv, st, n_iter, done);
+  if (threadIdx.x == 0) {
+    p.iters[b] = n_iter;
+    p.converged[b] = done ? 1 : 0;
+  }
+  epilogue(x_prev, x, p, cv, st, b);
+}
+
+// ---------------------------------------------------------------------------
+// Block kernels: E envs per thread block (the stack layout)
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxBlockEnvs = 8;
+// Static shared memory the launcher reserves beside the E x 2 planes
+// (the red[E][33] scratch, at most 1,056 B).
+constexpr int kBlockStaticSmem = 2048;
+constexpr int kSmemPerBlock = 232448;
+
+// Block-wide max of each active env's m[e] (bit e of `envs`), for all of
+// them in one pass: every warp reduces each env in registers, then warp w
+// reduces the per-warp maxima of envs w, w + n_warps, ... Two barriers, so
+// it also orders the shared-memory writes before it against reads after.
+template <int E>
+__device__ __forceinline__ void block_max_envs(float (&m)[E],
+                                               float (*red)[33],
+                                               unsigned envs) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = (blockDim.x + 31) >> 5;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if ((envs >> e) & 1u) {
+      const float v = warp_max(m[e]);
+      if (lane == 0) red[e][warp] = v;
+    }
+  }
+  __syncthreads();
+  for (int e = warp; e < E; e += n_warps) {
+    if ((envs >> e) & 1u) {
+      float w = lane < n_warps ? red[e][lane] : 0.0f;
+      w = warp_max(w);
+      if (lane == 0) red[e][32] = w;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if ((envs >> e) & 1u) m[e] = red[e][32];
+  }
+}
+
+// Slot s (0 or 1) of env e's two planes.
+__device__ __forceinline__ float* env_plane(float* smem, int e, int s, int hw) {
+  return smem + (size_t)(2 * e + s) * hw;
+}
+
+// Writes each valid env's count and flag, then runs the epilogue env by
+// env on its final field (slot `(field_slots >> e) & 1`, the other slot is
+// its scratch).
+template <int E>
+__device__ __forceinline__ void block_finish(float* smem, const Planes& p, const ConvArgs& cv,
+                             const StatArgs& st, int b0, int n_env,
+                             unsigned field_slots, const int (&iters)[E],
+                             unsigned conv) {
+  const int hw = p.H * p.W;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (e < n_env) {
+        p.iters[b0 + e] = iters[e];
+        p.converged[b0 + e] = (conv >> e) & 1u;
+      }
+    }
+  }
+#pragma unroll 1
+  for (int e = 0; e < n_env; ++e) {
+    const int s = (field_slots >> e) & 1u;
+    epilogue(env_plane(smem, e, s, hw), env_plane(smem, e, 1 - s, hw), p, cv,
+             st, b0 + e);
+  }
+}
+
+// K3: _fdm_kernel_block. Per env: Jacobi while it < limit and the env has
+// not met the threshold; the block loops while any env is active.
+template <int E>
+__global__ void __launch_bounds__(kMaxThreads)
+    fdm_jacobi_block_kernel(Planes p, ConvArgs cv, StatArgs st,
+                            float threshold, int limit, int B) {
+  extern __shared__ float smem[];
+  __shared__ float red[E][33];
+  const int b0 = blockIdx.x * E;
+  const int n_env = min(E, B - b0);
+  const int W = p.W, hw = p.H * p.W;
+  float tinf[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) tinf[e] = e < n_env ? p.tinf[b0 + e] : 0.0f;
+  for (int e = 0; e < n_env; ++e) {
+    const float* t0 = p.temp + (size_t)(b0 + e) * hw;
+    float* x = env_plane(smem, e, 0, hw);
+    for (int c = threadIdx.x; c < hw; c += blockDim.x) x[c] = t0[c];
+  }
+  __syncthreads();
+
+  unsigned active = (1u << n_env) - 1u;
+  unsigned slots = 0;  // bit e: env e's iterate is in its slot 1
+  unsigned conv = 0;
+  int iters[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) iters[e] = 0;
+  int it = 0;
+  while (it < limit && active) {
+    float m[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) m[e] = 0.0f;
+    for (int c = threadIdx.x; c < hw; c += blockDim.x) {
+      const int y = c / W, xc = c - y * W;
+      const Stencil k = load_stencil(p, c);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        if (!((active >> e) & 1u)) continue;
+        const int s = (slots >> e) & 1u;
+        const float* x = env_plane(smem, e, s, hw);
+        const size_t g = (size_t)(b0 + e) * hw + c;
+        const float v = jacobi_at(x, c, y, xc, p, k, __ldg(p.cnst + g),
+                                  __ldg(p.denom + g), tinf[e]);
+        env_plane(smem, e, 1 - s, hw)[c] = v;
+        m[e] = nan_max(m[e], fabsf(v - x[c]));
+      }
+    }
+    block_max_envs<E>(m, red, active);
+    const unsigned stepped = active;
+    slots ^= stepped;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if ((stepped >> e) & 1u) {
+        iters[e] = it + 1;
+        if (m[e] <= threshold) {
+          conv |= 1u << e;
+          active &= ~(1u << e);
+        }
+      }
+    }
+    ++it;
+  }
+  block_finish<E>(smem, p, cv, st, b0, n_env, slots, iters, conv);
+}
+
+// K4: _fdm_cheby_kernel_block. The freeze state is fixed for each chunk of
+// `check_every` sub-iterations and sampled at its last one; omega advances
+// once per sub-iteration for the whole block.
+template <int E>
+__global__ void __launch_bounds__(kMaxThreads)
+    fdm_cheby_block_kernel(Planes p, ConvArgs cv, StatArgs st,
+                           float threshold, int limit, float rho2,
+                           float omega0, int check_every, int B) {
+  extern __shared__ float smem[];
+  __shared__ float red[E][33];
+  const int b0 = blockIdx.x * E;
+  const int n_env = min(E, B - b0);
+  const int W = p.W, hw = p.H * p.W;
+  const unsigned valid = (1u << n_env) - 1u;
+  float tinf[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) tinf[e] = e < n_env ? p.tinf[b0 + e] : 0.0f;
+  for (int e = 0; e < n_env; ++e) {
+    const float* t0 = p.temp + (size_t)(b0 + e) * hw;
+    float* x0 = env_plane(smem, e, 0, hw);
+    for (int c = threadIdx.x; c < hw; c += blockDim.x) x0[c] = t0[c];
+  }
+  __syncthreads();
+
+  // x1 = J(x0) into slot 1, delta0 = max |x1 - x0|.
+  float m[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) m[e] = 0.0f;
+  for (int c = threadIdx.x; c < hw; c += blockDim.x) {
+    const int y = c / W, xc = c - y * W;
+    const Stencil k = load_stencil(p, c);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (!((valid >> e) & 1u)) continue;
+      const float* x0 = env_plane(smem, e, 0, hw);
+      const size_t g = (size_t)(b0 + e) * hw + c;
+      const float v = jacobi_at(x0, c, y, xc, p, k, __ldg(p.cnst + g),
+                                __ldg(p.denom + g), tinf[e]);
+      env_plane(smem, e, 1, hw)[c] = v;
+      m[e] = nan_max(m[e], fabsf(v - x0[c]));
+    }
+  }
+  block_max_envs<E>(m, red, valid);
+  unsigned done = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if (((valid >> e) & 1u) && m[e] <= threshold) done |= 1u << e;
+  }
+  unsigned prev_slots = 0;  // bit e: env e's x_prev is in its slot 1
+  int iters[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) iters[e] = 1;
+  int it = 1;
+  float omega = omega0;
+  while (it < limit && (valid & ~done)) {
+    const unsigned chunk = valid & ~done;
+    for (int kk = 0; kk < check_every; ++kk) {
+      const float omega_next = 1.0f / (1.0f - rho2 * omega / 4.0f);
+      const bool sample = kk == check_every - 1;
+#pragma unroll
+      for (int e = 0; e < E; ++e) m[e] = 0.0f;
+      for (int c = threadIdx.x; c < hw; c += blockDim.x) {
+        const int y = c / W, xc = c - y * W;
+        const Stencil k = load_stencil(p, c);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          if (!((chunk >> e) & 1u)) continue;
+          const int s = (prev_slots >> e) & 1u;
+          float* x_prev = env_plane(smem, e, s, hw);
+          const float* x = env_plane(smem, e, 1 - s, hw);
+          const size_t g = (size_t)(b0 + e) * hw + c;
+          const float jx = jacobi_at(x, c, y, xc, p, k, __ldg(p.cnst + g),
+                                     __ldg(p.denom + g), tinf[e]);
+          const float xp = x_prev[c];
+          float v = omega_next * (jx - xp) + xp;
+          if (k.ext) v = tinf[e];
+          if (sample) m[e] = nan_max(m[e], fabsf(jx - x[c]));
+          // x_next overwrites x_prev in place: cell c reads only x_prev[c].
+          x_prev[c] = v;
+        }
+      }
+      if (sample) {
+        block_max_envs<E>(m, red, chunk);
+      } else {
+        __syncthreads();
+      }
+      prev_slots ^= chunk;
+      ++it;
+      omega = omega_next;
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if ((chunk >> e) & 1u) {
+        iters[e] = it;
+        if (m[e] <= threshold) done |= 1u << e;
+      }
+    }
+  }
+  // Emit J(x_final) into each env's x_prev slot.
+  for (int c = threadIdx.x; c < hw; c += blockDim.x) {
+    const int y = c / W, xc = c - y * W;
+    const Stencil k = load_stencil(p, c);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (!((valid >> e) & 1u)) continue;
+      const int s = (prev_slots >> e) & 1u;
+      const float* x = env_plane(smem, e, 1 - s, hw);
+      const size_t g = (size_t)(b0 + e) * hw + c;
+      env_plane(smem, e, s, hw)[c] = jacobi_at(
+          x, c, y, xc, p, k, __ldg(p.cnst + g), __ldg(p.denom + g), tinf[e]);
+    }
+  }
+  __syncthreads();
+  block_finish<E>(smem, p, cv, st, b0, n_env, prev_slots, iters, done);
 }
 
 int block_threads(int hw) {
@@ -444,8 +768,9 @@ Planes make_planes(const float* temp, const float* cnst, const float* denom,
                    const float* tinf, const float* a_r, const float* a_l,
                    const float* a_b, const float* a_t, const float* ext,
                    const uint32_t* lead, const uint32_t* foll,
-                   const int64_t* keys, float* out, int32_t* iters,
-                   int32_t* converged, int H, int W, int edge_fill) {
+                   const int64_t* keys, const uint32_t* words, float* out,
+                   int32_t* iters, int32_t* converged, int H, int W,
+                   int edge_fill) {
   Planes p;
   p.temp = temp;
   p.cnst = cnst;
@@ -459,6 +784,7 @@ Planes make_planes(const float* temp, const float* cnst, const float* denom,
   p.lead = lead;
   p.foll = foll;
   p.keys = keys;
+  p.words = words;
   p.out = out;
   p.iters = iters;
   p.converged = converged;
@@ -468,25 +794,117 @@ Planes make_planes(const float* temp, const float* cnst, const float* denom,
   return p;
 }
 
+// Envs per thread block that the block kernels take on an H x W grid.
+int block_envs_fit(int H, int W) {
+  const long per_env = 2L * H * W * (long)sizeof(float);
+  const long fit = (kSmemPerBlock - kBlockStaticSmem) / per_env;
+  return (int)(fit < kMaxBlockEnvs ? fit : kMaxBlockEnvs);
+}
+
+template <template <int> class Launch, typename... Args>
+int launch_block(int E, Args... args) {
+  switch (E) {
+    case 1: return Launch<1>::run(args...);
+    case 2: return Launch<2>::run(args...);
+    case 3: return Launch<3>::run(args...);
+    case 4: return Launch<4>::run(args...);
+    case 5: return Launch<5>::run(args...);
+    case 6: return Launch<6>::run(args...);
+    case 7: return Launch<7>::run(args...);
+    case 8: return Launch<8>::run(args...);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Thread blocks of `kernel` resident per SM at a launch's shape.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int threads, size_t smem) {
+  int n = 0;
+  if (prepare(kernel, smem)) return -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem)) {
+    return -1;
+  }
+  return n;
+}
+
+template <int E>
+struct BlockOccupancy {
+  static int run(int cheby, int H, int W) {
+    const size_t smem = 2 * (size_t)E * H * W * sizeof(float);
+    const int threads = block_threads(E * H * W);
+    return cheby ? resident_blocks(fdm_cheby_block_kernel<E>, threads, smem)
+                 : resident_blocks(fdm_jacobi_block_kernel<E>, threads, smem);
+  }
+};
+
+template <int E>
+struct JacobiBlock {
+  static int run(Planes p, ConvArgs cv, StatArgs st, float threshold,
+                 int limit, int B, cudaStream_t stream) {
+    const size_t smem = 2 * (size_t)E * p.H * p.W * sizeof(float);
+    int err = prepare(fdm_jacobi_block_kernel<E>, smem);
+    if (err) return err;
+    const int grid = (B + E - 1) / E;
+    fdm_jacobi_block_kernel<E>
+        <<<grid, block_threads(E * p.H * p.W), smem, stream>>>(
+            p, cv, st, threshold, limit, B);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <int E>
+struct ChebyBlock {
+  static int run(Planes p, ConvArgs cv, StatArgs st, float threshold,
+                 int limit, float rho2, float omega0, int check_every, int B,
+                 cudaStream_t stream) {
+    const size_t smem = 2 * (size_t)E * p.H * p.W * sizeof(float);
+    int err = prepare(fdm_cheby_block_kernel<E>, smem);
+    if (err) return err;
+    const int grid = (B + E - 1) / E;
+    fdm_cheby_block_kernel<E>
+        <<<grid, block_threads(E * p.H * p.W), smem, stream>>>(
+            p, cv, st, threshold, limit, rho2, omega0, check_every, B);
+    return (int)cudaGetLastError();
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
+// Envs per thread block that the block kernels take on an H x W grid.
+int fdm_block_max_envs(int H, int W) { return block_envs_fit(H, W); }
+
+// Thread blocks resident per SM on an H x W grid: the Chebyshev (cheby)
+// or Jacobi kernel, K4/K3 with `block_envs` envs per block, or K1/K2 when
+// block_envs is 0; -1 on an error.
+int fdm_blocks_per_sm(int cheby, int block_envs, int H, int W) {
+  if (block_envs > 0) {
+    if (block_envs > block_envs_fit(H, W)) return -1;
+    return launch_block<BlockOccupancy>(block_envs, cheby, H, W);
+  }
+  const size_t smem = 2 * (size_t)H * W * sizeof(float);
+  const int threads = block_threads(H * W);
+  return cheby ? resident_blocks(fdm_cheby_kernel, threads, smem)
+               : resident_blocks(fdm_jacobi_kernel, threads, smem);
+}
+
 // Largest H * W the kernels accept (two planes in shared memory).
 int fdm_max_cells() { return (232448 - 1024) / (2 * (int)sizeof(float)); }
 
-// `offsets` is a host array of 2 * n_rounds ints (dy, dx per round);
-// `keys` may be null when n_rounds == 0, and the stat pointers when
-// n_zones == 0 (the window must fit the grid: hc <= H, wc <= W).
-// Returns cudaGetLastError().
+// `offsets` is a host array of 2 * n_rounds ints (dy, dx per round). The
+// swap rounds read their decision bits from `words` (B, H, W) when it is
+// not null, else make the mix32 words from `keys` (lane_bits, q); both may
+// be null when n_rounds == 0, and the stat pointers when n_zones == 0 (the
+// window must fit the grid: hc <= H, wc <= W). Returns cudaGetLastError().
 int fdm_jacobi_launch(const float* temp, const float* cnst, const float* denom,
                       const float* tinf, const float* a_r, const float* a_l,
                       const float* a_b, const float* a_t, const float* ext,
                       const uint32_t* lead, const uint32_t* foll,
-                      const int64_t* keys, float* out, int32_t* iters,
-                      int32_t* converged, int B, int H, int W, int edge_fill,
-                      float threshold, int limit, const int* offsets,
-                      int n_rounds, int lane_bits, int q,
+                      const int64_t* keys, const uint32_t* words, float* out,
+                      int32_t* iters, int32_t* converged, int B, int H, int W,
+                      int edge_fill, float threshold, int limit,
+                      const int* offsets, int n_rounds, int lane_bits, int q,
                       const float* masks, const int32_t* row0,
                       const int32_t* col0, float* zone_sums, float* grid_sums,
                       int n_zones, int hc, int wc, void* stream) {
@@ -498,8 +916,8 @@ int fdm_jacobi_launch(const float* temp, const float* cnst, const float* denom,
   int err = prepare(fdm_jacobi_kernel, smem);
   if (err) return err;
   Planes p = make_planes(temp, cnst, denom, tinf, a_r, a_l, a_b, a_t, ext,
-                         lead, foll, keys, out, iters, converged, H, W,
-                         edge_fill);
+                         lead, foll, keys, words, out, iters, converged, H,
+                         W, edge_fill);
   ConvArgs cv = make_conv_args(offsets, n_rounds, lane_bits, q);
   StatArgs st = make_stat_args(masks, row0, col0, zone_sums, grid_sums,
                                n_zones, hc, wc);
@@ -512,9 +930,10 @@ int fdm_cheby_launch(const float* temp, const float* cnst, const float* denom,
                      const float* tinf, const float* a_r, const float* a_l,
                      const float* a_b, const float* a_t, const float* ext,
                      const uint32_t* lead, const uint32_t* foll,
-                     const int64_t* keys, float* out, int32_t* iters,
-                     int32_t* converged, int B, int H, int W, int edge_fill,
-                     float threshold, int limit, float rho2, float omega0,
+                     const int64_t* keys, const uint32_t* words, float* out,
+                     int32_t* iters, int32_t* converged, int B, int H, int W,
+                     int edge_fill, float threshold, int limit, float rho2,
+                     float omega0,
                      int check_every, const int* offsets, int n_rounds,
                      int lane_bits, int q, const float* masks,
                      const int32_t* row0, const int32_t* col0,
@@ -530,14 +949,75 @@ int fdm_cheby_launch(const float* temp, const float* cnst, const float* denom,
   int err = prepare(fdm_cheby_kernel, smem);
   if (err) return err;
   Planes p = make_planes(temp, cnst, denom, tinf, a_r, a_l, a_b, a_t, ext,
-                         lead, foll, keys, out, iters, converged, H, W,
-                         edge_fill);
+                         lead, foll, keys, words, out, iters, converged, H,
+                         W, edge_fill);
   ConvArgs cv = make_conv_args(offsets, n_rounds, lane_bits, q);
   StatArgs st = make_stat_args(masks, row0, col0, zone_sums, grid_sums,
                                n_zones, hc, wc);
   fdm_cheby_kernel<<<B, block_threads(H * W), smem, (cudaStream_t)stream>>>(
       p, cv, st, threshold, limit, rho2, omega0, check_every);
   return (int)cudaGetLastError();
+}
+
+// As fdm_jacobi_launch / fdm_cheby_launch, with `block_envs` envs per
+// thread block (1 .. fdm_block_max_envs(H, W)).
+int fdm_jacobi_block_launch(
+    const float* temp, const float* cnst, const float* denom,
+    const float* tinf, const float* a_r, const float* a_l, const float* a_b,
+    const float* a_t, const float* ext, const uint32_t* lead,
+    const uint32_t* foll, const int64_t* keys, const uint32_t* words,
+    float* out, int32_t* iters, int32_t* converged, int B, int H, int W,
+    int edge_fill, int block_envs, float threshold, int limit,
+    const int* offsets, int n_rounds, int lane_bits, int q,
+    const float* masks, const int32_t* row0, const int32_t* col0,
+    float* zone_sums, float* grid_sums, int n_zones, int hc, int wc,
+    void* stream) {
+  if (n_rounds < 0 || n_rounds > kMaxRounds) return (int)cudaErrorInvalidValue;
+  if (n_zones < 0 || (n_zones > 0 && (hc < 1 || wc < 1 || hc > H || wc > W))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (block_envs < 1 || block_envs > fdm_block_max_envs(H, W)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Planes p = make_planes(temp, cnst, denom, tinf, a_r, a_l, a_b, a_t, ext,
+                         lead, foll, keys, words, out, iters, converged, H,
+                         W, edge_fill);
+  ConvArgs cv = make_conv_args(offsets, n_rounds, lane_bits, q);
+  StatArgs st = make_stat_args(masks, row0, col0, zone_sums, grid_sums,
+                               n_zones, hc, wc);
+  return launch_block<JacobiBlock>(block_envs, p, cv, st, threshold, limit, B,
+                                   (cudaStream_t)stream);
+}
+
+int fdm_cheby_block_launch(
+    const float* temp, const float* cnst, const float* denom,
+    const float* tinf, const float* a_r, const float* a_l, const float* a_b,
+    const float* a_t, const float* ext, const uint32_t* lead,
+    const uint32_t* foll, const int64_t* keys, const uint32_t* words,
+    float* out, int32_t* iters, int32_t* converged, int B, int H, int W,
+    int edge_fill, int block_envs, float threshold, int limit, float rho2,
+    float omega0, int check_every, const int* offsets, int n_rounds,
+    int lane_bits, int q, const float* masks, const int32_t* row0,
+    const int32_t* col0, float* zone_sums, float* grid_sums, int n_zones,
+    int hc, int wc, void* stream) {
+  if (n_rounds < 0 || n_rounds > kMaxRounds || check_every < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n_zones < 0 || (n_zones > 0 && (hc < 1 || wc < 1 || hc > H || wc > W))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (block_envs < 1 || block_envs > fdm_block_max_envs(H, W)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Planes p = make_planes(temp, cnst, denom, tinf, a_r, a_l, a_b, a_t, ext,
+                         lead, foll, keys, words, out, iters, converged, H,
+                         W, edge_fill);
+  ConvArgs cv = make_conv_args(offsets, n_rounds, lane_bits, q);
+  StatArgs st = make_stat_args(masks, row0, col0, zone_sums, grid_sums,
+                               n_zones, hc, wc);
+  return launch_block<ChebyBlock>(block_envs, p, cv, st, threshold, limit,
+                                  rho2, omega0, check_every, B,
+                                  (cudaStream_t)stream);
 }
 
 }  // extern "C"

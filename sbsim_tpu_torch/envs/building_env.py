@@ -20,12 +20,16 @@ threefry (bitwise equal to jax.random), and every tensor lives on the env's
 `device`: "cuda" unless the caller asks for the CPU.
 
 The FDM solve of `step_batched` is one batched call: the hand-written CUDA
-kernels (physics/fdm_cuda.py) for the "pallas_*" solver names, the plain
-batched solvers (physics/fdm.py) for "xla_*". Zone/grid statistics come
-from the kernel's epilogue where the JAX package's rule takes them from
-its kernel (solo kernels, the final field in the kernel, at most
-`kernel_stats_max_zones` zones), else from the gridstats fold after the
-solve; the sums are bitwise the same either way.
+kernels (physics/fdm_cuda.py) for the "pallas_*" solver names, in the
+config's block layout (`pallas_block_mode` "stack" runs the block kernels
+with `pallas_block_envs` envs per thread block), the plain batched solvers
+(physics/fdm.py) for "xla_*". Swap convection runs in the kernel, its
+decision words made there from the step keys (mix32) or passed as a word
+plane (threefry); argsort convection runs after the solve. Zone/grid
+statistics come from the kernel's epilogue where the JAX package's rule
+takes them from its kernel (not the interleaved layout, the final field in
+the kernel, at most `kernel_stats_max_zones` zones), else from the
+gridstats fold after the solve; the sums are bitwise the same either way.
 """
 
 from __future__ import annotations
@@ -166,6 +170,10 @@ class BuildingEnv:
         )
         self._conv_lead = fdm_cuda.packed_plane(self.convection.lead_words, dev)
         self._conv_foll = fdm_cuda.packed_plane(self.convection.foll_words, dev)
+        self._conv_flat = torch.as_tensor(
+            self.convection.flat_indices.astype(np.int64), device=dev
+        )
+        self._conv_segments = torch.as_tensor(self.convection.segment_keys, device=dev)
         self.reward_params = reward_lib.make_reward_params(config.reward, device=dev)
         self.zone_stats = gridstats.make_zone_stat_layout(self.geom)
         self._stats = gridstats.ZoneStats(self.zone_stats, dev)
@@ -359,6 +367,33 @@ class BuildingEnv:
             return "pallas_env"
         return f"xla_{self.config.fdm_solver}"
 
+    def kernel_path(self, solver: str) -> Tuple[bool, bool]:
+        """(convection fused into the kernel, statistics from the kernel)
+        for an FDM solver name, by the JAX package's rules
+        (building_env.py:421-447): swap convection fuses into the kernels;
+        statistics come from the kernel when it holds the final field
+        (convection fused or off), the zones fit, and the kernel is not
+        the interleaved K1."""
+        conv = self.convection
+        fuse_conv = (
+            solver in ("pallas_env", "pallas_cheby")
+            and conv.enabled
+            and conv.method == "swap"
+        )
+        interleaved = (
+            solver == "pallas_cheby"
+            and self.config.pallas_block_envs > 1
+            and self.config.pallas_block_mode == "interleave"
+        )
+        kernel_stats = (
+            solver.startswith("pallas")
+            and not interleaved
+            and (fuse_conv or not conv.enabled)
+            and self.geom.n_zones
+            <= min(fdm_cuda.MAX_STAT_ZONES, self.config.kernel_stats_max_zones)
+        )
+        return fuse_conv, kernel_stats
+
     def step_batched(
         self,
         states: EnvState,
@@ -374,26 +409,7 @@ class BuildingEnv:
             states.temp.shape[0], use_pallas=use_pallas, solver=solver
         )
         conv = self.convection
-        fuse_conv = (
-            solver in ("pallas_env", "pallas_cheby")
-            and conv.enabled
-            and conv.method == "swap"
-        )
-        # The JAX package's rule (building_env.py:436-447): statistics come
-        # from the kernel when it holds the final field (convection fused or
-        # off), the zones fit, and the kernel is not the interleaved K1.
-        interleaved = (
-            solver == "pallas_cheby"
-            and self.config.pallas_block_envs > 1
-            and self.config.pallas_block_mode == "interleave"
-        )
-        kernel_stats = (
-            solver.startswith("pallas")
-            and not interleaved
-            and (fuse_conv or not conv.enabled)
-            and self.geom.n_zones
-            <= min(fdm_cuda.MAX_STAT_ZONES, self.config.kernel_stats_max_zones)
-        )
+        fuse_conv, kernel_stats = self.kernel_path(solver)
         new_zm = new_gm = None
         if solver.startswith("pallas"):
             kwargs = dict(
@@ -413,9 +429,17 @@ class BuildingEnv:
                     conv_offsets=conv.offsets,
                     conv_lead=self._conv_lead,
                     conv_foll=self._conv_foll,
-                    conv_keys=conv_keys,
-                    conv_word_params=self._conv_word_params,
                 )
+                if self._conv_word_params is not None:
+                    # mix32: the kernel makes the words from the raw keys.
+                    kwargs.update(
+                        conv_keys=conv_keys,
+                        conv_word_params=self._conv_word_params,
+                    )
+                else:
+                    kwargs.update(conv_word=convection_lib.swap_decision_word(
+                        conv, conv_keys, self.geom.shape
+                    ))
             if kernel_stats:
                 kwargs.update(stat_layout=self._stats)
             result = fdm_cuda.fdm_step_cuda(
@@ -440,15 +464,25 @@ class BuildingEnv:
                 kind=solver[len("xla_"):],
             )
         if not fuse_conv and conv.enabled:
-            new_temp = fdm_cuda.convect(new_temp, fdm_cuda.ConvInputs(
-                offsets=conv.offsets, lead=self._conv_lead, foll=self._conv_foll,
-                word_params=self._conv_word_params, keys=conv_keys,
-            ))
+            new_temp = self._convect(new_temp, conv_keys)
         if new_zm is None:
             new_zm, new_gm = self._grid_stats(new_temp)
         return self._step_post(
             states, pre, new_temp, converged, n_iter, new_zm, new_gm
         )
+
+    def _convect(self, temp: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+        """convection.apply_convection with the env's device planes."""
+        conv = self.convection
+        if conv.method != "swap":
+            return convection_lib.apply_argsort(
+                temp, self._conv_flat, self._conv_segments, keys
+            )
+        word = convection_lib.swap_decision_word(conv, keys, self.geom.shape)
+        return fdm_cuda.convect(temp, fdm_cuda.ConvInputs(
+            offsets=conv.offsets, lead=self._conv_lead, foll=self._conv_foll,
+            words=word,
+        ))
 
     def _solve_fdm(self, temp, input_q, ambient, h_conv, kind=None):
         kind = kind or self.config.fdm_solver

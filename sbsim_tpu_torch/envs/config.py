@@ -89,10 +89,9 @@ class ConvectionConfig:
 
     method "swap" (default) mixes via rounds of masked pair swaps on the
     grid - the reference's own pairwise-swap primitive, gather-free on
-    device; "argsort" draws a uniform random permutation per room tile
-    (not ported yet: the port raises NotImplementedError). rounds=0
-    auto-sizes so expected
-    swap participations per CV match the reference (~2p per step).
+    device; "argsort" draws a uniform random permutation per room tile.
+    rounds=0 auto-sizes so expected swap participations per CV match the
+    reference (~2p per step).
     """
 
     p: float = 0.0
@@ -103,8 +102,8 @@ class ConvectionConfig:
     variants: int = 0
     # PRNG for the per-round swap decisions: "mix32" (default) expands the
     # per-env step key to per-cell Bernoulli bits with a murmur3-finalizer
-    # counter hash; "threefry" draws them with threefry (not ported yet:
-    # the port raises NotImplementedError).
+    # counter hash; "threefry" draws them with threefry (rng.bits), and the
+    # kernels then read the precomputed (B, H, W) word plane.
     rng: str = "mix32"
     # Explicit swap-round schedule: a tuple of (dy, dx, phase) triples,
     # applied in order (overrides seed/rounds selection entirely). Offsets
@@ -224,17 +223,16 @@ class EnvConfig:
     # sub-iterations (the solve only gets more converged). Jacobi paths
     # always check every iteration (reference stopping-rule semantics).
     cheby_check_every: int = 1
-    # Envs per program of the JAX package's Pallas kernels. Kept so that
-    # configs round-trip; the CUDA kernels run one env per thread block
-    # whatever its value.
+    # Envs per program of the JAX package's Pallas kernels. Under "stack"
+    # it is the CUDA block kernels' envs per thread block, clamped to what
+    # fits in shared memory (fdm_cuda.effective_block_envs); "interleave"
+    # runs one env per thread block whatever its value.
     pallas_block_envs: int = 1
-    # "stack" | "interleave" (the JAX package's Pallas block layouts); the
-    # CUDA wrapper runs "interleave" as one env per thread block and
-    # raises for "stack" with pallas_block_envs > 1.
+    # "stack" | "interleave" (the JAX package's Pallas block layouts).
     pallas_block_mode: str = "stack"
-    # Zone-count ceiling for kernel-emitted statistics in the JAX package.
-    # The port always computes statistics with the gridstats fold after
-    # the solve (bitwise-identical sums either way).
+    # Zone-count ceiling for kernel-emitted statistics (the JAX package's
+    # rule, BuildingEnv.kernel_path); above it the gridstats fold after the
+    # solve (bitwise-identical sums either way).
     kernel_stats_max_zones: int = 12
     num_days_in_episode: int = 14
     discount_factor: float = 0.9

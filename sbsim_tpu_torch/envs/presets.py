@@ -138,8 +138,8 @@ def _interleave_width(floor_plan: np.ndarray, layout: str) -> int:
     that its TPU memory model admits, else 1).
 
     Copied so that sb1_config fills pallas_block_envs exactly as the JAX
-    package does; the CUDA kernels run one env per thread block whatever
-    its value."""
+    package does; in the stack layout the CUDA block kernels take it as
+    their envs per thread block, clamped to what fits in shared memory."""
     h, w = floor_plan.shape
     cost = padded_grid_cost((h, w))
     if layout in ("auto", "transposed"):

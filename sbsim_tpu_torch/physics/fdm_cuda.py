@@ -1,32 +1,44 @@
 """Hand-written CUDA kernels for the FDM convergence loop (Hopper, sm_90a).
 
-Counterpart of sbsim_tpu/physics/fdm_pallas.py. Two kernels live in
+Counterpart of sbsim_tpu/physics/fdm_pallas.py. Four kernels live in
 csrc/fdm_kernels.cu:
 
   fdm_cheby  (K1) replaces _fdm_cheby_kernel_interleaved (fdm_pallas.py:630)
              and its one-env form _fdm_cheby_kernel (:279): the Chebyshev
              semi-iteration of the Jacobi map with the residual sampled
              every `check_every` sub-iterations, J(x) emitted for the final
-             iterate, then the mix32 swap-convection rounds.
+             iterate, then the swap-convection rounds.
   fdm_jacobi (K2) replaces _fdm_kernel (:207): Jacobi while
              it < limit and max|dx| > threshold, then the same convection.
+  fdm_jacobi_block (K3) and fdm_cheby_block (K4) replace the stack layout's
+             _fdm_kernel_block (:416) and _fdm_cheby_kernel_block (:505):
+             E envs per thread block sharing one loop, per-env freezing
+             (Chebyshev sampled only at chunk ends), one omega schedule per
+             block. E is clamped to what fits in shared memory
+             (effective_block_envs).
 
-Each kernel keeps one env's iterate and its partner plane in shared memory
-for the whole solve, so a step reads temp/const/denom once and writes the
-field once (the bound is in the note at the top of the source).
-Each env loops until its own stopping rule holds, so a result does not
-depend on the other envs of the batch and no padding or freezing is needed.
+K1 and K2 keep one env's iterate and its partner plane in shared memory for
+the whole solve, so a step reads temp/const/denom once and writes the field
+once (the bound is in the note at the top of the source); K3 and K4 keep E
+envs' planes there. Each env's result does not depend on the other envs of
+the batch or of its block.
 
-With a zone-statistics layout both kernels also emit the zone and grid
+The swap rounds take their decision words from the mix32 hash of the raw
+per-env key, made in the kernel, or from a precomputed (B, H, W) word plane
+(the threefry words), as _kernel_conv_word (fdm_pallas.py:192) does.
+
+With a zone-statistics layout every kernel also emits the zone and grid
 sums of the final field from shared memory (the epilogue that replaces
-_kernel_grid_stats, fdm_pallas.py:137), in the fold order of
-physics/gridstats.py, so the sums equal the fold's bitwise.
+_kernel_grid_stats, fdm_pallas.py:137, and _block_write_stats, :404), in
+the fold order of physics/gridstats.py, so the sums equal the fold's
+bitwise.
 
 Beside each kernel is its plain PyTorch version (fdm_cheby_plain,
-fdm_jacobi_plain) on the same inputs, with the same float32 operation
-sequence; built with -fmad=false and IEEE division the kernels equal them
-bitwise. `fdm_step_cuda` takes the plain version only for tensors on the
-CPU; for CUDA tensors it launches the kernel or raises.
+fdm_jacobi_plain, fdm_cheby_block_plain, fdm_jacobi_block_plain) on the
+same inputs, with the same float32 operation sequence; built with
+-fmad=false and IEEE division the kernels equal them bitwise.
+`fdm_step_cuda` takes the plain version only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises.
 
 The library is compiled with nvcc at first use into `_build/` beside this
 package (a content hash of the source names the .so) and loaded with ctypes.
@@ -53,6 +65,13 @@ from sbsim_tpu_torch.physics.gridstats import ZoneStatLayout, ZoneStats
 # Zone sums fill one 128-lane row of the TPU kernels' stats tile; the port
 # keeps their limit (fdm_pallas.py:944-949).
 MAX_STAT_ZONES = 128
+# Envs per thread block of K3/K4: at most MAX_BLOCK_ENVS, and 2 x H x W
+# floats each within the shared memory a block may use beside the kernels'
+# static scratch (kMaxBlockEnvs, kSmemPerBlock, kBlockStaticSmem).
+MAX_BLOCK_ENVS = 8
+SMEM_PER_BLOCK = 232448
+BLOCK_STATIC_SMEM = 2048
+MASK32 = convection_lib.MASK32
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "fdm_kernels.cu")
@@ -64,7 +83,8 @@ NVCC_FLAGS = (
 )
 
 # Launches per kernel; a wrapper adds one where it launches its kernel.
-launch_counts = {"fdm_cheby": 0, "fdm_jacobi": 0}
+launch_counts = {"fdm_cheby": 0, "fdm_jacobi": 0, "fdm_cheby_block": 0,
+                 "fdm_jacobi_block": 0}
 # nvcc's output of the last build in this process (ptxas register/smem use).
 build_log = ""
 _lib = None
@@ -117,15 +137,26 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        planes = [ptr] * 15 + [i32] * 4  # 15 pointers, B, H, W, edge_fill
+        planes = [ptr] * 16 + [i32] * 4  # 16 pointers, B, H, W, edge_fill
         conv = [ptr, i32, i32, i32]  # offsets, n_rounds, lane_bits, q
         # masks, row0, col0, zone_sums, grid_sums, n_zones, hc, wc, stream
         stats = [ptr] * 5 + [i32] * 3 + [ptr]
-        lib.fdm_jacobi_launch.argtypes = planes + [f32, i32] + conv + stats
-        lib.fdm_jacobi_launch.restype = i32
-        lib.fdm_cheby_launch.argtypes = planes + [f32, i32, f32, f32, i32] + conv + stats
-        lib.fdm_cheby_launch.restype = i32
+        jacobi = [f32, i32]  # threshold, limit
+        cheby = [f32, i32, f32, f32, i32]  # ... rho2, omega0, check_every
+        for name, args in (
+            ("fdm_jacobi_launch", planes + jacobi),
+            ("fdm_cheby_launch", planes + cheby),
+            ("fdm_jacobi_block_launch", planes + [i32] + jacobi),  # + block_envs
+            ("fdm_cheby_block_launch", planes + [i32] + cheby),
+        ):
+            fn = getattr(lib, name)
+            fn.argtypes = args + conv + stats
+            fn.restype = i32
         lib.fdm_max_cells.restype = i32
+        lib.fdm_block_max_envs.argtypes = [i32, i32]
+        lib.fdm_block_max_envs.restype = i32
+        lib.fdm_blocks_per_sm.argtypes = [i32] * 4
+        lib.fdm_blocks_per_sm.restype = i32
         _lib = lib
     return _lib
 
@@ -153,15 +184,19 @@ class KernelInputs:
 
 @dataclasses.dataclass(frozen=True)
 class ConvInputs:
-    """The fused mix32 swap convection: static round offsets, packed
-    lead/follower masks (int32 planes holding the uint32 bits), the mix32
-    decision-word parameters and the raw per-env step keys (B, 2) int64."""
+    """The fused swap convection: static round offsets, packed
+    lead/follower masks (int32 planes holding the uint32 bits), and the
+    decision words: either the mix32 parameters with the raw per-env step
+    keys (B, 2) int64, made into words in the kernel, or a precomputed
+    (B, H, W) word plane (int32 holding the uint32 bits; the threefry
+    words), which the kernel reads."""
 
     offsets: Tuple[Tuple[int, int], ...]
     lead: torch.Tensor  # i32 (H, W)
     foll: torch.Tensor  # i32 (H, W)
-    word_params: Tuple[int, int, int, int]
-    keys: torch.Tensor  # i64 (B, 2) uint32 values
+    word_params: Optional[Tuple[int, int, int, int]] = None
+    keys: Optional[torch.Tensor] = None  # i64 (B, 2) uint32 values
+    words: Optional[torch.Tensor] = None  # i32 (B, H, W)
 
 
 class GridSums(NamedTuple):
@@ -179,14 +214,26 @@ def fold_stats(x: torch.Tensor, stats: Optional[ZoneStats]) -> Optional[GridSums
 
 
 def packed_plane(words, device) -> torch.Tensor:
-    """A packed uint32 mask plane (numpy uint32, or a tensor of its values)
-    as the int32 tensor with the same bits that the kernels read."""
-    if torch.is_tensor(words) and words.dtype == torch.int32:
-        return words.to(device)
-    if torch.is_tensor(words):
-        words = words.cpu().numpy()
-    bits = np.ascontiguousarray(np.asarray(words).astype(np.uint32).view(np.int32))
-    return torch.as_tensor(bits, device=device)
+    """Packed uint32 words (numpy uint32, or an integer tensor of their
+    values) as the contiguous int32 tensor with the same bits that the
+    kernels read."""
+    if not torch.is_tensor(words):
+        bits = np.ascontiguousarray(np.asarray(words).astype(np.uint32).view(np.int32))
+        return torch.as_tensor(bits, device=device)
+    words = words.to(device)
+    if words.dtype != torch.int32:
+        words = words.to(torch.int64) & MASK32
+        words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+    return words.contiguous()
+
+
+def effective_block_envs(shape: Tuple[int, int], block_envs: int) -> int:
+    """The envs per thread block K3/K4 run for a requested `block_envs` on
+    an (H, W) grid: at most MAX_BLOCK_ENVS and as many as fit two planes
+    each in shared memory (8 at 52 x 67, 1 at 189 x 124)."""
+    h, w = shape
+    fit = (SMEM_PER_BLOCK - BLOCK_STATIC_SMEM) // (2 * h * w * 4)
+    return max(1, min(int(block_envs), MAX_BLOCK_ENVS, fit))
 
 
 def kernel_inputs(
@@ -258,12 +305,17 @@ def _max_abs(d: torch.Tensor) -> torch.Tensor:
 
 
 def convect(x: torch.Tensor, conv: Optional[ConvInputs]) -> torch.Tensor:
+    """The swap rounds of the kernels' epilogue, with the word plane when
+    there is one, else the mix32 words of the keys."""
     if conv is None:
         return x
-    word = convection_lib.decision_word_from_key(
-        conv.keys, conv.word_params, tuple(x.shape[-2:])
-    )
-    mask = lambda a: a.to(torch.int64) & 0xFFFFFFFF
+    mask = lambda a: a.to(torch.int64) & MASK32
+    if conv.words is not None:
+        word = mask(conv.words)
+    else:
+        word = convection_lib.decision_word_from_key(
+            conv.keys, conv.word_params, tuple(x.shape[-2:])
+        )
     return convection_lib.apply_swaps_with_word(
         x, conv.offsets, mask(conv.lead), mask(conv.foll), word
     )
@@ -333,36 +385,122 @@ def fdm_cheby_plain(
     _fdm_cheby_kernel_interleaved: the residual is sampled at the last
     sub-iteration of each chunk of `check_every`, an env freezes at chunk
     boundaries, and J(x) of the final iterate is emitted, then convection.
-    Returns (field, n_iter int32 (B,), converged bool (B,)), and with
-    `stats` also the GridSums of the field."""
-    check_every = max(1, int(check_every))
-    dev = inp.temp.device
+    That is fdm_cheby_block_plain with one env per group. Returns (field,
+    n_iter int32 (B,), converged bool (B,)), and with `stats` also the
+    GridSums of the field."""
+    return fdm_cheby_block_plain(
+        inp, threshold=threshold, iteration_limit=iteration_limit,
+        spectral_radius=spectral_radius, block_envs=1, check_every=check_every,
+        conv=conv, stats=stats,
+    )
+
+
+def _pad_block(inp: KernelInputs, block_envs: int) -> Tuple[KernelInputs, int]:
+    """The batch padded to a multiple of E by repeating its last env
+    (fdm_pallas.py:861-875), and the number of groups of E."""
+    b = inp.temp.shape[0]
+    pad = (-b) % block_envs
+    if pad:
+        rep = lambda t: torch.cat([t, t[-1:].expand((pad,) + t.shape[1:])])
+        inp = dataclasses.replace(
+            inp, temp=rep(inp.temp), const=rep(inp.const), denom=rep(inp.denom),
+            tinf=rep(inp.tinf),
+        )
+    return inp, (b + pad) // block_envs
+
+
+def _group_running(active: torch.Tensor, groups: int) -> torch.Tensor:
+    """Per env: whether its group of E envs still loops (any env active)."""
+    running = active.view(groups, -1).any(dim=1, keepdim=True)
+    return running.expand(groups, active.numel() // groups).reshape(-1)
+
+
+def fdm_jacobi_block_plain(
+    inp: KernelInputs,
+    *,
+    threshold: float,
+    iteration_limit: int,
+    block_envs: int,
+    conv: Optional[ConvInputs] = None,
+    stats: Optional[ZoneStats] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain version of K3, the semantics of _fdm_kernel_block
+    (fdm_pallas.py:416): the batch cut into groups of E (the last padded by
+    repeating the last env), each group looping while it < limit and any
+    of its envs is active; an env freezes by select once its residual meets
+    the threshold, and its count is the iteration that did. Then
+    convection and the statistics per env. Returns as fdm_jacobi_plain.
+    Each env's result equals fdm_jacobi_plain's for it whatever E, unless
+    a residual is NaN: the solo loop (and K2) then stops that env, the
+    block loop (and K3) runs it to the limit, as the JAX kernels do."""
+    b = inp.temp.shape[0]
+    pin, groups = _pad_block(inp, max(1, int(block_envs)))
+    dev = pin.temp.device
     thr = torch.tensor(threshold, dtype=torch.float32, device=dev)
-    ext = inp.ext > 0
-    tinf3 = inp.tinf.view(-1, 1, 1)
-    x_prev = inp.temp
-    x = jacobi_update(x_prev, inp)
+    x = pin.temp
+    done = torch.zeros(x.shape[0], dtype=torch.bool, device=dev)
+    iters = torch.zeros(x.shape[0], dtype=torch.int32, device=dev)
+    for it in range(iteration_limit):
+        active = ~done & _group_running(~done, groups)
+        if not bool(active.any()):
+            break
+        x_new = jacobi_update(x, pin)
+        delta = _max_abs(x_new - x)
+        x = torch.where(active.view(-1, 1, 1), x_new, x)
+        iters = torch.where(active, it + 1, iters)
+        done = done | (active & (delta <= thr))
+    x = convect(x[:b], conv)
+    return _result(x, iters[:b], done[:b], fold_stats(x, stats))
+
+
+def fdm_cheby_block_plain(
+    inp: KernelInputs,
+    *,
+    threshold: float,
+    iteration_limit: int,
+    spectral_radius: float,
+    block_envs: int,
+    check_every: int = 1,
+    conv: Optional[ConvInputs] = None,
+    stats: Optional[ZoneStats] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain version of K4, the semantics of _fdm_cheby_kernel_block
+    (fdm_pallas.py:505): groups of E as in fdm_jacobi_block_plain; omega is
+    one schedule per group, advanced every sub-iteration; an env's freeze
+    state is fixed for a whole chunk of `check_every` sub-iterations and
+    sampled at its last one, and its count is the sub-iteration at the end
+    of its last active chunk. Then J(x) of the final iterate, convection
+    and the statistics per env. Returns as fdm_cheby_plain; each env's
+    result equals fdm_cheby_plain's for it whatever E."""
+    check_every = max(1, int(check_every))
+    b = inp.temp.shape[0]
+    pin, groups = _pad_block(inp, max(1, int(block_envs)))
+    dev = pin.temp.device
+    thr = torch.tensor(threshold, dtype=torch.float32, device=dev)
+    ext = pin.ext > 0
+    tinf3 = pin.tinf.view(-1, 1, 1)
+    x_prev = pin.temp
+    x = jacobi_update(x_prev, pin)
     done = _max_abs(x - x_prev) <= thr
-    batch = x.shape[0]
-    iters = torch.ones(batch, dtype=torch.int32, device=dev)
+    iters = torch.ones(x.shape[0], dtype=torch.int32, device=dev)
     it = 1
-    n_sub = max(0, iteration_limit - 1) + check_every
-    _, omegas = chebyshev_omegas(spectral_radius, n_sub)
+    _, omegas = chebyshev_omegas(spectral_radius, max(0, iteration_limit - 1) + check_every)
     while it < iteration_limit and not bool(done.all()):
-        active = (~done).view(-1, 1, 1)
+        active = ~done & _group_running(~done, groups)
+        active3 = active.view(-1, 1, 1)
         for _ in range(check_every):
             w = torch.tensor(omegas[it - 1], device=dev)
-            jx = jacobi_update(x, inp)
+            jx = jacobi_update(x, pin)
             delta = _max_abs(jx - x)
             x_next = w * (jx - x_prev) + x_prev
             x_next = torch.where(ext, tinf3, x_next)
-            x_prev = torch.where(active, x, x_prev)
-            x = torch.where(active, x_next, x)
+            x_prev = torch.where(active3, x, x_prev)
+            x = torch.where(active3, x_next, x)
             it += 1
-        iters = torch.where(~done, it, iters)
-        done = done | (delta <= thr)
-    x = convect(jacobi_update(x, inp), conv)
-    return _result(x, iters, done, fold_stats(x, stats))
+        iters = torch.where(active, it, iters)
+        done = done | (active & (delta <= thr))
+    x = convect(jacobi_update(x, pin)[:b], conv)
+    return _result(x, iters[:b], done[:b], fold_stats(x, stats))
 
 
 # ---------------------------------------------------------------------------
@@ -390,18 +528,22 @@ def _check_inputs(
     if conv is not None:
         if len(conv.offsets) > 32:
             raise ValueError("at most 32 convection rounds")
+        words = conv.words is not None
+        if not words and (conv.keys is None or conv.word_params is None):
+            raise ValueError("convection needs a word plane, or keys and word_params")
         for t, shape, dtype in (
             (conv.lead, (h, w), torch.int32),
             (conv.foll, (h, w), torch.int32),
+            (conv.words, (b, h, w), torch.int32) if words else
             (conv.keys, (b, 2), torch.int64),
         ):
             if t.shape != shape or t.dtype != dtype or t.device != inp.temp.device:
                 raise ValueError(
-                    "lead/foll must be int32 (H, W) and keys int64 (B, 2), "
-                    "on the kernel's device"
+                    "lead/foll must be int32 (H, W), words int32 (B, H, W) and "
+                    "keys int64 (B, 2), on the kernel's device"
                 )
             if not t.is_contiguous():
-                raise ValueError("lead/foll/keys must be contiguous")
+                raise ValueError("lead/foll/words/keys must be contiguous")
     if stats is not None:
         z, hc, wc = stats.masks.shape
         if z > MAX_STAT_ZONES:
@@ -433,11 +575,17 @@ def _launch_args(inp: KernelInputs, conv: Optional[ConvInputs], stats, out, iter
             *[v for o in conv.offsets for v in o]
         )
         n_rounds = len(conv.offsets)
-        _, _, lane_bits, q = conv.word_params
-        ptrs = (conv.lead.data_ptr(), conv.foll.data_ptr(), conv.keys.data_ptr())
+        if conv.words is not None:
+            lane_bits, q = 8, 0  # unused: the kernel reads the words
+            ptrs = (conv.lead.data_ptr(), conv.foll.data_ptr(), None,
+                    conv.words.data_ptr())
+        else:
+            _, _, lane_bits, q = conv.word_params
+            ptrs = (conv.lead.data_ptr(), conv.foll.data_ptr(), conv.keys.data_ptr(),
+                    None)
     else:
         offsets, n_rounds, lane_bits, q = None, 0, 8, 0
-        ptrs = (None, None, None)
+        ptrs = (None,) * 4
     planes = [
         inp.temp.data_ptr(), inp.const.data_ptr(), inp.denom.data_ptr(),
         inp.tinf.data_ptr(), inp.a_r.data_ptr(), inp.a_l.data_ptr(),
@@ -472,6 +620,45 @@ def _outputs(inp: KernelInputs, stats: Optional[ZoneStats]):
     )
 
 
+def blocks_per_sm(name: str, shape: Tuple[int, int], block_envs: int = 1) -> int:
+    """Thread blocks of kernel `name` resident per SM on an (H, W) grid
+    (K3/K4 with `block_envs` envs per block), from the CUDA occupancy
+    calculator."""
+    h, w = shape
+    e = block_envs if name.endswith("_block") else 0
+    return _library().fdm_blocks_per_sm(int(name.startswith("fdm_cheby")), e, h, w)
+
+
+def _launch(name: str, inp: KernelInputs, conv, stats, solver_args, block_envs=None):
+    """Checks the inputs, allocates the outputs and launches kernel `name`
+    (K3/K4 with `block_envs` envs per thread block); raises on a refused
+    launch. `solver_args` follow the planes (and E) in the C signature."""
+    _, h, w = _check_inputs(inp, conv, stats)
+    out, iters, flag, sums = _outputs(inp, stats)
+    planes, tail = _launch_args(inp, conv, stats, out, iters, flag, sums)
+    head = []
+    if block_envs is not None:
+        fit = _library().fdm_block_max_envs(h, w)
+        if not 1 <= block_envs <= fit:
+            raise ValueError(
+                f"block_envs={block_envs} outside 1..{fit} for a {h}x{w} grid "
+                "(effective_block_envs clamps it)"
+            )
+        head = [int(block_envs)]
+    err = getattr(_library(), f"{name}_launch")(*planes, *head, *solver_args, *tail)
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    launch_counts[name] += 1
+    return _result(out, iters, flag > 0, sums)
+
+
+def _cheby_args(threshold, iteration_limit, spectral_radius, check_every):
+    rho2 = float(spectral_radius) ** 2
+    omega0, _ = chebyshev_omegas(spectral_radius, 0)
+    return [float(threshold), int(iteration_limit), float(np.float32(rho2)),
+            float(omega0), max(1, int(check_every))]
+
+
 def fdm_jacobi_cuda(
     inp: KernelInputs,
     *,
@@ -481,16 +668,8 @@ def fdm_jacobi_cuda(
     stats: Optional[ZoneStats] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Launches K2 (fdm_jacobi_kernel). Same results as fdm_jacobi_plain."""
-    _check_inputs(inp, conv, stats)
-    out, iters, flag, sums = _outputs(inp, stats)
-    planes, tail = _launch_args(inp, conv, stats, out, iters, flag, sums)
-    err = _library().fdm_jacobi_launch(
-        *planes, float(threshold), int(iteration_limit), *tail
-    )
-    if err:
-        raise RuntimeError(f"fdm_jacobi launch failed: CUDA error {err}")
-    launch_counts["fdm_jacobi"] += 1
-    return _result(out, iters, flag > 0, sums)
+    return _launch("fdm_jacobi", inp, conv, stats,
+                   [float(threshold), int(iteration_limit)])
 
 
 def fdm_cheby_cuda(
@@ -504,20 +683,40 @@ def fdm_cheby_cuda(
     stats: Optional[ZoneStats] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Launches K1 (fdm_cheby_kernel). Same results as fdm_cheby_plain."""
-    _check_inputs(inp, conv, stats)
-    out, iters, flag, sums = _outputs(inp, stats)
-    planes, tail = _launch_args(inp, conv, stats, out, iters, flag, sums)
-    rho2 = float(spectral_radius) ** 2
-    omega0, _ = chebyshev_omegas(spectral_radius, 0)
-    err = _library().fdm_cheby_launch(
-        *planes, float(threshold), int(iteration_limit),
-        float(np.float32(rho2)), float(omega0), max(1, int(check_every)),
-        *tail,
-    )
-    if err:
-        raise RuntimeError(f"fdm_cheby launch failed: CUDA error {err}")
-    launch_counts["fdm_cheby"] += 1
-    return _result(out, iters, flag > 0, sums)
+    return _launch("fdm_cheby", inp, conv, stats, _cheby_args(
+        threshold, iteration_limit, spectral_radius, check_every))
+
+
+def fdm_jacobi_block_cuda(
+    inp: KernelInputs,
+    *,
+    threshold: float,
+    iteration_limit: int,
+    block_envs: int,
+    conv: Optional[ConvInputs] = None,
+    stats: Optional[ZoneStats] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """Launches K3 (fdm_jacobi_block_kernel) with `block_envs` envs per
+    thread block. Same results as fdm_jacobi_block_plain."""
+    return _launch("fdm_jacobi_block", inp, conv, stats,
+                   [float(threshold), int(iteration_limit)], block_envs)
+
+
+def fdm_cheby_block_cuda(
+    inp: KernelInputs,
+    *,
+    threshold: float,
+    iteration_limit: int,
+    spectral_radius: float,
+    block_envs: int,
+    check_every: int = 1,
+    conv: Optional[ConvInputs] = None,
+    stats: Optional[ZoneStats] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """Launches K4 (fdm_cheby_block_kernel) with `block_envs` envs per
+    thread block. Same results as fdm_cheby_block_plain."""
+    return _launch("fdm_cheby_block", inp, conv, stats, _cheby_args(
+        threshold, iteration_limit, spectral_radius, check_every), block_envs)
 
 
 def fdm_step_cuda(
@@ -535,7 +734,7 @@ def fdm_step_cuda(
     conv_offsets: Tuple[Tuple[int, int], ...] = (),
     conv_lead: Optional[torch.Tensor] = None,  # (H, W) packed lead masks
     conv_foll: Optional[torch.Tensor] = None,  # (H, W) packed follower masks
-    conv_word: Optional[torch.Tensor] = None,  # (B, H, W) precomputed words
+    conv_word: Optional[torch.Tensor] = None,  # (B, H, W) precomputed uint32 words
     conv_keys: Optional[torch.Tensor] = None,  # (B, 2) raw per-env step keys
     conv_word_params=None,  # convection.decision_word_params output
     stat_layout: Union[ZoneStatLayout, ZoneStats, None] = None,
@@ -551,13 +750,12 @@ def fdm_step_cuda(
     fold on CPU tensors). `converged` is the residual criterion itself, so
     with check_every > 1 the count may exceed the limit by up to
     check_every - 1 while converged. method "jacobi" runs K2, "chebyshev"
-    K1. With `conv_offsets`, the mix32 swap rounds run in the kernel on the
-    solved field, their decision words made from `conv_keys`.
-
-    `block_envs` is a launch choice of the TPU kernels; here each env has
-    its own thread block. Not ported yet (they raise): block_mode "stack"
-    with block_envs > 1 (the 3-D stack bodies) and a precomputed
-    `conv_word` plane (the threefry decision words).
+    K1; block_mode "stack" with block_envs > 1 runs the block kernels K3
+    and K4 with effective_block_envs envs per thread block ("interleave"
+    runs K1/K2, one env per thread block). With `conv_offsets` the swap
+    rounds run in the kernel on the solved field, their decision words read
+    from `conv_word` when given (the threefry words), else made from
+    `conv_keys` with `conv_word_params` (mix32).
     fdm_step_pallas's unused `conv_params` argument is left out.
     """
     if block_mode not in ("stack", "interleave"):
@@ -566,11 +764,7 @@ def fdm_step_cuda(
         raise ValueError(f"unknown method: {method!r}")
     if block_mode == "interleave" and method != "chebyshev":
         block_envs = 1  # fdm_pallas.py:855-860: Jacobi runs the solo kernel
-    if block_mode == "stack" and int(block_envs) > 1:
-        raise NotImplementedError(
-            "block_mode='stack' with block_envs > 1 (_fdm_kernel_block / "
-            "_fdm_cheby_kernel_block) is not ported yet"
-        )
+    stack = block_mode == "stack" and int(block_envs) > 1
     stats = stat_layout
     if isinstance(stat_layout, ZoneStatLayout):
         stats = ZoneStats(stat_layout, temp.device)
@@ -579,36 +773,31 @@ def fdm_step_cuda(
                          f"got {stats.masks.shape[0]}")
     conv = None
     if conv_offsets:
-        if conv_word is not None or conv_word_params is None or conv_keys is None:
-            raise NotImplementedError(
-                "only in-kernel mix32 decision words (conv_keys + "
-                "conv_word_params) are ported"
-            )
         conv = ConvInputs(
             offsets=tuple(tuple(int(v) for v in o) for o in conv_offsets),
             lead=packed_plane(conv_lead, temp.device),
             foll=packed_plane(conv_foll, temp.device),
-            word_params=tuple(conv_word_params),
-            keys=conv_keys.to(temp.device, torch.int64).contiguous(),
         )
+        if conv_word is not None:
+            conv = dataclasses.replace(conv, words=packed_plane(conv_word, temp.device))
+        elif conv_word_params is not None and conv_keys is not None:
+            conv = dataclasses.replace(
+                conv, word_params=tuple(conv_word_params),
+                keys=conv_keys.to(temp.device, torch.int64).contiguous())
+        else:
+            raise ValueError("conv_offsets need conv_word, or conv_keys with "
+                             "conv_word_params")
     inp = kernel_inputs(temp, input_q, t_inf, h_conv, coeffs)
     on_cpu = temp.device.type == "cpu"
+    kw = dict(threshold=convergence_threshold, iteration_limit=iteration_limit,
+              conv=conv, stats=stats)
+    if stack:
+        kw.update(block_envs=effective_block_envs(temp.shape[-2:], block_envs))
     if method == "chebyshev":
-        fn = fdm_cheby_plain if on_cpu else fdm_cheby_cuda
-        return fn(
-            inp,
-            threshold=convergence_threshold,
-            iteration_limit=iteration_limit,
-            spectral_radius=spectral_radius,
-            check_every=check_every,
-            conv=conv,
-            stats=stats,
-        )
-    fn = fdm_jacobi_plain if on_cpu else fdm_jacobi_cuda
-    return fn(
-        inp,
-        threshold=convergence_threshold,
-        iteration_limit=iteration_limit,
-        conv=conv,
-        stats=stats,
-    )
+        kw.update(spectral_radius=spectral_radius, check_every=check_every)
+        if stack:
+            return (fdm_cheby_block_plain if on_cpu else fdm_cheby_block_cuda)(inp, **kw)
+        return (fdm_cheby_plain if on_cpu else fdm_cheby_cuda)(inp, **kw)
+    if stack:
+        return (fdm_jacobi_block_plain if on_cpu else fdm_jacobi_block_cuda)(inp, **kw)
+    return (fdm_jacobi_plain if on_cpu else fdm_jacobi_cuda)(inp, **kw)

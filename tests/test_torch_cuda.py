@@ -8,8 +8,11 @@ configuration:
 Each kernel must equal its plain PyTorch version bitwise (fields,
 iteration counts, converged flags, and the zone/grid sums of the
 statistics epilogue), count its launches, and refuse inputs it does not
-take. This file imports no JAX.
+take; the block kernels K3/K4 must also equal K2/K1 env for env. This file
+imports no JAX.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -17,7 +20,7 @@ import torch
 
 from sbsim_tpu_torch import rng
 from sbsim_tpu_torch.envs import building_env, presets
-from sbsim_tpu_torch.physics import fdm_cuda, gridstats
+from sbsim_tpu_torch.physics import convection, fdm_cuda, gridstats
 
 pytestmark = pytest.mark.cuda
 
@@ -139,10 +142,76 @@ def test_env_steps_through_the_kernels(env):
     actions = torch.zeros((8, env.n_actions), device=env.device)
     for solver in ("pallas_cheby", "pallas_env"):
         state, out = env.step_batched(state, actions, solver=solver)
-    assert fdm_cuda.launch_counts == {"fdm_cheby": 1, "fdm_jacobi": 1}
+    assert fdm_cuda.launch_counts == {"fdm_cheby": 1, "fdm_jacobi": 1,
+                                      "fdm_cheby_block": 0, "fdm_jacobi_block": 0}
     assert env.resolve_solver(8) == "pallas_env"
     assert torch.isfinite(state.temp).all()
     # pallas_env took its statistics from the kernel: they are the fold's.
     assert torch.equal(state.zone_means, env._stats.zone_means(state.temp))
     assert torch.equal(state.grid_mean, env._stats.grid_mean(state.temp))
     assert ((out.reward >= -1) & (out.reward <= 0)).all()
+
+
+def _word_plane(env, conv):
+    """The threefry word plane of the same keys, as the kernels read it."""
+    c = dataclasses.replace(env.convection, rng="threefry")
+    words = convection.swap_decision_word(c, conv.keys, env.geom.shape)
+    return dataclasses.replace(conv, words=fdm_cuda.packed_plane(words, env.device),
+                               keys=None, word_params=None)
+
+
+def _equal(got, want):
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    if len(want) > 3:
+        assert torch.equal(got[3].zone_sums, want[3].zone_sums)
+        assert torch.equal(got[3].grid_sums, want[3].grid_sums)
+
+
+@pytest.mark.parametrize("conv_kind", ["none", "mix32", "words"])
+@pytest.mark.parametrize("kernel", ["fdm_jacobi", "fdm_cheby"])
+def test_word_plane_and_block_kernels_equal_plain_and_solo(env, kernel, conv_kind):
+    """K3/K4 at E = 2 and 8 on a batch of 13 (a partial last block) equal
+    their plain versions and K2/K1 bitwise, with statistics; every kernel
+    reads a word plane as its plain version does."""
+    inp, conv = _inputs(env, 13, seed=11)
+    conv = {"none": None, "mix32": conv, "words": _word_plane(env, conv)}[conv_kind]
+    kw = dict(threshold=0.1, iteration_limit=100, conv=conv, stats=env._stats)
+    if kernel == "fdm_cheby":
+        kw.update(spectral_radius=env._spectral_radius, check_every=4)
+        solo, solo_plain = fdm_cuda.fdm_cheby_cuda, fdm_cuda.fdm_cheby_plain
+        block, block_plain = fdm_cuda.fdm_cheby_block_cuda, fdm_cuda.fdm_cheby_block_plain
+    else:
+        solo, solo_plain = fdm_cuda.fdm_jacobi_cuda, fdm_cuda.fdm_jacobi_plain
+        block, block_plain = fdm_cuda.fdm_jacobi_block_cuda, fdm_cuda.fdm_jacobi_block_plain
+    want = solo(inp, **kw)
+    _equal(want, solo_plain(inp, **kw))
+    for e in (2, 8):
+        before = fdm_cuda.launch_counts[f"{kernel}_block"]
+        got = block(inp, block_envs=e, **kw)
+        assert fdm_cuda.launch_counts[f"{kernel}_block"] == before + 1
+        _equal(got, block_plain(inp, block_envs=e, **kw))
+        _equal(got, want)
+    torch.cuda.synchronize()
+
+
+def test_block_kernels_refuse_more_envs_than_fit(env):
+    inp, _ = _inputs(env, 4, seed=1)
+    assert fdm_cuda.effective_block_envs(env.geom.shape, 16) == 8
+    with pytest.raises(ValueError):
+        fdm_cuda.fdm_jacobi_block_cuda(inp, threshold=0.1, iteration_limit=5, block_envs=9)
+
+
+def test_stack_env_steps_through_the_block_kernels(env):
+    stack = building_env.BuildingEnv(dataclasses.replace(
+        env.config, pallas_block_mode="stack"))
+    state, _ = stack.reset(rng.split(rng.PRNGKey(1, device=stack.device), 11))
+    fdm_cuda.reset_launch_counts()
+    actions = torch.zeros((11, stack.n_actions), device=stack.device)
+    for solver in ("pallas_cheby", "pallas_env"):
+        state, out = stack.step_batched(state, actions, solver=solver)
+        # Statistics come from the block kernels' epilogue: the fold's.
+        assert torch.equal(state.zone_means, stack._stats.zone_means(state.temp))
+    assert fdm_cuda.launch_counts == {"fdm_cheby": 0, "fdm_jacobi": 0,
+                                      "fdm_cheby_block": 1, "fdm_jacobi_block": 1}
+    assert torch.isfinite(state.temp).all()

@@ -93,7 +93,8 @@ def test_cpu_run_makes_no_kernel_launch(solver):
     actions = torch.zeros((2, env.n_actions))
     for _ in range(2):
         state, out = env.step_batched(state, actions, solver=solver)
-    assert fdm_cuda.launch_counts == {"fdm_cheby": 0, "fdm_jacobi": 0}
+    assert fdm_cuda.launch_counts == {"fdm_cheby": 0, "fdm_jacobi": 0,
+                                      "fdm_cheby_block": 0, "fdm_jacobi_block": 0}
     assert torch.isfinite(state.temp).all() and torch.isfinite(out.observation).all()
     assert out.observation.shape == (2, env.obs_dim)
     assert np.all((out.reward.numpy() >= -1) & (out.reward.numpy() <= 0))
@@ -121,6 +122,7 @@ def test_cpu_training_makes_no_kernel_launch():
     state = trainer.init(rng.PRNGKey(0))
     for _ in range(2):
         state, metrics = trainer.train_step(state)
-    assert fdm_cuda.launch_counts == {"fdm_cheby": 0, "fdm_jacobi": 0}
+    assert fdm_cuda.launch_counts == {"fdm_cheby": 0, "fdm_jacobi": 0,
+                                      "fdm_cheby_block": 0, "fdm_jacobi_block": 0}
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert int(state.replay.size) == 2 and state.env_steps == 4

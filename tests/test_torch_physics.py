@@ -247,16 +247,32 @@ def test_batch_composition_does_not_change_an_env(plan):
 
 
 def test_wrapper_refuses_unported_layouts(plan):
-    temp, q, t_inf, h, _ = _inputs(plan["jg"].shape, 2, seed=8)
+    """Every layout of fdm_step_pallas is ported: the stack blocks and a
+    precomputed word plane run (the plain versions on CPU tensors), and the
+    kernel launchers still take CUDA tensors only."""
+    temp, q, t_inf, h, keys = _inputs(plan["jg"].shape, 3, seed=8)
     args = (*_torch(temp, q, t_inf, h), plan["tc"])
-    with pytest.raises(NotImplementedError):
-        fdm_cuda.fdm_step_cuda(*args, block_envs=2, block_mode="stack", **FDM_KW)
-    with pytest.raises(NotImplementedError):
-        # A precomputed (threefry) decision-word plane is not ported.
-        fdm_cuda.fdm_step_cuda(*args, conv_offsets=((0, 1),),
-                               conv_word=torch.zeros(temp.shape, dtype=torch.int64), **FDM_KW)
+    fdm_cuda.reset_launch_counts()
+    stack = fdm_cuda.fdm_step_cuda(*args, block_envs=2, block_mode="stack", **FDM_KW)
+    solo = fdm_cuda.fdm_step_cuda(*args, **FDM_KW)
+    for a, b in zip(stack, solo):
+        assert torch.equal(a, b)
+    tb = plan["tb"]
+    words = tconv.decision_word_from_key(torch.as_tensor(keys.astype(np.int64)),
+                                         tconv.decision_word_params(tb), plan["jg"].shape)
+    conv = dict(conv_offsets=tb.offsets, conv_lead=tb.lead_words, conv_foll=tb.foll_words)
+    by_word = fdm_cuda.fdm_step_cuda(*args, conv_word=words, **conv, **FDM_KW)
+    by_key = fdm_cuda.fdm_step_cuda(
+        *args, conv_keys=torch.as_tensor(keys.astype(np.int64)),
+        conv_word_params=tconv.decision_word_params(tb), **conv, **FDM_KW)
+    for a, b in zip(by_word, by_key):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError):
         # The kernel launchers take CUDA tensors only; no CPU fallback.
         fdm_cuda.fdm_jacobi_cuda(
             fdm_cuda.kernel_inputs(*args), threshold=0.1, iteration_limit=5)
-    assert fdm_cuda.launch_counts == {"fdm_cheby": 0, "fdm_jacobi": 0}
+    with pytest.raises(ValueError):
+        fdm_cuda.fdm_cheby_block_cuda(
+            fdm_cuda.kernel_inputs(*args), threshold=0.1, iteration_limit=5,
+            spectral_radius=plan["rho"], block_envs=2)
+    assert fdm_cuda.launch_counts == dict.fromkeys(fdm_cuda.launch_counts, 0)

@@ -109,8 +109,10 @@ def test_convection_buckets(built):
     assert tb.offsets == jb.offsets
     assert (tb.enabled, tb.method, tb.p_round, tb.rng) == (
         jb.enabled, jb.method, jb.p_round, jb.rng)
-    for name in ("lead_masks", "lead_words", "foll_words"):
+    for name in ("lead_masks", "lead_words", "foll_words", "flat_indices",
+                 "segment_keys"):
         _same(getattr(jb, name), getattr(tb, name), name)
+    assert tb.flat_indices.dtype == np.int32 and tb.segment_keys.dtype == np.float32
     params = tconv.decision_word_params(tb)
     assert params == jconv.decision_word_params(jb)
     assert params[2] == 8  # 8-bit decision lanes at the sb1 calibration
