@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (sbsim_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                   # all phases
+    python3 chip_smoke.py --decomposition [DIR]  # phases 0-1 and the
+                                                 # Chebyshev decomposition;
+                                                 # SASS into DIR
 
 Phases (each prints its own lines; any failure exits non-zero):
   0. CUDA runtime, nvcc and card (name and power limit, from nvidia-smi).
@@ -15,7 +18,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      iteration limit, and with the zone-statistics epilogue (also with
      windows that need several passes of its scratch plane): fields,
      iteration counts, converged flags and zone/grid sums must be bitwise
-     equal; K3/K4 must also equal K2/K1 env for env.
+     equal; K3/K4 must also equal K2/K1 env for env; K4 at every E its
+     launcher takes (1-4 at 12 zones); K1/K4 on the 9x11 two-zone grid
+     (columns end in a short run, planes not a multiple of 16 bytes).
   3. The main paths at full width, sb1_config(num_days_in_episode=2), reset,
      then step_batched: "pallas_cheby" at 12 zones B=2048 and 126 rooms
      B=512 (layout="auto"), "pallas_env" at 12 zones B=2048 (K1, K2 with
@@ -26,10 +31,14 @@ Phases (each prints its own lines; any failure exits non-zero):
      steps; fields and observations finite, rewards in [-1, 0]. Env-steps/s
      from CUDA events; each kernel and its plain version timed alone on the
      path's own inputs, with the bound the card could reach (K1 also with
-     statistics and with the word plane; K3/K4 beside K2/K1 and at
-     E = 2, 4, 8), with its thread blocks resident per SM; and a
-     torch.profiler breakdown of 4 more steps (device busy and idle share,
-     kernels by device time).
+     statistics and with the word plane; K3/K4 beside K2/K1; K3 at
+     E = 2, 4, 8 and K4 at E = 1-4), with its thread blocks resident per
+     SM; and a torch.profiler breakdown of 4 more steps (device busy and
+     idle share, kernels by device time). Then the decomposition of K1 and
+     K4 at 12 zones B=2048 and 126 rooms B=512 on seeded inputs: the solve
+     alone, with mix32 swaps, with the word plane, with statistics; the
+     cost of one sub-iteration (slope over iteration_limit 5-33 at
+     threshold -1); registers and spills of each instance.
   4. Wiring: 3 steps at 12 zones B=64 through the kernels and through the
      plain versions on the card give bitwise-equal states, in the
      interleaved and stack layouts and with threefry and argsort
@@ -154,11 +163,13 @@ def make_env(which: str, device):
     return building_env.BuildingEnv(cfg, device=device)
 
 
-def block_envs(env) -> int:
-    """The envs per thread block K3/K4 run for this env's config."""
+def block_envs(env, kname: str) -> int:
+    """The envs per thread block K3 or K4 (kname) runs for this env's
+    config."""
     from sbsim_tpu_torch.physics import fdm_cuda
 
-    return fdm_cuda.effective_block_envs(env.geom.shape, env.config.pallas_block_envs)
+    return fdm_cuda.effective_block_envs(env.geom.shape, env.config.pallas_block_envs,
+                                         cheby=kname.startswith("fdm_cheby"))
 
 
 def kernel_of(env, solver: str) -> str:
@@ -230,7 +241,7 @@ def run_kernel(name, env, inp, conv, limit, plain=False, stats=None, e=None):
         kw.update(spectral_radius=env._spectral_radius,
                   check_every=env.config.cheby_check_every)
     if name.endswith("_block"):
-        kw.update(block_envs=e or block_envs(env))
+        kw.update(block_envs=e or block_envs(env, name))
     fn = getattr(fdm_cuda, f"{name}_plain" if plain else f"{name}_cuda")
     return fn(inp, **kw)
 
@@ -499,18 +510,60 @@ def training_phase(env, kname, n_envs, seed_steps, train_steps, eval_steps, max_
     return counts[kname]
 
 
+def ragged_phase(max_err) -> None:
+    """K1 and K4 on the 9 x 11 grid of two_zone_test_config: columns end in
+    a run of 1 cell and a plane (396 B) is not a multiple of 16 bytes, so
+    the threads copy what the bulk engine cannot; B=13, mix32 swap rounds
+    on the config's own round, bitwise against the plain versions and K4
+    against K1."""
+    import numpy as np
+    import torch
+    from sbsim_tpu_torch.envs import building_env, presets
+    from sbsim_tpu_torch.physics import convection, fdm_cuda
+
+    env = building_env.BuildingEnv(presets.two_zone_test_config(), device=DEVICE)
+    rs = np.random.default_rng(13)
+    batch, shape = 13, env.geom.shape
+    t = lambda a: torch.as_tensor(a, device=env.device)
+    inp = fdm_cuda.kernel_inputs(
+        t((294.0 + rs.normal(0, 2.0, (batch,) + shape)).astype(np.float32)),
+        t(rs.uniform(0.0, 50.0, (batch,) + shape).astype(np.float32)),
+        t(rs.uniform(270.0, 300.0, batch).astype(np.float32)),
+        t(np.full(batch, 100.0, np.float32)), env.coeffs)
+    buckets = dataclasses.replace(env.convection, enabled=True, rng="mix32")
+    conv = fdm_cuda.ConvInputs(
+        offsets=buckets.offsets, lead=fdm_cuda.packed_plane(buckets.lead_words, env.device),
+        foll=fdm_cuda.packed_plane(buckets.foll_words, env.device),
+        word_params=convection.decision_word_params(buckets),
+        keys=t(rs.integers(0, 2**32, (batch, 2), dtype=np.uint64).astype(np.int64)))
+    print(f" ragged: grid {shape}, B={batch}, rounds={len(conv.offsets)}", flush=True)
+    solo = None
+    for kname, e in [("fdm_cheby", None)] + [
+            ("fdm_cheby_block", ek) for ek in range(1, fdm_cuda.cheby_max_envs(shape) + 1)]:
+        got = run_kernel(kname, env, inp, conv, 100, e=e)
+        want = run_kernel(kname, env, inp, conv, 100, plain=True, e=e)
+        label = f"{kname}{'' if e is None else f' E={e}'} ragged 9x11"
+        max_err[kname] = max(max_err[kname], compare(label, got, want))
+        if solo is None:
+            solo = got
+        else:
+            compare(f"{label} vs fdm_cheby", got, solo)
+
+
 def check_phase(envs, max_err) -> None:
     """Phase 2: every kernel against its plain version; K3/K4 also against
-    K2/K1 env for env."""
+    K2/K1 env for env; K4 at every E it takes; K1/K4 on a ragged grid."""
+    from sbsim_tpu_torch.physics import fdm_cuda
+
     print("phase 2: kernels vs plain versions on the card", flush=True)
     for which, batch in CHECK_SHAPES:
         env = envs[which]
-        e = block_envs(env)
+        e = {k: block_envs(env, k) for k in SOLO}
         print(f" {which}: grid {env.geom.shape}, B={batch}, block envs {e}, "
               f"rounds={len(env.convection.offsets)}, rho={env._spectral_radius:.6f}",
               flush=True)
         for kname in KERNELS:
-            if batch % e and kname in SOLO.values():
+            if kname in SOLO.values() and any(batch % v for v in e.values()):
                 continue  # the partial block is K3/K4's case
             for seed, (conv_kind, limit, with_stats) in enumerate(CHECK_CASES):
                 inp, conv = seeded_inputs(env, batch, seed=10 * seed + limit, conv_kind=conv_kind)
@@ -531,6 +584,20 @@ def check_phase(envs, max_err) -> None:
                 want = run_kernel(kname, env, inp, conv, 100, plain=True, stats=stats)
                 compare(f"{kname} conv=mix32 stats=12 zones of 30x40 (several passes)",
                         got, want)
+        if which == "12zone" and batch == 64:
+            # K4 at every E its launcher takes on this grid, against K1.
+            inp, conv = seeded_inputs(env, batch, seed=12, conv_kind="mix32")
+            solo = run_kernel("fdm_cheby", env, inp, conv, 100, stats=env._stats)
+            for ek in range(1, fdm_cuda.cheby_max_envs(env.geom.shape) + 1):
+                got = run_kernel("fdm_cheby_block", env, inp, conv, 100, stats=env._stats,
+                                 e=ek)
+                want = run_kernel("fdm_cheby_block", env, inp, conv, 100, plain=True,
+                                  stats=env._stats, e=ek)
+                label = f"fdm_cheby_block E={ek} conv=mix32 stats=True"
+                max_err["fdm_cheby_block"] = max(max_err["fdm_cheby_block"],
+                                                 compare(label, got, want))
+                compare(f"{label} vs fdm_cheby", got, solo)
+    ragged_phase(max_err)
 
 
 def main_path_phase(envs, max_err, bw, flops, tag):
@@ -579,7 +646,7 @@ def main_path_phase(envs, max_err, bw, flops, tag):
         med = statistics.median(ms)
         iters = state.fdm_iterations.float()
         fused, with_stats = env.kernel_path(solver)
-        e_note = f", {block_envs(env)} envs per block" if kname in SOLO else ""
+        e_note = f", {block_envs(env, kname)} envs per block" if kname in SOLO else ""
         print(f" {label} B={batch} {solver} ({kname}{e_note}, conv "
               f"{env.config.convection.method}/{env.config.convection.rng} fused={fused}, "
               f"kernel statistics={with_stats}): {steps} steps, launches {counts}; "
@@ -605,7 +672,8 @@ def main_path_phase(envs, max_err, bw, flops, tag):
             p_ms = time_call(
                 lambda: run_kernel(name, env, inp, cv, limit, plain=True, stats=st, e=e), 3)
             b_ms, b_by = bound_ms(inp, cv, got[1], name, bw, flops, st)
-            occ = fdm_cuda.blocks_per_sm(name, env.geom.shape, e or block_envs(env))
+            occ = fdm_cuda.blocks_per_sm(name, env.geom.shape, e or (
+                block_envs(env, name) if name in SOLO else 1))
             print(f"  {name}{note} alone: {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
                   f"{b_ms:.4f} ms ({b_by}) -> {b_ms / k_ms:.1%} of bound; {occ} blocks "
                   f"per SM {tag}", flush=True)
@@ -626,7 +694,9 @@ def main_path_phase(envs, max_err, bw, flops, tag):
             print(f"  {SOLO[kname]} alone on the same inputs: {s_ms:.4f} ms; {occ} blocks "
                   f"per SM {tag}", flush=True)
             if label == "12zone stack":
-                for e in BLOCK_SWEEP:
+                sweep = (range(1, fdm_cuda.cheby_max_envs(env.geom.shape) + 1)
+                         if kname == "fdm_cheby_block" else BLOCK_SWEEP)
+                for e in sweep:
                     _, te = alone(kname, e=e, note=f" E={e}")
                     timing[(kname, f"{label} E={e}")] = te
         elif kname == "fdm_cheby" and label == "12zone":
@@ -640,6 +710,136 @@ def main_path_phase(envs, max_err, bw, flops, tag):
             timing[("fdm_cheby", f"{label} word plane")] = t
         profile_steps(env, state, acts, solver, 4, tag)
     return launches, timing
+
+
+def ptxas_usage(log: str):
+    """[(entry, registers, spill store bytes, spill load bytes)] per kernel
+    instance, from nvcc's -Xptxas -v output."""
+    import re
+
+    rows, entry, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, spill = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            rows.append((entry, int(m.group(1))) + spill)
+            entry = None
+    return rows
+
+
+def sass_loops(sass: str):
+    """Per kernel function in `cuobjdump -sass` output: its loops (a branch
+    back to an earlier address) as (instructions, opcode histogram)."""
+    import re
+
+    out = {}
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        fname = block.split("\n", 1)[0].strip()
+        ins = []
+        for line in block.splitlines():
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*?);", line)
+            if m:
+                ins.append((int(m.group(1), 16), m.group(3), m.group(4)))
+        loops = []
+        for addr, op, rest in ins:
+            t = re.search(r"(0x[0-9a-f]+)", rest)
+            if op.startswith("BRA") and t and int(t.group(1), 16) < addr:
+                target = int(t.group(1), 16)
+                hist = {}
+                for a, o, _ in ins:
+                    if target <= a <= addr:
+                        hist[o.split(".")[0]] = hist.get(o.split(".")[0], 0) + 1
+                loops.append((sum(hist.values()), hist))
+        out[fname] = sorted(loops, key=lambda x: x[0])
+    return out
+
+
+def sweep_loop(loops):
+    """The Chebyshev sweep among a kernel's loops: the smallest loop with
+    multiplies in fives (four stencil products and omega's per cell
+    update), a shared store and no shuffle (not a reduction); returns
+    (instructions, cell updates in its body, histogram) or None."""
+    for n, h in loops:
+        f = h.get("FMUL", 0)
+        if f >= 5 and f % 5 == 0 and h.get("STS") and not h.get("SHFL"):
+            return n, f // 5, h
+    return None
+
+
+# Decomposition of the Chebyshev kernels: (env, batch, block envs of K4).
+DECOMP_SHAPES = (("12zone", 2048, (1, 2, 3, 4)), ("126room", 512, (1,)))
+DECOMP_LIMITS = (5, 9, 17, 33)
+
+
+def decomposition(envs, tag, sass_dir=None) -> None:
+    """K1 and K4 on seeded inputs at the main path's shapes: the solve
+    alone, then with the mix32 swap rounds, with the word plane instead,
+    with statistics (12 zones); the cost of one sub-iteration as the slope
+    of kernel time over iteration_limit 5..33 with threshold -1 (every env
+    runs to the limit); each instance's registers, spills and resident
+    blocks per SM; with `sass_dir`, the SASS of the library and the
+    instructions of each kernel's sweep loop."""
+    import numpy as np
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    print("decomposition of the Chebyshev kernels", flush=True)
+    for entry, regs, st, ld in ptxas_usage(fdm_cuda.build_log):
+        print(f"  ptxas {entry}: {regs} registers, spill stores {st} B, loads {ld} B",
+              flush=True)
+    for which, batch, es in DECOMP_SHAPES:
+        env = envs[which]
+        for name, e in [("fdm_cheby", None)] + [("fdm_cheby_block", e) for e in es]:
+            label = f"{name}{'' if e is None else f' E={e}'} {which} B={batch}"
+            occ = fdm_cuda.blocks_per_sm(name, env.geom.shape, e or 1)
+            cases = [("solve only", None, False), ("+ mix32 swaps", "mix32", False),
+                     ("+ word plane swaps", "words", False)]
+            if env.n_zones <= 12:
+                cases += [("+ mix32 swaps + statistics", "mix32", True)]
+            parts = []
+            for note, kind, with_stats in cases:
+                inp, conv = seeded_inputs(env, batch, seed=21, conv_kind=kind)
+                st = env._stats if with_stats else None
+                run = lambda: run_kernel(name, env, inp, conv, env.config.iteration_limit,
+                                         stats=st, e=e)
+                iters = run()[1]
+                ms = time_call(run, 20)
+                parts.append(f"{note} {ms:.4f} ms (iterations mean "
+                             f"{float(iters.float().mean()):.2f})")
+            inp, _ = seeded_inputs(env, batch, seed=21, conv_kind=None)
+            times = []
+            for limit in DECOMP_LIMITS:
+                kw = dict(threshold=-1.0, iteration_limit=limit, conv=None,
+                          spectral_radius=env._spectral_radius,
+                          check_every=env.config.cheby_check_every)
+                if e is not None:
+                    kw.update(block_envs=e)
+                fn = getattr(fdm_cuda, f"{name}_cuda")
+                times.append(time_call(lambda: fn(inp, **kw), 10))
+            slope, icpt = np.polyfit(np.array(DECOMP_LIMITS, float), np.array(times), 1)
+            print(f"  {label}: {occ} blocks per SM; " + "; ".join(parts) + "; limit "
+                  f"{'/'.join(map(str, DECOMP_LIMITS))} at threshold -1: "
+                  f"{'/'.join(f'{t:.4f}' for t in times)} ms -> {slope * 1e3:.2f} us per "
+                  f"sub-iteration ({slope * 1e6 * 132 / batch / env.geom.shape[0] / env.geom.shape[1]:.3f}"
+                  f" ns per cell update per SM), intercept {icpt:.4f} ms {tag}", flush=True)
+    if sass_dir:
+        os.makedirs(sass_dir, exist_ok=True)
+        cuobjdump = os.path.join(os.path.dirname(fdm_cuda._nvcc()), "cuobjdump")
+        sass = subprocess.run([cuobjdump, "-sass", fdm_cuda.build()], capture_output=True,
+                              text=True, check=True).stdout
+        with open(os.path.join(sass_dir, "fdm_kernels.sass"), "w") as f:
+            f.write(sass)
+        for fname, loops in sass_loops(sass).items():
+            found = sweep_loop(loops) if "cheby" in fname else None
+            if found:
+                n, cells, h = found
+                top = ", ".join(f"{k} {v}" for k, v in sorted(h.items(), key=lambda kv: -kv[1])[:10])
+                print(f"  sass {fname}: sweep loop {n} instructions for {cells} cell updates "
+                      f"({n / cells:.1f} per cell update): {top}", flush=True)
 
 
 def wiring_phase(envs) -> None:
@@ -713,9 +913,16 @@ def main() -> int:
             print("  ptxas:", line.strip(), flush=True)
 
     envs = {which: make_env(which, dev) for which in _PLANS}
+    if "--decomposition" in sys.argv:
+        # Only the Chebyshev kernels' decomposition, with their SASS written
+        # into the directory that follows the flag, if one does.
+        rest = sys.argv[sys.argv.index("--decomposition") + 1:]
+        decomposition(envs, tag, sass_dir=rest[0] if rest else None)
+        return 0
     max_err = dict.fromkeys(KERNELS, 0.0)
     check_phase(envs, max_err)
     launches, timing = main_path_phase(envs, max_err, bw, flops, tag)
+    decomposition(envs, tag)
     wiring_phase(envs)
 
     # ---- Phase 5 ---------------------------------------------------------

@@ -1,19 +1,19 @@
 // FDM convergence loops for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of sbsim_tpu/physics/fdm_pallas.py:
-//   fdm_cheby_kernel  (K1) <- _fdm_cheby_kernel_interleaved (:630) and its
-//                        E=1 form _fdm_cheby_kernel (:279): Chebyshev
-//                        semi-iteration of the Jacobi map, residual sampled
-//                        every `check_every` sub-iterations, then J(x), the
-//                        decision word and the swap rounds. One env per
-//                        thread block.
+//   fdm_cheby_body<E, STAGED> <- K1 (E = 1): _fdm_cheby_kernel_interleaved
+//                        (:630) and its one-env form _fdm_cheby_kernel
+//                        (:279); K4 (E = 1..4): _fdm_cheby_kernel_block
+//                        (:505). Chebyshev semi-iteration of the Jacobi
+//                        map, residual sampled every `check_every`
+//                        sub-iterations, then J(x), the decision words and
+//                        the swap rounds. One device body for both.
 //   fdm_jacobi_kernel (K2) <- _fdm_kernel (:207): Jacobi while
 //                        it < limit and max|dx| > threshold, then the same
 //                        convection epilogue. One env per thread block.
-//   fdm_jacobi_block_kernel (K3) <- _fdm_kernel_block (:416) and
-//   fdm_cheby_block_kernel  (K4) <- _fdm_cheby_kernel_block (:505): the
-//                        stack layout, E envs per thread block sharing one
-//                        loop (see "Block kernels" below).
+//   fdm_jacobi_block_kernel (K3) <- _fdm_kernel_block (:416): the stack
+//                        layout, E envs per thread block sharing one loop
+//                        (see "Block kernels" below).
 // The decision word of the swap rounds is the mix32 hash of the env's key,
 // made in the kernel, or, when the wrapper passes a (B, H, W) word plane
 // (the threefry words), read from that plane (_kernel_conv_word, :192).
@@ -32,19 +32,56 @@
 // sb1 shapes 4 x 13,936 B x 2048 envs (12 zones, 34 us at 3.35 TB/s) or
 // 4 x 93,744 B x 512 envs (126 rooms, 57 us). The arithmetic of the ~9
 // Chebyshev sub-iterations an env needs there is of the same order at the
-// float32 peak (about 40 us and 70 us), so neither bound dominates.
+// float32 peak (about 40 us and 70 us), so neither bound dominates. That
+// peak (67 TFLOP/s) assumes fused multiply-adds; built with -fmad=false and
+// IEEE division (a reciprocal, four FFMA and a check per divide) these
+// kernels cannot reach it, and the bound is kept as it is so that it stays
+// comparable.
 //
 // The epilogue adds Z * hc * wc multiplies and about as many adds per env
 // (at 12 zones of 14 x 14, 2,352 each against ~3,484 x 12 flops of one
 // Jacobi sweep) and writes B * (Z + 1) floats.
 //
-// Design of K1/K2: the iterate and its partner plane live in dynamic
-// shared memory for the whole loop (2 x 13.9 KB, or 2 x 93.7 KB = 187.5 KB
-// at 126 rooms, under the 227 KB a block may use), so global memory is read
-// once and written once per env; const, denom and the shared planes are
-// re-read through the read-only cache. Each block loops on its own env until it
-// converges, so batch composition cannot change a result (no padding,
-// no freezing masks). The max-reduction runs only where the stopping rule
+// The Chebyshev body (K1, K4). Measured on the H100 (PERF.md), what
+// bounds it is instruction issue, not bytes: the one-cell-per-thread
+// sweep of the earlier K1 spent ~145 SASS instructions per cell update
+// (a runtime c / W division, seven read-only-cache loads, edge selects)
+// for ~25 of arithmetic, and its swap rounds (two more divisions and two
+// mix32 hashes per cell and round) took 44-49% of its time. The design
+// takes out of the sweep everything that does not change in it:
+//  - Each thread owns runs of kRun = 4 vertically consecutive cells; a
+//    cursor steps from one owned run to the next by (T / W, T % W) with
+//    one carry, so no sweep or swap round divides. The lanes of a warp own
+//    neighbouring columns, so every shared-memory access is conflict-free
+//    and every global one coalesced (row runs measured 4-way bank
+//    conflicts), and a run's cells are each other's vertical neighbours.
+//  - The exterior bits are one byte per run; the four stencil
+//    coefficients of a cell are one 16-byte read of a packed plane, once
+//    per run for all E envs of the block.
+//  - const and denom are staged in shared memory (four planes per env:
+//    E <= 4 at 52 x 67) by the bulk copy engine (cp.async.bulk, one thread,
+//    an mbarrier), as is temp; at 189 x 124 four planes do not fit, so one
+//    env per block reads them from global memory. The result leaves by a
+//    bulk store; a plane whose start is not 16-byte aligned, or the tail
+//    past a multiple of 16 bytes, is copied by the threads.
+//  - The swap rounds first write each owned cell's decision bits for up
+//    to 8 rounds into a byte plane (one mix32 hash per cell and word plane,
+//    or one read of the threefry word), then every round reads bytes.
+//  - Instances: STAGED E = 1-2 (<= 512 threads, 2 blocks per SM: at 3,
+//    E = 1 spilled at 40 registers and ran 12% slower), E = 3-4 (<= 1024,
+//    1 per SM); one env reading from global memory (<= 1024, 1 per SM).
+//    The launcher spreads the runs evenly over the fewest passes.
+// Tensor cores do not apply: a cell update is four products and a divide,
+// and TF32 or bf16 would break the bitwise equality with the plain
+// version.
+//
+// Design of K2: the iterate and its partner plane live in dynamic shared
+// memory for the whole loop (2 x 13.9 KB, or 2 x 93.7 KB = 187.5 KB at 126
+// rooms, under the 227 KB a block may use), so global memory is read once
+// and written once per env; const, denom and the shared planes are re-read
+// through the read-only cache. Each block loops on its own env until it
+// converges, so batch composition cannot change a result (no padding, no
+// freezing masks). The max-reduction runs only where the stopping rule
 // samples it (every Jacobi iteration; the last sub-iteration of each
 // Chebyshev chunk) and is exact (max does not depend on order).
 //
@@ -55,11 +92,11 @@
 // a_t*x_t + const, then / denom; the Chebyshev update
 // omega*(jx - x_prev) + x_prev, then the exterior re-pin.
 //
-// Block kernels (K3, K4). One thread block holds E envs: each env's iterate
-// and its partner plane in dynamic shared memory (2 x H x W floats per
-// env, so E <= 8 at 52 x 67 and E = 1 at 189 x 124; the wrapper clamps E).
-// Each thread owns a fixed set of cells; per cell it reads the shared
-// stencil planes once and applies them to every active env of the block.
+// Block kernels (K3, and K4 through the Chebyshev body). One thread block
+// holds E envs: each env's iterate and its partner plane in dynamic shared
+// memory (K3: 2 x H x W floats per env, so E <= 8 at 52 x 67 and E = 1 at
+// 189 x 124; the wrapper clamps E). Per cell a thread reads the shared
+// stencil once and applies it to every active env of the block.
 // Per-env residual maxima stay in registers and are reduced for all E envs
 // in one block pass (one pair of barriers per sample, not E). The loop runs
 // while it < limit and any env of the block is active; an env whose
@@ -70,13 +107,85 @@
 // block (all envs start at it = 1). Slots past B are inactive from the
 // start. So each env's result equals K1/K2's for that env, bitwise.
 // Bound as above (the same bytes and operations; a word plane adds 4 B per
-// cell per env). The trade: at E = 8 one block of 1024 threads takes an
-// SM's shared memory, and its 59-64 registers per thread allow one block
-// per SM at every E > 2, where K1 runs four blocks of 448 threads per SM
-// (fdm_blocks_per_sm reports it). The epilogue runs env by env.
+// cell per env). K3's trade: at E = 8 one block of 1024 threads takes an
+// SM's shared memory, and its 45-59 registers per thread allow one block
+// per SM at every E > 2 (fdm_blocks_per_sm reports it). The epilogue runs
+// env by env.
 
+#ifdef FDM_HOST_REHEARSAL
+// Host C++ build of the same source (tests/test_torch_kernel_host.py): the
+// stub maps the CUDA built-ins onto host threads and the bulk copies onto
+// memcpy.
+#include "fdm_host_stub.h"
+#else
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#define FDM_DYNAMIC_SMEM(name) extern __shared__ __align__(16) float name[]
+#define FDM_LAUNCH(kernel, grid, threads, smem, stream) \
+  kernel<<<grid, threads, smem, stream>>>
+
+namespace {
+
+// Hopper's bulk copy engine (cp.async.bulk) between global and shared
+// memory, completing on an mbarrier (loads) or a bulk group (stores).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)));
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Makes this thread's shared-memory writes visible to the bulk engine.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Stores and waits until the engine has read the shared source.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+                   dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+}  // namespace
+#endif
 
 namespace {
 
@@ -101,6 +210,7 @@ struct Planes {
   const float* a_b;
   const float* a_t;
   const float* ext;    // (H, W) 1.0 at exterior CVs
+  const float4* coef;  // (H, W) packed (a_r, a_l, a_b, a_t): K1/K4 only
   const uint32_t* lead;  // (H, W) packed lead masks
   const uint32_t* foll;  // (H, W) packed follower masks
   const int64_t* keys;   // (B, 2) uint32 values
@@ -360,7 +470,7 @@ __device__ void epilogue(float* field, float* spare, const Planes& p,
 __global__ void __launch_bounds__(kMaxThreads)
     fdm_jacobi_kernel(Planes p, ConvArgs cv, StatArgs st, float threshold,
                       int limit) {
-  extern __shared__ float smem[];
+  FDM_DYNAMIC_SMEM(smem);
   __shared__ float red[33];
   const int b = blockIdx.x;
   const int W = p.W, hw = p.H * p.W;
@@ -394,77 +504,6 @@ __global__ void __launch_bounds__(kMaxThreads)
     p.converged[b] = delta <= threshold ? 1 : 0;
   }
   epilogue(x, xn, p, cv, st, b);
-}
-
-__global__ void __launch_bounds__(kMaxThreads)
-    fdm_cheby_kernel(Planes p, ConvArgs cv, StatArgs st, float threshold,
-                     int limit, float rho2, float omega0, int check_every) {
-  extern __shared__ float smem[];
-  __shared__ float red[33];
-  const int b = blockIdx.x;
-  const int W = p.W, hw = p.H * p.W;
-  const float* cnst = p.cnst + (size_t)b * hw;
-  const float* denom = p.denom + (size_t)b * hw;
-  const float tinf = p.tinf[b];
-  float* x_prev = smem;
-  float* x = smem + hw;
-  const float* t0 = p.temp + (size_t)b * hw;
-  for (int c = threadIdx.x; c < hw; c += blockDim.x) x_prev[c] = t0[c];
-  __syncthreads();
-
-  // x1 = J(x0), delta0 = max |x1 - x0|.
-  float m = 0.0f;
-  for (int c = threadIdx.x; c < hw; c += blockDim.x) {
-    const int y = c / W;
-    const float v = jacobi_cell(x_prev, c, y, c - y * W, p, cnst, denom, tinf);
-    x[c] = v;
-    m = nan_max(m, fabsf(v - x_prev[c]));
-  }
-  float delta = block_max(m, red);
-  bool done = delta <= threshold;
-  int it = 1;
-  int n_iter = 1;
-  float omega = omega0;
-  while (it < limit && !done) {
-    for (int k = 0; k < check_every; ++k) {
-      const float omega_next = 1.0f / (1.0f - rho2 * omega / 4.0f);
-      const bool sample = k == check_every - 1;
-      m = 0.0f;
-      for (int c = threadIdx.x; c < hw; c += blockDim.x) {
-        const int y = c / W;
-        const float jx = jacobi_cell(x, c, y, c - y * W, p, cnst, denom, tinf);
-        const float xp = x_prev[c];
-        float v = omega_next * (jx - xp) + xp;
-        if (__ldg(p.ext + c) > 0.0f) v = tinf;
-        if (sample) m = nan_max(m, fabsf(jx - x[c]));
-        // x_next overwrites x_prev in place: cell c reads only x_prev[c].
-        x_prev[c] = v;
-      }
-      if (sample) {
-        delta = block_max(m, red);
-      } else {
-        __syncthreads();
-      }
-      float* t = x_prev;
-      x_prev = x;
-      x = t;
-      ++it;
-      omega = omega_next;
-    }
-    n_iter = it;
-    done = delta <= threshold;
-  }
-  // Emit J(x_final) into the spare plane.
-  for (int c = threadIdx.x; c < hw; c += blockDim.x) {
-    const int y = c / W;
-    x_prev[c] = jacobi_cell(x, c, y, c - y * W, p, cnst, denom, tinf);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    p.iters[b] = n_iter;
-    p.converged[b] = done ? 1 : 0;
-  }
-  epilogue(x_prev, x, p, cv, st, b);
 }
 
 // ---------------------------------------------------------------------------
@@ -547,7 +586,7 @@ template <int E>
 __global__ void __launch_bounds__(kMaxThreads)
     fdm_jacobi_block_kernel(Planes p, ConvArgs cv, StatArgs st,
                             float threshold, int limit, int B) {
-  extern __shared__ float smem[];
+  FDM_DYNAMIC_SMEM(smem);
   __shared__ float red[E][33];
   const int b0 = blockIdx.x * E;
   const int n_env = min(E, B - b0);
@@ -606,48 +645,381 @@ __global__ void __launch_bounds__(kMaxThreads)
   block_finish<E>(smem, p, cv, st, b0, n_env, slots, iters, conv);
 }
 
-// K4: _fdm_cheby_kernel_block. The freeze state is fixed for each chunk of
-// `check_every` sub-iterations and sampled at its last one; omega advances
-// once per sub-iteration for the whole block.
-template <int E>
-__global__ void __launch_bounds__(kMaxThreads)
-    fdm_cheby_block_kernel(Planes p, ConvArgs cv, StatArgs st,
-                           float threshold, int limit, float rho2,
-                           float omega0, int check_every, int B) {
-  extern __shared__ float smem[];
+// ---------------------------------------------------------------------------
+// K1 and K4: one Chebyshev body, E envs per thread block (K1 is E = 1)
+// ---------------------------------------------------------------------------
+
+constexpr int kRun = 4;           // cells a thread owns per run along a row
+constexpr int kChebyMaxEnvs = 4;  // envs per block with const/denom staged
+constexpr int kChebyStaticSmem = 1024;  // red[E][33] and the mbarrier
+
+// Threads per block (at most) and blocks per SM the compiler must allow
+// for an instance: E envs with const/denom in shared memory (staged), or
+// one env reading them from global memory (a grid too large to stage).
+template <int E, bool STAGED>
+struct ChebyShape {
+  static constexpr int kThreads = STAGED && E <= 2 ? 512 : 1024;
+  static constexpr int kMinBlocks = !STAGED ? 1 : E <= 2 ? 2 : 1;
+};
+
+// Run ownership: each column is cut into runs of kRun vertically
+// consecutive cells (row blocks of kRun rows, the last one shorter when
+// kRun does not divide H); runs are numbered row block by row block,
+// column by column within one, and thread t owns runs t, t + T, ... (T
+// threads). So the lanes of a warp own neighbouring columns: for each of a
+// run's cells they read consecutive words of shared memory (no bank
+// conflict) and of the shared stencil planes (coalesced), and a run's
+// cells are each other's up/down neighbours. Stepping from one owned run
+// to the next adds (step_b, step_x) = (T / W, T % W) with one carry, so no
+// sweep divides.
+struct RunGrid {
+  int H, W, hw;
+  int plane;  // floats between planes in shared memory (hw rounded to 4)
+  int row_blocks, n_runs;
+  int step_b, step_x;
+  int edge_fill;
+};
+
+struct Cursor {
+  int r, yb, x;
+};
+
+__device__ __forceinline__ Cursor first_run(const RunGrid& g) {
+  Cursor q;
+  q.r = threadIdx.x;
+  q.yb = q.r / g.W;  // once per pass, outside the cell loop
+  q.x = q.r - q.yb * g.W;
+  return q;
+}
+
+__device__ __forceinline__ void next_run(Cursor& q, const RunGrid& g) {
+  q.r += blockDim.x;
+  q.yb += g.step_b;
+  q.x += g.step_x;
+  if (q.x >= g.W) {
+    q.x -= g.W;
+    ++q.yb;
+  }
+}
+
+// One run's cells and neighbours: c0 its first (top) cell, n its length,
+// iu the cell above it and id the cell below its last cell, dl/dr the
+// offsets of a cell's left/right neighbour; with a roll they wrap as
+// jacobi_at's reads do, with edge fill the f* flags say that neighbour is
+// t_inf.
+struct Run {
+  int c0, n, y0, iu, id, dl, dr;
+  bool fl, fr, fu, fd;
+};
+
+__device__ __forceinline__ Run make_run(const Cursor& q, const RunGrid& g) {
+  Run u;
+  const bool edge = g.edge_fill != 0;
+  u.y0 = q.yb * kRun;
+  u.n = min(kRun, g.H - u.y0);
+  u.c0 = u.y0 * g.W + q.x;
+  const int ye = u.y0 + u.n;
+  u.iu = u.y0 > 0 ? u.c0 - g.W : (g.H - 1) * g.W + q.x;
+  u.id = ye < g.H ? u.c0 + u.n * g.W : q.x;
+  u.dl = q.x > 0 ? -1 : g.W - 1;
+  u.dr = q.x + 1 < g.W ? 1 : 1 - g.W;
+  u.fl = edge && q.x == 0;
+  u.fr = edge && q.x + 1 == g.W;
+  u.fu = edge && u.y0 == 0;
+  u.fd = edge && ye == g.H;
+  return u;
+}
+
+// One pass of the Chebyshev body over one run, for every env of `envs`:
+// kFirst writes x1 = J(x0) (slot 1 from slot 0), kCheby writes x_next =
+// omega (J(x) - x_prev) + x_prev over x_prev in place (exterior re-pinned),
+// kFinal writes J(x_final) into the x_prev slot; kFirst and sampling kCheby
+// passes fold |J(x) - x| into m. Each cell update is the plain version's
+// float32 sequence. The stencil of a cell is one 16-byte read of the
+// packed (a_r, a_l, a_b, a_t) plane through the read-only cache, shared by
+// the block's envs; a full run (FULL: kRun cells) needs no guards.
+enum Pass { kFirst, kCheby, kFinal };
+
+template <int E, bool STAGED, int PASS, bool FULL>
+__device__ __forceinline__ void run_pass(const Run& u, uint32_t ext,
+                                         const Planes& p, const RunGrid& g,
+                                         float* smem, const float* const* cn_g,
+                                         const float* const* dn_g,
+                                         const float (&tinf)[E], unsigned envs,
+                                         unsigned prev_slots, float omega_next,
+                                         bool sample, float (&m)[E]) {
+  constexpr int kPlanes = STAGED ? 4 : 2;
+  const int n = FULL ? kRun : u.n;
+  const int W = g.W;
+  const size_t P = g.plane;
+  const bool edge = g.edge_fill != 0;
+  float4 k[kRun];
+#pragma unroll
+  for (int i = 0; i < kRun; ++i) {
+    k[i] = i < n ? __ldg(p.coef + u.c0 + i * W) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if (!((envs >> e) & 1u)) continue;
+    const int s = PASS == kFirst ? 0 : (prev_slots >> e) & 1u;
+    float* env = smem + (size_t)e * kPlanes * P;
+    const float* x = env + (PASS == kFirst ? 0 : 1 - s) * P;
+    float* dst = env + (PASS == kFirst ? 1 : s) * P;
+    float xv[kRun];
+#pragma unroll
+    for (int i = 0; i < kRun; ++i) xv[i] = i < n ? x[u.c0 + i * W] : 0.0f;
+    const float top = u.fu ? tinf[e] : x[u.iu];
+    const float bottom = u.fd ? tinf[e] : x[u.id];
+#pragma unroll
+    for (int i = 0; i < kRun; ++i) {
+      if (i >= n) continue;
+      const int c = u.c0 + i * W;
+      const float xl = u.fl ? tinf[e] : x[c + u.dl];
+      const float xr = u.fr ? tinf[e] : x[c + u.dr];
+      const float xt = i == 0 ? top : xv[i > 0 ? i - 1 : 0];
+      const float xb = i + 1 < n ? xv[i + 1 < kRun ? i + 1 : i] : bottom;
+      const float cn = STAGED ? env[2 * P + c] : __ldg(cn_g[e] + c);
+      const float dn = STAGED ? env[3 * P + c] : __ldg(dn_g[e] + c);
+      float num = k[i].x * xr;
+      num = num + k[i].y * xl;
+      num = num + k[i].z * xb;
+      num = num + k[i].w * xt;
+      num = num + cn;
+      const float v = num / dn;
+      const bool pin = (ext >> i) & 1u;
+      const float jx = edge && pin ? tinf[e] : v;
+      if (PASS == kCheby) {
+        const float xp = dst[c];
+        float nx = omega_next * (jx - xp) + xp;
+        if (pin) nx = tinf[e];
+        if (sample) m[e] = nan_max(m[e], fabsf(jx - xv[i]));
+        // x_next overwrites x_prev in place: cell c reads only x_prev[c].
+        dst[c] = nx;
+      } else {
+        if (PASS == kFirst) m[e] = nan_max(m[e], fabsf(jx - xv[i]));
+        dst[c] = jx;
+      }
+    }
+  }
+}
+
+// One pass over all of a thread's runs.
+template <int E, bool STAGED, int PASS>
+__device__ __forceinline__ void sweep(const Planes& p, const RunGrid& g,
+                                      float* smem, const uint8_t* ext_bits,
+                                      const float* const* cn_g,
+                                      const float* const* dn_g,
+                                      const float (&tinf)[E], unsigned envs,
+                                      unsigned prev_slots, float omega_next,
+                                      bool sample, float (&m)[E]) {
+  for (Cursor q = first_run(g); q.r < g.n_runs; next_run(q, g)) {
+    const Run u = make_run(q, g);
+    const uint32_t ext = ext_bits[q.r];
+    if (u.n == kRun) {
+      run_pass<E, STAGED, PASS, true>(u, ext, p, g, smem, cn_g, dn_g, tinf, envs,
+                                      prev_slots, omega_next, sample, m);
+    } else {
+      run_pass<E, STAGED, PASS, false>(u, ext, p, g, smem, cn_g, dn_g, tinf, envs,
+                                       prev_slots, omega_next, sample, m);
+    }
+  }
+}
+
+// The leading floats of an n-float global array that the bulk engine
+// copies: a multiple of 4 floats from a 16-byte-aligned start, else none
+// (the block's threads copy the rest).
+__device__ __forceinline__ int bulk_floats(const float* g, int n) {
+  return ((uintptr_t)g & 15) == 0 ? (n & ~3) : 0;
+}
+
+// Copies n floats from global src to shared dst: thread 0 hands the bulk
+// part to the engine (completing on `bar`, whose expected bytes it has
+// set), the block's threads copy the rest.
+__device__ __forceinline__ void stage_in(float* dst, const float* src, int n,
+                                         uint64_t* bar) {
+  const int body = bulk_floats(src, n);
+  if (body > 0 && threadIdx.x == 0) bulk_load(dst, src, (uint32_t)body * 4u, bar);
+  for (int c = body + threadIdx.x; c < n; c += blockDim.x) dst[c] = src[c];
+}
+
+// Writes n floats of shared src to global dst the same way; every thread
+// has fenced its shared writes and the block has met at a barrier.
+__device__ __forceinline__ void stage_out(float* dst, const float* src, int n) {
+  const int body = bulk_floats(dst, n);
+  if (body > 0 && threadIdx.x == 0) bulk_store(dst, src, (uint32_t)body * 4u);
+  for (int c = body + threadIdx.x; c < n; c += blockDim.x) dst[c] = src[c];
+}
+
+// The R swap rounds (_kernel_apply_swaps) on owned runs. Rounds go in
+// groups of up to 8: first each thread writes its cells' decision bits for
+// the group's rounds into the byte plane `dec` (one word read, or one
+// mix32 hash per cell and plane), then each round reads them, a lead its
+// own and a follower its lead's. Partners wrap by a conditional add
+// (cv's offsets are normalised to [0, H) x [0, W)). Returns the plane that
+// holds the result.
+__device__ float* swap_runs(float* src, float* dst, uint8_t* dec,
+                            const Planes& p, const ConvArgs& cv,
+                            const RunGrid& g, uint32_t k0, uint32_t k1,
+                            const uint32_t* wrd) {
+  const int H = g.H, W = g.W;
+  const int lanes = 32 / cv.lane_bits;
+  const uint32_t lane_mask = (1u << cv.lane_bits) - 1u;
+  int plane0 = 0, lane0 = 0;  // the (plane, lane) of the group's first round
+  for (int g0 = 0; g0 < cv.n_rounds; g0 += 8) {
+    const int ng = min(8, cv.n_rounds - g0);
+    for (Cursor q = first_run(g); q.r < g.n_runs; next_run(q, g)) {
+      const int y0 = q.yb * kRun;
+      const int n = min(kRun, H - y0);
+      for (int i = 0; i < n; ++i) {
+        const uint32_t c = (uint32_t)((y0 + i) * W + q.x);
+        uint32_t bits = 0;
+        if (wrd != nullptr) {
+          bits = (__ldg(wrd + c) >> g0) & 0xffu;
+        } else {
+          int pl = plane0, ln = lane0;
+          uint32_t h = fmix32(fmix32((c + (uint32_t)pl * (uint32_t)g.hw) ^ k0) ^ k1);
+          for (int jr = 0; jr < ng; ++jr) {
+            if (((h >> (cv.lane_bits * ln)) & lane_mask) < (uint32_t)cv.q) {
+              bits |= 1u << jr;
+            }
+            if (++ln == lanes && jr + 1 < ng) {
+              ln = 0;
+              ++pl;
+              h = fmix32(fmix32((c + (uint32_t)pl * (uint32_t)g.hw) ^ k0) ^ k1);
+            }
+          }
+        }
+        dec[c] = (uint8_t)bits;
+      }
+    }
+    __syncthreads();
+    for (int jr = 0; jr < ng; ++jr) {
+      const int r = g0 + jr;
+      const uint32_t bit = 1u << r;
+      const int dy = cv.dy[r], dx = cv.dx[r];
+      for (Cursor q = first_run(g); q.r < g.n_runs; next_run(q, g)) {
+        const int y0 = q.yb * kRun;
+        const int n = min(kRun, H - y0);
+        int xf = q.x + dx;  // the follower's column of a lead here
+        if (xf >= W) xf -= W;
+        int xl = q.x - dx;  // the lead's column of a follower here
+        if (xl < 0) xl += W;
+        int yf = y0 + dy;  // the follower's row of the run's first cell
+        if (yf >= H) yf -= H;
+        int yl = y0 - dy;  // the lead's row of a follower there
+        if (yl < 0) yl += H;
+        for (int i = 0; i < n; ++i) {
+          const int c = (y0 + i) * W + q.x;
+          float v = src[c];
+          if ((__ldg(p.lead + c) & bit) && ((dec[c] >> jr) & 1u)) {
+            v = src[yf * W + xf];
+          }
+          if (__ldg(p.foll + c) & bit) {
+            const int lead_cell = yl * W + xl;
+            if ((dec[lead_cell] >> jr) & 1u) v = src[lead_cell];
+          }
+          dst[c] = v;
+          if (++yf == H) yf = 0;
+          if (++yl == H) yl = 0;
+        }
+      }
+      __syncthreads();
+      float* t = src;
+      src = dst;
+      dst = t;
+    }
+    lane0 += 8;
+    while (lane0 >= lanes) {
+      lane0 -= lanes;
+      ++plane0;
+    }
+  }
+  return src;
+}
+
+// K1 (E = 1) and K4: _fdm_cheby_kernel_interleaved / _fdm_cheby_kernel and
+// _fdm_cheby_kernel_block. x0 = temp; x1 = J(x0); then chunks of
+// `check_every` sub-iterations x_next = omega (J(x) - x_prev) + x_prev
+// (exterior re-pinned), x_next written over x_prev in place, with one omega
+// schedule for the block; an env's freeze state is fixed for a chunk and
+// decided by its last sub-iteration's residual max|J(x) - x|. Then J(x_f),
+// the swap rounds, the output and the statistics, env by env.
+//
+// Shared memory, per env e: its two iterate planes, then (STAGED) its
+// const and denom planes; after all envs the run exterior bytes, then
+// (not STAGED) the decision byte plane, which with STAGED lives in env 0's
+// const plane (free once the solve is done).
+template <int E, bool STAGED>
+__global__ void __launch_bounds__(ChebyShape<E, STAGED>::kThreads,
+                                  ChebyShape<E, STAGED>::kMinBlocks)
+    fdm_cheby_body(Planes p, ConvArgs cv, StatArgs st, RunGrid g,
+                   float threshold, int limit, float rho2, float omega0,
+                   int check_every, int B) {
+  FDM_DYNAMIC_SMEM(smem);
   __shared__ float red[E][33];
+  __shared__ uint64_t bar;  // 8-byte aligned, as mbarrier needs
+  constexpr int kPlanes = STAGED ? 4 : 2;
   const int b0 = blockIdx.x * E;
   const int n_env = min(E, B - b0);
-  const int W = p.W, hw = p.H * p.W;
+  const int hw = g.hw, P = g.plane;
   const unsigned valid = (1u << n_env) - 1u;
+  uint8_t* ext_bits = (uint8_t*)(smem + (size_t)E * kPlanes * P);
+  uint8_t* dec = STAGED ? (uint8_t*)(smem + 2 * (size_t)P)
+                        : ext_bits + ((g.n_runs + 15) & ~15);
+  auto plane = [&](int e, int s) { return smem + (size_t)(e * kPlanes + s) * P; };
   float tinf[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) tinf[e] = e < n_env ? p.tinf[b0 + e] : 0.0f;
-  for (int e = 0; e < n_env; ++e) {
-    const float* t0 = p.temp + (size_t)(b0 + e) * hw;
-    float* x0 = env_plane(smem, e, 0, hw);
-    for (int c = threadIdx.x; c < hw; c += blockDim.x) x0[c] = t0[c];
+
+  // Stage temp (and const, denom) of each env; meanwhile the threads pack
+  // their runs' exterior bits.
+  if (threadIdx.x == 0) {
+    mbar_init(&bar);
+    uint32_t tx = 0;
+    for (int e = 0; e < n_env; ++e) {
+      const size_t off = (size_t)(b0 + e) * hw;
+      tx += 4u * bulk_floats(p.temp + off, hw);
+      if (STAGED) {
+        tx += 4u * bulk_floats(p.cnst + off, hw);
+        tx += 4u * bulk_floats(p.denom + off, hw);
+      }
+    }
+    mbar_expect_tx(&bar, tx);
   }
   __syncthreads();
+  for (int e = 0; e < n_env; ++e) {
+    const size_t off = (size_t)(b0 + e) * hw;
+    stage_in(plane(e, 0), p.temp + off, hw, &bar);
+    if (STAGED) {
+      stage_in(plane(e, 2), p.cnst + off, hw, &bar);
+      stage_in(plane(e, 3), p.denom + off, hw, &bar);
+    }
+  }
+  for (Cursor q = first_run(g); q.r < g.n_runs; next_run(q, g)) {
+    const Run u = make_run(q, g);
+    uint32_t bits = 0;
+    for (int i = 0; i < u.n; ++i) {
+      if (__ldg(p.ext + u.c0 + i * g.W) > 0.0f) bits |= 1u << i;
+    }
+    ext_bits[q.r] = (uint8_t)bits;
+  }
+  mbar_wait(&bar, 0);
+  __syncthreads();
+
+  const float* cn_g[E];
+  const float* dn_g[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    cn_g[e] = p.cnst + (size_t)(b0 + min(e, n_env - 1)) * hw;
+    dn_g[e] = p.denom + (size_t)(b0 + min(e, n_env - 1)) * hw;
+  }
 
   // x1 = J(x0) into slot 1, delta0 = max |x1 - x0|.
   float m[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) m[e] = 0.0f;
-  for (int c = threadIdx.x; c < hw; c += blockDim.x) {
-    const int y = c / W, xc = c - y * W;
-    const Stencil k = load_stencil(p, c);
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      if (!((valid >> e) & 1u)) continue;
-      const float* x0 = env_plane(smem, e, 0, hw);
-      const size_t g = (size_t)(b0 + e) * hw + c;
-      const float v = jacobi_at(x0, c, y, xc, p, k, __ldg(p.cnst + g),
-                                __ldg(p.denom + g), tinf[e]);
-      env_plane(smem, e, 1, hw)[c] = v;
-      m[e] = nan_max(m[e], fabsf(v - x0[c]));
-    }
-  }
+  sweep<E, STAGED, kFirst>(p, g, smem, ext_bits, cn_g, dn_g, tinf, valid, 0, 0.0f,
+                           true, m);
   block_max_envs<E>(m, red, valid);
   unsigned done = 0;
 #pragma unroll
@@ -667,26 +1039,8 @@ __global__ void __launch_bounds__(kMaxThreads)
       const bool sample = kk == check_every - 1;
 #pragma unroll
       for (int e = 0; e < E; ++e) m[e] = 0.0f;
-      for (int c = threadIdx.x; c < hw; c += blockDim.x) {
-        const int y = c / W, xc = c - y * W;
-        const Stencil k = load_stencil(p, c);
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          if (!((chunk >> e) & 1u)) continue;
-          const int s = (prev_slots >> e) & 1u;
-          float* x_prev = env_plane(smem, e, s, hw);
-          const float* x = env_plane(smem, e, 1 - s, hw);
-          const size_t g = (size_t)(b0 + e) * hw + c;
-          const float jx = jacobi_at(x, c, y, xc, p, k, __ldg(p.cnst + g),
-                                     __ldg(p.denom + g), tinf[e]);
-          const float xp = x_prev[c];
-          float v = omega_next * (jx - xp) + xp;
-          if (k.ext) v = tinf[e];
-          if (sample) m[e] = nan_max(m[e], fabsf(jx - x[c]));
-          // x_next overwrites x_prev in place: cell c reads only x_prev[c].
-          x_prev[c] = v;
-        }
-      }
+      sweep<E, STAGED, kCheby>(p, g, smem, ext_bits, cn_g, dn_g, tinf, chunk,
+                               prev_slots, omega_next, sample, m);
       if (sample) {
         block_max_envs<E>(m, red, chunk);
       } else {
@@ -705,21 +1059,44 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
   }
   // Emit J(x_final) into each env's x_prev slot.
-  for (int c = threadIdx.x; c < hw; c += blockDim.x) {
-    const int y = c / W, xc = c - y * W;
-    const Stencil k = load_stencil(p, c);
+  sweep<E, STAGED, kFinal>(p, g, smem, ext_bits, cn_g, dn_g, tinf, valid, prev_slots,
+                           0.0f, false, m);
+  __syncthreads();
+  if (threadIdx.x == 0) {
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      if (!((valid >> e) & 1u)) continue;
-      const int s = (prev_slots >> e) & 1u;
-      const float* x = env_plane(smem, e, 1 - s, hw);
-      const size_t g = (size_t)(b0 + e) * hw + c;
-      env_plane(smem, e, s, hw)[c] = jacobi_at(
-          x, c, y, xc, p, k, __ldg(p.cnst + g), __ldg(p.denom + g), tinf[e]);
+      if (e < n_env) {
+        p.iters[b0 + e] = iters[e];
+        p.converged[b0 + e] = (done >> e) & 1u;
+      }
     }
   }
-  __syncthreads();
-  block_finish<E>(smem, p, cv, st, b0, n_env, prev_slots, iters, done);
+  // Epilogue, env by env: swap rounds, output, statistics.
+#pragma unroll 1
+  for (int e = 0; e < n_env; ++e) {
+    const int b = b0 + e;
+    const int s = (prev_slots >> e) & 1u;
+    float* field = plane(e, s);
+    float* spare = plane(e, 1 - s);
+    if (cv.n_rounds > 0) {
+      uint32_t k0 = 0, k1 = 0;
+      const uint32_t* wrd = nullptr;
+      if (p.words != nullptr) {
+        wrd = p.words + (size_t)b * hw;
+      } else {
+        k0 = (uint32_t)p.keys[2 * b];
+        k1 = (uint32_t)p.keys[2 * b + 1];
+      }
+      float* result = swap_runs(field, spare, dec, p, cv, g, k0, k1, wrd);
+      if (result != field) spare = field;
+      field = result;
+    }
+    fence_async_shared();
+    __syncthreads();
+    stage_out(p.out + (size_t)b * hw, field, hw);
+    __syncthreads();  // the field is read out before the next env or the fold
+    if (st.n_zones > 0) grid_stats(field, spare, p, st, b);
+  }
 }
 
 int block_threads(int hw) {
@@ -781,6 +1158,7 @@ Planes make_planes(const float* temp, const float* cnst, const float* denom,
   p.a_b = a_b;
   p.a_t = a_t;
   p.ext = ext;
+  p.coef = nullptr;
   p.lead = lead;
   p.foll = foll;
   p.keys = keys;
@@ -829,11 +1207,10 @@ int resident_blocks(Kernel kernel, int threads, size_t smem) {
 
 template <int E>
 struct BlockOccupancy {
-  static int run(int cheby, int H, int W) {
+  static int run(int H, int W) {
     const size_t smem = 2 * (size_t)E * H * W * sizeof(float);
     const int threads = block_threads(E * H * W);
-    return cheby ? resident_blocks(fdm_cheby_block_kernel<E>, threads, smem)
-                 : resident_blocks(fdm_jacobi_block_kernel<E>, threads, smem);
+    return resident_blocks(fdm_jacobi_block_kernel<E>, threads, smem);
   }
 };
 
@@ -845,48 +1222,156 @@ struct JacobiBlock {
     int err = prepare(fdm_jacobi_block_kernel<E>, smem);
     if (err) return err;
     const int grid = (B + E - 1) / E;
-    fdm_jacobi_block_kernel<E>
-        <<<grid, block_threads(E * p.H * p.W), smem, stream>>>(
-            p, cv, st, threshold, limit, B);
+    FDM_LAUNCH(fdm_jacobi_block_kernel<E>, grid, block_threads(E * p.H * p.W),
+               smem, stream)(p, cv, st, threshold, limit, B);
     return (int)cudaGetLastError();
   }
 };
 
-template <int E>
-struct ChebyBlock {
-  static int run(Planes p, ConvArgs cv, StatArgs st, float threshold,
-                 int limit, float rho2, float omega0, int check_every, int B,
-                 cudaStream_t stream) {
-    const size_t smem = 2 * (size_t)E * p.H * p.W * sizeof(float);
-    int err = prepare(fdm_cheby_block_kernel<E>, smem);
+// Launch geometry of the Chebyshev body, E envs per block on an H x W
+// grid (mirrored by physics/fdm_cuda.py cheby_geometry): const/denom
+// staged in shared memory when 4 planes per env fit, else (E = 1 only)
+// read from global memory; threads spread the runs evenly over as few
+// passes (slots) as the instance's thread limit allows.
+struct ChebyGeometry {
+  int staged, threads, slots;
+  size_t smem;
+  RunGrid grid;
+};
+
+int cheby_geometry(int E, int H, int W, int edge_fill, ChebyGeometry* out) {
+  if (E < 1 || E > kChebyMaxEnvs || H < 1 || W < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  RunGrid g;
+  g.H = H;
+  g.W = W;
+  g.hw = H * W;
+  g.plane = (g.hw + 3) & ~3;
+  g.row_blocks = (H + kRun - 1) / kRun;
+  g.n_runs = g.row_blocks * W;
+  g.edge_fill = edge_fill;
+  const size_t plane_bytes = 4 * (size_t)g.plane;
+  const size_t ext_bytes = ((size_t)g.n_runs + 15) & ~(size_t)15;
+  const size_t dec_bytes = ((size_t)g.hw + 15) & ~(size_t)15;
+  const size_t budget = kSmemPerBlock - kChebyStaticSmem;
+  const size_t staged = E * 4 * plane_bytes + ext_bytes;
+  const size_t plain = E * 2 * plane_bytes + ext_bytes + dec_bytes;
+  ChebyGeometry geo;
+  if (staged <= budget) {
+    geo.staged = 1;
+    geo.smem = staged;
+  } else if (E == 1 && plain <= budget) {
+    geo.staged = 0;
+    geo.smem = plain;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int t_max = geo.staged && E <= 2 ? 512 : 1024;  // ChebyShape
+  geo.slots = (g.n_runs + t_max - 1) / t_max;
+  const int per_slot = (g.n_runs + geo.slots - 1) / geo.slots;
+  geo.threads = (per_slot + 31) / 32 * 32;
+  g.step_b = geo.threads / W;
+  g.step_x = geo.threads % W;
+  geo.grid = g;
+  *out = geo;
+  return 0;
+}
+
+template <template <int, bool> class Op, typename... Args>
+int with_cheby(int E, int staged, Args... args) {
+  if (!staged) return E == 1 ? Op<1, false>::run(args...) : (int)cudaErrorInvalidValue;
+  switch (E) {
+    case 1: return Op<1, true>::run(args...);
+    case 2: return Op<2, true>::run(args...);
+    case 3: return Op<3, true>::run(args...);
+    case 4: return Op<4, true>::run(args...);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int E, bool STAGED>
+struct ChebyOccupancy {
+  static int run(const ChebyGeometry& geo) {
+    return resident_blocks(fdm_cheby_body<E, STAGED>, geo.threads, geo.smem);
+  }
+};
+
+template <int E, bool STAGED>
+struct ChebyLaunch {
+  static int run(const ChebyGeometry& geo, Planes p, ConvArgs cv, StatArgs st,
+                 float threshold, int limit, float rho2, float omega0,
+                 int check_every, int B, cudaStream_t stream) {
+    auto kernel = fdm_cheby_body<E, STAGED>;
+    int err = prepare(kernel, geo.smem);
     if (err) return err;
-    const int grid = (B + E - 1) / E;
-    fdm_cheby_block_kernel<E>
-        <<<grid, block_threads(E * p.H * p.W), smem, stream>>>(
-            p, cv, st, threshold, limit, rho2, omega0, check_every, B);
+    FDM_LAUNCH(kernel, (B + E - 1) / E, geo.threads, geo.smem, stream)(
+        p, cv, st, geo.grid, threshold, limit, rho2, omega0, check_every, B);
     return (int)cudaGetLastError();
   }
 };
+
+// K1 (E = 1) and K4: the swap offsets normalised to [0, H) x [0, W), so
+// that a partner wraps by one conditional add.
+int cheby_launch(Planes p, ConvArgs cv, StatArgs st, int E, float threshold,
+                 int limit, float rho2, float omega0, int check_every, int B,
+                 cudaStream_t stream) {
+  ChebyGeometry geo;
+  int err = cheby_geometry(E, p.H, p.W, p.edge_fill, &geo);
+  if (err) return err;
+  if (p.coef == nullptr || ((uintptr_t)p.coef & 15)) return (int)cudaErrorInvalidValue;
+  for (int r = 0; r < cv.n_rounds; ++r) {
+    cv.dy[r] = ((cv.dy[r] % p.H) + p.H) % p.H;
+    cv.dx[r] = ((cv.dx[r] % p.W) + p.W) % p.W;
+  }
+  return with_cheby<ChebyLaunch>(E, geo.staged, geo, p, cv, st, threshold,
+                                 limit, rho2, omega0, check_every, B, stream);
+}
+
+int cheby_max_envs(int H, int W) {
+  ChebyGeometry geo;
+  int e = kChebyMaxEnvs;
+  while (e > 1 && cheby_geometry(e, H, W, 0, &geo)) --e;
+  return cheby_geometry(e, H, W, 0, &geo) ? 0 : e;
+}
 
 }  // namespace
 
 extern "C" {
 
-// Envs per thread block that the block kernels take on an H x W grid.
+// Envs per thread block that the block kernels take on an H x W grid: K3
+// (cheby 0) or K4 (cheby 1).
 int fdm_block_max_envs(int H, int W) { return block_envs_fit(H, W); }
+int fdm_cheby_max_envs(int H, int W) { return cheby_max_envs(H, W); }
+
+// The Chebyshev launch geometry for E envs per block, into out[8]:
+// staged, threads, slots, shared bytes, row blocks, runs, step_b, step_x.
+int fdm_cheby_geometry(int E, int H, int W, int* out) {
+  ChebyGeometry geo;
+  int err = cheby_geometry(E, H, W, 0, &geo);
+  if (err) return err;
+  const int v[8] = {geo.staged, geo.threads, geo.slots, (int)geo.smem,
+                    geo.grid.row_blocks, geo.grid.n_runs, geo.grid.step_b,
+                    geo.grid.step_x};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
+}
 
 // Thread blocks resident per SM on an H x W grid: the Chebyshev (cheby)
 // or Jacobi kernel, K4/K3 with `block_envs` envs per block, or K1/K2 when
 // block_envs is 0; -1 on an error.
 int fdm_blocks_per_sm(int cheby, int block_envs, int H, int W) {
+  if (cheby) {
+    ChebyGeometry geo;
+    if (cheby_geometry(block_envs > 0 ? block_envs : 1, H, W, 0, &geo)) return -1;
+    return with_cheby<ChebyOccupancy>(block_envs > 0 ? block_envs : 1, geo.staged, geo);
+  }
   if (block_envs > 0) {
     if (block_envs > block_envs_fit(H, W)) return -1;
-    return launch_block<BlockOccupancy>(block_envs, cheby, H, W);
+    return launch_block<BlockOccupancy>(block_envs, H, W);
   }
   const size_t smem = 2 * (size_t)H * W * sizeof(float);
-  const int threads = block_threads(H * W);
-  return cheby ? resident_blocks(fdm_cheby_kernel, threads, smem)
-               : resident_blocks(fdm_jacobi_kernel, threads, smem);
+  return resident_blocks(fdm_jacobi_kernel, block_threads(H * W), smem);
 }
 
 // Largest H * W the kernels accept (two planes in shared memory).
@@ -921,19 +1406,21 @@ int fdm_jacobi_launch(const float* temp, const float* cnst, const float* denom,
   ConvArgs cv = make_conv_args(offsets, n_rounds, lane_bits, q);
   StatArgs st = make_stat_args(masks, row0, col0, zone_sums, grid_sums,
                                n_zones, hc, wc);
-  fdm_jacobi_kernel<<<B, block_threads(H * W), smem, (cudaStream_t)stream>>>(
-      p, cv, st, threshold, limit);
+  FDM_LAUNCH(fdm_jacobi_kernel, B, block_threads(H * W), smem,
+             (cudaStream_t)stream)(p, cv, st, threshold, limit);
   return (int)cudaGetLastError();
 }
 
+// K1: the Chebyshev body with one env per block. `coef` is the (H, W, 4)
+// float plane of (a_r, a_l, a_b, a_t) per cell, 16-byte aligned.
 int fdm_cheby_launch(const float* temp, const float* cnst, const float* denom,
                      const float* tinf, const float* a_r, const float* a_l,
                      const float* a_b, const float* a_t, const float* ext,
                      const uint32_t* lead, const uint32_t* foll,
                      const int64_t* keys, const uint32_t* words, float* out,
                      int32_t* iters, int32_t* converged, int B, int H, int W,
-                     int edge_fill, float threshold, int limit, float rho2,
-                     float omega0,
+                     int edge_fill, const float* coef, float threshold,
+                     int limit, float rho2, float omega0,
                      int check_every, const int* offsets, int n_rounds,
                      int lane_bits, int q, const float* masks,
                      const int32_t* row0, const int32_t* col0,
@@ -945,22 +1432,20 @@ int fdm_cheby_launch(const float* temp, const float* cnst, const float* denom,
   if (n_zones < 0 || (n_zones > 0 && (hc < 1 || wc < 1 || hc > H || wc > W))) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = 2 * (size_t)H * W * sizeof(float);
-  int err = prepare(fdm_cheby_kernel, smem);
-  if (err) return err;
   Planes p = make_planes(temp, cnst, denom, tinf, a_r, a_l, a_b, a_t, ext,
                          lead, foll, keys, words, out, iters, converged, H,
                          W, edge_fill);
   ConvArgs cv = make_conv_args(offsets, n_rounds, lane_bits, q);
   StatArgs st = make_stat_args(masks, row0, col0, zone_sums, grid_sums,
                                n_zones, hc, wc);
-  fdm_cheby_kernel<<<B, block_threads(H * W), smem, (cudaStream_t)stream>>>(
-      p, cv, st, threshold, limit, rho2, omega0, check_every);
-  return (int)cudaGetLastError();
+  p.coef = (const float4*)coef;
+  return cheby_launch(p, cv, st, 1, threshold, limit, rho2, omega0,
+                      check_every, B, (cudaStream_t)stream);
 }
 
 // As fdm_jacobi_launch / fdm_cheby_launch, with `block_envs` envs per
-// thread block (1 .. fdm_block_max_envs(H, W)).
+// thread block (1 .. fdm_block_max_envs(H, W) for K3, 1 ..
+// fdm_cheby_max_envs(H, W) for K4).
 int fdm_jacobi_block_launch(
     const float* temp, const float* cnst, const float* denom,
     const float* tinf, const float* a_r, const float* a_l, const float* a_b,
@@ -995,8 +1480,9 @@ int fdm_cheby_block_launch(
     const float* a_t, const float* ext, const uint32_t* lead,
     const uint32_t* foll, const int64_t* keys, const uint32_t* words,
     float* out, int32_t* iters, int32_t* converged, int B, int H, int W,
-    int edge_fill, int block_envs, float threshold, int limit, float rho2,
-    float omega0, int check_every, const int* offsets, int n_rounds,
+    int edge_fill, const float* coef, int block_envs, float threshold,
+    int limit, float rho2, float omega0, int check_every, const int* offsets,
+    int n_rounds,
     int lane_bits, int q, const float* masks, const int32_t* row0,
     const int32_t* col0, float* zone_sums, float* grid_sums, int n_zones,
     int hc, int wc, void* stream) {
@@ -1006,7 +1492,7 @@ int fdm_cheby_block_launch(
   if (n_zones < 0 || (n_zones > 0 && (hc < 1 || wc < 1 || hc > H || wc > W))) {
     return (int)cudaErrorInvalidValue;
   }
-  if (block_envs < 1 || block_envs > fdm_block_max_envs(H, W)) {
+  if (block_envs < 1 || block_envs > fdm_cheby_max_envs(H, W)) {
     return (int)cudaErrorInvalidValue;
   }
   Planes p = make_planes(temp, cnst, denom, tinf, a_r, a_l, a_b, a_t, ext,
@@ -1015,9 +1501,9 @@ int fdm_cheby_block_launch(
   ConvArgs cv = make_conv_args(offsets, n_rounds, lane_bits, q);
   StatArgs st = make_stat_args(masks, row0, col0, zone_sums, grid_sums,
                                n_zones, hc, wc);
-  return launch_block<ChebyBlock>(block_envs, p, cv, st, threshold, limit,
-                                  rho2, omega0, check_every, B,
-                                  (cudaStream_t)stream);
+  p.coef = (const float4*)coef;
+  return cheby_launch(p, cv, st, block_envs, threshold, limit, rho2, omega0,
+                      check_every, B, (cudaStream_t)stream);
 }
 
 }  // extern "C"

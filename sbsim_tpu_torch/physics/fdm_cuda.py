@@ -7,21 +7,24 @@ csrc/fdm_kernels.cu:
              and its one-env form _fdm_cheby_kernel (:279): the Chebyshev
              semi-iteration of the Jacobi map with the residual sampled
              every `check_every` sub-iterations, J(x) emitted for the final
-             iterate, then the swap-convection rounds.
+             iterate, then the swap-convection rounds. It is the one-env
+             launch of the Chebyshev body that K4 launches with E envs.
   fdm_jacobi (K2) replaces _fdm_kernel (:207): Jacobi while
              it < limit and max|dx| > threshold, then the same convection.
   fdm_jacobi_block (K3) and fdm_cheby_block (K4) replace the stack layout's
              _fdm_kernel_block (:416) and _fdm_cheby_kernel_block (:505):
              E envs per thread block sharing one loop, per-env freezing
              (Chebyshev sampled only at chunk ends), one omega schedule per
-             block. E is clamped to what fits in shared memory
-             (effective_block_envs).
+             block. E is clamped (effective_block_envs): K3 to what fits in
+             shared memory, K4 to its measured best.
 
-K1 and K2 keep one env's iterate and its partner plane in shared memory for
+Every kernel keeps its envs' iterate and partner plane in shared memory for
 the whole solve, so a step reads temp/const/denom once and writes the field
-once (the bound is in the note at the top of the source); K3 and K4 keep E
-envs' planes there. Each env's result does not depend on the other envs of
-the batch or of its block.
+once (the bound is in the note at the top of the source); the Chebyshev
+body also stages const and denom there where they fit, with its launch
+geometry (cheby_geometry, run_neighbours) mirrored here for the tests. Each
+env's result does not depend on the other envs of the batch or of its
+block.
 
 The swap rounds take their decision words from the mix32 hash of the raw
 per-env key, made in the kernel, or from a precomputed (B, H, W) word plane
@@ -71,6 +74,16 @@ MAX_STAT_ZONES = 128
 MAX_BLOCK_ENVS = 8
 SMEM_PER_BLOCK = 232448
 BLOCK_STATIC_SMEM = 2048
+# The Chebyshev body (K1, K4): cells a thread owns per run down a column,
+# envs per block with their const/denom staged, and the static shared
+# memory it reserves (kRun, kChebyMaxEnvs, kChebyStaticSmem).
+RUN = 4
+CHEBY_MAX_ENVS = 4
+CHEBY_STATIC_SMEM = 1024
+# The E that K4 runs for a larger request: the fastest of E = 1..4 on the
+# main paths' inputs at 12 zones B=2048 on an H100 (PERF.md: E = 1,
+# two blocks per SM of 448 threads; E = 2 3-5% slower, E = 3-4 25-30%).
+CHEBY_BEST_ENVS = 1
 MASK32 = convection_lib.MASK32
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -132,32 +145,39 @@ def build() -> str:
     return path
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the ctypes signatures of the library's C functions."""
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    planes = [ptr] * 16 + [i32] * 4  # 16 pointers, B, H, W, edge_fill
+    conv = [ptr, i32, i32, i32]  # offsets, n_rounds, lane_bits, q
+    # masks, row0, col0, zone_sums, grid_sums, n_zones, hc, wc, stream
+    stats = [ptr] * 5 + [i32] * 3 + [ptr]
+    jacobi = [f32, i32]  # threshold, limit
+    cheby = [f32, i32, f32, f32, i32]  # ... rho2, omega0, check_every
+    for name, args in (
+        ("fdm_jacobi_launch", planes + jacobi),
+        ("fdm_cheby_launch", planes + [ptr] + cheby),  # + packed stencil
+        ("fdm_jacobi_block_launch", planes + [i32] + jacobi),  # + block_envs
+        ("fdm_cheby_block_launch", planes + [ptr, i32] + cheby),
+    ):
+        fn = getattr(lib, name)
+        fn.argtypes = args + conv + stats
+        fn.restype = i32
+    lib.fdm_max_cells.restype = i32
+    for name in ("fdm_block_max_envs", "fdm_cheby_max_envs"):
+        getattr(lib, name).argtypes = [i32, i32]
+        getattr(lib, name).restype = i32
+    lib.fdm_cheby_geometry.argtypes = [i32, i32, i32, ptr]
+    lib.fdm_cheby_geometry.restype = i32
+    lib.fdm_blocks_per_sm.argtypes = [i32] * 4
+    lib.fdm_blocks_per_sm.restype = i32
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        planes = [ptr] * 16 + [i32] * 4  # 16 pointers, B, H, W, edge_fill
-        conv = [ptr, i32, i32, i32]  # offsets, n_rounds, lane_bits, q
-        # masks, row0, col0, zone_sums, grid_sums, n_zones, hc, wc, stream
-        stats = [ptr] * 5 + [i32] * 3 + [ptr]
-        jacobi = [f32, i32]  # threshold, limit
-        cheby = [f32, i32, f32, f32, i32]  # ... rho2, omega0, check_every
-        for name, args in (
-            ("fdm_jacobi_launch", planes + jacobi),
-            ("fdm_cheby_launch", planes + cheby),
-            ("fdm_jacobi_block_launch", planes + [i32] + jacobi),  # + block_envs
-            ("fdm_cheby_block_launch", planes + [i32] + cheby),
-        ):
-            fn = getattr(lib, name)
-            fn.argtypes = args + conv + stats
-            fn.restype = i32
-        lib.fdm_max_cells.restype = i32
-        lib.fdm_block_max_envs.argtypes = [i32, i32]
-        lib.fdm_block_max_envs.restype = i32
-        lib.fdm_blocks_per_sm.argtypes = [i32] * 4
-        lib.fdm_blocks_per_sm.restype = i32
-        _lib = lib
+        _lib = bind(ctypes.CDLL(build()))
     return _lib
 
 
@@ -227,13 +247,120 @@ def packed_plane(words, device) -> torch.Tensor:
     return words.contiguous()
 
 
-def effective_block_envs(shape: Tuple[int, int], block_envs: int) -> int:
-    """The envs per thread block K3/K4 run for a requested `block_envs` on
-    an (H, W) grid: at most MAX_BLOCK_ENVS and as many as fit two planes
-    each in shared memory (8 at 52 x 67, 1 at 189 x 124)."""
+def effective_block_envs(shape: Tuple[int, int], block_envs: int,
+                         cheby: bool = False) -> int:
+    """The envs per thread block K3 (or with `cheby` K4) runs for a
+    requested `block_envs` on an (H, W) grid. K3: at most MAX_BLOCK_ENVS
+    and as many as fit two planes each in shared memory (8 at 52 x 67, 1
+    at 189 x 124). K4: CHEBY_BEST_ENVS, the measured fastest (1); asked
+    directly, the kernel takes up to cheby_max_envs envs per block, as
+    many as fit four planes each (the iterate pair and the staged
+    const/denom: 4 at 52 x 67, 1 at 189 x 124, which then reads
+    const/denom from global memory); see cheby_geometry."""
     h, w = shape
+    if cheby:
+        return max(1, min(int(block_envs), CHEBY_BEST_ENVS, cheby_max_envs(shape)))
     fit = (SMEM_PER_BLOCK - BLOCK_STATIC_SMEM) // (2 * h * w * 4)
     return max(1, min(int(block_envs), MAX_BLOCK_ENVS, fit))
+
+
+@dataclasses.dataclass(frozen=True)
+class ChebyGeometry:
+    """Launch geometry of the Chebyshev body (K1 at E = 1, K4), mirroring
+    cheby_geometry in csrc/fdm_kernels.cu: each column is cut into runs of
+    RUN vertically consecutive cells, runs are numbered row block by row
+    block, column by column, thread t owns runs t, t + threads, ...
+    (`slots` at most), and const/denom are staged in shared memory when
+    they fit."""
+
+    staged: bool
+    threads: int
+    slots: int
+    smem: int  # dynamic shared memory bytes per block
+    row_blocks: int  # ceil(H / RUN)
+    n_runs: int  # row_blocks * W
+    step_b: int  # threads // W
+    step_x: int  # threads % W
+
+
+def cheby_geometry(shape: Tuple[int, int], block_envs: int) -> Optional[ChebyGeometry]:
+    """The Chebyshev launch for `block_envs` envs per block on an (H, W)
+    grid, or None where it does not fit. Shared memory per block: per env
+    the two iterate planes and, staged, const and denom (plane strides
+    rounded to 16 bytes), then one byte of exterior bits per run, then,
+    not staged, the swap rounds' decision byte plane (staged, it reuses
+    env 0's const plane). Threads: at most 512 for staged blocks of 1-2
+    envs, else 1024, spread evenly over the fewest passes."""
+    h, w = shape
+    e = int(block_envs)
+    hw = h * w
+    plane = -(-hw // 4) * 4 * 4
+    row_blocks = -(-h // RUN)
+    n_runs = row_blocks * w
+    ext, dec = -(-n_runs // 16) * 16, -(-hw // 16) * 16
+    budget = SMEM_PER_BLOCK - CHEBY_STATIC_SMEM
+    staged_bytes, plain_bytes = e * 4 * plane + ext, e * 2 * plane + ext + dec
+    if 1 <= e <= CHEBY_MAX_ENVS and staged_bytes <= budget:
+        staged, smem = True, staged_bytes
+    elif e == 1 and plain_bytes <= budget:
+        staged, smem = False, plain_bytes
+    else:
+        return None
+    t_max = 512 if staged and e <= 2 else 1024
+    slots = -(-n_runs // t_max)
+    threads = -(-(-(-n_runs // slots)) // 32) * 32
+    return ChebyGeometry(staged, threads, slots, smem, row_blocks, n_runs,
+                         threads // w, threads % w)
+
+
+def cheby_max_envs(shape: Tuple[int, int]) -> int:
+    """The most envs per block the Chebyshev body takes on this grid (0:
+    none fit)."""
+    e = CHEBY_MAX_ENVS
+    while e > 1 and cheby_geometry(shape, e) is None:
+        e -= 1
+    return e if cheby_geometry(shape, e) is not None else 0
+
+
+def run_neighbours(shape: Tuple[int, int], geo: ChebyGeometry, edge_fill: bool):
+    """The kernel's run ownership and neighbour reads, cell by cell, as the
+    Chebyshev body computes them (first run by division, then the (step_b,
+    step_x) step with one carry): returns (owner thread (H*W,), slot
+    (H*W,), {"r", "l", "b", "t": neighbour cell (H*W,), -1 for t_inf}).
+    A cell no run covers keeps owner -1; a cell covered twice raises."""
+    h, w = shape
+    owner = np.full(h * w, -1, np.int64)
+    slot = np.full(h * w, -1, np.int64)
+    nb = {k: np.full(h * w, -2, np.int64) for k in "rlbt"}
+    for t in range(geo.threads):
+        r, yb, x = t, t // w, t % w
+        k = 0
+        while r < geo.n_runs:
+            y0 = yb * RUN
+            n = min(RUN, h - y0)
+            c0 = y0 * w + x
+            ye = y0 + n
+            iu = c0 - w if y0 > 0 else (h - 1) * w + x
+            i_d = c0 + n * w if ye < h else x
+            dl = -1 if x > 0 else w - 1
+            dr = 1 if x + 1 < w else 1 - w
+            for i in range(n):
+                c = c0 + i * w
+                if owner[c] >= 0:
+                    raise AssertionError(f"cell {c} owned twice")
+                owner[c], slot[c] = t, k
+                nb["l"][c] = -1 if edge_fill and x == 0 else c + dl
+                nb["r"][c] = -1 if edge_fill and x + 1 == w else c + dr
+                nb["t"][c] = (-1 if edge_fill and y0 == 0 else iu) if i == 0 else c - w
+                nb["b"][c] = (-1 if edge_fill and ye == h else i_d) if i == n - 1 else c + w
+            r += geo.threads
+            yb += geo.step_b
+            x += geo.step_x
+            if x >= w:
+                x -= w
+                yb += 1
+            k += 1
+    return owner, slot, nb
 
 
 def kernel_inputs(
@@ -509,21 +636,23 @@ def fdm_cheby_block_plain(
 
 
 def _check_inputs(
-    inp: KernelInputs, conv: Optional[ConvInputs], stats: Optional[ZoneStats] = None
+    inp: KernelInputs, conv: Optional[ConvInputs], stats: Optional[ZoneStats] = None,
+    lib: Optional[ctypes.CDLL] = None,
 ) -> Tuple[int, int, int]:
     b, h, w = inp.temp.shape
     per_env = (inp.temp, inp.const, inp.denom)
     shared = (inp.a_r, inp.a_l, inp.a_b, inp.a_t, inp.ext)
     for t in per_env + shared + (inp.tinf,):
-        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("kernel inputs must be contiguous float32 CUDA tensors")
+        if t.is_cuda == (lib is not None) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous float32 CUDA tensors "
+                             "(CPU tensors for a host build of the kernels)")
         if t.device != inp.temp.device:
             raise ValueError("kernel inputs must lie on one device")
     if any(t.shape != (b, h, w) for t in per_env) or inp.tinf.shape != (b,):
         raise ValueError("per-env inputs must be (B, H, W) and tinf (B,)")
     if any(t.shape != (h, w) for t in shared):
         raise ValueError("shared stencil planes must be (H, W)")
-    if h * w > _library().fdm_max_cells():
+    if h * w > (lib or _library()).fdm_max_cells():
         raise ValueError(f"grid {h}x{w} does not fit two planes in shared memory")
     if conv is not None:
         if len(conv.offsets) > 32:
@@ -568,7 +697,7 @@ def _check_inputs(
 
 
 def _launch_args(inp: KernelInputs, conv: Optional[ConvInputs], stats, out, iters,
-                 conv_flag, sums: Optional[GridSums]):
+                 conv_flag, sums: Optional[GridSums], stream):
     b, h, w = inp.temp.shape
     if conv is not None:
         offsets = (ctypes.c_int * (2 * len(conv.offsets)))(
@@ -599,7 +728,6 @@ def _launch_args(inp: KernelInputs, conv: Optional[ConvInputs], stats, out, iter
                      sums.zone_sums.data_ptr(), sums.grid_sums.data_ptr(), z, hc, wc]
     else:
         stat_args = [None] * 5 + [0, 0, 0]
-    stream = torch.cuda.current_stream(inp.temp.device).cuda_stream
     return planes, [offsets, n_rounds, lane_bits, q, *stat_args, stream]
 
 
@@ -629,23 +757,33 @@ def blocks_per_sm(name: str, shape: Tuple[int, int], block_envs: int = 1) -> int
     return _library().fdm_blocks_per_sm(int(name.startswith("fdm_cheby")), e, h, w)
 
 
-def _launch(name: str, inp: KernelInputs, conv, stats, solver_args, block_envs=None):
+def _launch(name: str, inp: KernelInputs, conv, stats, solver_args, block_envs=None,
+            lib: Optional[ctypes.CDLL] = None):
     """Checks the inputs, allocates the outputs and launches kernel `name`
     (K3/K4 with `block_envs` envs per thread block); raises on a refused
-    launch. `solver_args` follow the planes (and E) in the C signature."""
-    _, h, w = _check_inputs(inp, conv, stats)
+    launch. `solver_args` follow the planes (and E) in the C signature.
+    `lib`, a host C++ build of the kernel source bound with `bind`, runs
+    the same launch on CPU tensors (tests/test_torch_kernel_host.py)."""
+    _, h, w = _check_inputs(inp, conv, stats, lib)
+    stream = None if lib is not None else torch.cuda.current_stream(inp.temp.device).cuda_stream
+    lib = lib or _library()
     out, iters, flag, sums = _outputs(inp, stats)
-    planes, tail = _launch_args(inp, conv, stats, out, iters, flag, sums)
+    planes, tail = _launch_args(inp, conv, stats, out, iters, flag, sums, stream)
     head = []
+    if name.startswith("fdm_cheby"):
+        # The Chebyshev body reads a cell's stencil as one 16-byte vector.
+        coef = torch.stack((inp.a_r, inp.a_l, inp.a_b, inp.a_t), dim=-1).contiguous()
+        head = [coef.data_ptr()]
     if block_envs is not None:
-        fit = _library().fdm_block_max_envs(h, w)
+        fit = (lib.fdm_cheby_max_envs if name == "fdm_cheby_block"
+               else lib.fdm_block_max_envs)(h, w)
         if not 1 <= block_envs <= fit:
             raise ValueError(
-                f"block_envs={block_envs} outside 1..{fit} for a {h}x{w} grid "
-                "(effective_block_envs clamps it)"
+                f"block_envs={block_envs} outside 1..{fit} for {name} on a {h}x{w} "
+                "grid (effective_block_envs clamps it)"
             )
-        head = [int(block_envs)]
-    err = getattr(_library(), f"{name}_launch")(*planes, *head, *solver_args, *tail)
+        head.append(int(block_envs))
+    err = getattr(lib, f"{name}_launch")(*planes, *head, *solver_args, *tail)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launch_counts[name] += 1
@@ -682,7 +820,8 @@ def fdm_cheby_cuda(
     conv: Optional[ConvInputs] = None,
     stats: Optional[ZoneStats] = None,
 ) -> Tuple[torch.Tensor, ...]:
-    """Launches K1 (fdm_cheby_kernel). Same results as fdm_cheby_plain."""
+    """Launches K1 (fdm_cheby_body with one env per block). Same results as
+    fdm_cheby_plain."""
     return _launch("fdm_cheby", inp, conv, stats, _cheby_args(
         threshold, iteration_limit, spectral_radius, check_every))
 
@@ -713,8 +852,8 @@ def fdm_cheby_block_cuda(
     conv: Optional[ConvInputs] = None,
     stats: Optional[ZoneStats] = None,
 ) -> Tuple[torch.Tensor, ...]:
-    """Launches K4 (fdm_cheby_block_kernel) with `block_envs` envs per
-    thread block. Same results as fdm_cheby_block_plain."""
+    """Launches K4 (fdm_cheby_body) with `block_envs` envs per thread block
+    (1 .. cheby_max_envs). Same results as fdm_cheby_block_plain."""
     return _launch("fdm_cheby_block", inp, conv, stats, _cheby_args(
         threshold, iteration_limit, spectral_radius, check_every), block_envs)
 
@@ -792,7 +931,8 @@ def fdm_step_cuda(
     kw = dict(threshold=convergence_threshold, iteration_limit=iteration_limit,
               conv=conv, stats=stats)
     if stack:
-        kw.update(block_envs=effective_block_envs(temp.shape[-2:], block_envs))
+        kw.update(block_envs=effective_block_envs(temp.shape[-2:], block_envs,
+                                                  cheby=method == "chebyshev"))
     if method == "chebyshev":
         kw.update(spectral_radius=spectral_radius, check_every=check_every)
         if stack:

@@ -1,0 +1,148 @@
+// Host C++ stand-ins for the CUDA built-ins that csrc/fdm_kernels.cu uses,
+// so that the kernel source compiles with g++ and runs on CPU tensors
+// (tests/test_torch_kernel_host.py). A launch runs the grid's blocks one
+// after another; the threads of a block run as host threads that meet at a
+// std::barrier in __syncthreads, and warp shuffles exchange through a
+// per-warp slot array between two warp barriers. The bulk copies and
+// stores are plain memcpy, complete when they return; mbarrier waits and
+// proxy fences are no-ops, since a __syncthreads follows each of them.
+// Build with -std=c++20 -ffp-contract=off -DFDM_HOST_REHEARSAL.
+#pragma once
+
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <memory>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__ static
+#define __align__(n) alignas(n)
+
+using std::max;
+using std::min;
+
+struct float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+constexpr cudaError_t cudaSuccess = 0;
+constexpr cudaError_t cudaErrorInvalidValue = 1;
+constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
+
+struct HostDim3 {
+  unsigned x = 0, y = 0, z = 0;
+};
+inline thread_local HostDim3 threadIdx, blockIdx;
+inline HostDim3 blockDim, gridDim;
+
+namespace fdm_host {
+
+struct Warp {
+  std::unique_ptr<std::barrier<>> bar;
+  float vals[32];
+};
+
+inline float* dyn_smem = nullptr;
+inline std::barrier<>* block_barrier = nullptr;
+inline std::vector<Warp>* warps = nullptr;
+
+template <typename Kernel>
+struct Launch {
+  Kernel kernel;
+  int grid, threads;
+  size_t smem;
+  Launch(Kernel k, int g, int t, size_t s) : kernel(k), grid(g), threads(t), smem(s) {}
+
+  template <typename... Args>
+  void operator()(Args... args) const {
+    const size_t bytes = (smem + 16 + 15) & ~(size_t)15;
+    float* buf = static_cast<float*>(std::aligned_alloc(16, bytes));
+    std::memset(buf, 0xff, bytes);  // NaN: a read before a write shows
+    dyn_smem = buf;
+    blockDim.x = threads;
+    gridDim.x = grid;
+    for (int b = 0; b < grid; ++b) {
+      std::barrier<> bar(threads);
+      block_barrier = &bar;
+      std::vector<Warp> ws((threads + 31) / 32);
+      for (size_t w = 0; w < ws.size(); ++w) {
+        const int n = std::min(32, threads - 32 * (int)w);
+        ws[w].bar = std::make_unique<std::barrier<>>(n);
+      }
+      warps = &ws;
+      std::vector<std::thread> pool;
+      pool.reserve(threads);
+      for (int t = 0; t < threads; ++t) {
+        pool.emplace_back([&, t, b] {
+          threadIdx.x = t;
+          blockIdx.x = b;
+          kernel(args...);
+        });
+      }
+      for (auto& th : pool) th.join();
+    }
+    std::free(buf);
+  }
+};
+
+}  // namespace fdm_host
+
+#define FDM_DYNAMIC_SMEM(name) float* name = fdm_host::dyn_smem
+#define FDM_LAUNCH(kernel, grid, threads, smem, stream) \
+  fdm_host::Launch<std::decay_t<decltype(kernel)>>(kernel, grid, threads, smem)
+
+inline void __syncthreads() { fdm_host::block_barrier->arrive_and_wait(); }
+
+inline float __shfl_xor_sync(unsigned, float v, int off) {
+  fdm_host::Warp& w = (*fdm_host::warps)[threadIdx.x >> 5];
+  const unsigned lane = threadIdx.x & 31;
+  w.vals[lane] = v;
+  w.bar->arrive_and_wait();
+  const float r = w.vals[lane ^ (unsigned)off];
+  w.bar->arrive_and_wait();
+  return r;
+}
+
+template <typename T>
+inline T __ldg(const T* p) {
+  return *p;
+}
+
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+
+template <typename Kernel>
+inline cudaError_t cudaFuncSetAttribute(Kernel, int, int) {
+  return cudaSuccess;
+}
+
+template <typename Kernel>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, Kernel, int,
+                                                                 size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
+
+inline void mbar_init(uint64_t*) {}
+inline void mbar_expect_tx(uint64_t*, uint32_t) {}
+inline void mbar_wait(uint64_t*, uint32_t) {}
+inline void fence_async_shared() {}
+
+inline void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t*) {
+  std::memcpy(dst, src, bytes);
+}
+
+inline void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  std::memcpy(dst, src, bytes);
+}

@@ -171,7 +171,8 @@ def _equal(got, want):
 @pytest.mark.parametrize("conv_kind", ["none", "mix32", "words"])
 @pytest.mark.parametrize("kernel", ["fdm_jacobi", "fdm_cheby"])
 def test_word_plane_and_block_kernels_equal_plain_and_solo(env, kernel, conv_kind):
-    """K3/K4 at E = 2 and 8 on a batch of 13 (a partial last block) equal
+    """K3/K4 at E = 2 and 8 (K4 clamped to 1) on a batch of 13 (a partial
+    last block) equal
     their plain versions and K2/K1 bitwise, with statistics; every kernel
     reads a word plane as its plain version does."""
     inp, conv = _inputs(env, 13, seed=11)
@@ -186,7 +187,8 @@ def test_word_plane_and_block_kernels_equal_plain_and_solo(env, kernel, conv_kin
         block, block_plain = fdm_cuda.fdm_jacobi_block_cuda, fdm_cuda.fdm_jacobi_block_plain
     want = solo(inp, **kw)
     _equal(want, solo_plain(inp, **kw))
-    for e in (2, 8):
+    for e in (2, fdm_cuda.effective_block_envs(env.geom.shape, 8,
+                                               cheby=kernel == "fdm_cheby")):
         before = fdm_cuda.launch_counts[f"{kernel}_block"]
         got = block(inp, block_envs=e, **kw)
         assert fdm_cuda.launch_counts[f"{kernel}_block"] == before + 1
@@ -215,3 +217,80 @@ def test_stack_env_steps_through_the_block_kernels(env):
     assert fdm_cuda.launch_counts == {"fdm_cheby": 0, "fdm_jacobi": 0,
                                       "fdm_cheby_block": 1, "fdm_jacobi_block": 1}
     assert torch.isfinite(state.temp).all()
+
+
+def _counted(name, fn, *args, **kw):
+    """fn's result, checking that it launched kernel `name` once."""
+    before = fdm_cuda.launch_counts[name]
+    out = fn(*args, **kw)
+    assert fdm_cuda.launch_counts[name] == before + 1
+    return out
+
+
+@pytest.fixture(scope="module")
+def big_env(env):
+    from sbsim_tpu_torch.core import geometry
+    plan = geometry.make_synthetic_office_plan(9, 14, room_cvs=12)
+    return building_env.BuildingEnv(presets.sb1_config(
+        num_days_in_episode=1, floor_plan=plan, layout="auto"))
+
+
+def test_cheby_body_at_126_rooms(big_env):
+    """K1 and K4 (E = 1) on the 189 x 124 grid, where const/denom stay in
+    global memory: bitwise against the plain versions and each other."""
+    assert big_env.geom.shape == (189, 124)
+    assert fdm_cuda.effective_block_envs(big_env.geom.shape, 4, cheby=True) == 1
+    inp, conv = _inputs(big_env, 4, seed=21)
+    kw = dict(threshold=0.1, iteration_limit=100, conv=conv,
+              spectral_radius=big_env._spectral_radius, check_every=4)
+    solo = _counted("fdm_cheby", fdm_cuda.fdm_cheby_cuda, inp, **kw)
+    _equal(solo, fdm_cuda.fdm_cheby_plain(inp, **kw))
+    got = _counted("fdm_cheby_block", fdm_cuda.fdm_cheby_block_cuda, inp, block_envs=1, **kw)
+    _equal(got, fdm_cuda.fdm_cheby_block_plain(inp, block_envs=1, **kw))
+    _equal(got, solo)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("e", [1, 2, 3, 4])
+def test_cheby_block_at_each_e(env, e):
+    """K4 at every E its launcher takes at 12 zones (B = 9: a partial last
+    block), with statistics and mix32 swaps, equals its plain version and
+    K1 env for env."""
+    assert e <= fdm_cuda.cheby_max_envs(env.geom.shape)
+    inp, conv = _inputs(env, 9, seed=30 + e)
+    kw = dict(threshold=0.1, iteration_limit=100, conv=conv, stats=env._stats,
+              spectral_radius=env._spectral_radius, check_every=4)
+    got = _counted("fdm_cheby_block", fdm_cuda.fdm_cheby_block_cuda, inp, block_envs=e, **kw)
+    _equal(got, fdm_cuda.fdm_cheby_block_plain(inp, block_envs=e, **kw))
+    _equal(got, fdm_cuda.fdm_cheby_cuda(inp, **kw))
+    torch.cuda.synchronize()
+
+
+def test_cheby_body_on_a_ragged_grid(env):
+    """The 9 x 11 grid of two_zone_test_config: columns end in a run of one
+    cell and a plane (396 B) is not a multiple of 16 bytes, so threads copy
+    what the bulk engine cannot."""
+    small = building_env.BuildingEnv(presets.two_zone_test_config())
+    rs = np.random.default_rng(13)
+    batch, shape = 13, small.geom.shape
+    t = lambda a: torch.as_tensor(a, device=small.device)
+    inp = fdm_cuda.kernel_inputs(
+        t((294.0 + rs.normal(0, 2.0, (batch,) + shape)).astype(np.float32)),
+        t(rs.uniform(0.0, 50.0, (batch,) + shape).astype(np.float32)),
+        t(rs.uniform(270.0, 300.0, batch).astype(np.float32)),
+        t(np.full(batch, 100.0, np.float32)), small.coeffs)
+    buckets = dataclasses.replace(small.convection, enabled=True, rng="mix32")
+    conv = fdm_cuda.ConvInputs(
+        offsets=buckets.offsets, lead=fdm_cuda.packed_plane(buckets.lead_words, small.device),
+        foll=fdm_cuda.packed_plane(buckets.foll_words, small.device),
+        word_params=convection.decision_word_params(buckets),
+        keys=t(rs.integers(0, 2**32, (batch, 2), dtype=np.uint64).astype(np.int64)))
+    kw = dict(threshold=0.1, iteration_limit=100, conv=conv,
+              spectral_radius=small._spectral_radius, check_every=4)
+    solo = _counted("fdm_cheby", fdm_cuda.fdm_cheby_cuda, inp, **kw)
+    _equal(solo, fdm_cuda.fdm_cheby_plain(inp, **kw))
+    e = fdm_cuda.cheby_max_envs(shape)
+    got = _counted("fdm_cheby_block", fdm_cuda.fdm_cheby_block_cuda, inp, block_envs=e, **kw)
+    _equal(got, fdm_cuda.fdm_cheby_block_plain(inp, block_envs=e, **kw))
+    _equal(got, solo)
+    torch.cuda.synchronize()
