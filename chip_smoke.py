@@ -2,15 +2,16 @@
 """Smoke run of the PyTorch/CUDA port (sbsim_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                   # all phases
-    python3 chip_smoke.py --decomposition [DIR]  # phases 0-1 and the
-                                                 # Chebyshev decomposition;
-                                                 # SASS into DIR
+    python3 chip_smoke.py --decomposition [DIR] [--envs 1,2,4,8] [--e3]
+        # phases 0-1 and the kernels' decomposition; SASS into DIR; K3 at
+        # the given block widths; K3/K4 at E=3 six times each
 
 Phases (each prints its own lines; any failure exits non-zero):
   0. CUDA runtime, nvcc and card (name and power limit, from nvidia-smi).
   1. Build the CUDA kernels K1 (fdm_cheby), K2 (fdm_jacobi), K3
-     (fdm_jacobi_block) and K4 (fdm_cheby_block) from sbsim_tpu_torch/csrc
-     with nvcc for sm_90a.
+     (fdm_jacobi_block) and K4 (fdm_cheby_block) -- launches of the
+     Chebyshev and the Jacobi body -- from sbsim_tpu_torch/csrc with nvcc
+     for sm_90a.
   2. Each kernel against its plain PyTorch version on the card, at the
      12-zone (B=64, and B=62 for a partial last block of K3/K4) and
      126-room (B=16, 189x124; K3/K4 at E=1) plan shapes, with and without
@@ -18,9 +19,12 @@ Phases (each prints its own lines; any failure exits non-zero):
      iteration limit, and with the zone-statistics epilogue (also with
      windows that need several passes of its scratch plane): fields,
      iteration counts, converged flags and zone/grid sums must be bitwise
-     equal; K3/K4 must also equal K2/K1 env for env; K4 at every E its
-     launcher takes (1-4 at 12 zones); K1/K4 on the 9x11 two-zone grid
-     (columns end in a short run, planes not a multiple of 16 bytes).
+     equal; K3/K4 must also equal K2/K1 env for env; K3 and K4 at every E
+     their launchers take (1-4 at 12 zones); K2 and K3 with one env's field
+     holding a NaN (K2 stops it at iteration 1, K3 runs it to the limit,
+     each as its plain version, NaN equal to NaN); K1/K4 on the 9x11
+     two-zone grid (columns end in a short run, planes not a multiple of
+     16 bytes).
   3. The main paths at full width, sb1_config(num_days_in_episode=2), reset,
      then step_batched: "pallas_cheby" at 12 zones B=2048 and 126 rooms
      B=512 (layout="auto"), "pallas_env" at 12 zones B=2048 (K1, K2 with
@@ -31,14 +35,15 @@ Phases (each prints its own lines; any failure exits non-zero):
      steps; fields and observations finite, rewards in [-1, 0]. Env-steps/s
      from CUDA events; each kernel and its plain version timed alone on the
      path's own inputs, with the bound the card could reach (K1 also with
-     statistics and with the word plane; K3/K4 beside K2/K1; K3 at
-     E = 2, 4, 8 and K4 at E = 1-4), with its thread blocks resident per
-     SM; and a torch.profiler breakdown of 4 more steps (device busy and
-     idle share, kernels by device time). Then the decomposition of K1 and
-     K4 at 12 zones B=2048 and 126 rooms B=512 on seeded inputs: the solve
-     alone, with mix32 swaps, with the word plane, with statistics; the
-     cost of one sub-iteration (slope over iteration_limit 5-33 at
-     threshold -1); registers and spills of each instance.
+     statistics and with the word plane; K3/K4 beside K2/K1; K3 and K4 at
+     E = 1-4), with its thread blocks resident per SM; and a
+     torch.profiler breakdown of 4 more steps (device busy and idle share,
+     kernels by device time). Then the decomposition of K1/K4 and K2/K3 at
+     12 zones B=2048 and 126 rooms B=512 (K2/K3 also at B=64) on seeded
+     inputs: the solve alone, with mix32 swaps, with the word plane, with
+     statistics; the cost of one (sub-)iteration (slope over
+     iteration_limit 5-33 at threshold -1); registers and spills of each
+     instance.
   4. Wiring: 3 steps at 12 zones B=64 through the kernels and through the
      plain versions on the card give bitwise-equal states, in the
      interleaved and stack layouts and with threefry and argsort
@@ -54,9 +59,12 @@ Phases (each prints its own lines; any failure exits non-zero):
      the last state, the losses be finite, alpha have left 1.0 and the
      replay hold a transition per env step. Env-steps/s and SAC updates/s
      from CUDA events, and a torch.profiler split of one train_step into
-     its env step and its update. Then 3 train_steps at n_envs=8 through
-     the kernels and through the plain versions on the card: env states
-     and replay contents bitwise equal.
+     its env step and its update. The training kernel at B=64 on the last
+     state's inputs: per call and on the device (profiler), its bound and
+     blocks per SM; for K3 also K2 on the same inputs and K3 at E = 1-4.
+     Then 3 train_steps at n_envs=8 through the kernels and through the
+     plain versions on the card: env states and replay contents bitwise
+     equal.
   6. A {"kernels": [...]} line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
@@ -119,7 +127,6 @@ WIRING_BATCH = 64
 # Phase 5: (env, kernel, n_envs, seeding steps, train steps, eval steps).
 TRAINING = (("12zone", "fdm_jacobi", 64, 16, 32, 8),
             ("12zone_stack", "fdm_jacobi_block", 64, 8, 8, 4))
-BLOCK_SWEEP = (2, 4, 8)
 
 
 def fail(msg: str) -> None:
@@ -287,6 +294,27 @@ def time_call(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Milliseconds of device time per call of fn spent in the FDM kernels
+    (torch.profiler's kernel events named fdm_*), over `reps` calls after
+    one warm-up. At B=64 a kernel takes less time than its wrapper's host
+    work, so CUDA events around the calls would time the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and "fdm_" in e.name)
+    if us <= 0:
+        fail("the profiler saw no FDM kernel on the device")
+    return us / reps / 1e3
+
+
 def bound_ms(inp, conv, n_iter, method, bw, flops, stats=None):
     """Least time for the work: each input read once and the output written
     once, or the operations this run's data needed (its iteration counts)
@@ -409,7 +437,7 @@ def _profile_window(fn, label, tag):
 
 
 def training_phase(env, kname, n_envs, seed_steps, train_steps, eval_steps, max_err,
-                   tag) -> int:
+                   bw, flops, tag) -> int:
     """SACTrainer at full width through kernel `kname` (K2, or K3 in the
     stack layout); returns its launches in the run."""
     import numpy as np
@@ -489,8 +517,27 @@ def training_phase(env, kname, n_envs, seed_steps, train_steps, eval_steps, max_
     want = run_kernel(kname, env, inp, conv, limit, plain=True, stats=env._stats)
     max_err[kname] = max(max_err[kname],
                          compare(f"{kname} at training B={n_envs}", got, want))
-    k_ms = time_call(lambda: run_kernel(kname, env, inp, conv, limit, stats=env._stats), 20)
-    print(f"  {kname} alone at B={n_envs}: {k_ms:.4f} ms {tag}", flush=True)
+    run = lambda name, e=None: run_kernel(name, env, inp, conv, limit, stats=env._stats, e=e)
+    k_ms = time_call(lambda: run(kname), 20)
+    d_ms = device_ms(lambda: run(kname), 20)
+    b_ms, b_by = bound_ms(inp, conv, got[1], kname, bw, flops, env._stats)
+    e = block_envs(env, kname) if kname in SOLO else 1
+    print(f"  {kname} alone at B={n_envs}{f' E={e}' if kname in SOLO else ''}: {k_ms:.4f} ms "
+          f"per call (CUDA events), {d_ms:.4f} ms on the device (profiler), bound "
+          f"{b_ms:.4f} ms ({b_by}) -> {b_ms / d_ms:.1%} of bound; "
+          f"{fdm_cuda.blocks_per_sm(kname, env.geom.shape, e)} blocks per SM, "
+          f"{-(-n_envs // e)} blocks {tag}", flush=True)
+    if kname in SOLO:
+        # K2 on the same inputs, and K3 at every E it takes at this batch.
+        solo = run(SOLO[kname])
+        if not (torch.equal(solo[0], got[0]) and torch.equal(solo[1], got[1])):
+            fail(f"{kname} and {SOLO[kname]} differ at training B={n_envs}")
+        sweep = [f"E={ek} {device_ms(lambda: run(kname, ek), 20):.4f}"
+                 for ek in range(1, fdm_cuda.jacobi_max_envs(env.geom.shape) + 1)]
+        print(f"  {SOLO[kname]} alone on the same inputs: {time_call(lambda: run(SOLO[kname]), 20):.4f}"
+              f" ms per call, {device_ms(lambda: run(SOLO[kname]), 20):.4f} ms on the device, "
+              f"{fdm_cuda.blocks_per_sm(SOLO[kname], env.geom.shape)} blocks per SM; {kname} "
+              f"on the device at B={n_envs}: {', '.join(sweep)} ms {tag}", flush=True)
 
     # Wiring: the same 3 train_steps through the kernels and the plain versions.
     small = train.SACTrainer(env, train.recipe_for(env, n_envs=8, batch_size=64,
@@ -550,9 +597,45 @@ def ragged_phase(max_err) -> None:
             compare(f"{label} vs fdm_cheby", got, solo)
 
 
+def nan_phase(env, max_err) -> None:
+    """One env of B=62 with a NaN in its field: K2 must stop it at iteration
+    1 (the solo rule), K3 at each E must run it to the limit (the block
+    rule), each bitwise its plain version, NaN equal to NaN."""
+    import torch
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    limit = 40
+    inp, conv = seeded_inputs(env, 62, seed=14, conv_kind="mix32")
+    temp = inp.temp.clone()
+    temp[5, 20, 30] = float("nan")
+    inp = dataclasses.replace(inp, temp=temp)
+    for kname, e in [("fdm_jacobi", None)] + [
+            ("fdm_jacobi_block", ek)
+            for ek in range(1, fdm_cuda.jacobi_max_envs(env.geom.shape) + 1)]:
+        got = run_kernel(kname, env, inp, conv, limit, stats=env._stats, e=e)
+        want = run_kernel(kname, env, inp, conv, limit, plain=True, stats=env._stats, e=e)
+        torch.cuda.synchronize()
+        label = f"{kname}{'' if e is None else f' E={e}'} with a NaN env"
+        try:
+            for a, b in [*zip(got[:3], want[:3]), (got[3].zone_sums, want[3].zone_sums),
+                         (got[3].grid_sums, want[3].grid_sums)]:
+                torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+        except AssertionError as exc:
+            fail(f"{label}: differs from its plain version: {exc}")
+        want_iters = 1 if e is None else limit
+        if int(got[1][5]) != want_iters or bool(got[2][5]):
+            fail(f"{label}: the NaN env ran {int(got[1][5])} iterations (want "
+                 f"{want_iters}), converged {bool(got[2][5])}")
+        finite = torch.isfinite(got[0]).flatten(1).all(1)
+        print(f"  {label}: NaN env ran {int(got[1][5])} iterations, {int(finite.sum())}/62 "
+              f"fields finite, bitwise equal (NaN = NaN) to the plain version", flush=True)
+        max_err[kname] = max(max_err[kname], float((got[0] - want[0])[finite].abs().max()))
+
+
 def check_phase(envs, max_err) -> None:
     """Phase 2: every kernel against its plain version; K3/K4 also against
-    K2/K1 env for env; K4 at every E it takes; K1/K4 on a ragged grid."""
+    K2/K1 env for env; K3/K4 at every E they take; K2/K3 with a NaN env;
+    K1/K4 on a ragged grid."""
     from sbsim_tpu_torch.physics import fdm_cuda
 
     print("phase 2: kernels vs plain versions on the card", flush=True)
@@ -585,18 +668,20 @@ def check_phase(envs, max_err) -> None:
                 compare(f"{kname} conv=mix32 stats=12 zones of 30x40 (several passes)",
                         got, want)
         if which == "12zone" and batch == 64:
-            # K4 at every E its launcher takes on this grid, against K1.
+            # K4 and K3 at every E their launchers take on this grid,
+            # against K1 and K2.
             inp, conv = seeded_inputs(env, batch, seed=12, conv_kind="mix32")
-            solo = run_kernel("fdm_cheby", env, inp, conv, 100, stats=env._stats)
-            for ek in range(1, fdm_cuda.cheby_max_envs(env.geom.shape) + 1):
-                got = run_kernel("fdm_cheby_block", env, inp, conv, 100, stats=env._stats,
-                                 e=ek)
-                want = run_kernel("fdm_cheby_block", env, inp, conv, 100, plain=True,
-                                  stats=env._stats, e=ek)
-                label = f"fdm_cheby_block E={ek} conv=mix32 stats=True"
-                max_err["fdm_cheby_block"] = max(max_err["fdm_cheby_block"],
-                                                 compare(label, got, want))
-                compare(f"{label} vs fdm_cheby", got, solo)
+            for kname, max_envs in (("fdm_cheby_block", fdm_cuda.cheby_max_envs),
+                                    ("fdm_jacobi_block", fdm_cuda.jacobi_max_envs)):
+                solo = run_kernel(SOLO[kname], env, inp, conv, 100, stats=env._stats)
+                for ek in range(1, max_envs(env.geom.shape) + 1):
+                    got = run_kernel(kname, env, inp, conv, 100, stats=env._stats, e=ek)
+                    want = run_kernel(kname, env, inp, conv, 100, plain=True,
+                                      stats=env._stats, e=ek)
+                    label = f"{kname} E={ek} conv=mix32 stats=True"
+                    max_err[kname] = max(max_err[kname], compare(label, got, want))
+                    compare(f"{label} vs {SOLO[kname]}", got, solo)
+            nan_phase(env, max_err)
     ragged_phase(max_err)
 
 
@@ -685,7 +770,7 @@ def main_path_phase(envs, max_err, bw, flops, tag):
         timing.setdefault((kname, label), t)
         if kname in SOLO:
             # The one-env-per-block kernel on the same inputs, and K3/K4 at
-            # other block widths (12 zones, where up to 8 envs fit).
+            # every block width they take (12 zones: 1-4).
             solo = run_kernel(SOLO[kname], env, inp, conv, limit, stats=stats)
             compare(f"{kname} vs {SOLO[kname]} at {label} B={batch}", got, solo)
             s_ms = time_call(
@@ -694,9 +779,9 @@ def main_path_phase(envs, max_err, bw, flops, tag):
             print(f"  {SOLO[kname]} alone on the same inputs: {s_ms:.4f} ms; {occ} blocks "
                   f"per SM {tag}", flush=True)
             if label == "12zone stack":
-                sweep = (range(1, fdm_cuda.cheby_max_envs(env.geom.shape) + 1)
-                         if kname == "fdm_cheby_block" else BLOCK_SWEEP)
-                for e in sweep:
+                max_envs = (fdm_cuda.cheby_max_envs if kname == "fdm_cheby_block"
+                            else fdm_cuda.jacobi_max_envs)
+                for e in range(1, max_envs(env.geom.shape) + 1):
                     _, te = alone(kname, e=e, note=f" E={e}")
                     timing[(kname, f"{label} E={e}")] = te
         elif kname == "fdm_cheby" and label == "12zone":
@@ -759,41 +844,55 @@ def sass_loops(sass: str):
     return out
 
 
-def sweep_loop(loops):
-    """The Chebyshev sweep among a kernel's loops: the smallest loop with
-    multiplies in fives (four stencil products and omega's per cell
-    update), a shared store and no shuffle (not a reduction); returns
-    (instructions, cell updates in its body, histogram) or None."""
+def sweep_loop(loops, jacobi=False):
+    """The sweep among a kernel's loops: the smallest loop with multiplies
+    in fives (Chebyshev: four stencil products and omega's per cell update)
+    or, with `jacobi`, in fours (the stencil products alone) and at least
+    as many adds (the sum and the residual; this keeps out the statistics'
+    mask multiply), a shared store and no shuffle (not a reduction);
+    returns (instructions, cell updates in its body, histogram) or None."""
+    per = 4 if jacobi else 5
     for n, h in loops:
         f = h.get("FMUL", 0)
-        if f >= 5 and f % 5 == 0 and h.get("STS") and not h.get("SHFL"):
-            return n, f // 5, h
+        if (f >= per and f % per == 0 and h.get("STS") and not h.get("SHFL")
+                and (not jacobi or h.get("FADD", 0) >= f)):
+            return n, f // per, h
     return None
 
 
-# Decomposition of the Chebyshev kernels: (env, batch, block envs of K4).
-DECOMP_SHAPES = (("12zone", 2048, (1, 2, 3, 4)), ("126room", 512, (1,)))
+# Decomposition: (env, batch, kernel family, block envs of its block
+# kernel; None for K3's: 1 .. the most it takes, or --envs).
+DECOMP_SHAPES = (("12zone", 2048, "cheby", (1, 2, 3, 4)), ("126room", 512, "cheby", (1,)),
+                 ("12zone", 2048, "jacobi", None), ("12zone", 64, "jacobi", None),
+                 ("126room", 512, "jacobi", (1,)))
 DECOMP_LIMITS = (5, 9, 17, 33)
 
 
-def decomposition(envs, tag, sass_dir=None) -> None:
-    """K1 and K4 on seeded inputs at the main path's shapes: the solve
-    alone, then with the mix32 swap rounds, with the word plane instead,
-    with statistics (12 zones); the cost of one sub-iteration as the slope
-    of kernel time over iteration_limit 5..33 with threshold -1 (every env
-    runs to the limit); each instance's registers, spills and resident
-    blocks per SM; with `sass_dir`, the SASS of the library and the
-    instructions of each kernel's sweep loop."""
+def decomposition(envs, tag, sass_dir=None, jacobi_envs=None) -> None:
+    """K1/K4 and K2/K3 on seeded inputs at the main paths' shapes (K2/K3
+    also at the trainer's B=64): the solve alone, then with the mix32 swap
+    rounds, with the word plane instead, with statistics (12 zones); the
+    cost of one (sub-)iteration as the slope of kernel time over
+    iteration_limit 5..33 with threshold -1 (every env runs to the limit);
+    each instance's registers, spills and resident blocks per SM; with
+    `sass_dir`, the SASS of the library and the instructions per cell
+    update of each kernel's sweep loop. K3 runs at `jacobi_envs` envs per
+    block (default 1 .. fdm_cuda.jacobi_max_envs)."""
     import numpy as np
+    import torch
     from sbsim_tpu_torch.physics import fdm_cuda
 
-    print("decomposition of the Chebyshev kernels", flush=True)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    print("decomposition of the FDM kernels", flush=True)
     for entry, regs, st, ld in ptxas_usage(fdm_cuda.build_log):
         print(f"  ptxas {entry}: {regs} registers, spill stores {st} B, loads {ld} B",
               flush=True)
-    for which, batch, es in DECOMP_SHAPES:
+    for which, batch, family, es in DECOMP_SHAPES:
         env = envs[which]
-        for name, e in [("fdm_cheby", None)] + [("fdm_cheby_block", e) for e in es]:
+        if es is None:
+            es = jacobi_envs or range(1, fdm_cuda.jacobi_max_envs(env.geom.shape) + 1)
+        solo = f"fdm_{family}"
+        for name, e in [(solo, None)] + [(f"{solo}_block", e) for e in es]:
             label = f"{name}{'' if e is None else f' E={e}'} {which} B={batch}"
             occ = fdm_cuda.blocks_per_sm(name, env.geom.shape, e or 1)
             cases = [("solve only", None, False), ("+ mix32 swaps", "mix32", False),
@@ -813,19 +912,24 @@ def decomposition(envs, tag, sass_dir=None) -> None:
             inp, _ = seeded_inputs(env, batch, seed=21, conv_kind=None)
             times = []
             for limit in DECOMP_LIMITS:
-                kw = dict(threshold=-1.0, iteration_limit=limit, conv=None,
-                          spectral_radius=env._spectral_radius,
-                          check_every=env.config.cheby_check_every)
+                kw = dict(threshold=-1.0, iteration_limit=limit, conv=None)
+                if family == "cheby":
+                    kw.update(spectral_radius=env._spectral_radius,
+                              check_every=env.config.cheby_check_every)
                 if e is not None:
                     kw.update(block_envs=e)
                 fn = getattr(fdm_cuda, f"{name}_cuda")
                 times.append(time_call(lambda: fn(inp, **kw), 10))
             slope, icpt = np.polyfit(np.array(DECOMP_LIMITS, float), np.array(times), 1)
+            # The SMs that hold a block (B=64: 64 of them at one env per block).
+            sms = min(n_sm, -(-batch // (e or 1)))
+            cells = env.geom.shape[0] * env.geom.shape[1]
             print(f"  {label}: {occ} blocks per SM; " + "; ".join(parts) + "; limit "
                   f"{'/'.join(map(str, DECOMP_LIMITS))} at threshold -1: "
                   f"{'/'.join(f'{t:.4f}' for t in times)} ms -> {slope * 1e3:.2f} us per "
-                  f"sub-iteration ({slope * 1e6 * 132 / batch / env.geom.shape[0] / env.geom.shape[1]:.3f}"
-                  f" ns per cell update per SM), intercept {icpt:.4f} ms {tag}", flush=True)
+                  f"{'sub-' if family == 'cheby' else ''}iteration "
+                  f"({slope * 1e6 * sms / batch / cells:.3f} ns per cell update per busy SM, "
+                  f"{sms} SMs), intercept {icpt:.4f} ms {tag}", flush=True)
     if sass_dir:
         os.makedirs(sass_dir, exist_ok=True)
         cuobjdump = os.path.join(os.path.dirname(fdm_cuda._nvcc()), "cuobjdump")
@@ -834,12 +938,44 @@ def decomposition(envs, tag, sass_dir=None) -> None:
         with open(os.path.join(sass_dir, "fdm_kernels.sass"), "w") as f:
             f.write(sass)
         for fname, loops in sass_loops(sass).items():
-            found = sweep_loop(loops) if "cheby" in fname else None
+            found = sweep_loop(loops, jacobi="jacobi" in fname)
             if found:
                 n, cells, h = found
                 top = ", ".join(f"{k} {v}" for k, v in sorted(h.items(), key=lambda kv: -kv[1])[:10])
                 print(f"  sass {fname}: sweep loop {n} instructions for {cells} cell updates "
                       f"({n / cells:.1f} per cell update): {top}", flush=True)
+
+
+def e3_repeats(envs, tag) -> None:
+    """K4 and K3 at E=3 with mix32 swaps and statistics on seeded inputs,
+    at B=2048 (the last block holds 2 envs) and B=2046 (none partial), six
+    times each in turns: 20 calls back to back (time_call, as the
+    decomposition times them), and min / median / max of 20 calls each
+    timed alone with CUDA events and a synchronise."""
+    import torch
+
+    print("K3 and K4 at E=3, six times each", flush=True)
+    env = envs["12zone"]
+    for batch in (2048, 2046):
+        inp, conv = seeded_inputs(env, batch, seed=21, conv_kind="mix32")
+        for rep in range(6):
+            parts = []
+            for name in ("fdm_cheby_block", "fdm_jacobi_block"):
+                run = lambda: run_kernel(name, env, inp, conv, env.config.iteration_limit,
+                                         stats=env._stats, e=3)
+                back = time_call(run, 20)
+                ms = []
+                for _ in range(20):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    run()
+                    b.record()
+                    b.synchronize()
+                    ms.append(a.elapsed_time(b))
+                parts.append(f"{name} back to back {back:.4f} ms, alone {min(ms):.4f} / "
+                             f"{statistics.median(ms):.4f} / {max(ms):.4f} ms")
+            print(f"  B={batch} run {rep + 1}: " + "; ".join(parts) + f" {tag}", flush=True)
 
 
 def wiring_phase(envs) -> None:
@@ -905,19 +1041,29 @@ def main() -> int:
     # ---- Phase 1 ---------------------------------------------------------
     t0 = time.time()
     path = fdm_cuda.build()
-    lib = fdm_cuda._library()
-    print(f"phase 1: built {os.path.relpath(path, REPO)} in {time.time() - t0:.1f} s; "
-          f"max cells {lib.fdm_max_cells()}", flush=True)
+    fdm_cuda._library()
+    print(f"phase 1: built {os.path.relpath(path, REPO)} in {time.time() - t0:.1f} s", flush=True)
     for line in fdm_cuda.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             print("  ptxas:", line.strip(), flush=True)
 
     envs = {which: make_env(which, dev) for which in _PLANS}
     if "--decomposition" in sys.argv:
-        # Only the Chebyshev kernels' decomposition, with their SASS written
-        # into the directory that follows the flag, if one does.
+        # Only the kernels' decomposition, with their SASS written into the
+        # directory that follows the flag, if one does; `--envs 1,2,4,8`
+        # names K3's block widths (an older package's K3 takes up to 8);
+        # `--e3` adds the E=3 repeats.
         rest = sys.argv[sys.argv.index("--decomposition") + 1:]
-        decomposition(envs, tag, sass_dir=rest[0] if rest else None)
+        es = None
+        if "--envs" in rest:
+            i = rest.index("--envs")
+            es = tuple(int(v) for v in rest[i + 1].split(","))
+            rest = rest[:i] + rest[i + 2:]
+        e3 = "--e3" in rest
+        rest = [a for a in rest if a != "--e3"]
+        decomposition(envs, tag, sass_dir=rest[0] if rest else None, jacobi_envs=es)
+        if e3:
+            e3_repeats(envs, tag)
         return 0
     max_err = dict.fromkeys(KERNELS, 0.0)
     check_phase(envs, max_err)
@@ -929,7 +1075,7 @@ def main() -> int:
     print("phase 5: SAC training at full width", flush=True)
     for which, kname, n_envs, seed_steps, train_steps, eval_steps in TRAINING:
         launches[kname] += training_phase(envs[which], kname, n_envs, seed_steps,
-                                          train_steps, eval_steps, max_err, tag)
+                                          train_steps, eval_steps, max_err, bw, flops, tag)
 
     # ---- Phase 6 ---------------------------------------------------------
     rows = {"fdm_cheby": "12zone", "fdm_jacobi": "12zone",

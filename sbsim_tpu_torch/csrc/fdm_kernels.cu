@@ -1,19 +1,20 @@
 // FDM convergence loops for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernels of sbsim_tpu/physics/fdm_pallas.py:
+// Replaces the Pallas TPU kernels of sbsim_tpu/physics/fdm_pallas.py with
+// two device bodies that share one toolkit (run ownership, staging, the
+// swap rounds, the output and the statistics):
 //   fdm_cheby_body<E, STAGED> <- K1 (E = 1): _fdm_cheby_kernel_interleaved
 //                        (:630) and its one-env form _fdm_cheby_kernel
 //                        (:279); K4 (E = 1..4): _fdm_cheby_kernel_block
 //                        (:505). Chebyshev semi-iteration of the Jacobi
 //                        map, residual sampled every `check_every`
 //                        sub-iterations, then J(x), the decision words and
-//                        the swap rounds. One device body for both.
-//   fdm_jacobi_kernel (K2) <- _fdm_kernel (:207): Jacobi while
-//                        it < limit and max|dx| > threshold, then the same
-//                        convection epilogue. One env per thread block.
-//   fdm_jacobi_block_kernel (K3) <- _fdm_kernel_block (:416): the stack
-//                        layout, E envs per thread block sharing one loop
-//                        (see "Block kernels" below).
+//                        the swap rounds.
+//   fdm_jacobi_body<E, STAGED, RULE> <- K2 (E = 1, kSolo): _fdm_kernel
+//                        (:207), Jacobi while it < limit and max|dx| >
+//                        threshold; K3 (E = 1..4, kBlock): _fdm_kernel_block
+//                        (:416), the stack layout with per-env freezing.
+//                        Then the same convection epilogue.
 // The decision word of the swap rounds is the mix32 hash of the env's key,
 // made in the kernel, or, when the wrapper passes a (B, H, W) word plane
 // (the threefry words), read from that plane (_kernel_conv_word, :192).
@@ -27,34 +28,35 @@
 // grid sums, bitwise the fold's.
 //
 // Bound: a step must read temp, const and denom and write the output, one
-// (H, W) float plane each per env (the five coefficient planes and the two
+// (H, W) float plane each per env (the stencil planes and the two
 // convection word planes are shared by the batch and stay in L2): at the
 // sb1 shapes 4 x 13,936 B x 2048 envs (12 zones, 34 us at 3.35 TB/s) or
 // 4 x 93,744 B x 512 envs (126 rooms, 57 us). The arithmetic of the ~9
-// Chebyshev sub-iterations an env needs there is of the same order at the
-// float32 peak (about 40 us and 70 us), so neither bound dominates. That
-// peak (67 TFLOP/s) assumes fused multiply-adds; built with -fmad=false and
-// IEEE division (a reciprocal, four FFMA and a check per divide) these
-// kernels cannot reach it, and the bound is kept as it is so that it stays
-// comparable.
+// Chebyshev sub-iterations (or ~20-35 Jacobi iterations) an env needs
+// there is of the same order at the float32 peak (about 40 us and 70 us),
+// so neither bound dominates. That peak (67 TFLOP/s) assumes fused
+// multiply-adds; built with -fmad=false and IEEE division (a reciprocal,
+// four FFMA and a check per divide) these kernels cannot reach it, and the
+// bound is kept as it is so that it stays comparable.
 //
 // The epilogue adds Z * hc * wc multiplies and about as many adds per env
 // (at 12 zones of 14 x 14, 2,352 each against ~3,484 x 12 flops of one
 // Jacobi sweep) and writes B * (Z + 1) floats.
 //
-// The Chebyshev body (K1, K4). Measured on the H100 (PERF.md), what
-// bounds it is instruction issue, not bytes: the one-cell-per-thread
-// sweep of the earlier K1 spent ~145 SASS instructions per cell update
-// (a runtime c / W division, seven read-only-cache loads, edge selects)
-// for ~25 of arithmetic, and its swap rounds (two more divisions and two
-// mix32 hashes per cell and round) took 44-49% of its time. The design
-// takes out of the sweep everything that does not change in it:
+// Design. Measured on the H100 (PERF.md), what bounds both bodies is
+// instruction issue, not bytes: the one-cell-per-thread sweeps of the
+// first kernels spent 134-188 SASS instructions per cell update (a runtime
+// c / W division, seven read-only-cache loads, edge selects) for ~25 of
+// arithmetic, and their swap rounds (two more divisions and two mix32
+// hashes per cell and round) took 29-49% of their time. The design takes
+// out of the sweep everything that does not change in it:
 //  - Each thread owns runs of kRun = 4 vertically consecutive cells; a
 //    cursor steps from one owned run to the next by (T / W, T % W) with
 //    one carry, so no sweep or swap round divides. The lanes of a warp own
 //    neighbouring columns, so every shared-memory access is conflict-free
 //    and every global one coalesced (row runs measured 4-way bank
-//    conflicts), and a run's cells are each other's vertical neighbours.
+//    conflicts), and a run's cells are each other's vertical neighbours;
+//    the run's own values stay in registers for the residual.
 //  - The exterior bits are one byte per run; the four stencil
 //    coefficients of a cell are one 16-byte read of a packed plane, once
 //    per run for all E envs of the block.
@@ -67,23 +69,26 @@
 //  - The swap rounds first write each owned cell's decision bits for up
 //    to 8 rounds into a byte plane (one mix32 hash per cell and word plane,
 //    or one read of the threefry word), then every round reads bytes.
-//  - Instances: STAGED E = 1-2 (<= 512 threads, 2 blocks per SM: at 3,
-//    E = 1 spilled at 40 registers and ran 12% slower), E = 3-4 (<= 1024,
-//    1 per SM); one env reading from global memory (<= 1024, 1 per SM).
-//    The launcher spreads the runs evenly over the fewest passes.
+//  - Instances of both bodies: STAGED E = 1-2 (<= 512 threads, 2 blocks
+//    per SM: at 3, E = 1 spilled at 40 registers and ran 12% (Chebyshev)
+//    and 8% (Jacobi) slower), E = 3-4 (<= 1024, 1 per SM); one env reading
+//    from global memory (<= 1024, 1 per SM; at 52 x 67 the Jacobi body ran
+//    35% slower so). The launcher spreads the runs evenly over the fewest
+//    passes.
+//  - Jacobi samples its stopping rule every iteration (its count and flag
+//    are exact per iteration), so every iteration ends in a reduction; it
+//    takes one barrier. Each warp writes its per-env maxima into a
+//    double-buffered scratch red[it & 1], the block meets once, and every
+//    warp then reduces the partials itself (one shuffle max), so every
+//    thread holds each env's maximum. That barrier also orders this
+//    iteration's writes of the partner plane before the next iteration's
+//    reads. A warp can overwrite a parity slot only after every warp has
+//    passed the next barrier, and every warp reads the slot before it gets
+//    there. (The Chebyshev body samples once per chunk and keeps the
+//    two-barrier block_max_envs.)
 // Tensor cores do not apply: a cell update is four products and a divide,
 // and TF32 or bf16 would break the bitwise equality with the plain
 // version.
-//
-// Design of K2: the iterate and its partner plane live in dynamic shared
-// memory for the whole loop (2 x 13.9 KB, or 2 x 93.7 KB = 187.5 KB at 126
-// rooms, under the 227 KB a block may use), so global memory is read once
-// and written once per env; const, denom and the shared planes are re-read
-// through the read-only cache. Each block loops on its own env until it
-// converges, so batch composition cannot change a result (no padding, no
-// freezing masks). The max-reduction runs only where the stopping rule
-// samples it (every Jacobi iteration; the last sub-iteration of each
-// Chebyshev chunk) and is exact (max does not depend on order).
 //
 // Numerics: built with -fmad=false and IEEE division, every cell update is
 // the plain PyTorch version's sequence of float32 operations
@@ -92,25 +97,23 @@
 // a_t*x_t + const, then / denom; the Chebyshev update
 // omega*(jx - x_prev) + x_prev, then the exterior re-pin.
 //
-// Block kernels (K3, and K4 through the Chebyshev body). One thread block
-// holds E envs: each env's iterate and its partner plane in dynamic shared
-// memory (K3: 2 x H x W floats per env, so E <= 8 at 52 x 67 and E = 1 at
-// 189 x 124; the wrapper clamps E). Per cell a thread reads the shared
-// stencil once and applies it to every active env of the block.
-// Per-env residual maxima stay in registers and are reduced for all E envs
-// in one block pass (one pair of barriers per sample, not E). The loop runs
-// while it < limit and any env of the block is active; an env whose
-// residual met the threshold is frozen (skipped, its planes no longer
-// swapped: a per-env parity bit says which slot holds its iterate), which
-// equals the JAX select. Chebyshev samples the freeze only at the end of a
-// chunk of `check_every` sub-iterations, and omega is one schedule for the
-// block (all envs start at it = 1). Slots past B are inactive from the
-// start. So each env's result equals K1/K2's for that env, bitwise.
-// Bound as above (the same bytes and operations; a word plane adds 4 B per
-// cell per env). K3's trade: at E = 8 one block of 1024 threads takes an
-// SM's shared memory, and its 45-59 registers per thread allow one block
-// per SM at every E > 2 (fdm_blocks_per_sm reports it). The epilogue runs
-// env by env.
+// E envs per thread block (K3, K4; K1 and K2 are E = 1). Each env has its
+// iterate and its partner plane (and, staged, const and denom) in dynamic
+// shared memory for the whole solve, so global memory is read once and
+// written once per env. Per run a thread reads the shared stencil once and
+// applies it to every active env of the block. The loop runs while
+// it < limit and any env of the block is active; an env that has met its
+// stopping rule is frozen (skipped, its planes no longer swapped: a
+// per-env parity bit says which slot holds its iterate), which equals the
+// JAX select. Chebyshev samples the freeze only at the end of a chunk of
+// `check_every` sub-iterations, and omega is one schedule for the block
+// (all envs start at it = 1). Slots past B are inactive from the start.
+// So each env's result equals K1's for that env whatever E, and K3's
+// equals K2's unless a residual is NaN. Jacobi has two stopping rules
+// (the plain versions are the spec): kSolo (K2) loops while it < limit and
+// delta > threshold, so a NaN stops the env at once; kBlock (K3) freezes
+// an env once its residual is <= threshold, so a NaN env runs to the
+// limit. K3 at E = 1 is therefore not K2. The epilogue runs env by env.
 
 #ifdef FDM_HOST_REHEARSAL
 // Host C++ build of the same source (tests/test_torch_kernel_host.py): the
@@ -190,7 +193,6 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src,
 namespace {
 
 constexpr int kMaxRounds = 32;
-constexpr int kMaxThreads = 1024;
 
 struct ConvArgs {
   int n_rounds;  // 0: no convection epilogue
@@ -205,12 +207,8 @@ struct Planes {
   const float* cnst;   // (B, H, W)
   const float* denom;  // (B, H, W)
   const float* tinf;   // (B,)
-  const float* a_r;    // (H, W) shared
-  const float* a_l;
-  const float* a_b;
-  const float* a_t;
+  const float4* coef;  // (H, W) packed (a_r, a_l, a_b, a_t), shared
   const float* ext;    // (H, W) 1.0 at exterior CVs
-  const float4* coef;  // (H, W) packed (a_r, a_l, a_b, a_t): K1/K4 only
   const uint32_t* lead;  // (H, W) packed lead masks
   const uint32_t* foll;  // (H, W) packed follower masks
   const int64_t* keys;   // (B, 2) uint32 values
@@ -244,134 +242,10 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Block-wide max; every thread gets the result. Contains two barriers, so
-// it also orders the shared-memory writes before it against reads after.
-__device__ float block_max(float v, float* red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = (blockDim.x + 31) >> 5;
-  v = warp_max(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float w = lane < n_warps ? red[lane] : 0.0f;
-    w = warp_max(w);
-    if (lane == 0) red[32] = w;
-  }
-  __syncthreads();
-  return red[32];
-}
-
-// The shared stencil coefficients of one cell.
-struct Stencil {
-  float ar, al, ab, at;
-  bool ext;
-};
-
-__device__ __forceinline__ Stencil load_stencil(const Planes& p, int c) {
-  Stencil k;
-  k.ar = __ldg(p.a_r + c);
-  k.al = __ldg(p.a_l + c);
-  k.ab = __ldg(p.a_b + c);
-  k.at = __ldg(p.a_t + c);
-  k.ext = __ldg(p.ext + c) > 0.0f;
-  return k;
-}
-
-// One Jacobi update of cell c from plane x.
-__device__ __forceinline__ float jacobi_at(const float* x, int c, int y,
-                                           int xc, const Planes& p,
-                                           const Stencil& k, float cnst,
-                                           float denom, float tinf) {
-  const int H = p.H, W = p.W;
-  float xr, xl, xb, xt;
-  if (p.edge_fill) {
-    xr = xc + 1 < W ? x[c + 1] : tinf;
-    xl = xc > 0 ? x[c - 1] : tinf;
-    xb = y + 1 < H ? x[c + W] : tinf;
-    xt = y > 0 ? x[c - W] : tinf;
-  } else {
-    // Rolls: wraparound reads land only in exterior cells, whose
-    // coefficients are folded to (a = 0, denom = 1, const = tinf).
-    xr = x[xc + 1 < W ? c + 1 : c + 1 - W];
-    xl = x[xc > 0 ? c - 1 : c - 1 + W];
-    xb = x[y + 1 < H ? c + W : xc];
-    xt = x[y > 0 ? c - W : (H - 1) * W + xc];
-  }
-  float num = k.ar * xr;
-  num = num + k.al * xl;
-  num = num + k.ab * xb;
-  num = num + k.at * xt;
-  num = num + cnst;
-  const float v = num / denom;
-  if (p.edge_fill && k.ext) return tinf;
-  return v;
-}
-
-__device__ __forceinline__ float jacobi_cell(const float* x, int c, int y,
-                                             int xc, const Planes& p,
-                                             const float* cnst,
-                                             const float* denom, float tinf) {
-  return jacobi_at(x, c, y, xc, p, load_stencil(p, c), __ldg(cnst + c),
-                   __ldg(denom + c), tinf);
-}
-
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x = (x ^ (x >> 16)) * 0x85EBCA6Bu;
   x = (x ^ (x >> 13)) * 0xC2B2AE35u;
   return x ^ (x >> 16);
-}
-
-// Bit r of the decision word of `cell`: read from the env's word plane
-// `wrd` when there is one, else the mix32 word (decision_word_from_key).
-__device__ __forceinline__ bool swap_decision(uint32_t cell, int r,
-                                              uint32_t k0, uint32_t k1,
-                                              int hw, const ConvArgs& cv,
-                                              const uint32_t* wrd) {
-  if (wrd != nullptr) return (__ldg(wrd + cell) >> r) & 1u;
-  const int lanes = 32 / cv.lane_bits;
-  const int plane = r / lanes;
-  const int lane = r - plane * lanes;
-  const uint32_t idx = cell + (uint32_t)plane * (uint32_t)hw;
-  const uint32_t bits = fmix32(fmix32(idx ^ k0) ^ k1);
-  const uint32_t mask = (1u << cv.lane_bits) - 1u;
-  return ((bits >> (cv.lane_bits * lane)) & mask) < (uint32_t)cv.q;
-}
-
-// The R swap rounds (_kernel_apply_swaps): each round reads the field as
-// it was before the round, so rounds ping-pong between the two planes.
-// Returns the plane that holds the result.
-__device__ float* apply_swaps(float* src, float* dst, const Planes& p,
-                              const ConvArgs& cv, uint32_t k0, uint32_t k1,
-                              const uint32_t* wrd) {
-  const int H = p.H, W = p.W, hw = H * W;
-  for (int r = 0; r < cv.n_rounds; ++r) {
-    const uint32_t bit = 1u << r;
-    const int dy = cv.dy[r], dx = cv.dx[r];
-    for (int c = threadIdx.x; c < hw; c += blockDim.x) {
-      const int y = c / W, xc = c - y * W;
-      float v = src[c];
-      if ((__ldg(p.lead + c) & bit) && swap_decision(c, r, k0, k1, hw, cv, wrd)) {
-        // lead: take the follower's value, x[y + dy, x + dx]
-        const int yy = (y + dy + H) % H, xx = (xc + dx + W) % W;
-        v = src[yy * W + xx];
-      }
-      if (__ldg(p.foll + c) & bit) {
-        // follower of the lead at (y - dy, x - dx): swap if that lead does
-        const int yy = (y - dy + H) % H, xx = (xc - dx + W) % W;
-        const int lead_cell = yy * W + xx;
-        if (swap_decision(lead_cell, r, k0, k1, hw, cv, wrd)) {
-          v = src[lead_cell];
-        }
-      }
-      dst[c] = v;
-    }
-    __syncthreads();
-    float* t = src;
-    src = dst;
-    dst = t;
-  }
-  return src;
 }
 
 // In-place halve-with-leftover fold (gridstats._fold_axis) of `rows`
@@ -441,85 +315,18 @@ __device__ void grid_stats(float* field, float* scratch, const Planes& p,
   if (threadIdx.x == 0) st.grid_sums[b] = field[0];
 }
 
-// Convection, the output and the statistics of env b's final field; the
-// caller writes the iteration count and flag.
-__device__ void epilogue(float* field, float* spare, const Planes& p,
-                         const ConvArgs& cv, const StatArgs& st, int b) {
-  const int hw = p.H * p.W;
-  if (cv.n_rounds > 0) {
-    uint32_t k0 = 0, k1 = 0;
-    const uint32_t* wrd = nullptr;
-    if (p.words != nullptr) {
-      wrd = p.words + (size_t)b * hw;
-    } else {
-      k0 = (uint32_t)p.keys[2 * b];
-      k1 = (uint32_t)p.keys[2 * b + 1];
-    }
-    float* result = apply_swaps(field, spare, p, cv, k0, k1, wrd);
-    if (result != field) spare = field;
-    field = result;
-  }
-  float* out = p.out + (size_t)b * hw;
-  for (int c = threadIdx.x; c < hw; c += blockDim.x) out[c] = field[c];
-  if (st.n_zones > 0) {
-    __syncthreads();  // the field is written out before the grid fold
-    grid_stats(field, spare, p, st, b);
-  }
-}
-
-__global__ void __launch_bounds__(kMaxThreads)
-    fdm_jacobi_kernel(Planes p, ConvArgs cv, StatArgs st, float threshold,
-                      int limit) {
-  FDM_DYNAMIC_SMEM(smem);
-  __shared__ float red[33];
-  const int b = blockIdx.x;
-  const int W = p.W, hw = p.H * p.W;
-  const float* cnst = p.cnst + (size_t)b * hw;
-  const float* denom = p.denom + (size_t)b * hw;
-  const float tinf = p.tinf[b];
-  float* x = smem;
-  float* xn = smem + hw;
-  const float* t0 = p.temp + (size_t)b * hw;
-  for (int c = threadIdx.x; c < hw; c += blockDim.x) x[c] = t0[c];
-  __syncthreads();
-
-  float delta = threshold + 1.0f;
-  int it = 0;
-  while (it < limit && delta > threshold) {
-    float m = 0.0f;
-    for (int c = threadIdx.x; c < hw; c += blockDim.x) {
-      const int y = c / W;
-      const float v = jacobi_cell(x, c, y, c - y * W, p, cnst, denom, tinf);
-      xn[c] = v;
-      m = nan_max(m, fabsf(v - x[c]));
-    }
-    delta = block_max(m, red);
-    float* t = x;
-    x = xn;
-    xn = t;
-    ++it;
-  }
-  if (threadIdx.x == 0) {
-    p.iters[b] = it;
-    p.converged[b] = delta <= threshold ? 1 : 0;
-  }
-  epilogue(x, xn, p, cv, st, b);
-}
-
-// ---------------------------------------------------------------------------
-// Block kernels: E envs per thread block (the stack layout)
-// ---------------------------------------------------------------------------
-
-constexpr int kMaxBlockEnvs = 8;
-// Static shared memory the launcher reserves beside the E x 2 planes
-// (the red[E][33] scratch, at most 1,056 B).
-constexpr int kBlockStaticSmem = 2048;
 constexpr int kSmemPerBlock = 232448;
+constexpr int kRun = 4;        // cells a thread owns per run down a column
+constexpr int kMaxEnvs = 4;    // envs per block with const/denom staged
+// Shared memory the launcher leaves for a body's static scratch (red and
+// the mbarrier: at most 1,032 B, the Jacobi body's red[2][4][32]).
+constexpr int kStaticSmem = 2048;
 
 // Block-wide max of each active env's m[e] (bit e of `envs`), for all of
 // them in one pass: every warp reduces each env in registers, then warp w
 // reduces the per-warp maxima of envs w, w + n_warps, ... Two barriers, so
 // it also orders the shared-memory writes before it against reads after.
+// (The Chebyshev body's reduction, once per chunk.)
 template <int E>
 __device__ __forceinline__ void block_max_envs(float (&m)[E],
                                                float (*red)[33],
@@ -549,115 +356,14 @@ __device__ __forceinline__ void block_max_envs(float (&m)[E],
   }
 }
 
-// Slot s (0 or 1) of env e's two planes.
-__device__ __forceinline__ float* env_plane(float* smem, int e, int s, int hw) {
-  return smem + (size_t)(2 * e + s) * hw;
-}
-
-// Writes each valid env's count and flag, then runs the epilogue env by
-// env on its final field (slot `(field_slots >> e) & 1`, the other slot is
-// its scratch).
-template <int E>
-__device__ __forceinline__ void block_finish(float* smem, const Planes& p, const ConvArgs& cv,
-                             const StatArgs& st, int b0, int n_env,
-                             unsigned field_slots, const int (&iters)[E],
-                             unsigned conv) {
-  const int hw = p.H * p.W;
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      if (e < n_env) {
-        p.iters[b0 + e] = iters[e];
-        p.converged[b0 + e] = (conv >> e) & 1u;
-      }
-    }
-  }
-#pragma unroll 1
-  for (int e = 0; e < n_env; ++e) {
-    const int s = (field_slots >> e) & 1u;
-    epilogue(env_plane(smem, e, s, hw), env_plane(smem, e, 1 - s, hw), p, cv,
-             st, b0 + e);
-  }
-}
-
-// K3: _fdm_kernel_block. Per env: Jacobi while it < limit and the env has
-// not met the threshold; the block loops while any env is active.
-template <int E>
-__global__ void __launch_bounds__(kMaxThreads)
-    fdm_jacobi_block_kernel(Planes p, ConvArgs cv, StatArgs st,
-                            float threshold, int limit, int B) {
-  FDM_DYNAMIC_SMEM(smem);
-  __shared__ float red[E][33];
-  const int b0 = blockIdx.x * E;
-  const int n_env = min(E, B - b0);
-  const int W = p.W, hw = p.H * p.W;
-  float tinf[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) tinf[e] = e < n_env ? p.tinf[b0 + e] : 0.0f;
-  for (int e = 0; e < n_env; ++e) {
-    const float* t0 = p.temp + (size_t)(b0 + e) * hw;
-    float* x = env_plane(smem, e, 0, hw);
-    for (int c = threadIdx.x; c < hw; c += blockDim.x) x[c] = t0[c];
-  }
-  __syncthreads();
-
-  unsigned active = (1u << n_env) - 1u;
-  unsigned slots = 0;  // bit e: env e's iterate is in its slot 1
-  unsigned conv = 0;
-  int iters[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) iters[e] = 0;
-  int it = 0;
-  while (it < limit && active) {
-    float m[E];
-#pragma unroll
-    for (int e = 0; e < E; ++e) m[e] = 0.0f;
-    for (int c = threadIdx.x; c < hw; c += blockDim.x) {
-      const int y = c / W, xc = c - y * W;
-      const Stencil k = load_stencil(p, c);
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        if (!((active >> e) & 1u)) continue;
-        const int s = (slots >> e) & 1u;
-        const float* x = env_plane(smem, e, s, hw);
-        const size_t g = (size_t)(b0 + e) * hw + c;
-        const float v = jacobi_at(x, c, y, xc, p, k, __ldg(p.cnst + g),
-                                  __ldg(p.denom + g), tinf[e]);
-        env_plane(smem, e, 1 - s, hw)[c] = v;
-        m[e] = nan_max(m[e], fabsf(v - x[c]));
-      }
-    }
-    block_max_envs<E>(m, red, active);
-    const unsigned stepped = active;
-    slots ^= stepped;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      if ((stepped >> e) & 1u) {
-        iters[e] = it + 1;
-        if (m[e] <= threshold) {
-          conv |= 1u << e;
-          active &= ~(1u << e);
-        }
-      }
-    }
-    ++it;
-  }
-  block_finish<E>(smem, p, cv, st, b0, n_env, slots, iters, conv);
-}
-
-// ---------------------------------------------------------------------------
-// K1 and K4: one Chebyshev body, E envs per thread block (K1 is E = 1)
-// ---------------------------------------------------------------------------
-
-constexpr int kRun = 4;           // cells a thread owns per run along a row
-constexpr int kChebyMaxEnvs = 4;  // envs per block with const/denom staged
-constexpr int kChebyStaticSmem = 1024;  // red[E][33] and the mbarrier
-
 // Threads per block (at most) and blocks per SM the compiler must allow
-// for an instance: E envs with const/denom in shared memory (staged), or
-// one env reading them from global memory (a grid too large to stage).
+// for an instance of either body: E envs with const/denom in shared memory
+// (staged), or one env reading them from global memory (a grid too large
+// to stage). Two blocks of 512 threads leave 64 registers a thread; for
+// the Jacobi body 3 blocks (40 registers) measured 8% slower and reading
+// const/denom from global memory where they fit 35% slower (PERF.md).
 template <int E, bool STAGED>
-struct ChebyShape {
+struct BodyShape {
   static constexpr int kThreads = STAGED && E <= 2 ? 512 : 1024;
   static constexpr int kMinBlocks = !STAGED ? 1 : E <= 2 ? 2 : 1;
 };
@@ -687,7 +393,7 @@ struct Cursor {
 __device__ __forceinline__ Cursor first_run(const RunGrid& g) {
   Cursor q;
   q.r = threadIdx.x;
-  q.yb = q.r / g.W;  // once per pass, outside the cell loop
+  q.yb = q.r / g.W;  // outside the cell loop
   q.x = q.r - q.yb * g.W;
   return q;
 }
@@ -704,9 +410,10 @@ __device__ __forceinline__ void next_run(Cursor& q, const RunGrid& g) {
 
 // One run's cells and neighbours: c0 its first (top) cell, n its length,
 // iu the cell above it and id the cell below its last cell, dl/dr the
-// offsets of a cell's left/right neighbour; with a roll they wrap as
-// jacobi_at's reads do, with edge fill the f* flags say that neighbour is
-// t_inf.
+// offsets of a cell's left/right neighbour; with a roll they wrap (reads
+// that land only in exterior cells, whose coefficients are folded to
+// a = 0, denom = 1, const = t_inf), with edge fill the f* flags say that
+// neighbour is t_inf.
 struct Run {
   int c0, n, y0, iu, id, dl, dr;
   bool fl, fr, fu, fd;
@@ -730,15 +437,18 @@ __device__ __forceinline__ Run make_run(const Cursor& q, const RunGrid& g) {
   return u;
 }
 
-// One pass of the Chebyshev body over one run, for every env of `envs`:
+// One pass of a body over one run, for every env of `envs`. Chebyshev:
 // kFirst writes x1 = J(x0) (slot 1 from slot 0), kCheby writes x_next =
 // omega (J(x) - x_prev) + x_prev over x_prev in place (exterior re-pinned),
-// kFinal writes J(x_final) into the x_prev slot; kFirst and sampling kCheby
-// passes fold |J(x) - x| into m. Each cell update is the plain version's
-// float32 sequence. The stencil of a cell is one 16-byte read of the
-// packed (a_r, a_l, a_b, a_t) plane through the read-only cache, shared by
-// the block's envs; a full run (FULL: kRun cells) needs no guards.
-enum Pass { kFirst, kCheby, kFinal };
+// kFinal writes J(x_final) into the x_prev slot; bit e of `slots` says
+// env e's x_prev is in its slot 1; kFirst and sampling kCheby passes fold
+// |J(x) - x| into m. Jacobi: kJacobi writes J(x) from the iterate's slot
+// (bit e of `slots`: slot 1) into the other and folds |J(x) - x| into m.
+// Each cell update is the plain version's float32 sequence. The stencil
+// of a cell is one 16-byte read of the packed (a_r, a_l, a_b, a_t) plane
+// through the read-only cache, shared by the block's envs; a full run
+// (FULL: kRun cells) needs no guards.
+enum Pass { kFirst, kCheby, kFinal, kJacobi };
 
 template <int E, bool STAGED, int PASS, bool FULL>
 __device__ __forceinline__ void run_pass(const Run& u, uint32_t ext,
@@ -746,7 +456,7 @@ __device__ __forceinline__ void run_pass(const Run& u, uint32_t ext,
                                          float* smem, const float* const* cn_g,
                                          const float* const* dn_g,
                                          const float (&tinf)[E], unsigned envs,
-                                         unsigned prev_slots, float omega_next,
+                                         unsigned slots, float omega_next,
                                          bool sample, float (&m)[E]) {
   constexpr int kPlanes = STAGED ? 4 : 2;
   const int n = FULL ? kRun : u.n;
@@ -761,10 +471,10 @@ __device__ __forceinline__ void run_pass(const Run& u, uint32_t ext,
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     if (!((envs >> e) & 1u)) continue;
-    const int s = PASS == kFirst ? 0 : (prev_slots >> e) & 1u;
+    const int s = PASS == kFirst ? 0 : (slots >> e) & 1u;
     float* env = smem + (size_t)e * kPlanes * P;
-    const float* x = env + (PASS == kFirst ? 0 : 1 - s) * P;
-    float* dst = env + (PASS == kFirst ? 1 : s) * P;
+    const float* x = env + (PASS == kFirst ? 0 : PASS == kJacobi ? s : 1 - s) * P;
+    float* dst = env + (PASS == kFirst ? 1 : PASS == kJacobi ? 1 - s : s) * P;
     float xv[kRun];
 #pragma unroll
     for (int i = 0; i < kRun; ++i) xv[i] = i < n ? x[u.c0 + i * W] : 0.0f;
@@ -796,31 +506,32 @@ __device__ __forceinline__ void run_pass(const Run& u, uint32_t ext,
         // x_next overwrites x_prev in place: cell c reads only x_prev[c].
         dst[c] = nx;
       } else {
-        if (PASS == kFirst) m[e] = nan_max(m[e], fabsf(jx - xv[i]));
+        if (PASS == kFirst || PASS == kJacobi) m[e] = nan_max(m[e], fabsf(jx - xv[i]));
         dst[c] = jx;
       }
     }
   }
 }
 
-// One pass over all of a thread's runs.
+// One pass over all of a thread's runs, from its first run q0.
 template <int E, bool STAGED, int PASS>
-__device__ __forceinline__ void sweep(const Planes& p, const RunGrid& g,
-                                      float* smem, const uint8_t* ext_bits,
+__device__ __forceinline__ void sweep(const Cursor& q0, const Planes& p,
+                                      const RunGrid& g, float* smem,
+                                      const uint8_t* ext_bits,
                                       const float* const* cn_g,
                                       const float* const* dn_g,
                                       const float (&tinf)[E], unsigned envs,
-                                      unsigned prev_slots, float omega_next,
+                                      unsigned slots, float omega_next,
                                       bool sample, float (&m)[E]) {
-  for (Cursor q = first_run(g); q.r < g.n_runs; next_run(q, g)) {
+  for (Cursor q = q0; q.r < g.n_runs; next_run(q, g)) {
     const Run u = make_run(q, g);
     const uint32_t ext = ext_bits[q.r];
     if (u.n == kRun) {
       run_pass<E, STAGED, PASS, true>(u, ext, p, g, smem, cn_g, dn_g, tinf, envs,
-                                      prev_slots, omega_next, sample, m);
+                                      slots, omega_next, sample, m);
     } else {
       run_pass<E, STAGED, PASS, false>(u, ext, p, g, smem, cn_g, dn_g, tinf, envs,
-                                       prev_slots, omega_next, sample, m);
+                                       slots, omega_next, sample, m);
     }
   }
 }
@@ -848,6 +559,56 @@ __device__ __forceinline__ void stage_out(float* dst, const float* src, int n) {
   const int body = bulk_floats(dst, n);
   if (body > 0 && threadIdx.x == 0) bulk_store(dst, src, (uint32_t)body * 4u);
   for (int c = body + threadIdx.x; c < n; c += blockDim.x) dst[c] = src[c];
+}
+
+// Shared memory of a body's block, per env e: its two iterate planes, then
+// (STAGED) its const and denom planes; after all envs the run exterior
+// bytes, then (not STAGED) the decision byte plane, which with STAGED
+// lives in env 0's const plane (free once the solve is done).
+//
+// The prologue: stages temp (and const, denom) of each env into slot 0
+// (and planes 2, 3) while the threads pack their runs' exterior bits;
+// returns once the block has met with everything in place.
+template <int E, bool STAGED>
+__device__ __forceinline__ void stage_envs(const Planes& p, const RunGrid& g,
+                                           float* smem, uint8_t* ext_bits,
+                                           int b0, int n_env, uint64_t* bar) {
+  constexpr int kPlanes = STAGED ? 4 : 2;
+  const int hw = g.hw;
+  const size_t P = g.plane;
+  if (threadIdx.x == 0) {
+    mbar_init(bar);
+    uint32_t tx = 0;
+    for (int e = 0; e < n_env; ++e) {
+      const size_t off = (size_t)(b0 + e) * hw;
+      tx += 4u * bulk_floats(p.temp + off, hw);
+      if (STAGED) {
+        tx += 4u * bulk_floats(p.cnst + off, hw);
+        tx += 4u * bulk_floats(p.denom + off, hw);
+      }
+    }
+    mbar_expect_tx(bar, tx);
+  }
+  __syncthreads();
+  for (int e = 0; e < n_env; ++e) {
+    const size_t off = (size_t)(b0 + e) * hw;
+    float* env = smem + (size_t)e * kPlanes * P;
+    stage_in(env, p.temp + off, hw, bar);
+    if (STAGED) {
+      stage_in(env + 2 * P, p.cnst + off, hw, bar);
+      stage_in(env + 3 * P, p.denom + off, hw, bar);
+    }
+  }
+  for (Cursor q = first_run(g); q.r < g.n_runs; next_run(q, g)) {
+    const Run u = make_run(q, g);
+    uint32_t bits = 0;
+    for (int i = 0; i < u.n; ++i) {
+      if (__ldg(p.ext + u.c0 + i * g.W) > 0.0f) bits |= 1u << i;
+    }
+    ext_bits[q.r] = (uint8_t)bits;
+  }
+  mbar_wait(bar, 0);
+  __syncthreads();
 }
 
 // The R swap rounds (_kernel_apply_swaps) on owned runs. Rounds go in
@@ -937,147 +698,34 @@ __device__ float* swap_runs(float* src, float* dst, uint8_t* dec,
   return src;
 }
 
-// K1 (E = 1) and K4: _fdm_cheby_kernel_interleaved / _fdm_cheby_kernel and
-// _fdm_cheby_kernel_block. x0 = temp; x1 = J(x0); then chunks of
-// `check_every` sub-iterations x_next = omega (J(x) - x_prev) + x_prev
-// (exterior re-pinned), x_next written over x_prev in place, with one omega
-// schedule for the block; an env's freeze state is fixed for a chunk and
-// decided by its last sub-iteration's residual max|J(x) - x|. Then J(x_f),
-// the swap rounds, the output and the statistics, env by env.
-//
-// Shared memory, per env e: its two iterate planes, then (STAGED) its
-// const and denom planes; after all envs the run exterior bytes, then
-// (not STAGED) the decision byte plane, which with STAGED lives in env 0's
-// const plane (free once the solve is done).
+// The epilogue: writes each env's count and flag, then, env by env, its
+// final field (slot (field_slots >> e) & 1; the other slot is scratch)
+// through the swap rounds, out by a bulk store, and into the statistics.
+// Every thread's writes of the final fields precede a barrier.
 template <int E, bool STAGED>
-__global__ void __launch_bounds__(ChebyShape<E, STAGED>::kThreads,
-                                  ChebyShape<E, STAGED>::kMinBlocks)
-    fdm_cheby_body(Planes p, ConvArgs cv, StatArgs st, RunGrid g,
-                   float threshold, int limit, float rho2, float omega0,
-                   int check_every, int B) {
-  FDM_DYNAMIC_SMEM(smem);
-  __shared__ float red[E][33];
-  __shared__ uint64_t bar;  // 8-byte aligned, as mbarrier needs
+__device__ __forceinline__ void finish_envs(const Planes& p, const ConvArgs& cv,
+                                            const StatArgs& st, const RunGrid& g,
+                                            float* smem, uint8_t* dec, int b0,
+                                            int n_env, unsigned field_slots,
+                                            const int (&iters)[E], unsigned conv) {
   constexpr int kPlanes = STAGED ? 4 : 2;
-  const int b0 = blockIdx.x * E;
-  const int n_env = min(E, B - b0);
-  const int hw = g.hw, P = g.plane;
-  const unsigned valid = (1u << n_env) - 1u;
-  uint8_t* ext_bits = (uint8_t*)(smem + (size_t)E * kPlanes * P);
-  uint8_t* dec = STAGED ? (uint8_t*)(smem + 2 * (size_t)P)
-                        : ext_bits + ((g.n_runs + 15) & ~15);
-  auto plane = [&](int e, int s) { return smem + (size_t)(e * kPlanes + s) * P; };
-  float tinf[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) tinf[e] = e < n_env ? p.tinf[b0 + e] : 0.0f;
-
-  // Stage temp (and const, denom) of each env; meanwhile the threads pack
-  // their runs' exterior bits.
-  if (threadIdx.x == 0) {
-    mbar_init(&bar);
-    uint32_t tx = 0;
-    for (int e = 0; e < n_env; ++e) {
-      const size_t off = (size_t)(b0 + e) * hw;
-      tx += 4u * bulk_floats(p.temp + off, hw);
-      if (STAGED) {
-        tx += 4u * bulk_floats(p.cnst + off, hw);
-        tx += 4u * bulk_floats(p.denom + off, hw);
-      }
-    }
-    mbar_expect_tx(&bar, tx);
-  }
-  __syncthreads();
-  for (int e = 0; e < n_env; ++e) {
-    const size_t off = (size_t)(b0 + e) * hw;
-    stage_in(plane(e, 0), p.temp + off, hw, &bar);
-    if (STAGED) {
-      stage_in(plane(e, 2), p.cnst + off, hw, &bar);
-      stage_in(plane(e, 3), p.denom + off, hw, &bar);
-    }
-  }
-  for (Cursor q = first_run(g); q.r < g.n_runs; next_run(q, g)) {
-    const Run u = make_run(q, g);
-    uint32_t bits = 0;
-    for (int i = 0; i < u.n; ++i) {
-      if (__ldg(p.ext + u.c0 + i * g.W) > 0.0f) bits |= 1u << i;
-    }
-    ext_bits[q.r] = (uint8_t)bits;
-  }
-  mbar_wait(&bar, 0);
-  __syncthreads();
-
-  const float* cn_g[E];
-  const float* dn_g[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    cn_g[e] = p.cnst + (size_t)(b0 + min(e, n_env - 1)) * hw;
-    dn_g[e] = p.denom + (size_t)(b0 + min(e, n_env - 1)) * hw;
-  }
-
-  // x1 = J(x0) into slot 1, delta0 = max |x1 - x0|.
-  float m[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) m[e] = 0.0f;
-  sweep<E, STAGED, kFirst>(p, g, smem, ext_bits, cn_g, dn_g, tinf, valid, 0, 0.0f,
-                           true, m);
-  block_max_envs<E>(m, red, valid);
-  unsigned done = 0;
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    if (((valid >> e) & 1u) && m[e] <= threshold) done |= 1u << e;
-  }
-  unsigned prev_slots = 0;  // bit e: env e's x_prev is in its slot 1
-  int iters[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) iters[e] = 1;
-  int it = 1;
-  float omega = omega0;
-  while (it < limit && (valid & ~done)) {
-    const unsigned chunk = valid & ~done;
-    for (int kk = 0; kk < check_every; ++kk) {
-      const float omega_next = 1.0f / (1.0f - rho2 * omega / 4.0f);
-      const bool sample = kk == check_every - 1;
-#pragma unroll
-      for (int e = 0; e < E; ++e) m[e] = 0.0f;
-      sweep<E, STAGED, kCheby>(p, g, smem, ext_bits, cn_g, dn_g, tinf, chunk,
-                               prev_slots, omega_next, sample, m);
-      if (sample) {
-        block_max_envs<E>(m, red, chunk);
-      } else {
-        __syncthreads();
-      }
-      prev_slots ^= chunk;
-      ++it;
-      omega = omega_next;
-    }
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      if ((chunk >> e) & 1u) {
-        iters[e] = it;
-        if (m[e] <= threshold) done |= 1u << e;
-      }
-    }
-  }
-  // Emit J(x_final) into each env's x_prev slot.
-  sweep<E, STAGED, kFinal>(p, g, smem, ext_bits, cn_g, dn_g, tinf, valid, prev_slots,
-                           0.0f, false, m);
-  __syncthreads();
+  const int hw = g.hw;
+  const size_t P = g.plane;
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       if (e < n_env) {
         p.iters[b0 + e] = iters[e];
-        p.converged[b0 + e] = (done >> e) & 1u;
+        p.converged[b0 + e] = (conv >> e) & 1u;
       }
     }
   }
-  // Epilogue, env by env: swap rounds, output, statistics.
 #pragma unroll 1
   for (int e = 0; e < n_env; ++e) {
     const int b = b0 + e;
-    const int s = (prev_slots >> e) & 1u;
-    float* field = plane(e, s);
-    float* spare = plane(e, 1 - s);
+    const int s = (field_slots >> e) & 1u;
+    float* field = smem + (size_t)(e * kPlanes + s) * P;
+    float* spare = smem + (size_t)(e * kPlanes + 1 - s) * P;
     if (cv.n_rounds > 0) {
       uint32_t k0 = 0, k1 = 0;
       const uint32_t* wrd = nullptr;
@@ -1099,12 +747,194 @@ __global__ void __launch_bounds__(ChebyShape<E, STAGED>::kThreads,
   }
 }
 
-int block_threads(int hw) {
-  int t = ((hw / 8 + 31) / 32) * 32;
-  if (t < 128) t = 128;
-  if (t > kMaxThreads) t = kMaxThreads;
-  return t;
+// ---------------------------------------------------------------------------
+// K1 and K4: one Chebyshev body, E envs per block (K1 is E = 1)
+// ---------------------------------------------------------------------------
+
+// K1 (E = 1) and K4: _fdm_cheby_kernel_interleaved / _fdm_cheby_kernel and
+// _fdm_cheby_kernel_block. x0 = temp; x1 = J(x0); then chunks of
+// `check_every` sub-iterations x_next = omega (J(x) - x_prev) + x_prev
+// (exterior re-pinned), x_next written over x_prev in place, with one omega
+// schedule for the block; an env's freeze state is fixed for a chunk and
+// decided by its last sub-iteration's residual max|J(x) - x|. Then J(x_f),
+// the swap rounds, the output and the statistics, env by env.
+template <int E, bool STAGED>
+__global__ void __launch_bounds__(BodyShape<E, STAGED>::kThreads,
+                                  BodyShape<E, STAGED>::kMinBlocks)
+    fdm_cheby_body(Planes p, ConvArgs cv, StatArgs st, RunGrid g,
+                   float threshold, int limit, float rho2, float omega0,
+                   int check_every, int B) {
+  FDM_DYNAMIC_SMEM(smem);
+  __shared__ float red[E][33];
+  __shared__ uint64_t bar;  // 8-byte aligned, as mbarrier needs
+  constexpr int kPlanes = STAGED ? 4 : 2;
+  const int b0 = blockIdx.x * E;
+  const int n_env = min(E, B - b0);
+  const int hw = g.hw, P = g.plane;
+  const unsigned valid = (1u << n_env) - 1u;
+  uint8_t* ext_bits = (uint8_t*)(smem + (size_t)E * kPlanes * P);
+  uint8_t* dec = STAGED ? (uint8_t*)(smem + 2 * (size_t)P)
+                        : ext_bits + ((g.n_runs + 15) & ~15);
+  float tinf[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) tinf[e] = e < n_env ? p.tinf[b0 + e] : 0.0f;
+  stage_envs<E, STAGED>(p, g, smem, ext_bits, b0, n_env, &bar);
+
+  const float* cn_g[E];
+  const float* dn_g[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    cn_g[e] = p.cnst + (size_t)(b0 + min(e, n_env - 1)) * hw;
+    dn_g[e] = p.denom + (size_t)(b0 + min(e, n_env - 1)) * hw;
+  }
+
+  // x1 = J(x0) into slot 1, delta0 = max |x1 - x0|.
+  float m[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) m[e] = 0.0f;
+  sweep<E, STAGED, kFirst>(first_run(g), p, g, smem, ext_bits, cn_g, dn_g, tinf,
+                           valid, 0, 0.0f, true, m);
+  block_max_envs<E>(m, red, valid);
+  unsigned done = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if (((valid >> e) & 1u) && m[e] <= threshold) done |= 1u << e;
+  }
+  unsigned prev_slots = 0;  // bit e: env e's x_prev is in its slot 1
+  int iters[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) iters[e] = 1;
+  int it = 1;
+  float omega = omega0;
+  while (it < limit && (valid & ~done)) {
+    const unsigned chunk = valid & ~done;
+    for (int kk = 0; kk < check_every; ++kk) {
+      const float omega_next = 1.0f / (1.0f - rho2 * omega / 4.0f);
+      const bool sample = kk == check_every - 1;
+#pragma unroll
+      for (int e = 0; e < E; ++e) m[e] = 0.0f;
+      sweep<E, STAGED, kCheby>(first_run(g), p, g, smem, ext_bits, cn_g, dn_g, tinf,
+                               chunk, prev_slots, omega_next, sample, m);
+      if (sample) {
+        block_max_envs<E>(m, red, chunk);
+      } else {
+        __syncthreads();
+      }
+      prev_slots ^= chunk;
+      ++it;
+      omega = omega_next;
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if ((chunk >> e) & 1u) {
+        iters[e] = it;
+        if (m[e] <= threshold) done |= 1u << e;
+      }
+    }
+  }
+  // Emit J(x_final) into each env's x_prev slot.
+  sweep<E, STAGED, kFinal>(first_run(g), p, g, smem, ext_bits, cn_g, dn_g, tinf,
+                           valid, prev_slots, 0.0f, false, m);
+  __syncthreads();
+  finish_envs<E, STAGED>(p, cv, st, g, smem, dec, b0, n_env, prev_slots, iters, done);
 }
+
+// ---------------------------------------------------------------------------
+// K2 and K3: one Jacobi body, E envs per block (K2 is E = 1, kSolo)
+// ---------------------------------------------------------------------------
+
+// The stopping rules of _fdm_kernel (kSolo: loop while it < limit and
+// delta > threshold, so a NaN delta stops the env) and _fdm_kernel_block
+// (kBlock: an env freezes once its residual is <= threshold, so a NaN env
+// runs to the limit; the block loops while any env is active).
+enum Rule { kSolo, kBlock };
+
+// K2 (E = 1, kSolo) and K3 (kBlock): x_{it+1} = J(x_it) from the iterate's
+// slot into the other, the residual max|x_{it+1} - x_it| of every active
+// env reduced after every iteration with one barrier (see the note at the
+// top); an env's count is the last iteration in which it stepped. Then the
+// swap rounds, the output and the statistics, env by env.
+template <int E, bool STAGED, int RULE>
+__global__ void __launch_bounds__(BodyShape<E, STAGED>::kThreads,
+                                  BodyShape<E, STAGED>::kMinBlocks)
+    fdm_jacobi_body(Planes p, ConvArgs cv, StatArgs st, RunGrid g,
+                    float threshold, int limit, int B) {
+  static_assert(RULE == kBlock || E == 1, "the solo rule runs one env per block");
+  FDM_DYNAMIC_SMEM(smem);
+  __shared__ float red[2][E][32];  // per-warp maxima, by iteration parity
+  __shared__ uint64_t bar;
+  constexpr int kPlanes = STAGED ? 4 : 2;
+  const int b0 = blockIdx.x * E;
+  const int n_env = min(E, B - b0);
+  const int hw = g.hw;
+  const size_t P = g.plane;
+  const unsigned valid = (1u << n_env) - 1u;
+  uint8_t* ext_bits = (uint8_t*)(smem + (size_t)E * kPlanes * P);
+  uint8_t* dec = STAGED ? (uint8_t*)(smem + 2 * P) : ext_bits + ((g.n_runs + 15) & ~15);
+  float tinf[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) tinf[e] = e < n_env ? p.tinf[b0 + e] : 0.0f;
+  stage_envs<E, STAGED>(p, g, smem, ext_bits, b0, n_env, &bar);
+
+  const float* cn_g[E];
+  const float* dn_g[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    cn_g[e] = p.cnst + (size_t)(b0 + min(e, n_env - 1)) * hw;
+    dn_g[e] = p.denom + (size_t)(b0 + min(e, n_env - 1)) * hw;
+  }
+  const Cursor q0 = first_run(g);  // the sweeps' start, divided once
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = (blockDim.x + 31) >> 5;
+
+  float delta = threshold + 1.0f;  // kSolo: the last residual max
+  unsigned active = RULE == kSolo && !(delta > threshold) ? 0u : valid;
+  unsigned slots = 0;  // bit e: env e's iterate is in its slot 1
+  unsigned conv = 0;
+  int iters[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) iters[e] = 0;
+  for (int it = 0; it < limit && active; ++it) {
+    float m[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) m[e] = 0.0f;
+    sweep<E, STAGED, kJacobi>(q0, p, g, smem, ext_bits, cn_g, dn_g, tinf, active, slots,
+                              0.0f, true, m);
+    float(*r)[32] = red[it & 1];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if ((active >> e) & 1u) {
+        const float v = warp_max(m[e]);
+        if (lane == 0) r[e][warp] = v;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if ((active >> e) & 1u) m[e] = warp_max(lane < n_warps ? r[e][lane] : 0.0f);
+    }
+    slots ^= active;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (!((active >> e) & 1u)) continue;
+      iters[e] = it + 1;
+      if (RULE == kSolo) {
+        delta = m[e];
+        if (!(delta > threshold)) active = 0;
+      } else if (m[e] <= threshold) {
+        conv |= 1u << e;
+        active &= ~(1u << e);
+      }
+    }
+  }
+  if (RULE == kSolo) conv = delta <= threshold ? valid : 0u;
+  finish_envs<E, STAGED>(p, cv, st, g, smem, dec, b0, n_env, slots, iters, conv);
+}
+
+// ---------------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------------
 
 ConvArgs make_conv_args(const int* offsets, int n_rounds, int lane_bits,
                         int q) {
@@ -1142,8 +972,7 @@ int prepare(Kernel kernel, size_t smem) {
 }
 
 Planes make_planes(const float* temp, const float* cnst, const float* denom,
-                   const float* tinf, const float* a_r, const float* a_l,
-                   const float* a_b, const float* a_t, const float* ext,
+                   const float* tinf, const float* coef, const float* ext,
                    const uint32_t* lead, const uint32_t* foll,
                    const int64_t* keys, const uint32_t* words, float* out,
                    int32_t* iters, int32_t* converged, int H, int W,
@@ -1153,12 +982,8 @@ Planes make_planes(const float* temp, const float* cnst, const float* denom,
   p.cnst = cnst;
   p.denom = denom;
   p.tinf = tinf;
-  p.a_r = a_r;
-  p.a_l = a_l;
-  p.a_b = a_b;
-  p.a_t = a_t;
+  p.coef = (const float4*)coef;
   p.ext = ext;
-  p.coef = nullptr;
   p.lead = lead;
   p.foll = foll;
   p.keys = keys;
@@ -1172,26 +997,15 @@ Planes make_planes(const float* temp, const float* cnst, const float* denom,
   return p;
 }
 
-// Envs per thread block that the block kernels take on an H x W grid.
-int block_envs_fit(int H, int W) {
-  const long per_env = 2L * H * W * (long)sizeof(float);
-  const long fit = (kSmemPerBlock - kBlockStaticSmem) / per_env;
-  return (int)(fit < kMaxBlockEnvs ? fit : kMaxBlockEnvs);
-}
-
-template <template <int> class Launch, typename... Args>
-int launch_block(int E, Args... args) {
-  switch (E) {
-    case 1: return Launch<1>::run(args...);
-    case 2: return Launch<2>::run(args...);
-    case 3: return Launch<3>::run(args...);
-    case 4: return Launch<4>::run(args...);
-    case 5: return Launch<5>::run(args...);
-    case 6: return Launch<6>::run(args...);
-    case 7: return Launch<7>::run(args...);
-    case 8: return Launch<8>::run(args...);
-    default: return (int)cudaErrorInvalidValue;
+// The arguments every launch checks: rounds, statistics windows, the
+// packed stencil's alignment.
+int check_args(const Planes& p, int n_rounds, int n_zones, int hc, int wc) {
+  if (n_rounds < 0 || n_rounds > kMaxRounds) return (int)cudaErrorInvalidValue;
+  if (n_zones < 0 || (n_zones > 0 && (hc < 1 || wc < 1 || hc > p.H || wc > p.W))) {
+    return (int)cudaErrorInvalidValue;
   }
+  if (p.coef == nullptr || ((uintptr_t)p.coef & 15)) return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 // Thread blocks of `kernel` resident per SM at a launch's shape.
@@ -1205,42 +1019,19 @@ int resident_blocks(Kernel kernel, int threads, size_t smem) {
   return n;
 }
 
-template <int E>
-struct BlockOccupancy {
-  static int run(int H, int W) {
-    const size_t smem = 2 * (size_t)E * H * W * sizeof(float);
-    const int threads = block_threads(E * H * W);
-    return resident_blocks(fdm_jacobi_block_kernel<E>, threads, smem);
-  }
-};
-
-template <int E>
-struct JacobiBlock {
-  static int run(Planes p, ConvArgs cv, StatArgs st, float threshold,
-                 int limit, int B, cudaStream_t stream) {
-    const size_t smem = 2 * (size_t)E * p.H * p.W * sizeof(float);
-    int err = prepare(fdm_jacobi_block_kernel<E>, smem);
-    if (err) return err;
-    const int grid = (B + E - 1) / E;
-    FDM_LAUNCH(fdm_jacobi_block_kernel<E>, grid, block_threads(E * p.H * p.W),
-               smem, stream)(p, cv, st, threshold, limit, B);
-    return (int)cudaGetLastError();
-  }
-};
-
-// Launch geometry of the Chebyshev body, E envs per block on an H x W
-// grid (mirrored by physics/fdm_cuda.py cheby_geometry): const/denom
-// staged in shared memory when 4 planes per env fit, else (E = 1 only)
+// Launch geometry of both bodies, E envs per block on an H x W grid
+// (mirrored by physics/fdm_cuda.py run_geometry): const/denom staged in
+// shared memory when 4 planes per env fit, else (E = 1 only)
 // read from global memory; threads spread the runs evenly over as few
 // passes (slots) as the instance's thread limit allows.
-struct ChebyGeometry {
+struct Geometry {
   int staged, threads, slots;
   size_t smem;
   RunGrid grid;
 };
 
-int cheby_geometry(int E, int H, int W, int edge_fill, ChebyGeometry* out) {
-  if (E < 1 || E > kChebyMaxEnvs || H < 1 || W < 1) {
+int run_geometry(int E, int H, int W, int edge_fill, Geometry* out) {
+  if (E < 1 || E > kMaxEnvs || H < 1 || W < 1) {
     return (int)cudaErrorInvalidValue;
   }
   RunGrid g;
@@ -1254,10 +1045,10 @@ int cheby_geometry(int E, int H, int W, int edge_fill, ChebyGeometry* out) {
   const size_t plane_bytes = 4 * (size_t)g.plane;
   const size_t ext_bytes = ((size_t)g.n_runs + 15) & ~(size_t)15;
   const size_t dec_bytes = ((size_t)g.hw + 15) & ~(size_t)15;
-  const size_t budget = kSmemPerBlock - kChebyStaticSmem;
+  const size_t budget = kSmemPerBlock - kStaticSmem;
   const size_t staged = E * 4 * plane_bytes + ext_bytes;
   const size_t plain = E * 2 * plane_bytes + ext_bytes + dec_bytes;
-  ChebyGeometry geo;
+  Geometry geo;
   if (staged <= budget) {
     geo.staged = 1;
     geo.smem = staged;
@@ -1267,7 +1058,7 @@ int cheby_geometry(int E, int H, int W, int edge_fill, ChebyGeometry* out) {
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  const int t_max = geo.staged && E <= 2 ? 512 : 1024;  // ChebyShape
+  const int t_max = geo.staged && E <= 2 ? 512 : 1024;  // BodyShape
   geo.slots = (g.n_runs + t_max - 1) / t_max;
   const int per_slot = (g.n_runs + geo.slots - 1) / geo.slots;
   geo.threads = (per_slot + 31) / 32 * 32;
@@ -1278,8 +1069,15 @@ int cheby_geometry(int E, int H, int W, int edge_fill, ChebyGeometry* out) {
   return 0;
 }
 
+int max_envs(int H, int W) {
+  Geometry geo;
+  int e = kMaxEnvs;
+  while (e > 1 && run_geometry(e, H, W, 0, &geo)) --e;
+  return run_geometry(e, H, W, 0, &geo) ? 0 : e;
+}
+
 template <template <int, bool> class Op, typename... Args>
-int with_cheby(int E, int staged, Args... args) {
+int with_body(int E, int staged, Args... args) {
   if (!staged) return E == 1 ? Op<1, false>::run(args...) : (int)cudaErrorInvalidValue;
   switch (E) {
     case 1: return Op<1, true>::run(args...);
@@ -1292,14 +1090,14 @@ int with_cheby(int E, int staged, Args... args) {
 
 template <int E, bool STAGED>
 struct ChebyOccupancy {
-  static int run(const ChebyGeometry& geo) {
+  static int run(const Geometry& geo) {
     return resident_blocks(fdm_cheby_body<E, STAGED>, geo.threads, geo.smem);
   }
 };
 
 template <int E, bool STAGED>
 struct ChebyLaunch {
-  static int run(const ChebyGeometry& geo, Planes p, ConvArgs cv, StatArgs st,
+  static int run(const Geometry& geo, Planes p, ConvArgs cv, StatArgs st,
                  float threshold, int limit, float rho2, float omega0,
                  int check_every, int B, cudaStream_t stream) {
     auto kernel = fdm_cheby_body<E, STAGED>;
@@ -1311,44 +1109,78 @@ struct ChebyLaunch {
   }
 };
 
-// K1 (E = 1) and K4: the swap offsets normalised to [0, H) x [0, W), so
-// that a partner wraps by one conditional add.
+template <int E, bool STAGED>
+struct JacobiOccupancy {
+  static int run(const Geometry& geo, int rule) {
+    if constexpr (E == 1) {
+      if (rule == kSolo) {
+        return resident_blocks(fdm_jacobi_body<1, STAGED, kSolo>, geo.threads, geo.smem);
+      }
+    }
+    return resident_blocks(fdm_jacobi_body<E, STAGED, kBlock>, geo.threads, geo.smem);
+  }
+};
+
+template <int E, bool STAGED, int RULE>
+int launch_jacobi(const Geometry& geo, Planes p, ConvArgs cv, StatArgs st,
+                  float threshold, int limit, int B, cudaStream_t stream) {
+  auto kernel = fdm_jacobi_body<E, STAGED, RULE>;
+  int err = prepare(kernel, geo.smem);
+  if (err) return err;
+  FDM_LAUNCH(kernel, (B + E - 1) / E, geo.threads, geo.smem, stream)(
+      p, cv, st, geo.grid, threshold, limit, B);
+  return (int)cudaGetLastError();
+}
+
+template <int E, bool STAGED>
+struct JacobiLaunch {
+  static int run(const Geometry& geo, int rule, Planes p, ConvArgs cv, StatArgs st,
+                 float threshold, int limit, int B, cudaStream_t stream) {
+    if constexpr (E == 1) {
+      if (rule == kSolo) {
+        return launch_jacobi<1, STAGED, kSolo>(geo, p, cv, st, threshold, limit, B, stream);
+      }
+    }
+    return launch_jacobi<E, STAGED, kBlock>(geo, p, cv, st, threshold, limit, B, stream);
+  }
+};
+
+// The swap offsets normalised to [0, H) x [0, W), so that a partner wraps
+// by one conditional add.
+void normalise_offsets(ConvArgs& cv, int H, int W) {
+  for (int r = 0; r < cv.n_rounds; ++r) {
+    cv.dy[r] = ((cv.dy[r] % H) + H) % H;
+    cv.dx[r] = ((cv.dx[r] % W) + W) % W;
+  }
+}
+
+// K1 (E = 1) and K4.
 int cheby_launch(Planes p, ConvArgs cv, StatArgs st, int E, float threshold,
                  int limit, float rho2, float omega0, int check_every, int B,
                  cudaStream_t stream) {
-  ChebyGeometry geo;
-  int err = cheby_geometry(E, p.H, p.W, p.edge_fill, &geo);
+  Geometry geo;
+  int err = run_geometry(E, p.H, p.W, p.edge_fill, &geo);
   if (err) return err;
-  if (p.coef == nullptr || ((uintptr_t)p.coef & 15)) return (int)cudaErrorInvalidValue;
-  for (int r = 0; r < cv.n_rounds; ++r) {
-    cv.dy[r] = ((cv.dy[r] % p.H) + p.H) % p.H;
-    cv.dx[r] = ((cv.dx[r] % p.W) + p.W) % p.W;
-  }
-  return with_cheby<ChebyLaunch>(E, geo.staged, geo, p, cv, st, threshold,
-                                 limit, rho2, omega0, check_every, B, stream);
+  if (check_every < 1) return (int)cudaErrorInvalidValue;
+  normalise_offsets(cv, p.H, p.W);
+  return with_body<ChebyLaunch>(E, geo.staged, geo, p, cv, st, threshold, limit, rho2,
+                                omega0, check_every, B, stream);
 }
 
-int cheby_max_envs(int H, int W) {
-  ChebyGeometry geo;
-  int e = kChebyMaxEnvs;
-  while (e > 1 && cheby_geometry(e, H, W, 0, &geo)) --e;
-  return cheby_geometry(e, H, W, 0, &geo) ? 0 : e;
+// K2 (E = 1, kSolo) and K3 (kBlock).
+int jacobi_launch(Planes p, ConvArgs cv, StatArgs st, int E, int rule,
+                  float threshold, int limit, int B, cudaStream_t stream) {
+  Geometry geo;
+  int err = run_geometry(E, p.H, p.W, p.edge_fill, &geo);
+  if (err) return err;
+  normalise_offsets(cv, p.H, p.W);
+  return with_body<JacobiLaunch>(E, geo.staged, geo, rule, p, cv, st, threshold, limit,
+                                 B, stream);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Envs per thread block that the block kernels take on an H x W grid: K3
-// (cheby 0) or K4 (cheby 1).
-int fdm_block_max_envs(int H, int W) { return block_envs_fit(H, W); }
-int fdm_cheby_max_envs(int H, int W) { return cheby_max_envs(H, W); }
-
-// The Chebyshev launch geometry for E envs per block, into out[8]:
-// staged, threads, slots, shared bytes, row blocks, runs, step_b, step_x.
-int fdm_cheby_geometry(int E, int H, int W, int* out) {
-  ChebyGeometry geo;
-  int err = cheby_geometry(E, H, W, 0, &geo);
+int export_geometry(int E, int H, int W, int* out) {
+  Geometry geo;
+  int err = run_geometry(E, H, W, 0, &geo);
   if (err) return err;
   const int v[8] = {geo.staged, geo.threads, geo.slots, (int)geo.smem,
                     geo.grid.row_blocks, geo.grid.n_runs, geo.grid.step_b,
@@ -1357,153 +1189,93 @@ int fdm_cheby_geometry(int E, int H, int W, int* out) {
   return 0;
 }
 
+}  // namespace
+
+extern "C" {
+
+// Envs per thread block that the block kernels take on an H x W grid: K4
+// (cheby) or K3 (jacobi), one geometry for both; 0 when not even one fits.
+int fdm_cheby_max_envs(int H, int W) { return max_envs(H, W); }
+int fdm_jacobi_max_envs(int H, int W) { return max_envs(H, W); }
+
+// The launch geometry of the Chebyshev or the Jacobi body for E envs per
+// block, into out[8]: staged, threads, slots, shared bytes, row blocks,
+// runs, step_b, step_x.
+int fdm_cheby_geometry(int E, int H, int W, int* out) {
+  return export_geometry(E, H, W, out);
+}
+int fdm_jacobi_geometry(int E, int H, int W, int* out) {
+  return export_geometry(E, H, W, out);
+}
+
 // Thread blocks resident per SM on an H x W grid: the Chebyshev (cheby)
-// or Jacobi kernel, K4/K3 with `block_envs` envs per block, or K1/K2 when
+// or Jacobi body, K4/K3 with `block_envs` envs per block, or K1/K2 when
 // block_envs is 0; -1 on an error.
 int fdm_blocks_per_sm(int cheby, int block_envs, int H, int W) {
-  if (cheby) {
-    ChebyGeometry geo;
-    if (cheby_geometry(block_envs > 0 ? block_envs : 1, H, W, 0, &geo)) return -1;
-    return with_cheby<ChebyOccupancy>(block_envs > 0 ? block_envs : 1, geo.staged, geo);
-  }
-  if (block_envs > 0) {
-    if (block_envs > block_envs_fit(H, W)) return -1;
-    return launch_block<BlockOccupancy>(block_envs, H, W);
-  }
-  const size_t smem = 2 * (size_t)H * W * sizeof(float);
-  return resident_blocks(fdm_jacobi_kernel, block_threads(H * W), smem);
+  const int E = block_envs > 0 ? block_envs : 1;
+  Geometry geo;
+  if (run_geometry(E, H, W, 0, &geo)) return -1;
+  if (cheby) return with_body<ChebyOccupancy>(E, geo.staged, geo);
+  return with_body<JacobiOccupancy>(E, geo.staged, geo, block_envs > 0 ? kBlock : kSolo);
 }
 
-// Largest H * W the kernels accept (two planes in shared memory).
-int fdm_max_cells() { return (232448 - 1024) / (2 * (int)sizeof(float)); }
+// Every launch takes the planes: temp, const, denom (B, H, W), tinf (B,),
+// coef, the (H, W, 4) float plane of (a_r, a_l, a_b, a_t) per cell,
+// 16-byte aligned, ext (H, W), the packed lead/follower masks, the keys or
+// the word plane, and the outputs. `offsets` is a host array of
+// 2 * n_rounds ints (dy, dx per round). The swap rounds read their
+// decision bits from `words` (B, H, W) when it is not null, else make the
+// mix32 words from `keys` (lane_bits, q); both may be null when
+// n_rounds == 0, and the stat pointers when n_zones == 0 (the window must
+// fit the grid: hc <= H, wc <= W). Returns a CUDA error code: the
+// geometry's refusal, or cudaGetLastError() after the launch.
+#define FDM_PLANE_PARAMS                                                      \
+  const float *temp, const float *cnst, const float *denom,                   \
+      const float *tinf, const float *coef, const float *ext,                 \
+      const uint32_t *lead, const uint32_t *foll, const int64_t *keys,        \
+      const uint32_t *words, float *out, int32_t *iters, int32_t *converged,  \
+      int B, int H, int W, int edge_fill
+#define FDM_TAIL_PARAMS                                                       \
+  const int *offsets, int n_rounds, int lane_bits, int q, const float *masks, \
+      const int32_t *row0, const int32_t *col0, float *zone_sums,             \
+      float *grid_sums, int n_zones, int hc, int wc, void *stream
+#define FDM_PREPARE_ARGS                                                      \
+  Planes p = make_planes(temp, cnst, denom, tinf, coef, ext, lead, foll,      \
+                         keys, words, out, iters, converged, H, W, edge_fill); \
+  int err = check_args(p, n_rounds, n_zones, hc, wc);                         \
+  if (err) return err;                                                        \
+  ConvArgs cv = make_conv_args(offsets, n_rounds, lane_bits, q);              \
+  StatArgs st = make_stat_args(masks, row0, col0, zone_sums, grid_sums,       \
+                               n_zones, hc, wc)
 
-// `offsets` is a host array of 2 * n_rounds ints (dy, dx per round). The
-// swap rounds read their decision bits from `words` (B, H, W) when it is
-// not null, else make the mix32 words from `keys` (lane_bits, q); both may
-// be null when n_rounds == 0, and the stat pointers when n_zones == 0 (the
-// window must fit the grid: hc <= H, wc <= W). Returns cudaGetLastError().
-int fdm_jacobi_launch(const float* temp, const float* cnst, const float* denom,
-                      const float* tinf, const float* a_r, const float* a_l,
-                      const float* a_b, const float* a_t, const float* ext,
-                      const uint32_t* lead, const uint32_t* foll,
-                      const int64_t* keys, const uint32_t* words, float* out,
-                      int32_t* iters, int32_t* converged, int B, int H, int W,
-                      int edge_fill, float threshold, int limit,
-                      const int* offsets, int n_rounds, int lane_bits, int q,
-                      const float* masks, const int32_t* row0,
-                      const int32_t* col0, float* zone_sums, float* grid_sums,
-                      int n_zones, int hc, int wc, void* stream) {
-  if (n_rounds < 0 || n_rounds > kMaxRounds) return (int)cudaErrorInvalidValue;
-  if (n_zones < 0 || (n_zones > 0 && (hc < 1 || wc < 1 || hc > H || wc > W))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem = 2 * (size_t)H * W * sizeof(float);
-  int err = prepare(fdm_jacobi_kernel, smem);
-  if (err) return err;
-  Planes p = make_planes(temp, cnst, denom, tinf, a_r, a_l, a_b, a_t, ext,
-                         lead, foll, keys, words, out, iters, converged, H,
-                         W, edge_fill);
-  ConvArgs cv = make_conv_args(offsets, n_rounds, lane_bits, q);
-  StatArgs st = make_stat_args(masks, row0, col0, zone_sums, grid_sums,
-                               n_zones, hc, wc);
-  FDM_LAUNCH(fdm_jacobi_kernel, B, block_threads(H * W), smem,
-             (cudaStream_t)stream)(p, cv, st, threshold, limit);
-  return (int)cudaGetLastError();
+// K2: the Jacobi body, one env per block, the solo stopping rule.
+int fdm_jacobi_launch(FDM_PLANE_PARAMS, float threshold, int limit, FDM_TAIL_PARAMS) {
+  FDM_PREPARE_ARGS;
+  return jacobi_launch(p, cv, st, 1, kSolo, threshold, limit, B, (cudaStream_t)stream);
 }
 
-// K1: the Chebyshev body with one env per block. `coef` is the (H, W, 4)
-// float plane of (a_r, a_l, a_b, a_t) per cell, 16-byte aligned.
-int fdm_cheby_launch(const float* temp, const float* cnst, const float* denom,
-                     const float* tinf, const float* a_r, const float* a_l,
-                     const float* a_b, const float* a_t, const float* ext,
-                     const uint32_t* lead, const uint32_t* foll,
-                     const int64_t* keys, const uint32_t* words, float* out,
-                     int32_t* iters, int32_t* converged, int B, int H, int W,
-                     int edge_fill, const float* coef, float threshold,
-                     int limit, float rho2, float omega0,
-                     int check_every, const int* offsets, int n_rounds,
-                     int lane_bits, int q, const float* masks,
-                     const int32_t* row0, const int32_t* col0,
-                     float* zone_sums, float* grid_sums, int n_zones, int hc,
-                     int wc, void* stream) {
-  if (n_rounds < 0 || n_rounds > kMaxRounds || check_every < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (n_zones < 0 || (n_zones > 0 && (hc < 1 || wc < 1 || hc > H || wc > W))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  Planes p = make_planes(temp, cnst, denom, tinf, a_r, a_l, a_b, a_t, ext,
-                         lead, foll, keys, words, out, iters, converged, H,
-                         W, edge_fill);
-  ConvArgs cv = make_conv_args(offsets, n_rounds, lane_bits, q);
-  StatArgs st = make_stat_args(masks, row0, col0, zone_sums, grid_sums,
-                               n_zones, hc, wc);
-  p.coef = (const float4*)coef;
-  return cheby_launch(p, cv, st, 1, threshold, limit, rho2, omega0,
-                      check_every, B, (cudaStream_t)stream);
+// K1: the Chebyshev body with one env per block.
+int fdm_cheby_launch(FDM_PLANE_PARAMS, float threshold, int limit, float rho2,
+                     float omega0, int check_every, FDM_TAIL_PARAMS) {
+  FDM_PREPARE_ARGS;
+  return cheby_launch(p, cv, st, 1, threshold, limit, rho2, omega0, check_every, B,
+                      (cudaStream_t)stream);
 }
 
-// As fdm_jacobi_launch / fdm_cheby_launch, with `block_envs` envs per
-// thread block (1 .. fdm_block_max_envs(H, W) for K3, 1 ..
-// fdm_cheby_max_envs(H, W) for K4).
-int fdm_jacobi_block_launch(
-    const float* temp, const float* cnst, const float* denom,
-    const float* tinf, const float* a_r, const float* a_l, const float* a_b,
-    const float* a_t, const float* ext, const uint32_t* lead,
-    const uint32_t* foll, const int64_t* keys, const uint32_t* words,
-    float* out, int32_t* iters, int32_t* converged, int B, int H, int W,
-    int edge_fill, int block_envs, float threshold, int limit,
-    const int* offsets, int n_rounds, int lane_bits, int q,
-    const float* masks, const int32_t* row0, const int32_t* col0,
-    float* zone_sums, float* grid_sums, int n_zones, int hc, int wc,
-    void* stream) {
-  if (n_rounds < 0 || n_rounds > kMaxRounds) return (int)cudaErrorInvalidValue;
-  if (n_zones < 0 || (n_zones > 0 && (hc < 1 || wc < 1 || hc > H || wc > W))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (block_envs < 1 || block_envs > fdm_block_max_envs(H, W)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  Planes p = make_planes(temp, cnst, denom, tinf, a_r, a_l, a_b, a_t, ext,
-                         lead, foll, keys, words, out, iters, converged, H,
-                         W, edge_fill);
-  ConvArgs cv = make_conv_args(offsets, n_rounds, lane_bits, q);
-  StatArgs st = make_stat_args(masks, row0, col0, zone_sums, grid_sums,
-                               n_zones, hc, wc);
-  return launch_block<JacobiBlock>(block_envs, p, cv, st, threshold, limit, B,
-                                   (cudaStream_t)stream);
+// K3 and K4: as K2 / K1, with `block_envs` envs per thread block (1 ..
+// fdm_jacobi_max_envs(H, W) for K3, 1 .. fdm_cheby_max_envs(H, W) for K4).
+int fdm_jacobi_block_launch(FDM_PLANE_PARAMS, int block_envs, float threshold, int limit,
+                            FDM_TAIL_PARAMS) {
+  FDM_PREPARE_ARGS;
+  return jacobi_launch(p, cv, st, block_envs, kBlock, threshold, limit, B,
+                       (cudaStream_t)stream);
 }
 
-int fdm_cheby_block_launch(
-    const float* temp, const float* cnst, const float* denom,
-    const float* tinf, const float* a_r, const float* a_l, const float* a_b,
-    const float* a_t, const float* ext, const uint32_t* lead,
-    const uint32_t* foll, const int64_t* keys, const uint32_t* words,
-    float* out, int32_t* iters, int32_t* converged, int B, int H, int W,
-    int edge_fill, const float* coef, int block_envs, float threshold,
-    int limit, float rho2, float omega0, int check_every, const int* offsets,
-    int n_rounds,
-    int lane_bits, int q, const float* masks, const int32_t* row0,
-    const int32_t* col0, float* zone_sums, float* grid_sums, int n_zones,
-    int hc, int wc, void* stream) {
-  if (n_rounds < 0 || n_rounds > kMaxRounds || check_every < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (n_zones < 0 || (n_zones > 0 && (hc < 1 || wc < 1 || hc > H || wc > W))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (block_envs < 1 || block_envs > fdm_cheby_max_envs(H, W)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  Planes p = make_planes(temp, cnst, denom, tinf, a_r, a_l, a_b, a_t, ext,
-                         lead, foll, keys, words, out, iters, converged, H,
-                         W, edge_fill);
-  ConvArgs cv = make_conv_args(offsets, n_rounds, lane_bits, q);
-  StatArgs st = make_stat_args(masks, row0, col0, zone_sums, grid_sums,
-                               n_zones, hc, wc);
-  p.coef = (const float4*)coef;
-  return cheby_launch(p, cv, st, block_envs, threshold, limit, rho2, omega0,
-                      check_every, B, (cudaStream_t)stream);
+int fdm_cheby_block_launch(FDM_PLANE_PARAMS, int block_envs, float threshold, int limit,
+                           float rho2, float omega0, int check_every, FDM_TAIL_PARAMS) {
+  FDM_PREPARE_ARGS;
+  return cheby_launch(p, cv, st, block_envs, threshold, limit, rho2, omega0, check_every,
+                      B, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -224,8 +224,8 @@ class EnvConfig:
     # always check every iteration (reference stopping-rule semantics).
     cheby_check_every: int = 1
     # Envs per program of the JAX package's Pallas kernels. Under "stack"
-    # it is the CUDA block kernels' envs per thread block, clamped to what
-    # fits in shared memory (fdm_cuda.effective_block_envs); "interleave"
+    # it is the CUDA block kernels' envs per thread block, clamped to each
+    # kernel's measured best (fdm_cuda.effective_block_envs); "interleave"
     # runs one env per thread block whatever its value.
     pallas_block_envs: int = 1
     # "stack" | "interleave" (the JAX package's Pallas block layouts).

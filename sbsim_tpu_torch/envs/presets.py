@@ -139,7 +139,7 @@ def _interleave_width(floor_plan: np.ndarray, layout: str) -> int:
 
     Copied so that sb1_config fills pallas_block_envs exactly as the JAX
     package does; in the stack layout the CUDA block kernels take it as
-    their envs per thread block, clamped to what fits in shared memory."""
+    their envs per thread block, clamped to each kernel's measured best."""
     h, w = floor_plan.shape
     cost = padded_grid_cost((h, w))
     if layout in ("auto", "transposed"):

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for the FDM convergence loop (Hopper, sm_90a).
 
-Counterpart of sbsim_tpu/physics/fdm_pallas.py. Four kernels live in
-csrc/fdm_kernels.cu:
+Counterpart of sbsim_tpu/physics/fdm_pallas.py. Four kernels, launches of
+two device bodies in csrc/fdm_kernels.cu:
 
   fdm_cheby  (K1) replaces _fdm_cheby_kernel_interleaved (fdm_pallas.py:630)
              and its one-env form _fdm_cheby_kernel (:279): the Chebyshev
@@ -11,20 +11,23 @@ csrc/fdm_kernels.cu:
              launch of the Chebyshev body that K4 launches with E envs.
   fdm_jacobi (K2) replaces _fdm_kernel (:207): Jacobi while
              it < limit and max|dx| > threshold, then the same convection.
+             It is the one-env launch of the Jacobi body under the solo
+             stopping rule.
   fdm_jacobi_block (K3) and fdm_cheby_block (K4) replace the stack layout's
              _fdm_kernel_block (:416) and _fdm_cheby_kernel_block (:505):
              E envs per thread block sharing one loop, per-env freezing
              (Chebyshev sampled only at chunk ends), one omega schedule per
-             block. E is clamped (effective_block_envs): K3 to what fits in
-             shared memory, K4 to its measured best.
+             block. E is clamped (effective_block_envs) to each body's
+             measured best.
 
 Every kernel keeps its envs' iterate and partner plane in shared memory for
-the whole solve, so a step reads temp/const/denom once and writes the field
-once (the bound is in the note at the top of the source); the Chebyshev
-body also stages const and denom there where they fit, with its launch
-geometry (cheby_geometry, run_neighbours) mirrored here for the tests. Each
+the whole solve, and stages const and denom there where they fit, so a
+step reads temp/const/denom once and writes the field once (the bound is
+in the note at the top of the source). Both bodies share one launch
+geometry (run_geometry, run_neighbours), mirrored here for the tests. Each
 env's result does not depend on the other envs of the batch or of its
-block.
+block (K3's equals K2's unless a residual is NaN: see
+fdm_jacobi_block_plain).
 
 The swap rounds take their decision words from the mix32 hash of the raw
 per-env key, made in the kernel, or from a precomputed (B, H, W) word plane
@@ -44,13 +47,15 @@ same inputs, with the same float32 operation sequence; built with
 CUDA tensors it launches the kernel or raises.
 
 The library is compiled with nvcc at first use into `_build/` beside this
-package (a content hash of the source names the .so) and loaded with ctypes.
+package (a content hash of the source and flags names the .so) and loaded
+with ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -68,22 +73,20 @@ from sbsim_tpu_torch.physics.gridstats import ZoneStatLayout, ZoneStats
 # Zone sums fill one 128-lane row of the TPU kernels' stats tile; the port
 # keeps their limit (fdm_pallas.py:944-949).
 MAX_STAT_ZONES = 128
-# Envs per thread block of K3/K4: at most MAX_BLOCK_ENVS, and 2 x H x W
-# floats each within the shared memory a block may use beside the kernels'
-# static scratch (kMaxBlockEnvs, kSmemPerBlock, kBlockStaticSmem).
-MAX_BLOCK_ENVS = 8
 SMEM_PER_BLOCK = 232448
-BLOCK_STATIC_SMEM = 2048
-# The Chebyshev body (K1, K4): cells a thread owns per run down a column,
-# envs per block with their const/denom staged, and the static shared
-# memory it reserves (kRun, kChebyMaxEnvs, kChebyStaticSmem).
+# Both bodies (csrc/fdm_kernels.cu): cells a thread owns per run down a
+# column, envs per block with their const/denom staged, and the shared
+# memory the launcher leaves for a body's static scratch (kRun, kMaxEnvs,
+# kStaticSmem).
 RUN = 4
-CHEBY_MAX_ENVS = 4
-CHEBY_STATIC_SMEM = 1024
+MAX_ENVS = 4
+STATIC_SMEM = 2048
 # The E that K4 runs for a larger request: the fastest of E = 1..4 on the
 # main paths' inputs at 12 zones B=2048 on an H100 (PERF.md: E = 1,
 # two blocks per SM of 448 threads; E = 2 3-5% slower, E = 3-4 25-30%).
 CHEBY_BEST_ENVS = 1
+# The E that K3 runs for a larger request, measured the same way (PERF.md).
+JACOBI_BEST_ENVS = 1
 MASK32 = convection_lib.MASK32
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -98,7 +101,7 @@ NVCC_FLAGS = (
 # Launches per kernel; a wrapper adds one where it launches its kernel.
 launch_counts = {"fdm_cheby": 0, "fdm_jacobi": 0, "fdm_cheby_block": 0,
                  "fdm_jacobi_block": 0}
-# nvcc's output of the last build in this process (ptxas register/smem use).
+# nvcc's output of the build in this process (ptxas register/smem use).
 build_log = ""
 _lib = None
 
@@ -126,7 +129,8 @@ def library_path() -> str:
 
 def build() -> str:
     """Compiles csrc/fdm_kernels.cu unless its library is built already;
-    returns the library's path. Raises if nvcc fails."""
+    returns the library's path and keeps nvcc's output in build_log.
+    Raises if nvcc fails."""
     global build_log
     path = library_path()
     if os.path.exists(path):
@@ -148,7 +152,9 @@ def build() -> str:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Sets the ctypes signatures of the library's C functions."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    planes = [ptr] * 16 + [i32] * 4  # 16 pointers, B, H, W, edge_fill
+    # temp, const, denom, tinf, coef, ext, lead, foll, keys, words, out,
+    # iters, converged; B, H, W, edge_fill
+    planes = [ptr] * 13 + [i32] * 4
     conv = [ptr, i32, i32, i32]  # offsets, n_rounds, lane_bits, q
     # masks, row0, col0, zone_sums, grid_sums, n_zones, hc, wc, stream
     stats = [ptr] * 5 + [i32] * 3 + [ptr]
@@ -156,19 +162,18 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     cheby = [f32, i32, f32, f32, i32]  # ... rho2, omega0, check_every
     for name, args in (
         ("fdm_jacobi_launch", planes + jacobi),
-        ("fdm_cheby_launch", planes + [ptr] + cheby),  # + packed stencil
+        ("fdm_cheby_launch", planes + cheby),
         ("fdm_jacobi_block_launch", planes + [i32] + jacobi),  # + block_envs
-        ("fdm_cheby_block_launch", planes + [ptr, i32] + cheby),
+        ("fdm_cheby_block_launch", planes + [i32] + cheby),
     ):
         fn = getattr(lib, name)
         fn.argtypes = args + conv + stats
         fn.restype = i32
-    lib.fdm_max_cells.restype = i32
-    for name in ("fdm_block_max_envs", "fdm_cheby_max_envs"):
-        getattr(lib, name).argtypes = [i32, i32]
-        getattr(lib, name).restype = i32
-    lib.fdm_cheby_geometry.argtypes = [i32, i32, i32, ptr]
-    lib.fdm_cheby_geometry.restype = i32
+    for body in ("cheby", "jacobi"):
+        getattr(lib, f"fdm_{body}_max_envs").argtypes = [i32, i32]
+        getattr(lib, f"fdm_{body}_max_envs").restype = i32
+        getattr(lib, f"fdm_{body}_geometry").argtypes = [i32, i32, i32, ptr]
+        getattr(lib, f"fdm_{body}_geometry").restype = i32
     lib.fdm_blocks_per_sm.argtypes = [i32] * 4
     lib.fdm_blocks_per_sm.restype = i32
     return lib
@@ -200,6 +205,9 @@ class KernelInputs:
     a_t: torch.Tensor
     ext: torch.Tensor  # f32 (H, W), 1.0 at exterior cells
     edge_fill: bool
+    # f32 (H, W, 4): (a_r, a_l, a_b, a_t) per cell, the one 16-byte read of
+    # a cell's stencil in both kernel bodies (the plain versions read a_*).
+    coef: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,28 +258,24 @@ def packed_plane(words, device) -> torch.Tensor:
 def effective_block_envs(shape: Tuple[int, int], block_envs: int,
                          cheby: bool = False) -> int:
     """The envs per thread block K3 (or with `cheby` K4) runs for a
-    requested `block_envs` on an (H, W) grid. K3: at most MAX_BLOCK_ENVS
-    and as many as fit two planes each in shared memory (8 at 52 x 67, 1
-    at 189 x 124). K4: CHEBY_BEST_ENVS, the measured fastest (1); asked
-    directly, the kernel takes up to cheby_max_envs envs per block, as
-    many as fit four planes each (the iterate pair and the staged
-    const/denom: 4 at 52 x 67, 1 at 189 x 124, which then reads
-    const/denom from global memory); see cheby_geometry."""
-    h, w = shape
-    if cheby:
-        return max(1, min(int(block_envs), CHEBY_BEST_ENVS, cheby_max_envs(shape)))
-    fit = (SMEM_PER_BLOCK - BLOCK_STATIC_SMEM) // (2 * h * w * 4)
-    return max(1, min(int(block_envs), MAX_BLOCK_ENVS, fit))
+    requested `block_envs` on an (H, W) grid: the body's measured fastest,
+    JACOBI_BEST_ENVS or CHEBY_BEST_ENVS (1 each). Asked directly, each
+    block kernel takes up to jacobi_max_envs / cheby_max_envs envs per
+    block, as many as fit four planes each in shared memory (the iterate
+    pair and the staged const/denom: 4 at 52 x 67, 1 at 189 x 124, which
+    then reads const/denom from global memory); see run_geometry."""
+    best, fit = ((CHEBY_BEST_ENVS, cheby_max_envs(shape)) if cheby
+                 else (JACOBI_BEST_ENVS, jacobi_max_envs(shape)))
+    return max(1, min(int(block_envs), best, fit))
 
 
 @dataclasses.dataclass(frozen=True)
-class ChebyGeometry:
-    """Launch geometry of the Chebyshev body (K1 at E = 1, K4), mirroring
-    cheby_geometry in csrc/fdm_kernels.cu: each column is cut into runs of
-    RUN vertically consecutive cells, runs are numbered row block by row
-    block, column by column, thread t owns runs t, t + threads, ...
-    (`slots` at most), and const/denom are staged in shared memory when
-    they fit."""
+class RunGeometry:
+    """Launch geometry of both bodies (K1-K4), mirroring run_geometry in
+    csrc/fdm_kernels.cu: each column is cut into runs of RUN vertically
+    consecutive cells, runs are numbered row block by row block, column by
+    column, thread t owns runs t, t + threads, ... (`slots` at most), and
+    const/denom are staged in shared memory when they fit."""
 
     staged: bool
     threads: int
@@ -283,48 +287,64 @@ class ChebyGeometry:
     step_x: int  # threads % W
 
 
-def cheby_geometry(shape: Tuple[int, int], block_envs: int) -> Optional[ChebyGeometry]:
-    """The Chebyshev launch for `block_envs` envs per block on an (H, W)
-    grid, or None where it does not fit. Shared memory per block: per env
-    the two iterate planes and, staged, const and denom (plane strides
-    rounded to 16 bytes), then one byte of exterior bits per run, then,
-    not staged, the swap rounds' decision byte plane (staged, it reuses
-    env 0's const plane). Threads: at most 512 for staged blocks of 1-2
-    envs, else 1024, spread evenly over the fewest passes."""
+def _smem_bytes(shape: Tuple[int, int], block_envs: int, staged: bool) -> int:
+    """Dynamic shared memory of a block: per env the two iterate planes
+    and, staged, const and denom (plane strides rounded to 16 bytes), then
+    one byte of exterior bits per run, then, not staged, the swap rounds'
+    decision byte plane (staged, it reuses env 0's const plane)."""
+    h, w = shape
+    plane = -(-(h * w) // 4) * 4 * 4
+    ext = -(-(-(-h // RUN) * w) // 16) * 16
+    if staged:
+        return block_envs * 4 * plane + ext
+    return block_envs * 2 * plane + ext + -(-(h * w) // 16) * 16
+
+
+def run_geometry(shape: Tuple[int, int], block_envs: int) -> Optional[RunGeometry]:
+    """The launch for `block_envs` envs per block on an (H, W) grid, or
+    None where it does not fit in SMEM_PER_BLOCK - STATIC_SMEM bytes:
+    staged for 1..MAX_ENVS envs where four planes each fit, else one env
+    reading const/denom from global memory. Threads: at most 512 for
+    staged blocks of 1-2 envs, else 1024, spread evenly over the fewest
+    passes."""
     h, w = shape
     e = int(block_envs)
-    hw = h * w
-    plane = -(-hw // 4) * 4 * 4
-    row_blocks = -(-h // RUN)
-    n_runs = row_blocks * w
-    ext, dec = -(-n_runs // 16) * 16, -(-hw // 16) * 16
-    budget = SMEM_PER_BLOCK - CHEBY_STATIC_SMEM
-    staged_bytes, plain_bytes = e * 4 * plane + ext, e * 2 * plane + ext + dec
-    if 1 <= e <= CHEBY_MAX_ENVS and staged_bytes <= budget:
-        staged, smem = True, staged_bytes
-    elif e == 1 and plain_bytes <= budget:
-        staged, smem = False, plain_bytes
+    budget = SMEM_PER_BLOCK - STATIC_SMEM
+    if 1 <= e <= MAX_ENVS and _smem_bytes(shape, e, True) <= budget:
+        staged = True
+    elif e == 1 and _smem_bytes(shape, 1, False) <= budget:
+        staged = False
     else:
         return None
+    row_blocks = -(-h // RUN)
+    n_runs = row_blocks * w
     t_max = 512 if staged and e <= 2 else 1024
     slots = -(-n_runs // t_max)
     threads = -(-(-(-n_runs // slots)) // 32) * 32
-    return ChebyGeometry(staged, threads, slots, smem, row_blocks, n_runs,
-                         threads // w, threads % w)
+    return RunGeometry(staged, threads, slots, _smem_bytes(shape, e, staged), row_blocks,
+                       n_runs, threads // w, threads % w)
 
 
-def cheby_max_envs(shape: Tuple[int, int]) -> int:
-    """The most envs per block the Chebyshev body takes on this grid (0:
-    none fit)."""
-    e = CHEBY_MAX_ENVS
-    while e > 1 and cheby_geometry(shape, e) is None:
+# Both bodies launch with one geometry (fdm_cheby_geometry and
+# fdm_jacobi_geometry return the same), so each takes the same most envs
+# per block (fdm_cheby_max_envs, fdm_jacobi_max_envs).
+cheby_geometry = jacobi_geometry = run_geometry
+
+
+def _max_envs(shape: Tuple[int, int]) -> int:
+    """The most envs per block a body takes on this grid (0: none fit)."""
+    e = MAX_ENVS
+    while e > 1 and run_geometry(shape, e) is None:
         e -= 1
-    return e if cheby_geometry(shape, e) is not None else 0
+    return e if run_geometry(shape, e) is not None else 0
 
 
-def run_neighbours(shape: Tuple[int, int], geo: ChebyGeometry, edge_fill: bool):
-    """The kernel's run ownership and neighbour reads, cell by cell, as the
-    Chebyshev body computes them (first run by division, then the (step_b,
+cheby_max_envs = jacobi_max_envs = _max_envs
+
+
+def run_neighbours(shape: Tuple[int, int], geo: RunGeometry, edge_fill: bool):
+    """The kernels' run ownership and neighbour reads, cell by cell, as
+    both bodies compute them (first run by division, then the (step_b,
     step_x) step with one carry): returns (owner thread (H*W,), slot
     (H*W,), {"r", "l", "b", "t": neighbour cell (H*W,), -1 for t_inf}).
     A cell no run covers keeps owner -1; a cell covered twice raises."""
@@ -373,26 +393,40 @@ def kernel_inputs(
     """Per-step const/denom planes and the stencil planes, with the same
     float32 arithmetic as fdm_step_pallas (:877-895)."""
     const, denom = fdm.step_planes(temp, input_q, t_inf, h_conv, coeffs)
-    tinf3 = t_inf.view(-1, 1, 1)
-    ext_b = coeffs.exterior_mask
-    a_r, a_l, a_b, a_t = coeffs.a_r, coeffs.a_l, coeffs.a_b, coeffs.a_t
     edge_fill = not coeffs.ring_exterior
     if not edge_fill:
-        a_r, a_l, a_b, a_t = (torch.where(ext_b, 0.0, a) for a in (a_r, a_l, a_b, a_t))
+        ext_b = coeffs.exterior_mask
         denom = torch.where(ext_b, 1.0, denom)
-        const = torch.where(ext_b, tinf3, const)
+        const = torch.where(ext_b, t_inf.view(-1, 1, 1), const)
+    a_r, a_l, a_b, a_t, coef, ext = _stencil_planes(coeffs)
     return KernelInputs(
         temp=temp.to(torch.float32).contiguous(),
         const=const.contiguous(),
         denom=denom.contiguous(),
         tinf=t_inf.to(torch.float32).contiguous(),
-        a_r=a_r.contiguous(),
-        a_l=a_l.contiguous(),
-        a_b=a_b.contiguous(),
-        a_t=a_t.contiguous(),
-        ext=ext_b.to(torch.float32).contiguous(),
+        a_r=a_r, a_l=a_l, a_b=a_b, a_t=a_t, ext=ext,
         edge_fill=edge_fill,
+        coef=coef,
     )
+
+
+def packed_coef(a_r, a_l, a_b, a_t) -> torch.Tensor:
+    """The (H, W, 4) stencil plane of KernelInputs.coef."""
+    return torch.stack((a_r, a_l, a_b, a_t), dim=-1).contiguous()
+
+
+@functools.lru_cache(maxsize=8)
+def _stencil_planes(coeffs: StencilCoefficients) -> Tuple[torch.Tensor, ...]:
+    """The kernels' stencil planes, made once per env's coefficients
+    rather than every step: a_r, a_l, a_b, a_t (with a ring exterior's pin
+    folded in, a* = 0 at exterior cells), their packed coef plane, and the
+    exterior as float32."""
+    ext_b = coeffs.exterior_mask
+    a = (coeffs.a_r, coeffs.a_l, coeffs.a_b, coeffs.a_t)
+    if coeffs.ring_exterior:
+        a = tuple(torch.where(ext_b, 0.0, x) for x in a)
+    a = tuple(x.contiguous() for x in a)
+    return a + (packed_coef(*a), ext_b.to(torch.float32).contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -642,7 +676,7 @@ def _check_inputs(
     b, h, w = inp.temp.shape
     per_env = (inp.temp, inp.const, inp.denom)
     shared = (inp.a_r, inp.a_l, inp.a_b, inp.a_t, inp.ext)
-    for t in per_env + shared + (inp.tinf,):
+    for t in per_env + shared + (inp.tinf, inp.coef):
         if t.is_cuda == (lib is not None) or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous float32 CUDA tensors "
                              "(CPU tensors for a host build of the kernels)")
@@ -650,10 +684,14 @@ def _check_inputs(
             raise ValueError("kernel inputs must lie on one device")
     if any(t.shape != (b, h, w) for t in per_env) or inp.tinf.shape != (b,):
         raise ValueError("per-env inputs must be (B, H, W) and tinf (B,)")
-    if any(t.shape != (h, w) for t in shared):
-        raise ValueError("shared stencil planes must be (H, W)")
-    if h * w > (lib or _library()).fdm_max_cells():
-        raise ValueError(f"grid {h}x{w} does not fit two planes in shared memory")
+    if any(t.shape != (h, w) for t in shared) or inp.coef.shape != (h, w, 4):
+        raise ValueError("shared stencil planes must be (H, W) and coef (H, W, 4)")
+    if run_geometry((h, w), 1) is None:  # not even the unstaged launch fits
+        budget = SMEM_PER_BLOCK - STATIC_SMEM
+        raise ValueError(
+            f"grid {h}x{w} does not fit one env per thread block: its two planes, "
+            f"exterior bits and decision bytes take {_smem_bytes((h, w), 1, False)} B of "
+            f"shared memory, more than the {budget} B a block may use")
     if conv is not None:
         if len(conv.offsets) > 32:
             raise ValueError("at most 32 convection rounds")
@@ -717,8 +755,7 @@ def _launch_args(inp: KernelInputs, conv: Optional[ConvInputs], stats, out, iter
         ptrs = (None,) * 4
     planes = [
         inp.temp.data_ptr(), inp.const.data_ptr(), inp.denom.data_ptr(),
-        inp.tinf.data_ptr(), inp.a_r.data_ptr(), inp.a_l.data_ptr(),
-        inp.a_b.data_ptr(), inp.a_t.data_ptr(), inp.ext.data_ptr(),
+        inp.tinf.data_ptr(), inp.coef.data_ptr(), inp.ext.data_ptr(),
         *ptrs, out.data_ptr(), iters.data_ptr(), conv_flag.data_ptr(),
         b, h, w, int(inp.edge_fill),
     ]
@@ -765,24 +802,18 @@ def _launch(name: str, inp: KernelInputs, conv, stats, solver_args, block_envs=N
     `lib`, a host C++ build of the kernel source bound with `bind`, runs
     the same launch on CPU tensors (tests/test_torch_kernel_host.py)."""
     _, h, w = _check_inputs(inp, conv, stats, lib)
-    stream = None if lib is not None else torch.cuda.current_stream(inp.temp.device).cuda_stream
-    lib = lib or _library()
-    out, iters, flag, sums = _outputs(inp, stats)
-    planes, tail = _launch_args(inp, conv, stats, out, iters, flag, sums, stream)
-    head = []
-    if name.startswith("fdm_cheby"):
-        # The Chebyshev body reads a cell's stencil as one 16-byte vector.
-        coef = torch.stack((inp.a_r, inp.a_l, inp.a_b, inp.a_t), dim=-1).contiguous()
-        head = [coef.data_ptr()]
     if block_envs is not None:
-        fit = (lib.fdm_cheby_max_envs if name == "fdm_cheby_block"
-               else lib.fdm_block_max_envs)(h, w)
+        fit = (cheby_max_envs if name == "fdm_cheby_block" else jacobi_max_envs)((h, w))
         if not 1 <= block_envs <= fit:
             raise ValueError(
                 f"block_envs={block_envs} outside 1..{fit} for {name} on a {h}x{w} "
                 "grid (effective_block_envs clamps it)"
             )
-        head.append(int(block_envs))
+    stream = None if lib is not None else torch.cuda.current_stream(inp.temp.device).cuda_stream
+    lib = lib or _library()
+    out, iters, flag, sums = _outputs(inp, stats)
+    planes, tail = _launch_args(inp, conv, stats, out, iters, flag, sums, stream)
+    head = [] if block_envs is None else [int(block_envs)]
     err = getattr(lib, f"{name}_launch")(*planes, *head, *solver_args, *tail)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -805,7 +836,8 @@ def fdm_jacobi_cuda(
     conv: Optional[ConvInputs] = None,
     stats: Optional[ZoneStats] = None,
 ) -> Tuple[torch.Tensor, ...]:
-    """Launches K2 (fdm_jacobi_kernel). Same results as fdm_jacobi_plain."""
+    """Launches K2 (fdm_jacobi_body with one env per block, the solo
+    stopping rule). Same results as fdm_jacobi_plain."""
     return _launch("fdm_jacobi", inp, conv, stats,
                    [float(threshold), int(iteration_limit)])
 
@@ -835,8 +867,9 @@ def fdm_jacobi_block_cuda(
     conv: Optional[ConvInputs] = None,
     stats: Optional[ZoneStats] = None,
 ) -> Tuple[torch.Tensor, ...]:
-    """Launches K3 (fdm_jacobi_block_kernel) with `block_envs` envs per
-    thread block. Same results as fdm_jacobi_block_plain."""
+    """Launches K3 (fdm_jacobi_body, the block stopping rule) with
+    `block_envs` envs per thread block (1 .. jacobi_max_envs). Same
+    results as fdm_jacobi_block_plain."""
     return _launch("fdm_jacobi_block", inp, conv, stats,
                    [float(threshold), int(iteration_limit)], block_envs)
 

@@ -3,7 +3,7 @@
 // (tests/test_torch_kernel_host.py). A launch runs the grid's blocks one
 // after another; the threads of a block run as host threads that meet at a
 // std::barrier in __syncthreads, and warp shuffles exchange through a
-// per-warp slot array between two warp barriers. The bulk copies and
+// per-warp pair of slot arrays, one warp barrier per shuffle. The bulk copies and
 // stores are plain memcpy, complete when they return; mbarrier waits and
 // proxy fences are no-ops, since a __syncthreads follows each of them.
 // Build with -std=c++20 -ffp-contract=off -DFDM_HOST_REHEARSAL.
@@ -51,8 +51,11 @@ namespace fdm_host {
 
 struct Warp {
   std::unique_ptr<std::barrier<>> bar;
-  float vals[32];
+  float vals[2][32];
 };
+
+// Which of its warp's slot arrays a thread's next shuffle uses.
+inline thread_local unsigned shfl_parity = 0;
 
 inline float* dyn_smem = nullptr;
 inline std::barrier<>* block_barrier = nullptr;
@@ -105,14 +108,17 @@ struct Launch {
 
 inline void __syncthreads() { fdm_host::block_barrier->arrive_and_wait(); }
 
+// Shuffles alternate between the two slot arrays: a lane writes an array
+// again only two shuffles later, after the barrier of the one between,
+// which every lane reaches only once it has read this one.
 inline float __shfl_xor_sync(unsigned, float v, int off) {
   fdm_host::Warp& w = (*fdm_host::warps)[threadIdx.x >> 5];
   const unsigned lane = threadIdx.x & 31;
-  w.vals[lane] = v;
+  float* vals = w.vals[fdm_host::shfl_parity];
+  fdm_host::shfl_parity ^= 1u;
+  vals[lane] = v;
   w.bar->arrive_and_wait();
-  const float r = w.vals[lane ^ (unsigned)off];
-  w.bar->arrive_and_wait();
-  return r;
+  return vals[lane ^ (unsigned)off];
 }
 
 template <typename T>

@@ -7,8 +7,9 @@ configuration:
 
 Each kernel must equal its plain PyTorch version bitwise (fields,
 iteration counts, converged flags, and the zone/grid sums of the
-statistics epilogue), count its launches, and refuse inputs it does not
-take; the block kernels K3/K4 must also equal K2/K1 env for env. This file
+statistics epilogue; NaN equal to NaN where an env's field holds one),
+count its launches, and refuse inputs it does not take; the block kernels
+K3/K4 must also equal K2/K1 env for env (K3 unless a residual is NaN). This file
 imports no JAX.
 """
 
@@ -199,9 +200,11 @@ def test_word_plane_and_block_kernels_equal_plain_and_solo(env, kernel, conv_kin
 
 def test_block_kernels_refuse_more_envs_than_fit(env):
     inp, _ = _inputs(env, 4, seed=1)
-    assert fdm_cuda.effective_block_envs(env.geom.shape, 16) == 8
+    assert fdm_cuda.effective_block_envs(env.geom.shape, 16) == fdm_cuda.JACOBI_BEST_ENVS
+    too_many = fdm_cuda.jacobi_max_envs(env.geom.shape) + 1
     with pytest.raises(ValueError):
-        fdm_cuda.fdm_jacobi_block_cuda(inp, threshold=0.1, iteration_limit=5, block_envs=9)
+        fdm_cuda.fdm_jacobi_block_cuda(inp, threshold=0.1, iteration_limit=5,
+                                       block_envs=too_many)
 
 
 def test_stack_env_steps_through_the_block_kernels(env):
@@ -294,3 +297,57 @@ def test_cheby_body_on_a_ragged_grid(env):
     _equal(got, fdm_cuda.fdm_cheby_block_plain(inp, block_envs=e, **kw))
     _equal(got, solo)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("e", [1, 2, 3, 4])
+def test_jacobi_block_at_each_e(env, e):
+    """K3 at every E its launcher takes at 12 zones (B = 9: a partial last
+    block), with statistics and mix32 swaps, equals its plain version and
+    K2 env for env."""
+    assert e <= fdm_cuda.jacobi_max_envs(env.geom.shape)
+    inp, conv = _inputs(env, 9, seed=40 + e)
+    kw = dict(threshold=0.1, iteration_limit=100, conv=conv, stats=env._stats)
+    got = _counted("fdm_jacobi_block", fdm_cuda.fdm_jacobi_block_cuda, inp, block_envs=e, **kw)
+    _equal(got, fdm_cuda.fdm_jacobi_block_plain(inp, block_envs=e, **kw))
+    _equal(got, _counted("fdm_jacobi", fdm_cuda.fdm_jacobi_cuda, inp, **kw))
+    torch.cuda.synchronize()
+
+
+def test_jacobi_body_at_126_rooms(big_env):
+    """K2 and K3 (E = 1) on the 189 x 124 grid, where const/denom stay in
+    global memory and the decision bytes take their own plane: bitwise
+    against the plain versions and each other."""
+    assert not fdm_cuda.jacobi_geometry(big_env.geom.shape, 1).staged
+    assert fdm_cuda.effective_block_envs(big_env.geom.shape, 4) == 1
+    inp, conv = _inputs(big_env, 4, seed=22)
+    kw = dict(threshold=0.1, iteration_limit=100, conv=conv)
+    solo = _counted("fdm_jacobi", fdm_cuda.fdm_jacobi_cuda, inp, **kw)
+    _equal(solo, fdm_cuda.fdm_jacobi_plain(inp, **kw))
+    got = _counted("fdm_jacobi_block", fdm_cuda.fdm_jacobi_block_cuda, inp, block_envs=1, **kw)
+    _equal(got, fdm_cuda.fdm_jacobi_block_plain(inp, block_envs=1, **kw))
+    _equal(got, solo)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kernel,e", [("fdm_jacobi", None), ("fdm_jacobi_block", 1),
+                                      ("fdm_jacobi_block", 2)])
+def test_nan_env_follows_each_stopping_rule(env, kernel, e):
+    """One env's temp holds a NaN: K2 stops it at iteration 1, K3 runs it to
+    the limit, each as its plain version does (NaN equal to NaN)."""
+    inp, conv = _inputs(env, 5, seed=50)
+    temp = inp.temp.clone()
+    temp[1, 20, 30] = float("nan")
+    inp = dataclasses.replace(inp, temp=temp)
+    kw = dict(threshold=0.1, iteration_limit=20, conv=conv, stats=env._stats)
+    if e is not None:
+        kw.update(block_envs=e)
+    got = getattr(fdm_cuda, f"{kernel}_cuda")(inp, **kw)
+    want = getattr(fdm_cuda, f"{kernel}_plain")(inp, **kw)
+    torch.cuda.synchronize()
+    same = lambda a, b: torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    for a, b in zip(got[:3], want[:3]):
+        same(a, b)
+    same(got[3].zone_sums, want[3].zone_sums)
+    same(got[3].grid_sums, want[3].grid_sums)
+    assert int(got[1][1]) == (1 if kernel == "fdm_jacobi" else 20)
+    assert not bool(got[2][1])
