@@ -5,6 +5,9 @@
     python3 chip_smoke.py --decomposition [DIR] [--envs 1,2,4,8] [--e3]
         # phases 0-1 and the kernels' decomposition; SASS into DIR; K3 at
         # the given block widths; K3/K4 at E=3 six times each
+    python3 chip_smoke.py --repeat SECONDS
+        # phases 0-1, then phases 5-6 round after round for SECONDS,
+        # counting failed parts and empty profiler windows
 
 Phases (each prints its own lines; any failure exits non-zero):
   0. CUDA runtime, nvcc and card (name and power limit, from nvidia-smi).
@@ -65,7 +68,23 @@ Phases (each prints its own lines; any failure exits non-zero):
      Then 3 train_steps at n_envs=8 through the kernels and through the
      plain versions on the card: env states and replay contents bitwise
      equal.
-  6. A {"kernels": [...]} line, then the last line
+  6. Entry points at full width: (a) examples/train_sac.main in-process on
+     sb1_config(num_days_in_episode=1), n_envs=64, batch 256: 290
+     schedule-table seeding steps (every env's `done` at step 288, reset
+     by _maybe_reset bitwise as env.reset on the same keys, step_idx 2
+     after step 290), 8 train_steps with an evaluation of 16 steps and a
+     checkpoint every 4, a final evaluation; the JSONL metrics finite,
+     restoring checkpoint 8 gives the final state bitwise, and checkpoint
+     4 plus 4 train_steps gives checkpoint 8 bitwise; seeding and
+     training env-steps/s from CUDA events. (b) building_suite at 3 x 1365
+     envs (BASELINE.json's 4,096), 8 steps through K2 on the three plans
+     (grid, env-steps/s and K2 launches per plan), then 3 steps at 3 x 64
+     envs through the kernels and through the plain versions, bitwise.
+     (c) the 12-zone env with episode_windows=4, 3 steps at B=64 at
+     pallas_env and pallas_cheby through the kernels and the plain
+     versions, bitwise, more than one window drawn. Launches of (a) and
+     of (b)'s 8 steps join the kernels line.
+  7. A {"kernels": [...]} line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 It refuses to run without a CUDA device and never falls back to the CPU.
@@ -294,25 +313,42 @@ def time_call(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
+PROFILE_TRIES = 3
+# Profiler windows opened by device_ms, and those that recorded no FDM kernel.
+profile_windows = {"opened": 0, "empty": 0}
+
+
+def device_ms(fn, reps: int):
     """Milliseconds of device time per call of fn spent in the FDM kernels
     (torch.profiler's kernel events named fdm_*), over `reps` calls after
     one warm-up. At B=64 a kernel takes less time than its wrapper's host
-    work, so CUDA events around the calls would time the host."""
+    work, so CUDA events around the calls would time the host. The
+    profiler now and then records no device event for a whole window (one
+    window in ~150 on the H100); such a window is profiled again, and None
+    (not measured) comes back if PROFILE_TRIES windows all saw none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and "fdm_" in e.name)
-    if us <= 0:
-        fail("the profiler saw no FDM kernel on the device")
-    return us / reps / 1e3
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and "fdm_" in e.name)
+        profile_windows["opened"] += 1
+        if us > 0:
+            return us / reps / 1e3
+        profile_windows["empty"] += 1
+        print(f"  (the profiler recorded no FDM kernel in a window of {reps} calls)", flush=True)
+    return None
+
+
+def fmt_ms(ms) -> str:
+    """A device time from device_ms, or "not measured"."""
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def bound_ms(inp, conv, n_iter, method, bw, flops, stats=None):
@@ -390,12 +426,26 @@ def profile_steps(env, state, acts, solver, steps, tag):
         print(f"    {t / steps / 1e3:8.4f} ms/step {n / steps:6.1f}x  {kname[:90]}", flush=True)
 
 
-def _check_equal_trees(label, a, b) -> None:
+def _tree_diff(a, b):
+    """Leaves of two nested numpy dicts that differ (NaN = NaN), with their
+    max |difference|."""
     import numpy as np
 
     flat = lambda d, p="": [(p + k, v) for k, v in d.items() if not isinstance(v, dict)] + [
-        x for k, v in d.items() if isinstance(v, dict) for x in flat(v, p + k + ".")]
-    diff = [k for (k, x), (_, y) in zip(flat(a), flat(b)) if not np.array_equal(x, y)]
+        x for k, v in d.items() if isinstance(v, dict) for x in flat(v, p + k + "/")]
+    fa, fb = dict(flat(a)), dict(flat(b))
+    out = [(k, float("nan")) for k in fb if k not in fa]
+    for k, x in fa.items():
+        y = fb.get(k)
+        if y is None or x.shape != y.shape or not np.array_equal(x, y, equal_nan=x.dtype.kind == "f"):
+            d = (float(np.abs(x.astype(np.float64) - y.astype(np.float64)).max())
+                 if y is not None and x.shape == y.shape and x.size else float("nan"))
+            out.append((k, d))
+    return out
+
+
+def _check_equal_trees(label, a, b) -> None:
+    diff = _tree_diff(a, b)
     if diff:
         fail(f"{label}: kernel and plain runs differ in {diff}")
 
@@ -430,6 +480,10 @@ def _profile_window(fn, label, tag):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print(f"    {label}: wall {wall_us / 1e3:.3f} ms, device busy not measured (the "
+              f"profiler recorded no device event) {tag}", flush=True)
+        return out
     busy = sum(e.time_range.elapsed_us() for e in kernels)
     print(f"    {label}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
           f"(idle {1 - busy / wall_us:.1%}), {len(kernels)} kernel launches {tag}", flush=True)
@@ -522,9 +576,10 @@ def training_phase(env, kname, n_envs, seed_steps, train_steps, eval_steps, max_
     d_ms = device_ms(lambda: run(kname), 20)
     b_ms, b_by = bound_ms(inp, conv, got[1], kname, bw, flops, env._stats)
     e = block_envs(env, kname) if kname in SOLO else 1
+    share = "not measured" if d_ms is None else f"{b_ms / d_ms:.1%}"
     print(f"  {kname} alone at B={n_envs}{f' E={e}' if kname in SOLO else ''}: {k_ms:.4f} ms "
-          f"per call (CUDA events), {d_ms:.4f} ms on the device (profiler), bound "
-          f"{b_ms:.4f} ms ({b_by}) -> {b_ms / d_ms:.1%} of bound; "
+          f"per call (CUDA events), {fmt_ms(d_ms)} ms on the device (profiler), bound "
+          f"{b_ms:.4f} ms ({b_by}) -> {share} of bound; "
           f"{fdm_cuda.blocks_per_sm(kname, env.geom.shape, e)} blocks per SM, "
           f"{-(-n_envs // e)} blocks {tag}", flush=True)
     if kname in SOLO:
@@ -532,10 +587,10 @@ def training_phase(env, kname, n_envs, seed_steps, train_steps, eval_steps, max_
         solo = run(SOLO[kname])
         if not (torch.equal(solo[0], got[0]) and torch.equal(solo[1], got[1])):
             fail(f"{kname} and {SOLO[kname]} differ at training B={n_envs}")
-        sweep = [f"E={ek} {device_ms(lambda: run(kname, ek), 20):.4f}"
+        sweep = [f"E={ek} {fmt_ms(device_ms(lambda: run(kname, ek), 20))}"
                  for ek in range(1, fdm_cuda.jacobi_max_envs(env.geom.shape) + 1)]
         print(f"  {SOLO[kname]} alone on the same inputs: {time_call(lambda: run(SOLO[kname]), 20):.4f}"
-              f" ms per call, {device_ms(lambda: run(SOLO[kname]), 20):.4f} ms on the device, "
+              f" ms per call, {fmt_ms(device_ms(lambda: run(SOLO[kname]), 20))} ms on the device, "
               f"{fdm_cuda.blocks_per_sm(SOLO[kname], env.geom.shape)} blocks per SM; {kname} "
               f"on the device at B={n_envs}: {', '.join(sweep)} ms {tag}", flush=True)
 
@@ -1008,6 +1063,350 @@ def wiring_phase(envs) -> None:
               f"outputs bitwise equal", flush=True)
 
 
+# Phase 6 (a): examples/train_sac.py on sb1_config(num_days_in_episode=1)
+# (288 steps per episode): 18560 // 64 = 290 seeding steps cross every
+# env's episode end once.
+ENTRY_ARGS = ["--n_envs", "64", "--batch_size", "256", "--replay_capacity", "50000",
+              "--seed_episodes_steps", "18560", "--train_steps", "8", "--eval_every", "4",
+              "--eval_steps", "16", "--num_days_in_episode", "1"]
+SUITE_ENVS = 1365  # BASELINE.json's 4,096 envs as the JAX suite splits them
+SUITE_STEPS = 8
+WINDOWS = 4
+
+
+class _Spies:
+    """Within the block: SACTrainer._maybe_reset records each collect
+    step's `done` and, where an env finished, holds the reset envs against
+    env.reset on the same keys (bitwise); seeding steps and train_steps are
+    timed with CUDA events."""
+
+    def __init__(self):
+        self.done, self.step_idx, self.reset_diffs = [], [], []
+        self.seed_events, self.train_events = [], []
+
+    def __enter__(self):
+        import torch
+        from sbsim_tpu_torch import rng
+        from sbsim_tpu_torch.agents import train
+
+        cls = train.SACTrainer
+        self.saved = {k: getattr(cls, k) for k in ("_maybe_reset", "seed_with_actions",
+                                                   "train_step")}
+        spies = self
+
+        def timed(fn, events):
+            def call(*args, **kwargs):
+                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s.record()
+                out = fn(*args, **kwargs)
+                e.record()
+                events.append((s, e))
+                return out
+            return call
+
+        def maybe_reset(trainer, env_states, obs, done, key):
+            new_states, new_obs = spies.saved["_maybe_reset"](trainer, env_states, obs, done, key)
+            spies.done.append(done.cpu())
+            spies.step_idx.append(new_states.step_idx.cpu())
+            if bool(done.any()):
+                from sbsim_tpu_torch import convert
+                fresh, fresh_obs = trainer.env.reset(rng.split(key, trainer.config.n_envs))
+                rows = done.nonzero().flatten()
+                sel = lambda d: {k: (sel(v) if isinstance(v, dict) else v[rows.cpu().numpy()])
+                                 for k, v in d.items()}
+                diff = _tree_diff(sel(convert.env_state_to_numpy(fresh)),
+                                  sel(convert.env_state_to_numpy(new_states)))
+                if not torch.equal(fresh_obs[rows], new_obs[rows]):
+                    diff.append(("observation", float((fresh_obs[rows] - new_obs[rows]).abs().max())))
+                spies.reset_diffs.append((len(spies.done), int(rows.numel()), diff))
+            return new_states, new_obs
+
+        def seed_with_actions(trainer, state, table):
+            return timed(spies.saved["seed_with_actions"](trainer, state, table),
+                         spies.seed_events)
+
+        cls._maybe_reset = maybe_reset
+        cls.seed_with_actions = seed_with_actions
+        cls.train_step = timed(self.saved["train_step"], self.train_events)
+        return self
+
+    def __exit__(self, *exc):
+        from sbsim_tpu_torch.agents import train
+
+        for k, fn in self.saved.items():
+            setattr(train.SACTrainer, k, fn)
+
+
+def _rate(events, per_call) -> str:
+    ms = [s.elapsed_time(e) for s, e in events[2:]]
+    med = statistics.median(ms)
+    return (f"median {med:.3f} ms -> {per_call / med * 1e3:,.0f} env-steps/s (mean over "
+            f"{len(ms)}: {per_call * len(ms) / sum(ms) * 1e3:,.0f})")
+
+
+def entry_train_sac(tag) -> int:
+    """Phase 6 (a): train_sac.main in-process through an episode end, with
+    its checkpoints, metrics and a resume; returns its K2 launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from sbsim_tpu_torch import convert
+    from sbsim_tpu_torch.examples import train_sac
+    from sbsim_tpu_torch.io.checkpoint import TrainCheckpointer
+    from sbsim_tpu_torch.io.metrics import load_metrics
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    args = train_sac.parse_args(ENTRY_ARGS)
+    n_envs, train_steps, eval_steps = args.n_envs, args.train_steps, args.eval_steps
+    seed_steps = args.seed_episodes_steps // n_envs
+    evals = train_steps // args.eval_every + 1
+    with tempfile.TemporaryDirectory() as tmp:
+        with _Spies() as spies:
+            torch.cuda.synchronize()
+            fdm_cuda.reset_launch_counts()
+            run = train_sac.main(ENTRY_ARGS + ["--output_dir", tmp])
+            torch.cuda.synchronize()
+            counts = dict(fdm_cuda.launch_counts)
+        env, trainer, state = run.env, run.trainer, run.state
+        episode = env.steps_per_episode
+        if not episode < seed_steps < 2 * episode:
+            fail(f"train_sac: {seed_steps} seeding steps do not cross one {episode}-step end")
+        env_steps = seed_steps + train_steps + evals * eval_steps
+        if counts != {k: (env_steps if k == "fdm_jacobi" else 0) for k in KERNELS}:
+            fail(f"train_sac: launch counts {counts} != {env_steps} fdm_jacobi env steps")
+        collects = seed_steps + train_steps
+        done = torch.stack(spies.done)  # (collect steps, n_envs)
+        fired = done.any(1).nonzero().flatten().tolist()
+        if len(spies.done) != collects or fired != [episode - 1] or not bool(
+                done[episode - 1].all()):
+            fail(f"train_sac: done fired at collect steps {[i + 1 for i in fired]} "
+                 f"(all envs at {episode}: {bool(done[episode - 1].all())})")
+        after = spies.step_idx[seed_steps - 1]
+        if after.tolist() != [seed_steps - episode] * n_envs:
+            fail(f"train_sac: step_idx after seeding step {seed_steps} is {after.unique()}")
+        if [(at, n) for at, n, _ in spies.reset_diffs] != [(episode, n_envs)] or any(
+                d for _, _, d in spies.reset_diffs):
+            fail(f"train_sac: the reset envs differ from env.reset: {spies.reset_diffs}")
+        cols = load_metrics(os.path.join(tmp, "train_metrics.jsonl"))
+        if not cols or not all(np.isfinite(v).all() for v in cols.values()):
+            fail(f"train_sac: metrics not finite: {cols}")
+        ckpt = TrainCheckpointer(os.path.join(tmp, "ckpt"), trainer)
+        mid, last = args.eval_every, train_steps
+        if ckpt.steps() != [mid, last]:
+            fail(f"train_sac: checkpoints {ckpt.steps()}, want {[mid, last]}")
+        final = convert.train_state_to_numpy(state, trainer)
+        diff = _tree_diff(convert.train_state_to_numpy(ckpt.restore(state, last), trainer), final)
+        if diff:
+            fail(f"train_sac: restoring checkpoint {last} differs from the final state in {diff}")
+        # Resume: the middle checkpoint and the train_steps after it give
+        # the last checkpoint.
+        resumed = ckpt.restore(state, mid)
+        for _ in range(last - mid):
+            resumed, _ = trainer.train_step(resumed)
+        diff = _tree_diff(convert.train_state_to_numpy(resumed, trainer), ckpt.read(last))
+        if diff:
+            fail(f"train_sac: checkpoint {mid} + {last - mid} train_steps differs from "
+                 f"checkpoint {last} in {diff}")
+    print(f" train_sac.main (sb1 12 zones, n_envs={n_envs}, batch {args.batch_size}, {seed_steps} seeding "
+          f"steps across the {episode}-step episode end, {train_steps} train_steps, "
+          f"{evals} evaluations of {eval_steps} steps): launches {counts}; done at "
+          f"step {episode} for {n_envs}/{n_envs} envs, step_idx {seed_steps - episode}"
+          f" after step {seed_steps}, reset envs bitwise env.reset; baseline reward "
+          f"{run.baseline_reward:.4f}, final return {run.final_return:.4f}; metrics "
+          f"{sorted(cols)} finite; checkpoints {mid} and {last}, restore of {last} bitwise the "
+          f"final state, {mid} + {last - mid} train_steps bitwise checkpoint {last} (env states, "
+          f"replay, SAC state) {tag}",
+          flush=True)
+    print(f"  seeding: {_rate(spies.seed_events, n_envs)}; training: "
+          f"{_rate(spies.train_events, n_envs)} {tag}", flush=True)
+    return counts["fdm_jacobi"]
+
+
+def entry_suite(max_err, bw, flops, tag) -> int:
+    """Phase 6 (b): the 3-building suite at BASELINE.json's 4,096 envs (3 x
+    1365) through K2, K2 alone on each plan's inputs of the last step
+    (against its plain version, timed, with its bound), then kernels
+    against plain versions at 64 per building; returns the K2 launches of
+    the 8 steps."""
+    import numpy as np
+    import torch
+    from sbsim_tpu_torch import convert, rng
+    from sbsim_tpu_torch.envs import presets, suite as suite_lib
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    dev = torch.device(DEVICE)
+    suite = suite_lib.BuildingSuite(presets.building_suite(num_days_in_episode=2), device=dev)
+    per_plan = []
+    for env in suite.envs:
+        shape = env.geom.shape
+        if fdm_cuda.run_geometry(shape, 1) is None:
+            fail(f"suite plan {shape}: no K2 geometry")
+        if kernel_of(env, "pallas_env") != "fdm_jacobi":
+            fail(f"suite plan {shape} steps through {kernel_of(env, 'pallas_env')}")
+        per_plan.append(dict(env=env, events=[], launches=0))
+        real = env.step_batched
+
+        def timed(states, actions, use_pallas=True, solver=None, _real=real,
+                  _rec=per_plan[-1]):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            before = fdm_cuda.launch_counts["fdm_jacobi"]
+            s.record()
+            out = _real(states, actions, use_pallas=use_pallas, solver=solver)
+            e.record()
+            _rec["events"].append((s, e))
+            _rec["launches"] += fdm_cuda.launch_counts["fdm_jacobi"] - before
+            return out
+
+        env.step_batched = timed
+    states, obs = suite.reset(rng.PRNGKey(3, device=dev), SUITE_ENVS)
+    total = SUITE_ENVS * suite.n_buildings
+    acts = torch.as_tensor(np.random.default_rng(17).uniform(
+        -1, 1, (SUITE_STEPS, total, suite.n_actions)), dtype=torch.float32, device=dev)
+    events = []
+    torch.cuda.synchronize()
+    fdm_cuda.reset_launch_counts()
+    for i in range(SUITE_STEPS):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        states, out = suite.step(states, acts[i])
+        e.record()
+        events.append((s, e))
+    torch.cuda.synchronize()
+    counts = dict(fdm_cuda.launch_counts)
+    want = SUITE_STEPS * suite.n_buildings
+    if counts != {k: (want if k == "fdm_jacobi" else 0) for k in KERNELS} or any(
+            p["launches"] != SUITE_STEPS for p in per_plan):
+        fail(f"suite: launch counts {counts}, per plan {[p['launches'] for p in per_plan]}")
+    r = out.reward
+    if not (out.observation.shape == (total, suite.obs_dim) and torch.isfinite(out.observation).all()
+            and all(torch.isfinite(st.temp).all() for st in states)
+            and (r >= -1).all() and (r <= 0).all()):
+        fail("suite: non-finite fields or observations, or rewards outside [-1, 0]")
+    print(f" suite (building_suite, {suite.n_buildings} x {SUITE_ENVS} envs, {SUITE_STEPS} steps "
+          f"through fdm_jacobi): launches {counts}; suite step {_rate(events, total)} {tag}",
+          flush=True)
+    for i, (p, st) in enumerate(zip(per_plan, states)):
+        env = p["env"]
+        del env.step_batched
+        iters = st.fdm_iterations.float()
+        geo = fdm_cuda.run_geometry(env.geom.shape, 1)
+        print(f"  plan {env.geom.shape} ({env.n_zones} zones; K2 {geo.threads} threads x "
+              f"{geo.slots} runs, staged={geo.staged}, {fdm_cuda.blocks_per_sm('fdm_jacobi', env.geom.shape)}"
+              f" blocks per SM): K2 launches {p['launches']}; {_rate(p['events'], SUITE_ENVS)}"
+              f"; iterations mean {float(iters.mean()):.1f} max {int(iters.max())} {tag}",
+              flush=True)
+        # K2 alone on this plan's inputs of the last step.
+        pre, conv_keys = env._step_pre(st, acts[-1, i * SUITE_ENVS:(i + 1) * SUITE_ENVS])
+        inp = fdm_cuda.kernel_inputs(st.temp, st.input_q, pre["ambient"], pre["h_conv"],
+                                     env.coeffs)
+        fused, with_stats = env.kernel_path("pallas_env")
+        conv = word_conv(env, conv_keys, env._conv_word_params is None) if fused else None
+        stats = env._stats if with_stats else None
+        run = lambda plain=False: run_kernel("fdm_jacobi", env, inp, conv,
+                                             env.config.iteration_limit, plain=plain, stats=stats)
+        got = run()
+        max_err["fdm_jacobi"] = max(max_err["fdm_jacobi"], compare(
+            f"fdm_jacobi at suite plan {env.geom.shape} B={SUITE_ENVS} stats={with_stats}",
+            got, run(plain=True)))
+        k_ms, p_ms = time_call(run, 20), time_call(lambda: run(plain=True), 3)
+        b_ms, b_by = bound_ms(inp, conv, got[1], "fdm_jacobi", bw, flops, stats)
+        print(f"  fdm_jacobi alone at plan {env.geom.shape} B={SUITE_ENVS}: {k_ms:.4f} ms, plain "
+              f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}) -> {b_ms / k_ms:.1%} of bound {tag}",
+              flush=True)
+    # Kernels against plain versions, 3 steps at 64 envs per building.
+    small = torch.as_tensor(np.random.default_rng(18).uniform(
+        -1, 1, (3, 64 * suite.n_buildings, suite.n_actions)), dtype=torch.float32, device=dev)
+    finals = []
+    for plain in (False, True):
+        with plain_kernels() if plain else contextlib.nullcontext():
+            st, _ = suite.reset(rng.PRNGKey(4, device=dev), 64)
+            outs = []
+            for i in range(3):
+                st, o = suite.step(st, small[i])
+                outs.append(torch.cat([o.observation, o.reward[:, None]], 1))
+        finals.append(([convert.env_state_to_numpy(x) for x in st],
+                       torch.stack(outs).cpu().numpy()))
+    (sa, oa), (sb, ob) = finals
+    for i, (a, b) in enumerate(zip(sa, sb)):
+        _check_equal_trees(f"suite plan {i}", a, b)
+    if not np.array_equal(oa, ob):
+        fail("suite: kernel and plain runs differ in outputs")
+    print(f"  suite 3 steps at 3 x 64 envs: fields, iteration counts and observations bitwise "
+          f"equal through fdm_jacobi and its plain version", flush=True)
+    return counts["fdm_jacobi"]
+
+
+def entry_windows(tag) -> None:
+    """Phase 6 (c): the 12-zone env with episode_windows=4, 3 steps at
+    B=64 through pallas_env and pallas_cheby, kernels against plain
+    versions."""
+    import numpy as np
+    import torch
+    from sbsim_tpu_torch import convert, rng
+    from sbsim_tpu_torch.envs import building_env, presets
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    dev = torch.device(DEVICE)
+    cfg = dataclasses.replace(presets.sb1_config(num_days_in_episode=2), episode_windows=WINDOWS)
+    env = building_env.BuildingEnv(cfg, device=dev)
+    b = WIRING_BATCH
+    acts = torch.as_tensor(np.random.default_rng(6).uniform(-1, 1, (3, b, env.n_actions)),
+                           dtype=torch.float32, device=dev)
+    for solver in ("pallas_env", "pallas_cheby"):
+        kname = kernel_of(env, solver)
+        finals = []
+        for plain in (False, True):
+            with plain_kernels() if plain else contextlib.nullcontext():
+                state, _ = env.reset(rng.split(rng.PRNGKey(8, device=dev), b))
+                fdm_cuda.reset_launch_counts()
+                outs = []
+                for i in range(3):
+                    state, out = env.step_batched(state, acts[i], solver=solver)
+                    outs.append(torch.cat([out.observation, out.reward[:, None]], 1))
+                counts = dict(fdm_cuda.launch_counts)
+            if counts[kname] != (0 if plain else 3) or sum(counts.values()) != counts[kname]:
+                fail(f"windows {solver}: launch counts {counts} (plain={plain})")
+            finals.append((convert.env_state_to_numpy(state), torch.stack(outs).cpu().numpy()))
+        (sa, oa), (sb, ob) = finals
+        _check_equal_trees(f"windows {solver}", sa, sb)
+        if not np.array_equal(oa, ob):
+            fail(f"windows {solver}: kernel and plain runs differ in outputs")
+        drawn = np.unique(sa["window"])
+        if len(drawn) < 2:
+            fail(f"windows {solver}: only window(s) {drawn} drawn")
+        print(f"  windows ({WINDOWS} windows, B={b}) {solver} ({kname}): 3 steps, windows "
+              f"{drawn.tolist()} drawn, states and outputs bitwise equal to the plain "
+              f"version {tag}", flush=True)
+
+
+def repeat_phases(envs, seconds, bw, flops, tag) -> int:
+    """Phases 5 and 6, round after round until `seconds` have passed; a
+    failed part is counted and the round goes on. Prints the rounds, the
+    failed parts and the device_ms profiler windows that recorded no FDM
+    kernel; returns 1 if any part failed."""
+    t_start, rounds, failed = time.time(), 0, []
+    while rounds == 0 or time.time() - t_start < seconds:
+        rounds += 1
+        max_err = dict.fromkeys(KERNELS, 0.0)
+        parts = [(f"training {k}", lambda w=w, k=k, n=n, s=s, t=t, e=e: training_phase(
+                     envs[w], k, n, s, t, e, max_err, bw, flops, tag))
+                 for w, k, n, s, t, e in TRAINING]
+        parts += [("train_sac", lambda: entry_train_sac(tag)),
+                  ("suite", lambda: entry_suite(max_err, bw, flops, tag)),
+                  ("windows", lambda: entry_windows(tag))]
+        for name, fn in parts:
+            try:
+                fn()
+            except SystemExit:
+                failed.append((rounds, name))
+        print(f"repeat: round {rounds} done at {time.time() - t_start:.1f} s", flush=True)
+    print(f"repeat: {rounds} rounds of phases 5-6 in {time.time() - t_start:.1f} s; failed "
+          f"parts {failed}; profiler windows {profile_windows['opened']}, "
+          f"{profile_windows['empty']} of them with no FDM kernel {tag}", flush=True)
+    return 1 if failed else 0
+
+
 def main() -> int:
     import torch
 
@@ -1065,6 +1464,9 @@ def main() -> int:
         if e3:
             e3_repeats(envs, tag)
         return 0
+    if "--repeat" in sys.argv:
+        seconds = float(sys.argv[sys.argv.index("--repeat") + 1])
+        return repeat_phases(envs, seconds, bw, flops, tag)
     max_err = dict.fromkeys(KERNELS, 0.0)
     check_phase(envs, max_err)
     launches, timing = main_path_phase(envs, max_err, bw, flops, tag)
@@ -1078,6 +1480,12 @@ def main() -> int:
                                           train_steps, eval_steps, max_err, bw, flops, tag)
 
     # ---- Phase 6 ---------------------------------------------------------
+    print("phase 6: entry points at full width", flush=True)
+    launches["fdm_jacobi"] += entry_train_sac(tag)
+    launches["fdm_jacobi"] += entry_suite(max_err, bw, flops, tag)
+    entry_windows(tag)
+
+    # ---- Phase 7 ---------------------------------------------------------
     rows = {"fdm_cheby": "12zone", "fdm_jacobi": "12zone",
             "fdm_cheby_block": "12zone stack", "fdm_jacobi_block": "12zone stack"}
     kernels = []

@@ -11,9 +11,13 @@ Layer map:
               deterministic zone/grid statistics
   hvac/       batched VAV / air handler / boiler / thermostat
   scenario/   weather, occupancy, calendar/tariff tables (no pandas)
-  envs/       batched environment: obs / action / reward
+  envs/       batched environment: obs / action / reward; multi-building
+              suites
+  agents/     SAC: networks, replay, learner, trainer, schedule baseline
+  io/         JSONL metrics, TrainState checkpoints (numpy archives)
+  examples/   entry points (`python -m sbsim_tpu_torch.examples.train_sac`)
   rng.py      threefry2x32, bitwise equal to jax.random
-  convert.py  EnvState <-> nested dicts of numpy arrays
+  convert.py  EnvState / TrainState <-> nested dicts of numpy arrays
 
 PyTorch idiom throughout: dataclasses of tensors with an explicit leading
 batch dimension, and an explicit `device`. `BuildingEnv(config)` runs on

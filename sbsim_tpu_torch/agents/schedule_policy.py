@@ -1,8 +1,8 @@
 """Rules-based schedule baseline policy.
 
 Port of sbsim_tpu/agents/schedule_policy.py without pandas or a time-zone
-database: local time comes from the port's own US daylight-saving rule
-(scenario/tables.to_local), as the episode tables do. The reference
+database: local time comes from the port's own table of zones and their
+daylight-saving rules (scenario/tables.to_local), as the episode tables do. The reference
 bootstraps SAC's replay buffer from a weekday/weekend setpoint schedule
 (SAC_Demo.ipynb cells 13-18): on workdays 06:00-19:00 local time the
 hot-water setpoint is 350 K and the AHU heating setpoint 292 K, otherwise

@@ -120,7 +120,10 @@ def params_from_flax(module: torch.nn.Module, tree: Dict[str, Any], device) -> D
     for name in module.state_dict():
         path, leaf, transpose = _flax_path(module, name)
         arr = np.asarray(_get(tree, path + (leaf,)), np.float32)
-        out[name] = torch.as_tensor(np.array(arr.T if transpose else arr), device=device)
+        # Row-major like the module's own parameters: the matrix products
+        # then take the same kernels, with the same rounding.
+        out[name] = torch.as_tensor(np.ascontiguousarray(arr.T if transpose else arr),
+                                    device=device)
     return out
 
 

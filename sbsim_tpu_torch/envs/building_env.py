@@ -75,7 +75,7 @@ class EnvState:
     hvac: HvacState
     occupants: torch.Tensor  # bool (B, Z, N)
     step_idx: torch.Tensor  # i32 (B,) completed steps
-    window: torch.Tensor  # i32 (B,) episode-window index (always 0 here)
+    window: torch.Tensor  # i32 (B,) episode-window index (0 unless episode_windows > 1)
     rng: torch.Tensor  # i64 (B, 2) uint32 threefry keys
     fdm_converged: torch.Tensor  # bool (B,), last step
     fdm_iterations: torch.Tensor  # i32 (B,), last step
@@ -145,11 +145,15 @@ class BuildingEnv:
             device=dev,
         )
         self.tables = tables_lib.build_episode_tables(config)
-        self._tab = {
-            f.name: torch.as_tensor(getattr(self.tables, f.name), device=dev)
-            for f in dataclasses.fields(self.tables)
-            if isinstance(getattr(self.tables, f.name), np.ndarray)
-        }
+        # Device tables indexed [window, t] ((W,) for the reset values),
+        # with W = 1 when the tables are not stacked over windows.
+        self._tab = {}
+        for f in dataclasses.fields(self.tables):
+            if f.name not in tables_lib.STATIC_FIELDS:
+                value = np.asarray(getattr(self.tables, f.name))
+                if config.episode_windows == 1:
+                    value = value[None]
+                self._tab[f.name] = torch.as_tensor(value, device=dev)
         self.occupancy_params = occupancy_lib.make_occupancy_params(
             config.occupancy, config.time_step_sec
         )
@@ -301,7 +305,12 @@ class BuildingEnv:
             self.occupancy_params, batch, self.geom.n_zones, device=dev
         )
         sub = rng_lib.split(keys, 3)
-        key, obs_key = sub[:, 0], sub[:, 1]
+        key, obs_key, window_key = sub[:, 0], sub[:, 1], sub[:, 2]
+        if self.config.episode_windows > 1:
+            window = rng_lib.randint(window_key, (), 0, self.config.episode_windows)
+        else:
+            window = torch.zeros(batch, dtype=torch.int32, device=dev)
+        tab = self._state_tables(window)
         # Reset observation: boiler ramp initializes its action timestamp
         # with zero elapsed time (boiler.py:163-168).
         hvac = hvac_ops.boiler_observe_supply_temp(
@@ -310,8 +319,8 @@ class BuildingEnv:
         occupants = self._occupancy_peek_randomized(
             occupants,
             obs_key,
-            torch.full((batch,), self.tables.reset_local_hour, device=dev),
-            torch.full((batch,), self.tables.reset_workday, device=dev),
+            tab("reset_local_hour"),
+            tab("reset_workday"),
         )
         temp = self._reset_temps.expand(batch, -1, -1).clone()
         zone_means, grid_mean = self._grid_stats(temp)
@@ -324,13 +333,31 @@ class BuildingEnv:
             hvac=hvac,
             occupants=occupants,
             step_idx=torch.zeros(batch, **i32),
-            window=torch.zeros(batch, **i32),
+            window=window,
             rng=key.contiguous(),
             fdm_converged=torch.ones(batch, dtype=torch.bool, device=dev),
             fdm_iterations=torch.zeros(batch, **i32),
         )
         obs = self._observation(state, state.step_idx)
         return state, obs
+
+    def _state_tables(self, window: torch.Tensor):
+        """Per-env table view: tab(name, t) reads each env's episode window
+        at step t ((B,) indices), tab(name) its window's reset value, (B,).
+        With one window the reads are plain step-indexed gathers (no index
+        conversion: the step is launch-bound)."""
+        if self.config.episode_windows == 1:
+            def tab(name: str, t: Optional[torch.Tensor] = None) -> torch.Tensor:
+                value = self._tab[name][0]
+                return value.expand(window.shape) if t is None else value[t]
+
+            return tab
+        w = window.to(torch.int64)
+
+        def tab(name: str, t: Optional[torch.Tensor] = None) -> torch.Tensor:
+            return self._tab[name][w] if t is None else self._tab[name][w, t]
+
+        return tab
 
     def _grid_stats(self, temp: torch.Tensor):
         """(zone_means (B, Z), grid_mean (B,)) by the deterministic fold."""
@@ -343,11 +370,11 @@ class BuildingEnv:
             occupants, key, local_hour, workday, self.occupancy_params
         )
 
-    def _zone_occupancy_at(self, occupants: torch.Tensor, t: torch.Tensor):
+    def _zone_occupancy_at(self, occupants: torch.Tensor, t: torch.Tensor, tab):
         """Per-zone occupancy (B, Z) for the reward interval starting at t."""
         if self.occupancy_params.kind == "randomized":
             return occupancy_lib.zone_occupancy(occupants)
-        occ = self._tab["step_occupancy"][t]
+        occ = tab("step_occupancy", t)
         return occ[:, None].expand(-1, self.geom.n_zones)
 
     def resolve_solver(
@@ -504,7 +531,7 @@ class BuildingEnv:
     ) -> Tuple[Dict[str, object], torch.Tensor]:
         """Control phase: everything before (and independent of) the FDM."""
         params = self.hvac_params
-        tab = self._tab
+        tab = self._state_tables(state.window)
         t = state.step_idx.to(torch.int64)
 
         sub = rng_lib.split(state.rng, 4)
@@ -512,12 +539,12 @@ class BuildingEnv:
 
         # ---- Phase 1: request_action -------------------------------------
         zone_temps = state.zone_means
-        comfort_now = tab["comfort"][t]
+        comfort_now = tab("comfort", t)
         mode = hvac_ops.thermostat_update(
             state.hvac.thermostat_mode,
             zone_temps,
-            tab["heating_setpoint"][t],
-            tab["cooling_setpoint"][t],
+            tab("heating_setpoint", t),
+            tab("cooling_setpoint", t),
             comfort_now,
             state.hvac.prev_comfort,
         )
@@ -563,8 +590,8 @@ class BuildingEnv:
             )
 
         # ---- Phase 2 (pre-FDM): demand accumulation ----------------------
-        ambient = tab["ambient_temp"][t]
-        h_conv = tab["convection_coeff"][t]
+        ambient = tab("ambient_temp", t)
+        h_conv = tab("convection_coeff", t)
         supply_air_temp = hvac_ops.ahu_supply_air_temp(
             state.grid_mean,
             ambient,
@@ -622,7 +649,7 @@ class BuildingEnv:
         new_grid_mean: torch.Tensor,
     ) -> Tuple[EnvState, StepOutput]:
         """Observation + reward at t+1, after the physics solve."""
-        tab = self._tab
+        tab = self._state_tables(state.window)
         t = state.step_idx.to(torch.int64)
         t_next = t + 1
         dt = torch.tensor(self.config.time_step_sec, dtype=torch.float32, device=self.device)
@@ -631,7 +658,7 @@ class BuildingEnv:
         # Occupancy peek for the observation probes [t, t+1]
         # (simulator_building.py:305-315).
         occupants = self._occupancy_peek_randomized(
-            state.occupants, pre["obs_key"], tab["local_hour"][t], tab["workday_local"][t]
+            state.occupants, pre["obs_key"], tab("local_hour", t), tab("workday_local", t)
         )
         hvac = hvac_ops.boiler_observe_supply_temp(pre["hvac"], self.hvac_params, dt)
         mid_state = EnvState(
@@ -655,10 +682,10 @@ class BuildingEnv:
         occupants = self._occupancy_peek_randomized(
             occupants,
             pre["reward_key"],
-            tab["local_hour"][t_next],
-            tab["workday_local"][t_next],
+            tab("local_hour", t_next),
+            tab("workday_local", t_next),
         )
-        zone_occ = self._zone_occupancy_at(occupants, t_next)
+        zone_occ = self._zone_occupancy_at(occupants, t_next, tab)
         breakdown = self._reward(mid_state, new_zone_means, zone_occ, t_next, dt)
         new_state = mid_state.replace(occupants=occupants)
         out = StepOutput(
@@ -672,23 +699,23 @@ class BuildingEnv:
     def _reward(self, state, zone_temps, zone_occ, t, dt):
         """3C regret from the post-step state (environment.py:1073-1097)."""
         params = self.hvac_params
-        tab = self._tab
+        tab = self._state_tables(state.window)
         hvac = state.hvac
-        ambient = tab["ambient_temp"][t]
+        ambient = tab("ambient_temp", t)
         blower = hvac_ops.ahu_blower_power(hvac, params)
         ac = hvac_ops.ahu_thermal_energy_rate(hvac, state.grid_mean, ambient, params)
         pump = hvac_ops.boiler_pump_power(hvac, params)
         gas = hvac_ops.boiler_thermal_energy_rate(hvac, ambient, params)
         return reward_lib.compute_regret_reward(
-            heating_setpoint=tab["heating_setpoint"][t],
-            cooling_setpoint=tab["cooling_setpoint"][t],
+            heating_setpoint=tab("heating_setpoint", t),
+            cooling_setpoint=tab("cooling_setpoint", t),
             zone_temps=zone_temps,
             zone_occupancy=zone_occ,
             electricity_energy_rate=blower + torch.abs(ac) + pump,
             natural_gas_energy_rate=gas,
-            elec_price=tab["elec_price"][t],
-            elec_carbon=tab["elec_carbon"][t],
-            gas_price=tab["gas_price"][t],
+            elec_price=tab("elec_price", t),
+            elec_carbon=tab("elec_carbon", t),
+            gas_price=tab("gas_price", t),
             dt_sec=dt,
             params=self.reward_params,
         )
@@ -706,7 +733,8 @@ class BuildingEnv:
             "differential_pressure_setpoint": params.ahu_fan_differential_pressure,
             "discharge_fan_speed_percentage_command": fan_pct,
             "outside_air_flowrate_sensor": (1.0 - params.ahu_recirculation) * flow,
-            "outside_air_temperature_sensor": self._tab["ambient_temp"][t_obs],
+            "outside_air_temperature_sensor": self._state_tables(state.window)(
+                "ambient_temp", t_obs),
             "supply_air_cooling_temperature_setpoint": hvac.ahu_cooling_setpoint,
             "supply_air_flowrate_sensor": flow,
             "supply_air_heating_temperature_setpoint": hvac.ahu_heating_setpoint,
@@ -727,7 +755,7 @@ class BuildingEnv:
     def _observation(self, state: EnvState, t_obs: torch.Tensor) -> torch.Tensor:
         """Flat normalized observations (B, obs_dim) at table index t_obs."""
         t_obs = t_obs.to(torch.int64)
-        tab = self._tab
+        tab = self._state_tables(state.window)
         ahu_values, boiler_values, vav_values = self.device_values(state, t_obs)
         if self.occupancy_params.kind == "randomized":
             total_occ = occupancy_lib.zone_occupancy(state.occupants).sum(dim=-1)
@@ -735,7 +763,7 @@ class BuildingEnv:
             # Average over the trailing 5-minute window per zone
             # (simulator_building.py:305-315).
             probe = torch.clamp(t_obs - 1, min=0)
-            total_occ = tab["step_occupancy"][probe] * self.geom.n_zones
+            total_occ = tab("step_occupancy", probe) * self.geom.n_zones
         # int() truncation then occupancy normalization
         # (simulator_building.py:315, environment.py:952-956).
         c = torch.tensor(
@@ -749,10 +777,10 @@ class BuildingEnv:
             ahu_values=ahu_values,
             boiler_values=boiler_values,
             vav_values=vav_values,
-            hod_rad=tab["hod_rad"][t_obs],
-            dow_rad=tab["dow_rad"][t_obs],
-            comfort_now=tab["comfort"][t_obs],
-            comfort_soon=tab["comfort_soon"][t_obs],
+            hod_rad=tab("hod_rad", t_obs),
+            dow_rad=tab("dow_rad", t_obs),
+            comfort_now=tab("comfort", t_obs),
+            comfort_soon=tab("comfort_soon", t_obs),
             num_occupants=num_occupants,
         )
 

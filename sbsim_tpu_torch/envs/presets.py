@@ -2,9 +2,10 @@
 
 `sb1_config` mirrors the released calibrated office-building config
 (configs/resources/sb1/sim_config.gin) including its z-score normalization
-constants and histogram bins; `two_zone_test_config` is the tiny test
-building. Port of sbsim_tpu/envs/presets.py: both functions return the same
-EnvConfig field for field, over the port's own copies of the packaged data.
+constants and histogram bins; `building_suite` is three calibrated-scale
+buildings; `two_zone_test_config` is the tiny test building. Port of
+sbsim_tpu/envs/presets.py: each function returns the same EnvConfigs field
+for field, over the port's own copies of the packaged data.
 """
 
 from __future__ import annotations
@@ -320,3 +321,39 @@ def two_zone_test_config(
         observation_normalization=SB1_OBSERVATION_NORMALIZATION,
         histogram_parameters={},
     )
+
+
+def building_suite(
+    num_days_in_episode: int = 14,
+    weather_csv: Optional[str] = None,
+) -> list:
+    """Three calibrated-scale office buildings with distinct geometries and
+    weather profiles (the JAX package's multi-building suite, BASELINE.md
+    config #3). Each entry is an independent EnvConfig; batch them with
+    envs.suite.BuildingSuite."""
+    import dataclasses
+
+    plans = [
+        make_synthetic_office_plan(3, 4, room_cvs=14),
+        make_synthetic_office_plan(4, 3, room_cvs=12),
+        make_synthetic_office_plan(2, 6, room_cvs=16),
+    ]
+    weathers = [
+        WeatherConfig(kind="sinusoid", low_temp=273.0, high_temp=283.0,
+                      convection_coefficient=100.0),
+        WeatherConfig(kind="sinusoid", low_temp=278.0, high_temp=292.0,
+                      convection_coefficient=100.0),
+        WeatherConfig(kind="sinusoid", low_temp=268.0, high_temp=279.0,
+                      convection_coefficient=100.0),
+    ]
+    configs = []
+    for plan, weather in zip(plans, weathers):
+        cfg = sb1_config(
+            floor_plan=plan,
+            weather_csv=weather_csv,
+            num_days_in_episode=num_days_in_episode,
+        )
+        if weather_csv is None:
+            cfg = dataclasses.replace(cfg, weather=weather)
+        configs.append(cfg)
+    return configs

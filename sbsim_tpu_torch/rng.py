@@ -6,7 +6,8 @@ Reproduces jax 0.9.0 with `jax_threefry_partitionable=True` (its default):
   * `bits(key, shape)`: element i = x0 ^ x1 of threefry2x32(key, (0, i)),
     i the row-major flat index;
   * `uniform(key, shape, minval, maxval)`: f32 from the top 23 bits;
-  * `normal(key, shape)` and `randint(key, shape, minval, maxval)`.
+  * `normal(key, shape)` and `randint(key, shape, minval, maxval)`;
+  * `fold_in(key, data)` = threefry2x32(key, (0, data)).
 
 Keys are int64 tensors holding uint32 values, with a trailing axis of 2 and
 any leading batch shape; every function vectorises over the batch. PyTorch
@@ -53,6 +54,14 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
     if not -(2**31) <= seed < 2**31:
         raise ValueError(f"seed {seed} outside the int32 range")
     return torch.tensor([0, seed & MASK32], dtype=torch.int64, device=device)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """jax.random.fold_in: (..., 2) keys -> (..., 2) keys mixed with the
+    uint32 value of `data` (the key's subkey number `data` under split)."""
+    b0, b1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(key[..., 0]),
+                          torch.full_like(key[..., 0], int(data) & MASK32))
+    return torch.stack([b0, b1], dim=-1)
 
 
 def _counters(n: int, device) -> torch.Tensor:
@@ -163,19 +172,18 @@ def randint(
     minval,
     maxval,
 ) -> torch.Tensor:
-    """(2,) key -> int32 integers in [minval, maxval) of `shape`, as
-    jax.random.randint (jax._src.random._randint): 64 random bits per value
-    from the two halves of split(key), reduced modulo the span with uint32
-    wraparound (int64 masked to 32 bits). `minval` and
-    `maxval` are ints or int tensors that broadcast to `shape`."""
-    if key.dim() != 1:
-        raise ValueError("randint takes one (2,) key")
+    """(..., 2) keys -> (..., *shape) int32 integers in [minval, maxval),
+    as jax.random.randint (jax._src.random._randint), vmapped over the
+    leading key axes: 64 random bits per value from the two halves of
+    split(key), reduced modulo the span with uint32 wraparound (int64
+    masked to 32 bits). `minval` and `maxval` are ints or int tensors that
+    broadcast to `shape`."""
     dev = key.device
     i32 = torch.iinfo(torch.int32)
     lo = torch.as_tensor(minval, device=dev).to(torch.int64).clamp(i32.min, i32.max)
     hi = torch.as_tensor(maxval, device=dev).to(torch.int64).clamp(i32.min, i32.max)
-    k1, k2 = split(key)
-    higher, lower = bits(k1, shape), bits(k2, shape)
+    sub = split(key)
+    higher, lower = bits(sub[..., 0, :], shape), bits(sub[..., 1, :], shape)
     span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & MASK32)
     multiplier = (2**16) % span
     multiplier = ((multiplier * multiplier) & MASK32) % span

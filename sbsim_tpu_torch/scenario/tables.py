@@ -8,9 +8,9 @@ because several quantities are evaluated at t+1 (reward) or t+12
 (comfort-in-one-hour observation, environment.py:946-951).
 
 Port of sbsim_tpu/scenario/tables.py on `datetime` instead of pandas, and
-with its own time-zone rule instead of a tz database: "UTC", and the US
-daylight-saving rule (second Sunday of March to first Sunday of November,
-02:00 local) for "US/Pacific". Other zone names raise.
+with its own table of time zones instead of a tz database (TIME_ZONES: a
+standard offset and a daylight-saving rule each, US or EU). Other zone
+names, and years before a zone's rule, raise.
 
 Parity sources: setpoint_schedule.py:86-128 (comfort/eco windows),
 conversion_utils.py:65-135 (workday + radian time),
@@ -35,48 +35,98 @@ from sbsim_tpu_torch.scenario import uscalendar
 from sbsim_tpu_torch.scenario import weather as weather_lib
 
 _UTC = datetime.timezone.utc
-# Standard-time UTC offsets (hours) of the zones that follow the US rule.
-_US_STANDARD_OFFSET_HOURS = {"US/Pacific": -8}
+_HOUR = datetime.timedelta(hours=1)
 
 
 def _first_sunday(year: int, month: int) -> int:
     return 1 + (6 - datetime.date(year, month, 1).weekday()) % 7
 
 
-def to_local(ts: datetime.datetime, time_zone: str) -> datetime.datetime:
-    """Naive local wall-clock time of a timezone-aware timestamp.
+def _last_sunday(year: int, month: int) -> int:
+    last = datetime.date(year + month // 12, month % 12 + 1, 1) - datetime.timedelta(days=1)
+    return last.day - (last.weekday() + 1) % 7
 
-    "UTC", or the US daylight-saving rule in force since 2007: daylight
-    time (standard + 1 h) from 02:00 standard time on the second Sunday of
-    March to 02:00 daylight time on the first Sunday of November.
-    """
-    utc = ts.astimezone(_UTC).replace(tzinfo=None)
-    if time_zone == "UTC":
-        return utc
-    if time_zone not in _US_STANDARD_OFFSET_HOURS:
+
+def _us_daylight(year: int, std: datetime.timedelta):
+    """US daylight time as naive UTC [start, end): from 02:00 standard time
+    on the second Sunday of March to 02:00 daylight time on the first Sunday
+    of November since 2007; 1987-2006 from the first Sunday of April to the
+    last Sunday of October."""
+    if year >= 2007:
+        start = datetime.datetime(year, 3, _first_sunday(year, 3) + 7, 2)
+        end = datetime.datetime(year, 11, _first_sunday(year, 11), 2)
+    else:
+        start = datetime.datetime(year, 4, _first_sunday(year, 4), 2)
+        end = datetime.datetime(year, 10, _last_sunday(year, 10), 2)
+    return start - std, end - std - _HOUR
+
+
+def _eu_daylight(year: int, std: datetime.timedelta):
+    """EU summer time as naive UTC [start, end): 01:00 UTC on the last
+    Sunday of March to 01:00 UTC on the last Sunday of October."""
+    del std
+    return (datetime.datetime(year, 3, _last_sunday(year, 3), 1),
+            datetime.datetime(year, 10, _last_sunday(year, 10), 1))
+
+
+# Daylight-saving rules: (first year the rule covers, [start, end) in UTC).
+_RULES = {"US": (1987, _us_daylight), "EU": (1996, _eu_daylight)}
+
+
+def _zones(std_minutes: int, rule, *names: str):
+    return {name: (std_minutes, rule) for name in names}
+
+
+# Zone name -> (standard UTC offset in minutes, daylight-saving rule or None).
+TIME_ZONES = {
+    **_zones(0, None, "UTC"),
+    **_zones(-300, "US", "US/Eastern", "America/New_York"),
+    **_zones(-360, "US", "US/Central", "America/Chicago"),
+    **_zones(-420, "US", "US/Mountain", "America/Denver"),
+    **_zones(-480, "US", "US/Pacific", "America/Los_Angeles"),
+    **_zones(-540, "US", "US/Alaska", "America/Anchorage"),
+    **_zones(-600, None, "US/Hawaii", "Pacific/Honolulu"),
+    **_zones(-420, None, "US/Arizona", "America/Phoenix"),
+    **_zones(0, "EU", "Europe/London", "Europe/Dublin"),
+    **_zones(60, "EU", "Europe/Berlin", "Europe/Paris", "Europe/Amsterdam",
+             "Europe/Brussels", "Europe/Madrid", "Europe/Rome", "Europe/Zurich"),
+    **_zones(120, "EU", "Europe/Helsinki", "Europe/Athens"),
+}
+
+
+def _standard_offset(time_zone: str) -> datetime.timedelta:
+    if time_zone not in TIME_ZONES:
         raise ValueError(
-            f"time zone {time_zone!r} not supported; one of "
-            f"{['UTC'] + sorted(_US_STANDARD_OFFSET_HOURS)}"
+            f"time zone {time_zone!r} not supported; one of {sorted(TIME_ZONES)}"
         )
-    if utc.year < 2007:
-        raise ValueError("the US daylight-saving rule is carried from 2007 on")
-    std = _US_STANDARD_OFFSET_HOURS[time_zone]
-    dst_start = datetime.datetime(
-        utc.year, 3, _first_sunday(utc.year, 3) + 7, 2
-    ) - datetime.timedelta(hours=std)
-    dst_end = datetime.datetime(
-        utc.year, 11, _first_sunday(utc.year, 11), 2
-    ) - datetime.timedelta(hours=std + 1)
-    offset = std + 1 if dst_start <= utc < dst_end else std
-    return utc + datetime.timedelta(hours=offset)
+    return datetime.timedelta(minutes=TIME_ZONES[time_zone][0])
+
+
+def to_local(ts: datetime.datetime, time_zone: str) -> datetime.datetime:
+    """Naive local wall-clock time of a timezone-aware timestamp in a zone
+    of TIME_ZONES: its standard offset, plus one hour while its rule's
+    daylight time holds."""
+    utc = ts.astimezone(_UTC).replace(tzinfo=None)
+    std = _standard_offset(time_zone)
+    rule = TIME_ZONES[time_zone][1]
+    if rule is None:
+        return utc + std
+    first_year, daylight = _RULES[rule]
+    if utc.year < first_year:
+        raise ValueError(
+            f"{time_zone} follows the {rule} daylight-saving rule, which is "
+            f"carried from {first_year} on; got {utc.year}"
+        )
+    start, end = daylight(utc.year, std)
+    return utc + std + (_HOUR if start <= utc < end else datetime.timedelta(0))
 
 
 def _local_midnight_utc(local: datetime.datetime, time_zone: str) -> datetime.datetime:
-    """The UTC instant of local midnight on `local`'s date (no US rule
-    changes the offset between midnight and 02:00)."""
+    """The UTC instant of local midnight on `local`'s date (every rule of
+    TIME_ZONES changes the offset an hour or more after local midnight, so
+    the offset at midnight taken as standard time is the offset then)."""
     midnight = datetime.datetime(local.year, local.month, local.day)
-    std = datetime.timedelta(hours=_US_STANDARD_OFFSET_HOURS.get(time_zone, 0))
-    guess = midnight - std
+    guess = midnight - _standard_offset(time_zone)
     offset = to_local(guess.replace(tzinfo=_UTC), time_zone) - guess
     return (midnight - offset).replace(tzinfo=_UTC)
 
@@ -84,7 +134,8 @@ def _local_midnight_utc(local: datetime.datetime, time_zone: str) -> datetime.da
 @dataclasses.dataclass(frozen=True)
 class EpisodeTables:
     """Step-indexed scenario tables (host numpy, all length T = steps +
-    margin); dtypes match the JAX package's."""
+    margin; stacked over episode windows, see build_episode_tables); dtypes
+    match the JAX package's."""
 
     ambient_temp: np.ndarray  # f32 (T,) K
     convection_coeff: np.ndarray  # f32 (T,) W/m2/K
@@ -104,6 +155,18 @@ class EpisodeTables:
     reset_workday: bool  # workday 5 min before episode start
     n_steps: int  # episode length
     time_step_sec: float
+
+
+# Fields that are one value per episode, not per window.
+STATIC_FIELDS = ("n_steps", "time_step_sec")
+
+
+def tables_for_window(tables: EpisodeTables, window: int) -> EpisodeTables:
+    """Selects one window's tables from a (W, T)-stacked EpisodeTables."""
+    return dataclasses.replace(tables, **{
+        f.name: getattr(tables, f.name)[window]
+        for f in dataclasses.fields(tables) if f.name not in STATIC_FIELDS
+    })
 
 
 def _schedule_comfort(ts: datetime.datetime, cfg: EnvConfig) -> bool:
@@ -149,12 +212,35 @@ def _step_function_occupancy(
 def build_episode_tables(
     config: EnvConfig, margin_steps: int = 16
 ) -> EpisodeTables:
-    """Precomputes step-indexed scenario tables."""
-    if config.episode_windows > 1:
-        raise NotImplementedError(
-            "episode_windows > 1 is not ported yet (one episode window only)"
-        )
+    """Precomputes step-indexed scenario tables.
+
+    With config.episode_windows > 1, every leaf but n_steps and
+    time_step_sec gains a leading window axis: (W, T) tables, and (W,)
+    reset_local_hour (int32) and reset_workday, window w starting
+    w * window_stride_hours after start_timestamp; `tables_for_window`
+    selects one window's tables.
+    """
     start = weather_lib.parse_timestamp(config.start_timestamp)
+    if config.episode_windows == 1:
+        return _window_tables(config, start, margin_steps)
+    stride = datetime.timedelta(hours=config.window_stride_hours)
+    windows = [
+        _window_tables(config, start + w * stride, margin_steps)
+        for w in range(config.episode_windows)
+    ]
+    dtypes = {"reset_local_hour": np.int32, "reset_workday": bool}
+    return dataclasses.replace(windows[0], **{
+        f.name: np.stack([
+            np.asarray(getattr(t, f.name), dtypes.get(f.name)) for t in windows
+        ])
+        for f in dataclasses.fields(EpisodeTables) if f.name not in STATIC_FIELDS
+    })
+
+
+def _window_tables(
+    config: EnvConfig, start: datetime.datetime, margin_steps: int
+) -> EpisodeTables:
+    """The tables of one episode window starting at `start`."""
     dt = datetime.timedelta(seconds=config.time_step_sec)
     n_steps = config.steps_per_episode
     total = n_steps + margin_steps

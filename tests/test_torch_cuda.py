@@ -351,3 +351,63 @@ def test_nan_env_follows_each_stopping_rule(env, kernel, e):
     same(got[3].grid_sums, want[3].grid_sums)
     assert int(got[1][1]) == (1 if kernel == "fdm_jacobi" else 20)
     assert not bool(got[2][1])
+
+
+def _steps_through(env, solver, batch, plain, seed):
+    """3 step_batched steps from a fresh reset, through the kernels or, with
+    `plain`, through their plain versions on the card; the launch counts,
+    final state and outputs."""
+    from sbsim_tpu_torch import convert
+
+    names = ("fdm_cheby", "fdm_jacobi", "fdm_cheby_block", "fdm_jacobi_block")
+    saved = {k: getattr(fdm_cuda, f"{k}_cuda") for k in names}
+    if plain:
+        for k in names:
+            setattr(fdm_cuda, f"{k}_cuda", getattr(fdm_cuda, f"{k}_plain"))
+    try:
+        state, _ = env.reset(rng.split(rng.PRNGKey(seed, device=env.device), batch))
+        acts = torch.as_tensor(np.random.default_rng(seed).uniform(
+            -1, 1, (3, batch, env.n_actions)), dtype=torch.float32, device=env.device)
+        fdm_cuda.reset_launch_counts()
+        outs = []
+        for a in acts:
+            state, out = env.step_batched(state, a, solver=solver)
+            outs.append(torch.cat([out.observation, out.reward[:, None]], 1))
+        counts = dict(fdm_cuda.launch_counts)
+    finally:
+        for k, fn in saved.items():
+            setattr(fdm_cuda, f"{k}_cuda", fn)
+    tree = convert.env_state_to_numpy(state)
+    flat = {k: v for k, v in tree.items() if k != "hvac"}
+    flat.update({f"hvac.{k}": v for k, v in tree["hvac"].items()})
+    return counts, flat, torch.stack(outs).cpu().numpy()
+
+
+@pytest.mark.parametrize("solver,kernel", [("pallas_env", "fdm_jacobi"),
+                                           ("pallas_cheby", "fdm_cheby")])
+def test_windowed_env_through_the_kernels_equals_plain(env, solver, kernel):
+    """episode_windows=4: each env reads its own window's tables; the
+    kernels' steps equal the plain versions' bitwise."""
+    windowed = building_env.BuildingEnv(dataclasses.replace(env.config, episode_windows=4))
+    counts, got, got_out = _steps_through(windowed, solver, 16, plain=False, seed=6)
+    assert counts[kernel] == 3 and sum(counts.values()) == 3
+    _, want, want_out = _steps_through(windowed, solver, 16, plain=True, seed=6)
+    assert len(np.unique(got["window"])) > 1
+    for name, value in want.items():
+        np.testing.assert_array_equal(got[name], value, err_msg=name)
+    np.testing.assert_array_equal(got_out, want_out)
+
+
+def test_suite_plan_through_k2_equals_plain(env):
+    """The suite's (2, 6, 16) office plan (41 x 109) through K2, bitwise
+    its plain version."""
+    from sbsim_tpu_torch.envs import suite
+
+    plan_env = suite.BuildingSuite(presets.building_suite(num_days_in_episode=1)).envs[2]
+    assert plan_env.geom.shape == (41, 109)
+    counts, got, got_out = _steps_through(plan_env, "pallas_env", 16, plain=False, seed=7)
+    assert counts["fdm_jacobi"] == 3 and sum(counts.values()) == 3
+    _, want, want_out = _steps_through(plan_env, "pallas_env", 16, plain=True, seed=7)
+    for name, value in want.items():
+        np.testing.assert_array_equal(got[name], value, err_msg=name)
+    np.testing.assert_array_equal(got_out, want_out)

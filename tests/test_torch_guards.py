@@ -24,8 +24,10 @@ for name in names:
     importlib.import_module(name)
 agents = {"networks", "replay", "sac", "exploration", "schedule_policy", "train", "policies"}
 missing = agents - {n.split(".")[-1] for n in names if n.startswith("sbsim_tpu_torch.agents.")}
+missing |= {"sbsim_tpu_torch.io.metrics", "sbsim_tpu_torch.io.checkpoint",
+            "sbsim_tpu_torch.envs.suite", "sbsim_tpu_torch.examples.train_sac"} - set(names)
 import chip_smoke
-chip_smoke.make_env, chip_smoke.main, chip_smoke.training_phase
+chip_smoke.make_env, chip_smoke.main, chip_smoke.training_phase, chip_smoke.entry_train_sac
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "pandas",
                                     "sbsim_tpu"))
@@ -35,6 +37,8 @@ sys.exit(1 if bad or missing else 0)
 
 
 def test_port_agents_and_chip_smoke_import_no_jax_flax_optax_orbax_pandas():
+    """Every module of the port, the agents, the training entry point and
+    its I/O among them, and chip_smoke.py import none of these."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -83,6 +87,85 @@ def test_chip_smoke_alone_fails(tmp_path):
                           env=dict(os.environ, PYTHONPATH=""))
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+class _Window:
+    """A stand-in for torch.profiler.profile whose windows record the FDM
+    kernel events listed in `recorded`, one list per window."""
+
+    recorded = []
+
+    def __init__(self, **kwargs):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.events_seen = _Window.recorded.pop(0)
+
+    def events(self):
+        class Range:
+            def __init__(self, us):
+                self.us = us
+
+            def elapsed_us(self):
+                return self.us
+
+        return [type("Event", (), dict(device_type=torch.autograd.DeviceType.CUDA,
+                                       name="fdm_jacobi_body", time_range=Range(us)))()
+                for us in self.events_seen]
+
+
+@pytest.mark.parametrize("windows,want", [
+    ([[30.0, 50.0]], 0.02),             # the first window sees the kernels
+    ([[], [], [40.0, 40.0]], 0.02),     # two empty windows, then the kernels
+    ([[], [], []], None),               # every window empty: not measured
+])
+def test_chip_smoke_device_ms_profiles_again_when_a_window_is_empty(monkeypatch, windows, want):
+    """A profiler window that records no FDM kernel is profiled again; after
+    PROFILE_TRIES empty windows the device time is None ("not measured"),
+    and the run goes on."""
+    import torch.profiler
+
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    assert len(windows) <= chip_smoke.PROFILE_TRIES
+    monkeypatch.setattr(_Window, "recorded", [list(w) for w in windows])
+    monkeypatch.setattr(torch.profiler, "profile", _Window)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    got = chip_smoke.device_ms(lambda: calls.append(1), 4)
+    assert got == want and _Window.recorded == []
+    assert len(calls) == 1 + 4 * len(windows)
+    assert chip_smoke.fmt_ms(got) == ("not measured" if want is None else "0.0200")
+
+
+def test_chip_smoke_repeat_counts_failed_parts_and_goes_on(monkeypatch, capsys):
+    """`--repeat` runs phases 5-6 round after round; a part that fails is
+    counted, the rest of its round still runs, and the run exits 1."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    ran = []
+    monkeypatch.setattr(chip_smoke, "training_phase",
+                        lambda env, kname, *a: ran.append(kname))
+    monkeypatch.setattr(chip_smoke, "entry_train_sac", lambda tag: ran.append("train_sac"))
+    monkeypatch.setattr(chip_smoke, "entry_suite",
+                        lambda *a: chip_smoke.fail("suite differs") if len(ran) < 4 else
+                        ran.append("suite"))
+    monkeypatch.setattr(chip_smoke, "entry_windows", lambda tag: ran.append("windows"))
+    envs = {w: None for w, *_ in chip_smoke.TRAINING}
+    assert chip_smoke.repeat_phases(envs, 0.0, 1.0, 1.0, "[t]") == 1
+    assert ran == ["fdm_jacobi", "fdm_jacobi_block", "train_sac", "windows"]
+    out = capsys.readouterr().out
+    assert "FAILED: suite differs" in out and "1 rounds" in out
+    assert "failed parts [(1, 'suite')]" in out
 
 
 @pytest.mark.parametrize("solver", ["pallas_cheby", "pallas_env", "xla_jacobi"])

@@ -160,7 +160,10 @@ def test_time_zone_rule_matches_zoneinfo_over_2023(zone):
         assert ttables.to_local(ts, zone) == want, ts
 
 
-def test_unsupported_time_zone_raises():
-    ts = datetime.datetime(2023, 7, 6, 7, tzinfo=datetime.timezone.utc)
-    with pytest.raises(ValueError):
-        ttables.to_local(ts, "Europe/Berlin")
+@pytest.mark.parametrize("zone,year", [("Australia/Sydney", 2023), ("US/Pacific", 1986),
+                                       ("Europe/Berlin", 1995)])
+def test_unsupported_time_zone_raises(zone, year):
+    """A zone outside the port's table, or a year before its rule."""
+    ts = datetime.datetime(year, 7, 6, 7, tzinfo=datetime.timezone.utc)
+    with pytest.raises(ValueError, match="Europe/Berlin" if year == 2023 else str(year)):
+        ttables.to_local(ts, zone)
