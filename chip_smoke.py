@@ -6,7 +6,7 @@
         # phases 0-1 and the kernels' decomposition; SASS into DIR; K3 at
         # the given block widths; K3/K4 at E=3 six times each
     python3 chip_smoke.py --repeat SECONDS
-        # phases 0-1, then phases 5-6 round after round for SECONDS,
+        # phases 0-1, then phases 5-7 round after round for SECONDS,
         # counting failed parts and empty profiler windows
 
 Phases (each prints its own lines; any failure exits non-zero):
@@ -84,7 +84,27 @@ Phases (each prints its own lines; any failure exits non-zero):
      pallas_env and pallas_cheby through the kernels and the plain
      versions, bitwise, more than one window drawn. Launches of (a) and
      of (b)'s 8 steps join the kernels line.
-  7. A {"kernels": [...]} line, then the last line
+  7. The proto host path (HostEnvironment -> ActionRequest ->
+     SimulatedBuilding.request_action / wait_time -> BuildingEnv.step at
+     B=1 -> K2, or K1 for fdm_solver="chebyshev" -> observation and reward
+     protos -> hourly record shards) with a seeded SAC actor through
+     save_policy/load_policy: (a) host12, sb1_config(num_days_in_episode=1),
+     30 steps from 07:00 UTC across two hourly shard boundaries, and (e)
+     chebyshev12, 4 steps through K1, and (f) host126, the 126-room plan, 6
+     steps: each against its run under the plain versions, time steps,
+     metrics and every record file bitwise, one launch per step and none on
+     the plain run, the shards read back message for message, the episode
+     data's cumulative reward the rewards' sum; (b) RealBuildingController,
+     8 steps, the proto-assembled observation within 1e-5 of the env's;
+     (c) RejectionSimulatedBuilding, the first 2 rewards -inf, the third
+     finite; (d) BuildingEnv.step at B=1 from env 5 of a B=64 batch, 3
+     steps bitwise row 5 of step_batched. Median ms per HostEnvironment.step
+     (CUDA events, all but the first two), split into wait_time and the
+     proto and record work, control steps/s, and a torch.profiler window of
+     one more step (device busy, idle share, launches), for each of (a),
+     (e) and (f).
+     Launches of every kernel run join the kernels line.
+  8. A {"kernels": [...]} line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 It refuses to run without a CUDA device and never falls back to the CPU.
@@ -1380,8 +1400,296 @@ def entry_windows(tag) -> None:
               f"version {tag}", flush=True)
 
 
+# Phase 7: the proto host path. host12 runs HOST_STEPS control steps from
+# 07:00 UTC, across two hourly shard boundaries; the 126-room plan fewer.
+HOST_STEPS = 30
+CONTROLLER_STEPS = 8
+REJECTIONS = 2
+ROW_STEPS = 3
+ROW = 5
+CHEBY_STEPS = 4
+HOST126_STEPS = 6
+RECORD_WRITES = ("write_action_response", "write_observation_response", "write_reward_info",
+                 "write_reward_response")
+RECORD_READS = ("read_action_responses", "read_observation_responses", "read_reward_infos",
+                "read_reward_responses")
+
+
+def host_policy(env, seed, directory):
+    """The greedy actor of a seeded SAC learner, through save_policy and
+    load_policy, as a deployed policy reaches a building."""
+    import torch
+    from sbsim_tpu_torch import rng
+    from sbsim_tpu_torch.agents import policies, sac
+
+    learner = sac.SACLearner(env.obs_dim, env.n_actions, device=env.device)
+    policies.save_policy(directory, learner, learner.init(rng.PRNGKey(seed, device=env.device)),
+                         env.action_names)
+    policy, _ = policies.load_policy(directory, device=env.device)
+    return lambda obs: policy(torch.as_tensor(obs[None], device=env.device))[0].cpu().numpy()
+
+
+def host_run(env, policy, steps, plain):
+    """HostEnvironment over SimulatedBuilding(env, seed=0) recording into a
+    temporary directory: reset, then `steps` control steps with the policy's
+    actions, through the kernels or (with `plain`) their plain versions.
+    Returns the time steps, the metrics, the record files by name, the
+    messages written, the episode data, the launch counts and the CUDA
+    events of each step and of its wait_time."""
+    import tempfile
+
+    import torch
+    from sbsim_tpu_torch.envs import host_adapter, host_environment
+    from sbsim_tpu_torch.io import records
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    event = lambda: torch.cuda.Event(enable_timing=True)
+    written, saved = [], {k: getattr(records.RecordWriter, k) for k in RECORD_WRITES}
+
+    def spy(name):
+        def write(writer, msg, timestamp):
+            written.append((name, msg))
+            return saved[name](writer, msg, timestamp)
+        return write
+
+    with tempfile.TemporaryDirectory() as tmp, (
+            plain_kernels() if plain else contextlib.nullcontext()):
+        for k in RECORD_WRITES:
+            setattr(records.RecordWriter, k, spy(k))
+        try:
+            building = host_adapter.SimulatedBuilding(env, seed=0)
+            host = host_environment.HostEnvironment(building, env, metrics_path=tmp)
+            wait_events, step_events = [], []
+            real_wait = building.wait_time
+
+            def timed_wait():
+                s, e = event(), event()
+                s.record()
+                real_wait()
+                e.record()
+                wait_events.append((s, e))
+
+            building.wait_time = timed_wait
+            first = host.reset()
+            steps_out = [first]
+            torch.cuda.synchronize()
+            fdm_cuda.reset_launch_counts()
+            for _ in range(steps):
+                action = policy(steps_out[-1].observation)
+                s, e = event(), event()
+                s.record()
+                steps_out.append(host.step(action))
+                e.record()
+                step_events.append((s, e))
+            torch.cuda.synchronize()
+            counts = dict(fdm_cuda.launch_counts)
+        finally:
+            for k, fn in saved.items():
+                setattr(records.RecordWriter, k, fn)
+        (episode,) = os.listdir(tmp)
+        folder = os.path.join(tmp, episode)
+        files = {name: open(os.path.join(folder, name), "rb").read()
+                 for name in sorted(os.listdir(folder))}
+        reader = records.RecordReader(folder)
+        read = {r: getattr(reader, r)() for r in RECORD_READS}
+        data = records.get_episode_data(tmp)
+    return dict(steps=steps_out, metrics=host.metrics, files=files, written=written, read=read,
+                data=data, counts=counts, building=building, step_events=step_events,
+                wait_events=wait_events)
+
+
+def _same_metrics(a, b) -> bool:
+    import numpy as np
+
+    if sorted(a) != sorted(b):
+        return False
+    for k, x in a.items():
+        y = b[k]
+        if isinstance(x, dict):
+            if not _same_metrics(x, y):
+                return False
+        elif k == "timestamps":
+            if x != y:
+                return False
+        elif not np.array_equal(np.asarray(x), np.asarray(y), equal_nan=True):
+            return False
+    return True
+
+
+def host_check(label, env, policy, steps, kname, tag):
+    """One host path through the kernel and through its plain version:
+    every time step, the metrics and every record file bitwise equal; the
+    kernel launched once per step on the kernel run and never on the plain
+    run; the shards read back, message for message; the episode data's
+    cumulative reward the sum of the rewards. Prints the step rates; returns
+    the kernel run's launches of `kname`."""
+    import tempfile
+
+    import numpy as np
+    from sbsim_tpu_torch.envs import host_adapter, host_environment
+
+    got, want = host_run(env, policy, steps, plain=False), host_run(env, policy, steps, plain=True)
+    if got["counts"] != {k: (steps if k == kname else 0) for k in KERNELS} or any(
+            want["counts"].values()):
+        fail(f"{label}: launch counts {got['counts']}, plain run {want['counts']}")
+    for i, (a, b) in enumerate(zip(got["steps"], want["steps"], strict=True)):
+        if (a.step_type, a.discount) != (b.step_type, b.discount) or not np.array_equal(
+                [a.reward], [b.reward]) or not np.array_equal(a.observation, b.observation):
+            fail(f"{label}: time step {i} differs from the plain run")
+    if not _same_metrics(got["metrics"], want["metrics"]):
+        fail(f"{label}: the metrics timeseries differ from the plain run")
+    if list(got["files"]) != list(want["files"]) or any(
+            got["files"][k] != want["files"][k] for k in got["files"]):
+        diff = sorted(k for k in set(got["files"]) | set(want["files"])
+                      if got["files"].get(k) != want["files"].get(k))
+        fail(f"{label}: record files differ from the plain run: {diff}")
+    for write, read in zip(RECORD_WRITES, RECORD_READS):
+        mine = [m for name, m in got["written"] if name == write]
+        back = got["read"][read]
+        if len(mine) != steps or len(back) != steps or any(x != y for x, y in zip(mine, back)):
+            fail(f"{label}: {read} read back {len(back)} messages for {len(mine)} written "
+                 f"(of {steps} steps), or they differ")
+    rewards = [ts.reward for ts in got["steps"][1:]]
+    if list(got["data"]["n_steps"]) != [steps] or got["data"]["cumulative_reward"][0] != sum(
+            float(np.float32(r)) for r in rewards):
+        fail(f"{label}: episode data {got['data']} against rewards summing to {sum(rewards)}")
+    info = got["building"].reward_info
+    if len(info.zone_reward_infos) != env.n_zones:
+        fail(f"{label}: reward_info holds {len(info.zone_reward_infos)} zones of {env.n_zones}")
+    shards = sorted({name.rsplit("_", 1)[1] for name in got["files"] if name[-3] == "."})
+    print(f"  {label} ({env.n_zones} zones, {env.geom.shape[0]} x {env.geom.shape[1]}; "
+          f"{steps} HostEnvironment steps through {kname}): launches {got['counts'][kname]} "
+          f"(plain run 0); time steps, metrics and {len(got['files'])} record files "
+          f"({', '.join(shards)}) bitwise equal to the plain run; {steps} messages of each "
+          f"per-step type read back equal; cumulative reward "
+          f"{got['data']['cumulative_reward'][0]:.6f}", flush=True)
+    ms = [s.elapsed_time(e) for s, e in got["step_events"][2:]]
+    wait = [s.elapsed_time(e) for s, e in got["wait_events"][2:]]
+    rest = [a - b for a, b in zip(ms, wait)]
+    med = statistics.median(ms)
+    print(f"  {label} rates: HostEnvironment.step median {med:.3f} ms over {len(ms)} steps "
+          f"(wait_time {statistics.median(wait):.3f} ms, proto and record work "
+          f"{statistics.median(rest):.3f} ms) -> {1e3 / med:.1f} control steps/s; plain run "
+          f"{statistics.median(s.elapsed_time(e) for s, e in want['step_events'][2:]):.3f} ms "
+          f"{tag}", flush=True)
+    # Device busy and launches of one more step, on a fresh building.
+    with tempfile.TemporaryDirectory() as tmp:
+        host = host_environment.HostEnvironment(host_adapter.SimulatedBuilding(env, seed=0), env,
+                                                metrics_path=tmp)
+        ts = host.step(policy(host.reset().observation))
+        _profile_window(lambda: host.step(policy(ts.observation)),
+                        f"{label} profile of one HostEnvironment.step", tag)
+    return got["counts"][kname]
+
+
+def host_phase(envs, tag) -> dict:
+    """Phase 7: the proto host path on the card; returns the launches of
+    K2 and K1 of its kernel runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from sbsim_tpu_torch import convert, rng
+    from sbsim_tpu_torch.envs import building_env, host_adapter, host_environment, presets
+    from sbsim_tpu_torch.envs import real_building
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    t_start = time.time()
+    dev = torch.device(DEVICE)
+    launches = dict.fromkeys(KERNELS, 0)
+    cfg = presets.sb1_config(num_days_in_episode=1)
+    env12 = building_env.BuildingEnv(cfg, device=dev)
+    cheby12 = building_env.BuildingEnv(dataclasses.replace(cfg, fdm_solver="chebyshev"),
+                                       device=dev)
+    env126 = envs["126room"]
+    for env in (env12, env126):
+        geo = fdm_cuda.run_geometry(env.geom.shape, 1)
+        if geo is None:
+            fail(f"host path: no kernel geometry at B=1 for the {env.geom.shape} plan")
+        print(f"  B=1 geometry at {env.geom.shape}: {geo.threads} threads x {geo.slots} runs, "
+              f"staged={geo.staged}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        policy12 = host_policy(env12, 11, os.path.join(tmp, "p12"))
+        policy126 = host_policy(env126, 12, os.path.join(tmp, "p126"))
+
+    # (a) host12 and (e) chebyshev12 and (f) host126, against their plain runs.
+    launches["fdm_jacobi"] += host_check("host12", env12, policy12, HOST_STEPS, "fdm_jacobi", tag)
+    launches["fdm_cheby"] += host_check("chebyshev12", cheby12, policy12, CHEBY_STEPS,
+                                        "fdm_cheby", tag)
+    launches["fdm_jacobi"] += host_check("host126", env126, policy126, HOST126_STEPS,
+                                         "fdm_jacobi", tag)
+
+    # (b) The controller: the observation assembled from the proto against
+    # the env's own, each step.
+    building = host_adapter.SimulatedBuilding(env12, seed=1)
+    controller = real_building.RealBuildingController(
+        building, env12, lambda obs: policy12(obs[0])[None])
+    diffs, observe = [], controller.observe
+
+    def checked_observe():
+        obs = observe()
+        diffs.append(float(np.abs(obs - building._last_obs_vector).max()))
+        return obs
+
+    controller.observe = checked_observe
+    fdm_cuda.reset_launch_counts()
+    for _ in range(CONTROLLER_STEPS):
+        controller.control_step()
+    torch.cuda.synchronize()
+    n = fdm_cuda.launch_counts["fdm_jacobi"]
+    if n != CONTROLLER_STEPS or len(diffs) != CONTROLLER_STEPS or max(diffs) > 1e-5:
+        fail(f"controller: K2 launches {n}, observation max |d| per step {diffs} (limit 1e-5)")
+    launches["fdm_jacobi"] += n
+    print(f"  controller ({CONTROLLER_STEPS} steps, 12 zones): K2 launches {n}; the observation "
+          f"assembled from the proto within {max(diffs):.3e} of the env's (limit 1e-5)",
+          flush=True)
+
+    # (c) Rejection: the first REJECTIONS rewards are -inf.
+    rejecting = host_adapter.RejectionSimulatedBuilding(
+        host_adapter.SimulatedBuilding(env12, seed=2), num_rejections=REJECTIONS)
+    host = host_environment.HostEnvironment(rejecting, env12)
+    host.reset()
+    fdm_cuda.reset_launch_counts()
+    rewards = [host.step(np.zeros(env12.n_actions, np.float32)).reward
+               for _ in range(REJECTIONS + 1)]
+    n = fdm_cuda.launch_counts["fdm_jacobi"]
+    if rewards[:REJECTIONS] != [-np.inf] * REJECTIONS or not np.isfinite(rewards[-1]) or (
+            n != REJECTIONS + 1):
+        fail(f"rejection: rewards {rewards}, K2 launches {n}")
+    launches["fdm_jacobi"] += n
+    print(f"  rejection ({REJECTIONS} refused): rewards {rewards}; K2 launches {n}", flush=True)
+
+    # (d) The per-env step at B=1 against row ROW of step_batched at B=64.
+    b = WIRING_BATCH
+    states, _ = env12.reset(rng.split(rng.PRNGKey(21, device=dev), b))
+    pick = lambda tree: {k: (pick(v) if isinstance(v, dict) else v[ROW:ROW + 1])
+                         for k, v in tree.items()}
+    one = convert.env_state_from_numpy(pick(convert.env_state_to_numpy(states)), dev)
+    acts = torch.as_tensor(np.random.default_rng(22).uniform(-1, 1, (ROW_STEPS, b, env12.n_actions)),
+                           dtype=torch.float32, device=dev)
+    fdm_cuda.reset_launch_counts()
+    for i in range(ROW_STEPS):
+        states, out = env12.step_batched(states, acts[i], solver="pallas_env")
+        one, one_out = env12.step(one, acts[i, ROW:ROW + 1])
+        diff = _tree_diff(pick(convert.env_state_to_numpy(states)), convert.env_state_to_numpy(one))
+        if diff or not torch.equal(one_out.observation, out.observation[ROW:ROW + 1]) or (
+                not torch.equal(one_out.reward, out.reward[ROW:ROW + 1])):
+            fail(f"step at B=1, step {i}: differs from row {ROW} of step_batched in {diff}")
+    torch.cuda.synchronize()
+    n = fdm_cuda.launch_counts["fdm_jacobi"]
+    if dict(fdm_cuda.launch_counts) != {k: (2 * ROW_STEPS if k == "fdm_jacobi" else 0)
+                                        for k in KERNELS}:
+        fail(f"step at B=1: launch counts {fdm_cuda.launch_counts}")
+    launches["fdm_jacobi"] += n
+    print(f"  step at B=1 ({ROW_STEPS} steps from env {ROW} of B={b}): state and outputs bitwise "
+          f"row {ROW} of step_batched through fdm_jacobi; K2 launches {n} ({ROW_STEPS} at B=1, "
+          f"{ROW_STEPS} at B={b})", flush=True)
+    print(f"  phase 7 in {time.time() - t_start:.1f} s", flush=True)
+    return launches
+
+
 def repeat_phases(envs, seconds, bw, flops, tag) -> int:
-    """Phases 5 and 6, round after round until `seconds` have passed; a
+    """Phases 5, 6 and 7, round after round until `seconds` have passed; a
     failed part is counted and the round goes on. Prints the rounds, the
     failed parts and the device_ms profiler windows that recorded no FDM
     kernel; returns 1 if any part failed."""
@@ -1394,14 +1702,15 @@ def repeat_phases(envs, seconds, bw, flops, tag) -> int:
                  for w, k, n, s, t, e in TRAINING]
         parts += [("train_sac", lambda: entry_train_sac(tag)),
                   ("suite", lambda: entry_suite(max_err, bw, flops, tag)),
-                  ("windows", lambda: entry_windows(tag))]
+                  ("windows", lambda: entry_windows(tag)),
+                  ("host", lambda: host_phase(envs, tag))]
         for name, fn in parts:
             try:
                 fn()
             except SystemExit:
                 failed.append((rounds, name))
         print(f"repeat: round {rounds} done at {time.time() - t_start:.1f} s", flush=True)
-    print(f"repeat: {rounds} rounds of phases 5-6 in {time.time() - t_start:.1f} s; failed "
+    print(f"repeat: {rounds} rounds of phases 5-7 in {time.time() - t_start:.1f} s; failed "
           f"parts {failed}; profiler windows {profile_windows['opened']}, "
           f"{profile_windows['empty']} of them with no FDM kernel {tag}", flush=True)
     return 1 if failed else 0
@@ -1486,6 +1795,11 @@ def main() -> int:
     entry_windows(tag)
 
     # ---- Phase 7 ---------------------------------------------------------
+    print("phase 7: the proto host path", flush=True)
+    for kname, n in host_phase(envs, tag).items():
+        launches[kname] += n
+
+    # ---- Phase 8 ---------------------------------------------------------
     rows = {"fdm_cheby": "12zone", "fdm_jacobi": "12zone",
             "fdm_cheby_block": "12zone stack", "fdm_jacobi_block": "12zone stack"}
     kernels = []

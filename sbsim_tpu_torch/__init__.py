@@ -12,9 +12,14 @@ Layer map:
   hvac/       batched VAV / air handler / boiler / thermostat
   scenario/   weather, occupancy, calendar/tariff tables (no pandas)
   envs/       batched environment: obs / action / reward; multi-building
-              suites
+              suites; the proto host adapter, host loop and real-building
+              controller
   agents/     SAC: networks, replay, learner, trainer, schedule baseline
-  io/         JSONL metrics, TrainState checkpoints (numpy archives)
+  io/         JSONL metrics, TrainState checkpoints (numpy archives),
+              proto record shards
+  proto/      the wire-format schemas on the port's own proto3 runtime
+  utils/      time/unit/id conversions, telemetry imputation
+  interfaces  the abstract building / reward / normalizer contracts
   examples/   entry points (`python -m sbsim_tpu_torch.examples.train_sac`)
   rng.py      threefry2x32, bitwise equal to jax.random
   convert.py  EnvState / TrainState <-> nested dicts of numpy arrays
@@ -25,3 +30,16 @@ the GPU; the CPU is used only when the caller passes `device="cpu"`.
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """Lazy top-level conveniences, as the JAX package has them."""
+    if name == "SimulatedBuilding":
+        from sbsim_tpu_torch.envs.host_adapter import SimulatedBuilding
+
+        return SimulatedBuilding
+    if name == "interfaces":
+        import importlib
+
+        return importlib.import_module("sbsim_tpu_torch.interfaces")
+    raise AttributeError(f"module 'sbsim_tpu_torch' has no attribute {name!r}")

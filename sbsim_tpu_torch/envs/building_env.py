@@ -421,6 +421,25 @@ class BuildingEnv:
         )
         return fuse_conv, kernel_stats
 
+    def step(self, state: EnvState, action: torch.Tensor) -> Tuple[EnvState, StepOutput]:
+        """One control step of a single env, held as a batch of one: a
+        (1, ...) state and a (1, n_actions) action in, the same batch out
+        (the JAX package's per-env `step`, building_env.py:354-373).
+
+        It is `step_batched` at B=1 (batch isolation is bitwise) with the
+        solver the config names, as the JAX `step` takes it: fdm_solver
+        "jacobi" runs "pallas_env" (K2 on the card), "chebyshev"
+        "pallas_cheby" (K1), in the config's block layout; on the CPU the
+        kernels' plain versions."""
+        if state.temp.shape[0] != 1 or tuple(action.shape) != (1, self.n_actions):
+            raise ValueError(
+                f"step takes a batch of one env and a (1, {self.n_actions}) action; got "
+                f"{state.temp.shape[0]} envs and an action of shape {tuple(action.shape)} "
+                "(step_batched steps a batch)"
+            )
+        solver = "pallas_cheby" if self.config.fdm_solver == "chebyshev" else "pallas_env"
+        return self.step_batched(state, action, solver=solver)
+
     def step_batched(
         self,
         states: EnvState,

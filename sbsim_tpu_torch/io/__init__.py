@@ -1,1 +1,2 @@
-"""Training I/O: JSONL metrics and checkpoints (port of sbsim_tpu/io)."""
+"""I/O: JSONL metrics, checkpoints and proto record shards (port of
+sbsim_tpu/io)."""

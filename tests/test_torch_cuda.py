@@ -354,9 +354,10 @@ def test_nan_env_follows_each_stopping_rule(env, kernel, e):
 
 
 def _steps_through(env, solver, batch, plain, seed):
-    """3 step_batched steps from a fresh reset, through the kernels or, with
-    `plain`, through their plain versions on the card; the launch counts,
-    final state and outputs."""
+    """3 step_batched steps from a fresh reset (with solver None, 3 steps of
+    the per-env `step` at batch 1), through the kernels or, with `plain`,
+    through their plain versions on the card; the launch counts, final
+    state and outputs."""
     from sbsim_tpu_torch import convert
 
     names = ("fdm_cheby", "fdm_jacobi", "fdm_cheby_block", "fdm_jacobi_block")
@@ -371,7 +372,10 @@ def _steps_through(env, solver, batch, plain, seed):
         fdm_cuda.reset_launch_counts()
         outs = []
         for a in acts:
-            state, out = env.step_batched(state, a, solver=solver)
+            if solver is None:
+                state, out = env.step(state, a)
+            else:
+                state, out = env.step_batched(state, a, solver=solver)
             outs.append(torch.cat([out.observation, out.reward[:, None]], 1))
         counts = dict(fdm_cuda.launch_counts)
     finally:
@@ -408,6 +412,20 @@ def test_suite_plan_through_k2_equals_plain(env):
     counts, got, got_out = _steps_through(plan_env, "pallas_env", 16, plain=False, seed=7)
     assert counts["fdm_jacobi"] == 3 and sum(counts.values()) == 3
     _, want, want_out = _steps_through(plan_env, "pallas_env", 16, plain=True, seed=7)
+    for name, value in want.items():
+        np.testing.assert_array_equal(got[name], value, err_msg=name)
+    np.testing.assert_array_equal(got_out, want_out)
+
+
+@pytest.mark.parametrize("fdm_solver,kernel", [("jacobi", "fdm_jacobi"),
+                                               ("chebyshev", "fdm_cheby")])
+def test_per_env_step_through_the_kernel_equals_plain(env, fdm_solver, kernel):
+    """BuildingEnv.step at B=1 takes the config's solver: K2 for "jacobi",
+    K1 for "chebyshev", each launch bitwise its plain version."""
+    one = building_env.BuildingEnv(dataclasses.replace(env.config, fdm_solver=fdm_solver))
+    counts, got, got_out = _steps_through(one, None, 1, plain=False, seed=9)
+    assert counts[kernel] == 3 and sum(counts.values()) == 3
+    _, want, want_out = _steps_through(one, None, 1, plain=True, seed=9)
     for name, value in want.items():
         np.testing.assert_array_equal(got[name], value, err_msg=name)
     np.testing.assert_array_equal(got_out, want_out)

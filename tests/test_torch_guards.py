@@ -1,6 +1,6 @@
-"""Guards of the port: it imports no JAX (nor flax, optax, orbax, pandas or
-the JAX package), runs on a CUDA device unless told otherwise, and makes no
-kernel launch on the CPU."""
+"""Guards of the port: it imports no JAX (nor flax, optax, orbax, pandas,
+protobuf, matplotlib, PIL or the JAX package), runs on a CUDA device unless
+told otherwise, and makes no kernel launch on the CPU."""
 
 import os
 import subprocess
@@ -25,12 +25,19 @@ for name in names:
 agents = {"networks", "replay", "sac", "exploration", "schedule_policy", "train", "policies"}
 missing = agents - {n.split(".")[-1] for n in names if n.startswith("sbsim_tpu_torch.agents.")}
 missing |= {"sbsim_tpu_torch.io.metrics", "sbsim_tpu_torch.io.checkpoint",
-            "sbsim_tpu_torch.envs.suite", "sbsim_tpu_torch.examples.train_sac"} - set(names)
+            "sbsim_tpu_torch.envs.suite", "sbsim_tpu_torch.examples.train_sac",
+            "sbsim_tpu_torch.proto.building_pb2", "sbsim_tpu_torch.io.records",
+            "sbsim_tpu_torch.envs.host_adapter", "sbsim_tpu_torch.envs.host_environment",
+            "sbsim_tpu_torch.envs.real_building", "sbsim_tpu_torch.interfaces"} - set(names)
 import chip_smoke
 chip_smoke.make_env, chip_smoke.main, chip_smoke.training_phase, chip_smoke.entry_train_sac
+chip_smoke.host_phase
+# protobuf is google.protobuf (its runtime google._upb); the bare `google`
+# namespace may be set up by a .pth file at start-up.
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "pandas",
-                                    "sbsim_tpu"))
+                                    "matplotlib", "PIL", "sbsim_tpu")
+             or k.startswith(("google.protobuf", "google._upb")))
 print(bad, sorted(missing))
 sys.exit(1 if bad or missing else 0)
 """
@@ -38,7 +45,8 @@ sys.exit(1 if bad or missing else 0)
 
 def test_port_agents_and_chip_smoke_import_no_jax_flax_optax_orbax_pandas():
     """Every module of the port, the agents, the training entry point and
-    its I/O among them, and chip_smoke.py import none of these."""
+    its I/O, the wire runtime and the host path among them, and
+    chip_smoke.py import none of these, nor protobuf."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -52,6 +60,17 @@ def test_env_without_device_needs_cuda(monkeypatch):
         building_env.BuildingEnv(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         building_env.BuildingEnv(cfg, device="cuda")
+
+
+def test_simulated_building_without_device_needs_cuda(monkeypatch):
+    from sbsim_tpu_torch.envs import host_adapter
+
+    cfg = presets.two_zone_test_config()
+    cpu = host_adapter.SimulatedBuilding(building_env.BuildingEnv(cfg, device="cpu"))
+    assert cpu._state.temp.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        host_adapter.SimulatedBuilding(building_env.BuildingEnv(cfg))
 
 
 def test_agents_without_device_need_cuda(monkeypatch, tmp_path):
@@ -145,7 +164,7 @@ def test_chip_smoke_device_ms_profiles_again_when_a_window_is_empty(monkeypatch,
 
 
 def test_chip_smoke_repeat_counts_failed_parts_and_goes_on(monkeypatch, capsys):
-    """`--repeat` runs phases 5-6 round after round; a part that fails is
+    """`--repeat` runs phases 5-7 round after round; a part that fails is
     counted, the rest of its round still runs, and the run exits 1."""
     sys.path.insert(0, REPO)
     try:
@@ -160,9 +179,10 @@ def test_chip_smoke_repeat_counts_failed_parts_and_goes_on(monkeypatch, capsys):
                         lambda *a: chip_smoke.fail("suite differs") if len(ran) < 4 else
                         ran.append("suite"))
     monkeypatch.setattr(chip_smoke, "entry_windows", lambda tag: ran.append("windows"))
+    monkeypatch.setattr(chip_smoke, "host_phase", lambda envs, tag: ran.append("host"))
     envs = {w: None for w, *_ in chip_smoke.TRAINING}
     assert chip_smoke.repeat_phases(envs, 0.0, 1.0, 1.0, "[t]") == 1
-    assert ran == ["fdm_jacobi", "fdm_jacobi_block", "train_sac", "windows"]
+    assert ran == ["fdm_jacobi", "fdm_jacobi_block", "train_sac", "windows", "host"]
     out = capsys.readouterr().out
     assert "FAILED: suite differs" in out and "1 rounds" in out
     assert "failed parts [(1, 'suite')]" in out
