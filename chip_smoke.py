@@ -104,7 +104,28 @@ Phases (each prints its own lines; any failure exits non-zero):
      one more step (device busy, idle share, launches), for each of (a),
      (e) and (f).
      Launches of every kernel run join the kernels line.
-  8. A {"kernels": [...]} line, then the last line
+  8. The offline-learning path on sb1_config(num_days_in_episode=1): (a)
+     HostEnvironment over SimulatedBuilding records seeded uniform actions
+     from 07:00 UTC through K2 into proto shards, max(144, twice the
+     framed features) steps, the first 24 also under the plain versions
+     (their record files and framed tables bitwise); the shards framed
+     into supervised tables (utils/regression, on utils/frame's Frame),
+     every (input, output) pair one step apart; StatsReducer and
+     HistogramReducer finite. (b) A float64 ridge fit (alpha 1e-3) on the
+     card, one-step zone-temperature error < 0.5 K; a RegressionBuilding
+     driven by it over 10 recorded actions within 3 K of the recorded run,
+     its reward_info with zones, air handler and boiler; ms per surrogate
+     step against ms per simulated step; the run-command predictor's
+     setpoint matrix equal to the requests' features (fitted only where
+     scikit-learn imports). (c) examples/episode_dashboard.main for a whole
+     day (288 steps, one K2 launch each; figures only where matplotlib
+     imports), its first 24 steps bitwise the plain run's (zone
+     temperatures, energy rates, render_array frames); the base64 PNG of
+     BuildingImageGenerator decoded with the standard library to the
+     rendered frame; env-steps/s. (d) utils/profiling.device_trace of 4
+     dashboard steps names K2; the PhaseTimer report of (a)-(c).
+     Launches of (a), (c) and (d) join the kernels line.
+  9. A {"kernels": [...]} line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 It refuses to run without a CUDA device and never falls back to the CPU.
@@ -487,26 +508,47 @@ class plain_kernels:
             setattr(fdm_cuda, f"{k}_cuda", fn)
 
 
-def _profile_window(fn, label, tag):
-    """Device busy time and launches of one call of fn (torch.profiler)."""
+def _sync() -> None:
     import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _open_window():
+    """Starts a torch.profiler window over the host and the card."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    _sync()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True)
+    prof.start()
+    return prof, time.perf_counter()
+
+
+def _close_window(window, label, tag) -> None:
+    """Ends a window of _open_window; prints its wall time, device busy time
+    and launches."""
+    import torch
+
+    prof, t0 = window
+    _sync()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    prof.stop()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         print(f"    {label}: wall {wall_us / 1e3:.3f} ms, device busy not measured (the "
               f"profiler recorded no device event) {tag}", flush=True)
-        return out
+        return
     busy = sum(e.time_range.elapsed_us() for e in kernels)
     print(f"    {label}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
           f"(idle {1 - busy / wall_us:.1%}), {len(kernels)} kernel launches {tag}", flush=True)
+
+
+def _profile_window(fn, label, tag):
+    """Device busy time and launches of one call of fn (torch.profiler)."""
+    window = _open_window()
+    out = fn()
+    _close_window(window, label, tag)
     return out
 
 
@@ -1688,6 +1730,435 @@ def host_phase(envs, tag) -> dict:
     return launches
 
 
+# Phase 8: the offline-learning path. The recording runs at least
+# OFFLINE_MIN_STEPS steps (and twice the framed features, so that the fit
+# is overdetermined); its first OFFLINE_PLAIN_STEPS also under the plain
+# versions. The bounds are tests/test_regression_pipeline.py's (:106, :155).
+OFFLINE_MIN_STEPS = 144
+OFFLINE_PLAIN_STEPS = 24
+OFFLINE_SEED = 8
+RIDGE_ALPHA = 1e-3
+FIT_LIMIT_K = 0.5
+SURROGATE_STEPS = 10
+SURROGATE_LIMIT_K = 3.0
+DASHBOARD_STEPS = 288
+TRACE_STEPS = 4
+ZONE_TEMP = "zone_air_temperature_sensor"
+ZONE_TEMP_EDGES = (285.0, 290.0, 292.5, 295.0, 297.5, 300.0, 305.0)
+
+
+def offline_record(env, steps, plain, directory, tag):
+    """HostEnvironment over SimulatedBuilding(env, seed=0) recording `steps`
+    seeded uniform actions into proto shards under `directory`, through the
+    kernels or (with `plain`) their plain versions. Returns the episode
+    directory, the launch counts and the ms of each step but the last (host
+    clock); on the kernel run the last step is profiled."""
+    import numpy as np
+    from sbsim_tpu_torch.envs import host_adapter, host_environment
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    with plain_kernels() if plain else contextlib.nullcontext():
+        host = host_environment.HostEnvironment(host_adapter.SimulatedBuilding(env, seed=0), env,
+                                                metrics_path=directory, label="offline")
+        host.reset()
+        actions = np.random.default_rng(OFFLINE_SEED).uniform(-0.5, 0.5, (steps, env.n_actions))
+        _sync()
+        fdm_cuda.reset_launch_counts()
+        ms = []
+        for action in actions[:-1]:
+            t0 = time.perf_counter()
+            host.step(action)
+            _sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if plain:
+            host.step(actions[-1])
+        else:
+            _profile_window(lambda: host.step(actions[-1]),
+                            "offline12 profile of the last recorded step", tag)
+        counts = dict(fdm_cuda.launch_counts)
+    (episode,) = os.listdir(directory)
+    return os.path.join(directory, episode), counts, ms
+
+
+def frame_episode(reader, n=None):
+    """The first `n` recorded steps (all when None) as the supervised tables
+    of tests/test_regression_pipeline.py: inputs (time features,
+    observations and the action taken at t) and outputs (the observations
+    and energy rates at t + 1), and the messages they came from."""
+    from sbsim_tpu_torch.utils import regression
+
+    obs_responses = reader.read_observation_responses()[:n]
+    action_responses = reader.read_action_responses()[:n]
+    reward_infos = reader.read_reward_infos()[:n]
+    obs = regression.observation_sequence(
+        obs_responses, regression.feature_tuples(obs_responses[0])).set_index("timestamp")
+    act = regression.action_sequence(
+        action_responses, regression.action_tuples(action_responses[0])).set_index("timestamp")
+    ri = regression.reward_info_sequence(
+        reward_infos, regression.reward_info_tuples(reward_infos[0]))
+    ri = ri.set_index((regression.REWARD_INFO, "timestamp", "end")).drop(
+        columns=[(regression.REWARD_INFO, "timestamp", "start")])
+    inputs = obs.join(act, how="inner")
+    outputs = obs.drop(columns=[c for c in obs.columns if isinstance(c, str)]).join(
+        ri, how="inner")
+    return inputs, outputs, (obs_responses, action_responses, reward_infos)
+
+
+def _same_frame(a, b) -> bool:
+    import numpy as np
+
+    return (a.columns == b.columns and list(a.index) == list(b.index)
+            and a.objects == b.objects and a.values.shape == b.values.shape
+            and np.array_equal(a.values, b.values, equal_nan=True))
+
+
+def decode_png(data: bytes):
+    """An 8-bit RGB PNG whose scanlines all use filter type 0 (what
+    io/render.encode_png writes), decoded with the standard library; None
+    if it is not one."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        return None
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        if struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])[0] != (
+                zlib.crc32(kind + body) & 0xFFFFFFFF):
+            return None
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + length
+    if header is None or header[2:] != (8, 2, 0, 0, 0):
+        return None
+    width, height = header[:2]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(height, 1 + 3 * width)
+    return None if rows[:, 0].any() else rows[:, 1:].reshape(height, width, 3)
+
+
+def offline_check_record(env, tmp, tag):
+    """(a): record and frame. Returns the kernel run's episode directory,
+    tables and messages, its K2 launches, its median ms per step and the
+    building's default observation request."""
+    import datetime
+
+    import numpy as np
+    from sbsim_tpu_torch.envs import host_adapter
+    from sbsim_tpu_torch.io import records
+    from sbsim_tpu_torch.utils import reducers, regression, telemetry
+
+    cfg = env.config
+    probe = host_adapter.SimulatedBuilding(env, seed=0)
+    first = probe.request_observations(probe.default_observation_request())
+    n_features = len(regression.feature_tuples(first)) + 4 + env.n_actions  # hod, dow cos/sin
+    steps = max(OFFLINE_MIN_STEPS, 2 * n_features)
+    folder, counts, ms = offline_record(env, steps, False, os.path.join(tmp, "kernel"), tag)
+    plain_folder, plain_counts, plain_ms = offline_record(env, OFFLINE_PLAIN_STEPS, True,
+                                                          os.path.join(tmp, "plain"), tag)
+    if counts != {k: (steps if k == "fdm_jacobi" else 0) for k in KERNELS} or any(
+            plain_counts.values()):
+        fail(f"offline record: launch counts {counts}, plain run {plain_counts}")
+    # The plain run's files hold the records of its steps; the kernel run's
+    # files of the same names begin with the same bytes.
+    names = sorted(os.listdir(plain_folder))
+    for name in names:
+        want = open(os.path.join(plain_folder, name), "rb").read()
+        path = os.path.join(folder, name)
+        got = open(path, "rb").read() if os.path.exists(path) else b""
+        if not want or not got.startswith(want) or (name[-3] != "." and got != want):
+            fail(f"offline record: {name} of the first {OFFLINE_PLAIN_STEPS} steps differs "
+                 f"from the plain run's")
+    reader, plain_reader = records.RecordReader(folder), records.RecordReader(plain_folder)
+    tables = [frame_episode(reader, OFFLINE_PLAIN_STEPS)[:2], frame_episode(plain_reader)[:2]]
+    if not all(_same_frame(a, b) for a, b in zip(*tables)):
+        fail("offline record: the framed tables of the first steps differ from the plain run's")
+
+    inputs, outputs, messages = frame_episode(reader)
+    step = datetime.timedelta(seconds=cfg.time_step_sec)
+    idx_in, idx_out = regression.match_sequence_indexes(inputs, outputs, step)
+    if len(idx_in) != steps - 1 or any(b - a != step for a, b in zip(idx_in, idx_out)):
+        fail(f"offline record: {len(idx_in)} (input, output) pairs of {steps} steps, or not "
+             "one step apart")
+    frame = telemetry.observation_responses_to_frame(messages[0])
+    stats = reducers.StatsReducer().reduce(frame).reduced_sequence
+    groups = {}
+    for col in frame.columns:
+        groups[col[1]] = groups.get(col[1], 0) + 1
+    for measurement, stat in stats.columns:
+        finite = np.isfinite(stats[(measurement, stat)])
+        if not (finite.all() if stat != "std" or groups[measurement] > 1 else (~finite).all()):
+            fail(f"offline record: StatsReducer {measurement} {stat} not finite where its "
+                 "inputs are")
+    hist = reducers.HistogramReducer({ZONE_TEMP: ZONE_TEMP_EDGES}).reduce(frame)
+    counts_cols = [(ZONE_TEMP, "h_%.2f" % e) for e in ZONE_TEMP_EDGES]
+    bins = hist.reduced_sequence[counts_cols].to_numpy()
+    expanded = hist.expand()
+    if not (np.isfinite(hist.reduced_sequence.values).all()
+            and (bins.sum(axis=1) == groups[ZONE_TEMP]).all()
+            and len(expanded.columns) == len(frame.columns)):
+        fail(f"offline record: HistogramReducer counts {bins.sum(axis=1)} for "
+             f"{groups[ZONE_TEMP]} zone sensors, or its expansion has "
+             f"{len(expanded.columns)} columns for {len(frame.columns)}")
+    print(f"  (a) record: {steps} HostEnvironment steps (F = {n_features} framed features) "
+          f"through K2, launches {counts['fdm_jacobi']} (plain run 0); the first "
+          f"{OFFLINE_PLAIN_STEPS} steps' {len(names)} record files and tables bitwise the "
+          f"plain run's; inputs {len(inputs)} x {len(inputs.columns)}, outputs "
+          f"{len(outputs)} x {len(outputs.columns)}, {len(idx_in)} pairs one step apart; "
+          f"StatsReducer {len(stats.columns)} and HistogramReducer {len(counts_cols)} zone-"
+          f"temperature bins finite; {statistics.median(ms[2:]):.3f} ms per simulated step "
+          f"(plain run {statistics.median(plain_ms[2:]):.3f} ms) {tag}", flush=True)
+    return dict(folder=folder, tables=(inputs, outputs, idx_in, idx_out), messages=messages,
+                launches=counts["fdm_jacobi"], ms=statistics.median(ms[2:]),
+                request=probe.default_observation_request())
+
+
+class _ConstantOccupancy:
+    def average_zone_occupancy(self, zone_id, start_time, end_time):
+        return 1.0
+
+
+def offline_check_fit(env, recorded, tag):
+    """(b): a ridge fit on the card drives a RegressionBuilding over the
+    recorded actions; the run-command predictor's inputs."""
+    import numpy as np
+    import torch
+    from sbsim_tpu_torch.io import records
+    from sbsim_tpu_torch.utils import conversions, regression
+    from sbsim_tpu_torch.utils import run_command_predictor as rcp
+
+    dev = torch.device(DEVICE)
+    inputs, outputs, idx_in, idx_out = recorded["tables"]
+    feature_cols, target_cols = list(inputs.columns), list(outputs.columns)
+    x = torch.as_tensor(inputs.loc[idx_in, feature_cols], device=dev)
+    y = torch.as_tensor(outputs.loc[idx_out, target_cols], device=dev)
+    # Ridge regression with an intercept (sklearn's Ridge(alpha) on centred
+    # columns), in float64.
+    x_mean, y_mean = x.mean(0), y.mean(0)
+    xc = x - x_mean
+    eye = torch.eye(x.shape[1], dtype=x.dtype, device=dev)
+    weights = torch.linalg.solve(xc.T @ xc + RIDGE_ALPHA * eye, xc.T @ (y - y_mean))
+    bias = y_mean - x_mean @ weights
+    temp_cols = [i for i, c in enumerate(target_cols) if c[1] == ZONE_TEMP]
+    fit_err = float((x @ weights + bias - y)[:, temp_cols].abs().max())
+    if not temp_cols or not fit_err < FIT_LIMIT_K:
+        fail(f"offline fit: one-step zone-temperature error {fit_err} K (limit {FIT_LIMIT_K})")
+
+    def predict(row):
+        vec = torch.as_tensor([float(row.get(c, 0.0)) for c in feature_cols],
+                              dtype=torch.float64, device=dev)
+        return dict(zip(target_cols, (vec @ weights + bias).cpu().numpy()))
+
+    obs_responses, action_responses, _ = recorded["messages"]
+    reader = records.RecordReader(recorded["folder"])
+    spec = regression.RegressionBuildingSpec(
+        devices=reader.read_device_infos(), zones=reader.read_zone_infos(),
+        time_step_sec=env.config.time_step_sec,
+        start_timestamp=conversions.proto_to_pandas_timestamp(obs_responses[0].timestamp),
+        occupancy=_ConstantOccupancy(), schedule_window=lambda ts: (294.0, 297.0),
+        is_comfort_mode=lambda ts: True, sensors_in_fahrenheit=False)
+    surrogate = regression.RegressionBuilding(spec, predict, obs_responses[0])
+    request = recorded["request"]
+    zone_keys = [c for c in target_cols if c[1] == ZONE_TEMP]
+    errs, ms = [], []
+    for i in range(1, SURROGATE_STEPS + 1):
+        # The calls HostEnvironment.step makes on its building.
+        t0 = time.perf_counter()
+        surrogate.request_action(action_responses[i].request)
+        surrogate.wait_time()
+        predicted = regression.observation_mapping(surrogate.request_observations(request))
+        info = surrogate.reward_info
+        ms.append((time.perf_counter() - t0) * 1e3)
+        actual = regression.observation_mapping(obs_responses[i])
+        errs.append(max(abs(predicted[k] - actual[k]) for k in zone_keys))
+    if not max(errs) < SURROGATE_LIMIT_K:
+        fail(f"offline surrogate: zone temperatures {errs} K from the recorded run (limit "
+             f"{SURROGATE_LIMIT_K})")
+    if not (len(info.zone_reward_infos) == env.n_zones and info.air_handler_reward_infos
+            and info.boiler_reward_infos):
+        fail(f"offline surrogate: reward_info with {len(info.zone_reward_infos)} zones, "
+             f"{len(info.air_handler_reward_infos)} air handlers, "
+             f"{len(info.boiler_reward_infos)} boilers")
+    print(f"  (b) fit: ridge (alpha {RIDGE_ALPHA}) on the card, {x.shape[0]} x {x.shape[1]} "
+          f"-> {y.shape[1]}, one-step zone-temperature error {fit_err:.4f} K (limit "
+          f"{FIT_LIMIT_K}); RegressionBuilding over {SURROGATE_STEPS} recorded actions within "
+          f"{max(errs):.4f} K of the recorded run (limit {SURROGATE_LIMIT_K}); reward_info "
+          f"{len(info.zone_reward_infos)} zones, {len(info.air_handler_reward_infos)} air "
+          f"handler, {len(info.boiler_reward_infos)} boiler; {statistics.median(ms):.3f} ms "
+          f"per surrogate step against {recorded['ms']:.3f} ms per simulated step {tag}",
+          flush=True)
+
+    timeseries = rcp.get_action_timeseries(action_responses)
+    order, matrix = rcp.setpoint_matrix(timeseries)
+    features = np.stack([rcp.action_request_to_features(r.request, order)
+                         for r in action_responses])
+    if not np.array_equal(matrix, features):
+        fail("offline run commands: the pivoted setpoints differ from the requests' features")
+    try:
+        import sklearn  # noqa: F401
+    except ImportError:
+        print(f"  (b) run commands: {len(timeseries)} setpoints of {len(order)} kinds pivoted "
+              f"to {matrix.shape}, equal to the requests' features; scikit-learn is not "
+              f"importable here, so the predictor was not fitted", flush=True)
+        return
+    boiler = order.index(("boiler", "supply_water_setpoint"))
+    on = features[:, boiler] > np.median(features[:, boiler])
+    predictor = rcp.RandomForestRunCommandPredictor("boiler")
+    score = predictor.fit(timeseries, on)
+    print(f"  (b) run commands: {matrix.shape} setpoints, equal to the requests' features; "
+          f"scikit-learn fitted the predictor, train accuracy {score:.3f}", flush=True)
+
+
+def _dashboard(steps, out, draw, fields, times, plain=False, profile_step=None, tag=""):
+    """episode_dashboard.main for `steps` steps, through K2 or (with
+    `plain`) its plain version; the run and its launch counts. Each step's
+    field goes into `fields` (the first OFFLINE_PLAIN_STEPS) and its host
+    time into `times`; step `profile_step` (0-based), if given, runs in a
+    profiler window."""
+    from sbsim_tpu_torch.examples import episode_dashboard
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    window = []
+
+    def hook(t, state):
+        if t < OFFLINE_PLAIN_STEPS:
+            fields.append(state.temp[0].cpu().numpy())
+        times.append(time.perf_counter())
+        if profile_step is not None and t == profile_step - 1:
+            window.append(_open_window())
+        elif window:
+            _close_window(window.pop(), f"dashboard12 profile of step {t + 1}", tag)
+
+    argv = ["--steps", str(steps), "--render-every", str(72 if draw else 0), "--out", out]
+    with plain_kernels() if plain else contextlib.nullcontext():
+        _sync()
+        fdm_cuda.reset_launch_counts()
+        run = episode_dashboard.main(argv, on_step=hook)
+        _sync()
+        counts = dict(fdm_cuda.launch_counts)
+    return run, counts
+
+
+def offline_check_dashboard(recorded, tmp, tag):
+    """(c): the dashboard example for a whole day through K2; its first
+    steps bitwise the plain run's; the PNG of a recorded observation."""
+    import base64
+
+    import numpy as np
+    from sbsim_tpu_torch.io import records, render
+    from sbsim_tpu_torch.utils import conversions
+
+    try:
+        import matplotlib  # noqa: F401
+        draw = True
+    except ImportError:
+        draw = False
+    fields, times, plain_fields = [], [], []
+    run, counts = _dashboard(DASHBOARD_STEPS, os.path.join(tmp, "dash"), draw, fields, times,
+                             profile_step=DASHBOARD_STEPS - 1, tag=tag)
+    plain, plain_counts = _dashboard(OFFLINE_PLAIN_STEPS, os.path.join(tmp, "dash_plain"), False,
+                                     plain_fields, [], plain=True)
+    if counts != {k: (DASHBOARD_STEPS if k == "fdm_jacobi" else 0) for k in KERNELS} or any(
+            plain_counts.values()) or run.steps != DASHBOARD_STEPS:
+        fail(f"dashboard: {run.steps} steps, launch counts {counts}, plain run {plain_counts}")
+    env, dash, want = run.env, run.dashboard, plain.dashboard
+    n = OFFLINE_PLAIN_STEPS
+    wall = np.asarray(env.geom.zone_ids) >= env.geom.n_zones
+    renderer = render.BuildingRenderer(wall)
+    frames = [renderer.render_array(f) for f in fields]
+    same = (np.array_equal(np.stack(dash.zone_temps[:n]), np.stack(want.zone_temps))
+            and all(dash.energy_rates[k][:n] == want.energy_rates[k] for k in want.energy_rates)
+            and dash.timestamps[:n] == want.timestamps
+            and all(np.array_equal(a, renderer.render_array(b))
+                    for a, b in zip(frames, plain_fields, strict=True)))
+    if not same or not np.isfinite(np.stack(dash.zone_temps)).all():
+        fail("dashboard: the first steps' zone temperatures, energy rates or frames differ from "
+             "the plain run's, or a zone temperature is not finite")
+    devices = records.RecordReader(recorded["folder"]).read_device_infos()
+    last = recorded["messages"][0][-1]
+    generator = render.BuildingImageGenerator(
+        env.geom.zone_ids, [conversions.floor_plan_based_zone_identifier_to_id(z)
+                            for z in env.geom.zone_names], wall_mask=wall,
+        device_to_zone_id={d.device_id: d.zone_id for d in devices if d.zone_id})
+    array = generator.temperature_array(last)
+    png = decode_png(base64.b64decode(generator.generate_building_image(last)))
+    if png is None or not np.array_equal(png, generator._renderer.render_array(array)) or not (
+            array[np.asarray(env.geom.zone_ids) < env.geom.n_zones] != 285.0).all():
+        fail("dashboard: the base64 PNG does not decode to the rendered frame of the last "
+             "recorded observation, or a zone is left unpainted")
+    ms = np.diff(times)[2:-1] * 1e3  # the last step ran in the profiler
+    print(f"  (c) dashboard: {DASHBOARD_STEPS} steps of episode_dashboard.main, K2 launches "
+          f"{counts['fdm_jacobi']} (plain run 0); the first {n} steps' zone temperatures, "
+          f"energy rates and render_array frames bitwise the plain run's; the PNG of the last "
+          f"recorded observation ({png.shape[1]} x {png.shape[0]}) decodes to its frame; "
+          f"figures {'drawn every 72 steps (matplotlib)' if draw else 'not drawn (matplotlib is not importable)'}; "
+          f"{statistics.median(ms):.3f} ms per step -> {1e3 / statistics.median(ms):.1f} "
+          f"env-steps/s {tag}", flush=True)
+    return counts["fdm_jacobi"]
+
+
+def offline_check_trace(tmp, tag):
+    """(d): TRACE_STEPS dashboard steps under utils.profiling.device_trace;
+    the trace must name K2 (a window the profiler left without device events
+    is traced again, up to PROFILE_TRIES times). Returns the launches."""
+    from sbsim_tpu_torch.utils import profiling
+
+    launches = 0
+    for attempt in range(1, PROFILE_TRIES + 1):
+        trace_dir = os.path.join(tmp, f"trace{attempt}")
+        with profiling.device_trace(trace_dir):
+            _, counts = _dashboard(TRACE_STEPS, os.path.join(tmp, "dash_trace"), False, [], [])
+        launches += counts["fdm_jacobi"]
+        traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+                  if f.endswith(".pt.trace.json")]
+        if len(traces) != 1:
+            fail(f"trace: {len(traces)} trace files in {trace_dir}")
+        if "fdm_jacobi" in open(traces[0]).read():
+            break
+        profile_windows["empty"] += 1
+    else:
+        fail(f"trace: no window of {PROFILE_TRIES} named fdm_jacobi")
+    print(f"  (d) trace: device_trace of {TRACE_STEPS} dashboard steps wrote "
+          f"{os.path.basename(traces[0])} ({os.path.getsize(traces[0])} bytes) naming "
+          f"fdm_jacobi (window {attempt}); K2 launches {launches} {tag}", flush=True)
+    return launches
+
+
+def offline_phase(tag) -> dict:
+    """Phase 8: the offline-learning path on the card; returns the launches
+    of its kernel runs."""
+    import tempfile
+
+    import torch
+    from sbsim_tpu_torch.envs import building_env, presets
+    from sbsim_tpu_torch.utils import profiling
+
+    t_start = time.time()
+    launches = dict.fromkeys(KERNELS, 0)
+    env = building_env.BuildingEnv(presets.sb1_config(num_days_in_episode=1),
+                                   device=torch.device(DEVICE))
+    timer = profiling.PhaseTimer()
+    with tempfile.TemporaryDirectory() as tmp:
+        with timer.phase("(a) record and frame"):
+            recorded = offline_check_record(env, tmp, tag)
+        launches["fdm_jacobi"] += recorded["launches"]
+        with timer.phase("(b) fit and drive"):
+            offline_check_fit(env, recorded, tag)
+        with timer.phase("(c) dashboard"):
+            launches["fdm_jacobi"] += offline_check_dashboard(recorded, tmp, tag)
+        launches["fdm_jacobi"] += offline_check_trace(tmp, tag)
+    print("  phase timer (host wall time of (a)-(c)):", flush=True)
+    for line in timer.report().splitlines():
+        print("    " + line, flush=True)
+    print(f"  phase 8 in {time.time() - t_start:.1f} s", flush=True)
+    return launches
+
+
 def repeat_phases(envs, seconds, bw, flops, tag) -> int:
     """Phases 5, 6 and 7, round after round until `seconds` have passed; a
     failed part is counted and the round goes on. Prints the rounds, the
@@ -1800,6 +2271,11 @@ def main() -> int:
         launches[kname] += n
 
     # ---- Phase 8 ---------------------------------------------------------
+    print("phase 8: the offline-learning path", flush=True)
+    for kname, n in offline_phase(tag).items():
+        launches[kname] += n
+
+    # ---- Phase 9 ---------------------------------------------------------
     rows = {"fdm_cheby": "12zone", "fdm_jacobi": "12zone",
             "fdm_cheby_block": "12zone stack", "fdm_jacobi_block": "12zone stack"}
     kernels = []

@@ -429,3 +429,39 @@ def test_per_env_step_through_the_kernel_equals_plain(env, fdm_solver, kernel):
     for name, value in want.items():
         np.testing.assert_array_equal(got[name], value, err_msg=name)
     np.testing.assert_array_equal(got_out, want_out)
+
+
+def _dashboard_run(plain, steps, tmp_path):
+    """episode_dashboard.main on the card for `steps` steps (drawing off),
+    through K2 or, with `plain`, its plain version; the launch counts, the
+    dashboard's accumulators and each step's field."""
+    from sbsim_tpu_torch.examples import episode_dashboard
+
+    saved = fdm_cuda.fdm_jacobi_cuda
+    if plain:
+        fdm_cuda.fdm_jacobi_cuda = fdm_cuda.fdm_jacobi_plain
+    fields = []
+    try:
+        fdm_cuda.reset_launch_counts()
+        run = episode_dashboard.main(
+            ["--steps", str(steps), "--render-every", "0", "--out", str(tmp_path)],
+            on_step=lambda t, state: fields.append(state.temp[0].cpu().numpy()))
+        counts = dict(fdm_cuda.launch_counts)
+    finally:
+        fdm_cuda.fdm_jacobi_cuda = saved
+    return counts, run.dashboard, np.stack(fields)
+
+
+def test_dashboard_through_k2_equals_plain(env, tmp_path):
+    """8 steps of the dashboard example launch K2 once per step and
+    accumulate bitwise what the plain version's run does."""
+    counts, dash, fields = _dashboard_run(False, 8, tmp_path)
+    assert counts == {"fdm_cheby": 0, "fdm_jacobi": 8, "fdm_cheby_block": 0,
+                      "fdm_jacobi_block": 0}
+    plain_counts, want, want_fields = _dashboard_run(True, 8, tmp_path)
+    assert not any(plain_counts.values())
+    np.testing.assert_array_equal(fields, want_fields)
+    np.testing.assert_array_equal(np.stack(dash.zone_temps), np.stack(want.zone_temps))
+    for name, series in dash.energy_rates.items():
+        np.testing.assert_array_equal(series, want.energy_rates[name], err_msg=name)
+    assert dash.timestamps == want.timestamps and len(dash.timestamps) == 8

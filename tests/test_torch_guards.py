@@ -1,6 +1,6 @@
 """Guards of the port: it imports no JAX (nor flax, optax, orbax, pandas,
-protobuf, matplotlib, PIL or the JAX package), runs on a CUDA device unless
-told otherwise, and makes no kernel launch on the CPU."""
+protobuf, matplotlib, PIL, scikit-learn or the JAX package), runs on a CUDA
+device unless told otherwise, and makes no kernel launch on the CPU."""
 
 import os
 import subprocess
@@ -28,15 +28,20 @@ missing |= {"sbsim_tpu_torch.io.metrics", "sbsim_tpu_torch.io.checkpoint",
             "sbsim_tpu_torch.envs.suite", "sbsim_tpu_torch.examples.train_sac",
             "sbsim_tpu_torch.proto.building_pb2", "sbsim_tpu_torch.io.records",
             "sbsim_tpu_torch.envs.host_adapter", "sbsim_tpu_torch.envs.host_environment",
-            "sbsim_tpu_torch.envs.real_building", "sbsim_tpu_torch.interfaces"} - set(names)
+            "sbsim_tpu_torch.envs.real_building", "sbsim_tpu_torch.interfaces",
+            "sbsim_tpu_torch.utils.regression", "sbsim_tpu_torch.utils.reducers",
+            "sbsim_tpu_torch.utils.energy", "sbsim_tpu_torch.utils.run_command_predictor",
+            "sbsim_tpu_torch.utils.testing", "sbsim_tpu_torch.utils.profiling",
+            "sbsim_tpu_torch.utils.frame", "sbsim_tpu_torch.io.render",
+            "sbsim_tpu_torch.io.plots", "sbsim_tpu_torch.examples.episode_dashboard"} - set(names)
 import chip_smoke
 chip_smoke.make_env, chip_smoke.main, chip_smoke.training_phase, chip_smoke.entry_train_sac
-chip_smoke.host_phase
+chip_smoke.host_phase, chip_smoke.offline_phase
 # protobuf is google.protobuf (its runtime google._upb); the bare `google`
 # namespace may be set up by a .pth file at start-up.
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "pandas",
-                                    "matplotlib", "PIL", "sbsim_tpu")
+                                    "matplotlib", "PIL", "sklearn", "sbsim_tpu")
              or k.startswith(("google.protobuf", "google._upb")))
 print(bad, sorted(missing))
 sys.exit(1 if bad or missing else 0)
@@ -45,8 +50,8 @@ sys.exit(1 if bad or missing else 0)
 
 def test_port_agents_and_chip_smoke_import_no_jax_flax_optax_orbax_pandas():
     """Every module of the port, the agents, the training entry point and
-    its I/O, the wire runtime and the host path among them, and
-    chip_smoke.py import none of these, nor protobuf."""
+    its I/O, the wire runtime, the host path and the offline path among
+    them, and chip_smoke.py import none of these, nor protobuf."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -71,6 +76,14 @@ def test_simulated_building_without_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         host_adapter.SimulatedBuilding(building_env.BuildingEnv(cfg))
+
+
+def test_episode_dashboard_without_device_needs_cuda(monkeypatch, tmp_path):
+    from sbsim_tpu_torch.examples import episode_dashboard
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        episode_dashboard.main(["--steps", "1", "--render-every", "0", "--out", str(tmp_path)])
 
 
 def test_agents_without_device_need_cuda(monkeypatch, tmp_path):
