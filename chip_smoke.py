@@ -125,7 +125,34 @@ Phases (each prints its own lines; any failure exits non-zero):
      rendered frame; env-steps/s. (d) utils/profiling.device_trace of 4
      dashboard steps names K2; the PhaseTimer report of (a)-(c).
      Launches of (a), (c) and (d) join the kernels line.
-  9. A {"kernels": [...]} line, then the last line
+  9. The validation path: the port's device path against its exact host
+     simulator (envs/exact_host.py: the numpy FDM oracles of
+     physics/reference_impl.py, the reference's random streams), each step
+     held by exact_host.ParityTracker (max |dT| < 5e-2 K and thermostat
+     modes equal, except a threshold crossing by the float32 drift, which
+     must come back within 48 steps and before the run ends; the JAX
+     package run op by op crosses at the same step, tests/test_torch_opbyop.py):
+     (a) parity12,
+     sb1_config(num_days_in_episode=1, convection_p=0) with step-function
+     occupancy, 288 per-env steps at B=1 through K2 with
+     tests/test_device_vs_host.py's boiler, return-water and energy-rate
+     gates at step 24; (b) parity12 stack, the same 288 steps through K3
+     at B=4 identical envs, the rows bitwise equal, the crossings (a)'s;
+     (c) parity126, the 126-room plan (layout="auto", 189 x 124, the host
+     reporting it transposed with the geometry's diffusers), 48 steps
+     through K2 unstaged, no crossing allowed; (d) shuffle12, mix32 swap
+     convection at B=4 for 36 steps against four exact-host runs of the
+     reference's shuffle (seeds 100-103): through K2 worst zone KS <= 0.25
+     and zone-mean difference <= 0.5 K; through K1 the same statistics
+     within 0.02 and 0.01 K of the JAX package's interleaved Chebyshev
+     kernel's on the same keys (tests/test_torch_shuffle.py); (e) gin12, an env
+     from gin text through envs/gin_compat, 3 steps at B=64 through K1
+     bitwise the plain versions, and the legacy wiring's host solver; (f)
+     the g++ builds of the native libraries, and phase 7's host12 shards
+     read by the native scanner equal to a Python framing. Host ms per
+     exact-host step beside device ms per step. Launches of (a)-(e) join
+     the kernels line.
+  10. A {"kernels": [...]} line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 It refuses to run without a CUDA device and never falls back to the CPU.
@@ -1455,6 +1482,9 @@ RECORD_WRITES = ("write_action_response", "write_observation_response", "write_r
                  "write_reward_response")
 RECORD_READS = ("read_action_responses", "read_observation_responses", "read_reward_infos",
                 "read_reward_responses")
+# The record files of each host path's kernel run, by label (phase 9 (f)
+# reads host12's again).
+HOST_SHARDS = {}
 
 
 def host_policy(env, seed, directory):
@@ -1621,6 +1651,7 @@ def host_check(label, env, policy, steps, kname, tag):
         ts = host.step(policy(host.reset().observation))
         _profile_window(lambda: host.step(policy(ts.observation)),
                         f"{label} profile of one HostEnvironment.step", tag)
+    HOST_SHARDS[label] = got["files"]
     return got["counts"][kname]
 
 
@@ -2159,6 +2190,426 @@ def offline_phase(tag) -> dict:
     return launches
 
 
+# Phase 9: the validation path. The port's device path against its exact
+# host simulator (the numpy FDM oracles, the reference's random streams).
+PARITY_STEPS = 288  # a simulated day
+PARITY126_STEPS = 48
+GATE_STEP = 24  # tests/test_device_vs_host.py:44-96's gates
+STACK_BATCH = 4
+SHUFFLE_STEPS = 36
+SHUFFLE_SEEDS = (100, 101, 102, 103)  # tests/test_convection.py:178-277
+SHUFFLE_KEY = 42
+KS_LIMIT, DMEAN_LIMIT = 0.25, 0.5
+# K1's worst zone KS and zone-mean difference (K) against the exact shuffle
+# on SHUFFLE_KEY's keys, as the JAX package's own interleaved Chebyshev
+# kernel (_fdm_cheby_kernel_interleaved in interpret mode, swap rounds in
+# the kernel) gives them on the CPU (tests/test_torch_shuffle.py). The
+# Chebyshev solve converges past the loosely stopped Jacobi solve of the
+# exact host, so these sit outside KS_LIMIT / DMEAN_LIMIT; K1 on the card
+# is held to them within WITNESS_KS_TOL (8 of the worst zone's 392 samples) and
+# WITNESS_DMEAN_TOL.
+K1_WITNESS = (0.9183673469387755, 0.502685546875)
+WITNESS_KS_TOL, WITNESS_DMEAN_TOL = 0.02, 0.01
+GIN_BATCH = 64
+GIN_STEPS = 3
+SETPOINTS = {"supply_water_setpoint": 340.0, "supply_air_heating_temperature_setpoint": 285.0}
+GIN_TEXT = """
+# Calibration constants in the layout of sim_config.gin.
+time_step_sec = 300
+convergence_threshold = 0.1
+iteration_limit = 100
+num_days_in_episode = 1
+control_volume_cm = 20
+floor_height_cm = 300.0
+air_heat = 286.0
+air_handler_heating_setpoint = %air_heat
+reheat_water_setpoint = 350.0
+heating_setpoint_day = 294
+cooling_setpoint_day = 297
+time_zone = 'US/Eastern'
+start_timestamp = '2023-07-06 12:00:00+00:00'
+StochasticConvectionSimulator.p = 1.0
+StochasticConvectionSimulator.distance = 5
+StochasticConvectionSimulator.seed = 7
+SimulatorBuilding.simulator = @TFSimulator()
+histogram_parameters_tuples = (
+    ('zone_air_temperature_sensor', (285.0, 290.0, 292.5, 295.0, 297.5, 300.0, 305.0)),
+)
+zone_air_temperature_normalizer/set_observation_normalization_constants.field_id = 'zone_air_temperature_sensor'
+zone_air_temperature_normalizer/set_observation_normalization_constants.sample_mean = 295.5
+zone_air_temperature_normalizer/set_observation_normalization_constants.sample_variance = 9.25
+supply_air_temperature_setpoint_normalizer/set_observation_normalization_constants.field_id = 'supply_air_temperature_setpoint'
+supply_air_temperature_setpoint_normalizer/set_observation_normalization_constants.sample_mean = 289.329414
+supply_air_temperature_setpoint_normalizer/set_observation_normalization_constants.sample_variance = 3.186769
+observation_normalizer_map = {
+    'zone_air_temperature_sensor': @zone_air_temperature_normalizer/set_observation_normalization_constants(),
+    'supply_air_heating_temperature_setpoint': @supply_air_temperature_setpoint_normalizer/set_observation_normalization_constants(),
+}
+supply_water_setpoint/set_action_normalization_constants.min_native_value = 310.0
+supply_water_setpoint/set_action_normalization_constants.max_native_value = 350.0
+supply_air_heating_temperature_setpoint/set_action_normalization_constants.min_native_value = 285.0
+supply_air_heating_temperature_setpoint/set_action_normalization_constants.max_native_value = 300.0
+action_normalizer_map = {
+    'supply_water_setpoint': @supply_water_setpoint/set_action_normalization_constants(),
+    'supply_air_heating_temperature_setpoint': @supply_air_heating_temperature_setpoint/set_action_normalization_constants(),
+}
+"""
+
+
+def parity_config(plan=None, stack=False, convection_p=0.0):
+    """sb1_config(num_days_in_episode=1) with step-function occupancy (the
+    deterministic inputs of tests/test_device_vs_host.py), on the 12-zone
+    plan or on `plan` (nx, ny, room_cvs) with layout="auto"."""
+    from sbsim_tpu_torch.core import geometry
+    from sbsim_tpu_torch.envs import presets
+
+    kw = {}
+    if plan is not None:
+        kw = dict(floor_plan=geometry.make_synthetic_office_plan(*plan[:2], room_cvs=plan[2]),
+                  layout="auto")
+    cfg = presets.sb1_config(num_days_in_episode=1, convection_p=convection_p, **kw)
+    cfg = dataclasses.replace(cfg, occupancy=dataclasses.replace(cfg.occupancy,
+                                                                 kind="step_function"))
+    if stack:
+        cfg = dataclasses.replace(cfg, pallas_block_mode="stack")
+    return cfg
+
+
+def energy_rates(env, state, row=0):
+    """(electricity, gas) rates of the reward at the state's step, as
+    tests/test_device_vs_host.py:75-96 computes them."""
+    import torch
+    from sbsim_tpu_torch.hvac import devices as hvac_ops
+
+    t = int(state.step_idx[row])
+    ambient = torch.tensor(env.tables.ambient_temp[t], dtype=torch.float32, device=env.device)
+    blower = float(hvac_ops.ahu_blower_power(state.hvac, env.hvac_params)[row])
+    ac = float(hvac_ops.ahu_thermal_energy_rate(state.hvac, state.temp.mean(dim=(1, 2)), ambient,
+                                                env.hvac_params)[row])
+    pump = float(hvac_ops.boiler_pump_power(state.hvac, env.hvac_params)[row])
+    gas = float(hvac_ops.boiler_thermal_energy_rate(state.hvac, ambient, env.hvac_params)[row])
+    return blower + abs(ac) + pump, gas
+
+
+def parity_run(label, env, steps, kname, tag, batch=1, gates=False, allow_crossings=True):
+    """`steps` device steps beside the port's ExactHostSimulator: the
+    per-env step at B=1, or step_batched through the config's kernel at
+    `batch` identical envs (rows bitwise equal to each other). Every step
+    held by exact_host.ParityTracker (max |dT| < 5e-2 K, thermostat modes
+    equal, apart from threshold crossings that recover by the last step;
+    without `allow_crossings`, none at all); with `gates`, the boiler,
+    return-water and energy-rate gates at step GATE_STEP. Returns the
+    launches of `kname` and the tracker's report."""
+    import numpy as np
+    import torch
+    from sbsim_tpu_torch import rng
+    from sbsim_tpu_torch.envs import exact_host
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    host = exact_host.ExactHostSimulator(env)
+    keys = rng.PRNGKey(0, device=env.device)[None].expand(batch, -1).contiguous()
+    state, _ = env.reset(keys)
+    action = torch.as_tensor(env.default_action(SETPOINTS), device=env.device)[None]
+    action = action.expand(batch, -1).contiguous()
+    tracker = exact_host.ParityTracker()
+    event = lambda: torch.cuda.Event(enable_timing=True)
+    device_ms, host_ms = [], []
+    _sync()
+    fdm_cuda.reset_launch_counts()
+    for i in range(steps):
+        s, e = event(), event()
+        s.record()
+        if batch == 1:
+            state, _ = env.step(state, action)
+        else:
+            state, _ = env.step_batched(state, action, solver="pallas_env")
+        e.record()
+        t0 = time.perf_counter()
+        host_out = host.step(SETPOINTS)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        temp = state.temp.cpu().numpy()
+        if batch > 1 and not all(np.array_equal(temp[0], temp[r]) for r in range(1, batch)):
+            fail(f"{label}: step {i}: the {batch} identical envs differ")
+        try:
+            tracker.check(i, temp[0], state.hvac.thermostat_mode[0].tolist(),
+                          state.hvac.zone_air_temp[0].tolist(), host)
+        except exact_host.ParityError as err:
+            fail(f"{label}: {err}")
+        device_ms.append(s.elapsed_time(e))
+        if gates and i == GATE_STEP - 1:
+            elec, gas = energy_rates(env, state)
+            checks = {
+                "boiler temperature": (float(state.hvac.boiler_current_temp[0]),
+                                       host.boiler_current_temp, 1e-4, 0.0),
+                "return water": (float(state.hvac.boiler_return_water_temp[0]),
+                                 host.boiler_return_water, 1e-2, 0.0),
+                "electricity rate": (elec, host_out["electricity_rate"], 1.0, 1e-4),
+                "gas rate": (gas, host_out["gas_rate"], 5.0, 1e-3),
+            }
+            for what, (got, want, atol, rtol) in checks.items():
+                if not abs(got - want) <= atol + rtol * abs(want):
+                    fail(f"{label}: step {GATE_STEP}: {what} {got} against the host's {want} "
+                         f"(atol {atol}, rtol {rtol})")
+            print(f"  {label} at step {GATE_STEP}: " + ", ".join(
+                f"{what} {got:.6f} (host {want:.6f})" for what, (got, want, _, _) in checks.items()),
+                flush=True)
+    _sync()
+    counts = dict(fdm_cuda.launch_counts)
+    if counts != {k: (steps if k == kname else 0) for k in KERNELS}:
+        fail(f"{label}: launch counts {counts}, want {steps} of {kname}")
+    try:
+        r = tracker.finish(allow_crossings)
+    except exact_host.ParityError as err:
+        fail(f"{label}: {err}")
+    back = {first: last - first + 1 for first, last in r.windows}
+    crossings = "; ".join(
+        f"zones {list(z)} at step {st} (margin {m:.3e} K), back within the budget with "
+        f"modes equal after {back[st]} steps" for st, z, m in r.crossings)
+    print(f"  {label} ({env.geom.n_zones} zones, {env.geom.shape[0]} x {env.geom.shape[1]}, "
+          f"B={batch}; {steps} steps through {kname}, launches {counts[kname]}): largest drift "
+          f"{r.max_drift:.6e} K at step {r.max_drift_step} (budget {tracker.budget}), last "
+          f"step's {r.last_drift:.6e} K, modes equal outside recovery windows; threshold "
+          f"crossings: {crossings or 'none'}", flush=True)
+    print(f"  {label} rates: device step median {statistics.median(device_ms):.3f} ms (CUDA "
+          f"events), exact-host step median {statistics.median(host_ms):.3f} ms (host clock) "
+          f"{tag}", flush=True)
+    return counts[kname], r
+
+
+def ks_statistic(x, y) -> float:
+    """Two-sample Kolmogorov-Smirnov statistic (scipy.stats.ks_2samp's)."""
+    import numpy as np
+
+    x, y = np.sort(x), np.sort(y)
+    both = np.concatenate([x, y])
+    cdf_x = np.searchsorted(x, both, side="right") / len(x)
+    cdf_y = np.searchsorted(y, both, side="right") / len(y)
+    return float(np.max(np.abs(cdf_x - cdf_y)))
+
+
+def zone_stats(zone_ids, n_zones, a, b):
+    """Worst per-zone KS statistic and worst zone-mean difference between
+    two (runs, H, W) stacks of fields."""
+    worst_ks = worst_dmean = 0.0
+    for z in range(n_zones):
+        m = zone_ids == z
+        x, y = a[:, m].ravel(), b[:, m].ravel()
+        worst_ks = max(worst_ks, ks_statistic(x, y))
+        worst_dmean = max(worst_dmean, abs(float(x.mean()) - float(y.mean())))
+    return worst_ks, worst_dmean
+
+
+def shuffle_check(tag) -> dict:
+    """(d): mix32 swap convection at B=4 against four exact-host runs of the
+    reference's shuffle (tests/test_convection.py:178-277): through K2 (the
+    Jacobi solve the exact host runs, as the JAX test's use_pallas=False
+    does) within KS_LIMIT and DMEAN_LIMIT; through K1 (the Chebyshev solve,
+    whose zone means sit ~0.5 K from Jacobi's after 36 steps) within the
+    witness tolerances of K1_WITNESS, the JAX kernel's figures on the same
+    keys. Returns the launches."""
+    import numpy as np
+    import torch
+    from sbsim_tpu_torch import rng
+    from sbsim_tpu_torch.envs import building_env, exact_host
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    cfg = parity_config(convection_p=1.0)
+    env = building_env.BuildingEnv(cfg, device=torch.device(DEVICE))
+    b = len(SHUFFLE_SEEDS)
+    action = torch.as_tensor(env.default_action(SETPOINTS), device=env.device)[None]
+    action = action.expand(b, -1).contiguous()
+    swap, launches = {}, dict.fromkeys(KERNELS, 0)
+    for kname, solver in (("fdm_jacobi", "pallas_env"), ("fdm_cheby", "pallas_cheby")):
+        states, _ = env.reset(rng.split(rng.PRNGKey(SHUFFLE_KEY, device=env.device), b))
+        _sync()
+        fdm_cuda.reset_launch_counts()
+        for _ in range(SHUFFLE_STEPS):
+            states, _ = env.step_batched(states, action, solver=solver)
+        _sync()
+        counts = dict(fdm_cuda.launch_counts)
+        if counts != {k: (SHUFFLE_STEPS if k == kname else 0) for k in KERNELS}:
+            fail(f"shuffle12 through {kname}: launch counts {counts}")
+        launches[kname] += counts[kname]
+        swap[kname] = states.temp.cpu().numpy()
+        if not np.isfinite(swap[kname]).all():
+            fail(f"shuffle12 through {kname}: fields not finite")
+    exact, t0 = [], time.perf_counter()
+    for seed in SHUFFLE_SEEDS:
+        c = dataclasses.replace(cfg, convection=dataclasses.replace(cfg.convection, seed=seed))
+        host = exact_host.ExactHostSimulator(building_env.BuildingEnv(c, device=env.device))
+        for _ in range(SHUFFLE_STEPS):
+            host.step(SETPOINTS)
+        exact.append(host.temp.copy())
+    host_ms = (time.perf_counter() - t0) * 1e3 / (b * SHUFFLE_STEPS)
+    exact = np.stack(exact)
+    zone_ids = np.asarray(env.geom.zone_ids)
+    ks, dmean = zone_stats(zone_ids, env.n_zones, swap["fdm_jacobi"], exact)
+    if ks > KS_LIMIT or dmean > DMEAN_LIMIT:
+        fail(f"shuffle12 through fdm_jacobi: worst zone KS {ks} (limit {KS_LIMIT}), worst "
+             f"zone-mean difference {dmean} K (limit {DMEAN_LIMIT})")
+    ks1, dmean1 = zone_stats(zone_ids, env.n_zones, swap["fdm_cheby"], exact)
+    if abs(ks1 - K1_WITNESS[0]) > WITNESS_KS_TOL or abs(dmean1 - K1_WITNESS[1]) > WITNESS_DMEAN_TOL:
+        fail(f"shuffle12 through fdm_cheby: worst zone KS {ks1}, worst zone-mean difference "
+             f"{dmean1} K, against the JAX kernel's {K1_WITNESS} (tolerances "
+             f"{WITNESS_KS_TOL}, {WITNESS_DMEAN_TOL} K)")
+    _, solver_dmean = zone_stats(zone_ids, env.n_zones, swap["fdm_cheby"], swap["fdm_jacobi"])
+    print(f"  shuffle12 ({SHUFFLE_STEPS} steps of mix32 swap convection at B={b} against the "
+          f"exact shuffle with seeds {SHUFFLE_SEEDS[0]}-{SHUFFLE_SEEDS[-1]}): through "
+          f"fdm_jacobi (launches {launches['fdm_jacobi']}) worst zone KS {ks:.4f} (limit "
+          f"{KS_LIMIT}), worst zone-mean difference {dmean:.4f} K (limit {DMEAN_LIMIT}); "
+          f"through fdm_cheby (launches {launches['fdm_cheby']}) KS {ks1:.4f}, zone-mean "
+          f"difference {dmean1:.4f} K (the JAX kernel's {K1_WITNESS[0]:.4f}, "
+          f"{K1_WITNESS[1]:.4f} K, within {WITNESS_KS_TOL}, {WITNESS_DMEAN_TOL} K), "
+          f"fdm_cheby against fdm_jacobi on the same keys {solver_dmean:.4f} K; exact-host step "
+          f"{host_ms:.3f} ms (host clock, mean) {tag}", flush=True)
+    return launches
+
+
+def gin_check(tmp, tag) -> int:
+    """(e): an env from a gin calibration through K1 and through the plain
+    versions, bitwise; the legacy wiring's host solver. Returns K1's
+    launches."""
+    import numpy as np
+    import torch
+    from sbsim_tpu_torch import convert, rng
+    from sbsim_tpu_torch.envs import building_env, gin_compat
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    path = os.path.join(tmp, "sim_config.gin")
+    with open(path, "w") as f:
+        f.write(GIN_TEXT)
+    cfg = gin_compat.env_config_from_gin(path)
+    if (cfg.host_solver, cfg.schedule.time_zone, cfg.hvac.ahu_heating_setpoint) != (
+            "jacobi", "US/Eastern", 286.0):
+        fail(f"gin12: config {cfg.host_solver}, {cfg.schedule.time_zone}, "
+             f"{cfg.hvac.ahu_heating_setpoint}")
+    env = building_env.BuildingEnv(cfg, device=torch.device(DEVICE))
+    keys = rng.split(rng.PRNGKey(13, device=env.device), GIN_BATCH)
+    acts = torch.as_tensor(np.random.default_rng(14).uniform(-1, 1, (GIN_STEPS, GIN_BATCH,
+                                                                      env.n_actions)),
+                           dtype=torch.float32, device=env.device)
+
+    def run(plain):
+        states, obs = env.reset(keys)
+        outs = []
+        with plain_kernels() if plain else contextlib.nullcontext():
+            for i in range(GIN_STEPS):
+                states, out = env.step_batched(states, acts[i], solver="pallas_cheby")
+                outs.append((out.observation.cpu().numpy(), out.reward.cpu().numpy()))
+        return convert.env_state_to_numpy(states), outs
+
+    _sync()
+    fdm_cuda.reset_launch_counts()
+    got, got_out = run(False)
+    _sync()
+    counts = dict(fdm_cuda.launch_counts)
+    want, want_out = run(True)
+    _sync()
+    if counts != {k: (GIN_STEPS if k == "fdm_cheby" else 0) for k in KERNELS} or any(
+            fdm_cuda.launch_counts[k] != counts[k] for k in KERNELS):
+        fail(f"gin12: launch counts {counts}, after the plain run {fdm_cuda.launch_counts}")
+    _check_equal_trees("gin12", got, want)
+    for i, ((o1, r1), (o2, r2)) in enumerate(zip(got_out, want_out)):
+        if not (np.array_equal(o1, o2) and np.array_equal(r1, r2)):
+            fail(f"gin12: step {i}: observations or rewards differ from the plain run")
+    legacy = os.path.join(tmp, "sim_config_legacy.gin")
+    with open(legacy, "w") as f:
+        f.write(GIN_TEXT.replace("@TFSimulator()", "@SimulatorFlexibleGeometries()"))
+    solver = gin_compat.env_config_from_gin(legacy).host_solver
+    if solver != "gauss_seidel":
+        fail(f"gin12: SimulatorFlexibleGeometries gives host_solver {solver!r}")
+    print(f"  gin12 (env_config_from_gin, {env.n_zones} zones, B={GIN_BATCH}, "
+          f"{GIN_STEPS} steps through fdm_cheby, launches {counts['fdm_cheby']}): states, "
+          f"observations and rewards bitwise equal to the plain versions; host_solver "
+          f"'jacobi' for TFSimulator, 'gauss_seidel' for SimulatorFlexibleGeometries", flush=True)
+    return counts["fdm_cheby"]
+
+
+def native_check(tmp) -> None:
+    """(f): the g++ builds of the native libraries, and phase 7's host12
+    shards read through the native scanner against a Python framing."""
+    from sbsim_tpu_torch import native
+    from sbsim_tpu_torch.io import records
+
+    for name in ("floorplan_ops", "record_io"):
+        native.load(name)
+        print(f"  native {name}: {os.path.relpath(native.library_path(name), REPO)}, g++ "
+              f"build {native.build_seconds[name]:.2f} s in this process (0.00: built "
+              f"before it)", flush=True)
+    files = HOST_SHARDS.get("host12")
+    if not files:
+        fail("native: phase 7's host12 record files are missing")
+    n_messages = 0
+    for name, data in files.items():
+        path = os.path.join(tmp, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        framed, at = [], 0
+        while at < len(data):
+            size = int.from_bytes(data[at:at + 4], "little")
+            framed.append(data[at + 4:at + 4 + size])
+            at += 4 + size
+        if at != len(data) or native.read_record_payloads(path) != framed:
+            fail(f"native: {name}: the native scanner's payloads differ from the Python "
+                 f"framing ({len(framed)} records)")
+        prefix = next((p for p in records._PREFIX_TO_MESSAGE if name.startswith(p + "_")),
+                      None)
+        if prefix is not None:
+            kind = records._PREFIX_TO_MESSAGE[prefix]
+            if list(records.read_records(path, kind)) != [kind.FromString(x) for x in framed]:
+                fail(f"native: {name}: messages differ from the Python framing's")
+        n_messages += len(framed)
+    print(f"  native record scanner: {len(files)} host12 record files, {n_messages} records "
+          f"equal to a Python framing, payload for payload and message for message", flush=True)
+
+
+def validation_phase(tag) -> dict:
+    """Phase 9: the validation path on the card; returns the launches of
+    its kernel runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from sbsim_tpu_torch.envs import building_env, exact_host
+
+    t_start = time.time()
+    dev = torch.device(DEVICE)
+    launches = dict.fromkeys(KERNELS, 0)
+    # (a) parity12: the per-env step through K2 over a day.
+    env12 = building_env.BuildingEnv(parity_config(), device=dev)
+    n, report12 = parity_run("parity12", env12, PARITY_STEPS, "fdm_jacobi", tag, gates=True)
+    launches["fdm_jacobi"] += n
+    # (b) parity12 stack: step_batched through K3 at B=4 identical envs; the
+    # same day, so the same crossings as (a)'s.
+    stack12 = building_env.BuildingEnv(parity_config(stack=True), device=dev)
+    n, report = parity_run("parity12 stack", stack12, PARITY_STEPS, "fdm_jacobi_block", tag,
+                           batch=STACK_BATCH)
+    launches["fdm_jacobi_block"] += n
+    if [c[:2] for c in report.crossings] != [c[:2] for c in report12.crossings]:
+        fail(f"parity12 stack: threshold crossings {report.crossings}, parity12's "
+             f"{report12.crossings}")
+    # (c) parity126: the 126-room plan, transposed, through K2 unstaged.
+    env126 = building_env.BuildingEnv(parity_config(plan=(9, 14, 12)), device=dev)
+    host126 = exact_host.ExactHostSimulator(env126)
+    if env126.geom.shape != (189, 124) or not host126._plan_transposed or not np.array_equal(
+            host126._diffusers64.astype(np.float32), np.asarray(env126.geom.diffusers)):
+        fail(f"parity126: geometry {env126.geom.shape}, host transposed "
+             f"{host126._plan_transposed}, or the host's diffusers differ from the geometry's")
+    print("  parity126: geometry 189 x 124 (transposed by layout='auto'); the host reports it "
+          "transposed, its float64 diffusers equal to the geometry's", flush=True)
+    n, _ = parity_run("parity126", env126, PARITY126_STEPS, "fdm_jacobi", tag,
+                      allow_crossings=False)
+    launches["fdm_jacobi"] += n
+    # (d) shuffle12 through K2 and K1, (e) gin12 through K1, (f) native.
+    for kname, n in shuffle_check(tag).items():
+        launches[kname] += n
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["fdm_cheby"] += gin_check(tmp, tag)
+        native_check(tmp)
+    print(f"  phase 9 in {time.time() - t_start:.1f} s", flush=True)
+    return launches
+
+
 def repeat_phases(envs, seconds, bw, flops, tag) -> int:
     """Phases 5, 6 and 7, round after round until `seconds` have passed; a
     failed part is counted and the round goes on. Prints the rounds, the
@@ -2276,6 +2727,11 @@ def main() -> int:
         launches[kname] += n
 
     # ---- Phase 9 ---------------------------------------------------------
+    print("phase 9: the validation path", flush=True)
+    for kname, n in validation_phase(tag).items():
+        launches[kname] += n
+
+    # ---- Phase 10 --------------------------------------------------------
     rows = {"fdm_cheby": "12zone", "fdm_jacobi": "12zone",
             "fdm_cheby_block": "12zone stack", "fdm_jacobi_block": "12zone stack"}
     kernels = []

@@ -1,7 +1,8 @@
-"""Host-side floor-plan raster processing (numpy/scipy, no OpenCV).
+"""Host-side floor-plan raster processing (numpy and C++ ops, no OpenCV).
 
-Copy of sbsim_tpu/core/floorplan.py on its scipy paths (the JAX package's
-optional C++ helpers fall back to exactly these calls).
+Copy of sbsim_tpu/core/floorplan.py. Labeling, dilation and the distance
+transform run through the port's host C++ ops (sbsim_tpu_torch/native), as
+the JAX package's do through its own.
 
 Turns a raster floor plan (0 = interior space, 1 = wall, 2 = outside air) and a
 zone map into the static per-CV masks the simulator needs: room labels,
@@ -12,9 +13,9 @@ device-resident arrays inside BuildingGeometry.
 
 Behavioral parity with the reference pipeline
 (smart_control/simulator/building_utils.py:144-509 and
-thermal_diffuser_utils.py:36-262), re-implemented here with
-scipy.ndimage.label / binary_dilation / distance_transform_edt instead of
-OpenCV. Connected-component labels are assigned in raster-scan order of first
+thermal_diffuser_utils.py:36-262), with union-find labeling, cross dilation
+and the exact Euclidean distance transform in place of OpenCV.
+Connected-component labels are assigned in raster-scan order of first
 encounter, matching cv2.connectedComponentsWithStats numbering.
 """
 
@@ -26,14 +27,11 @@ import pathlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-from scipy import ndimage
 
-from sbsim_tpu_torch import constants
+from sbsim_tpu_torch import constants, native
 
 Coord = Tuple[int, int]
 RoomDict = Dict[str, List[Coord]]
-
-_FOUR_CONNECTED = ndimage.generate_binary_structure(2, 1)
 
 
 def read_floor_plan(filepath: str) -> np.ndarray:
@@ -86,8 +84,7 @@ def label_connected_rooms(zone_map: np.ndarray) -> np.ndarray:
     cv2.connectedComponentsWithStats(connectivity=4) numbering.
     """
     is_space = zone_map == constants.INTERIOR_SPACE_VALUE
-    labels, _ = ndimage.label(is_space, structure=_FOUR_CONNECTED)
-    out = labels.astype(np.int64)
+    out = native.connected_components_4(is_space).astype(np.int64)
     out[zone_map == constants.EXTERIOR_SPACE_VALUE] = -1
     return out
 
@@ -97,9 +94,7 @@ def label_exterior_wall_shell(exterior_space: np.ndarray) -> np.ndarray:
 
     Parity: building_utils._label_exterior_wall_shell (:322-356).
     """
-    near = ndimage.binary_dilation(
-        np.asarray(exterior_space, bool), structure=_FOUR_CONNECTED
-    )
+    near = native.binary_dilation_cross(exterior_space, iterations=1)
     return near & ~exterior_space
 
 
@@ -112,8 +107,7 @@ def enlarge_component(mask: np.ndarray, distance: float) -> np.ndarray:
     the exact Euclidean transform selects the same set of CVs.
     """
     distances = np.round(
-        ndimage.distance_transform_edt(~mask.astype(bool)).astype(np.float32),
-        decimals=2,
+        native.distance_transform_edt(~mask.astype(bool)), decimals=2
     )
     return distances <= distance
 

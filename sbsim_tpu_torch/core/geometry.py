@@ -89,6 +89,10 @@ class BuildingGeometry:
     zone_ext_ids: Tuple[str, ...]
     shape: Tuple[int, int]
 
+    @property
+    def n_cvs(self) -> int:
+        return self.shape[0] * self.shape[1]
+
 
 def _neighbor_present_masks(present: np.ndarray) -> Dict[str, np.ndarray]:
     """For each direction, whether the neighbor CV exists (in-bounds and
@@ -252,6 +256,18 @@ def padded_grid_cost(shape: Tuple[int, int]) -> int:
     which keeps the two packages' configurations comparable."""
     h, w = shape
     return ((h + 7) // 8 * 8) * ((w + 127) // 128 * 128)
+
+
+def layout_transposed(layout: str, shape: Tuple[int, int]) -> bool:
+    """Whether BuildingConfig.layout runs a grid of the plan's `shape`
+    transposed: "transposed" always, "ref" never, "auto" where the
+    transpose's padded cost is strictly smaller (ties keep the reference
+    orientation), exactly where the JAX package transposes."""
+    if layout == "auto":
+        return padded_grid_cost((shape[1], shape[0])) < padded_grid_cost(shape)
+    if layout in ("ref", "transposed"):
+        return layout == "transposed"
+    raise ValueError(f"unknown building layout: {layout!r}")
 
 
 # ---------------------------------------------------------------------------

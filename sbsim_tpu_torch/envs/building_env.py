@@ -841,17 +841,6 @@ def build_geometry(config: EnvConfig) -> BuildingGeometry:
     else:
         raise ValueError(f"Unknown building kind: {b.kind}")
 
-    layout = b.layout
-    if layout == "auto":
-        # Transpose exactly where the JAX package does (strictly smaller
-        # padded cost; ties keep the reference orientation).
-        transposed = geometry_lib.padded_grid_cost(
-            (geom.shape[1], geom.shape[0])
-        ) < geometry_lib.padded_grid_cost(geom.shape)
-    elif layout in ("ref", "transposed"):
-        transposed = layout == "transposed"
-    else:
-        raise ValueError(f"unknown building layout: {layout!r}")
-    if transposed:
+    if geometry_lib.layout_transposed(b.layout, geom.shape):
         geom = geometry_lib.transpose_geometry(geom)
     return geom

@@ -5,8 +5,10 @@ smart_control/reward/setpoint_energy_carbon_regret.py:93-291 on top of the
 shared productivity/energy math of base_setpoint_energy_carbon_reward.py:
 28-172.
 
-Port of sbsim_tpu/envs/reward.py (the regret variant the env uses): per-zone
-inputs are (B, Z), per-env inputs (B,), parameters float32 0-d tensors.
+Port of sbsim_tpu/envs/reward.py: the regret variant the env uses and the
+unnormalized absolute variant (setpoint_energy_carbon_reward.py:84-190).
+Per-zone inputs are (B, Z), per-env inputs (B,), parameters float32 0-d
+tensors.
 """
 
 from __future__ import annotations
@@ -174,4 +176,63 @@ def compute_regret_reward(
         normalized_productivity_regret=normalized_productivity_regret,
         normalized_energy_cost=normalized_energy_cost,
         normalized_carbon_emission=normalized_carbon,
+    )
+
+
+def compute_absolute_reward(
+    *,
+    heating_setpoint: torch.Tensor,  # (B,)
+    cooling_setpoint: torch.Tensor,  # (B,)
+    zone_temps: torch.Tensor,  # (B, Z)
+    zone_occupancy: torch.Tensor,  # (B, Z)
+    electricity_energy_rate: torch.Tensor,  # (B,) W
+    natural_gas_energy_rate: torch.Tensor,  # (B,) W
+    elec_price: torch.Tensor,  # (B,) USD per W-second
+    elec_carbon: torch.Tensor,  # (B,) kg per W-second
+    gas_price: torch.Tensor,  # (B,) USD per Joule
+    dt_sec: torch.Tensor,
+    params: RewardParams,
+    energy_cost_weight=1.0,
+    carbon_cost_weight=1.0,
+    carbon_cost_factor_usd_per_kg=0.0,
+    reward_shift=0.0,
+    reward_scale=1.0,
+) -> RewardBreakdown:
+    """Unnormalized variant: r = productivity - u*(costs) - w*carbon_cost,
+    shifted/scaled (setpoint_energy_carbon_reward.py:84-190)."""
+    productivity = zone_productivity(
+        heating_setpoint[:, None],
+        cooling_setpoint[:, None],
+        zone_temps,
+        zone_occupancy,
+        dt_sec,
+        params,
+    ).sum(dim=-1)
+    total_occupancy = zone_occupancy.sum(dim=-1)
+    elec_cost = elec_price * torch.abs(electricity_energy_rate) * dt_sec
+    elec_carbon_kg = elec_carbon * torch.abs(electricity_energy_rate) * dt_sec
+    gas_energy = torch.clamp(natural_gas_energy_rate, min=0.0) * dt_sec
+    gas_cost = gas_price * gas_energy
+    gas_carbon_kg = GAS_CARBON_KG_PER_J * gas_energy
+    carbon_cost = carbon_cost_factor_usd_per_kg * (elec_carbon_kg + gas_carbon_kg)
+    raw = (
+        productivity
+        - energy_cost_weight * (elec_cost + gas_cost)
+        - carbon_cost_weight * carbon_cost
+    )
+    agent_reward = (raw - reward_shift) * reward_scale
+    max_productivity = (
+        params.max_productivity_personhour_usd * total_occupancy * dt_sec / _HOUR_SEC
+    )
+    return RewardBreakdown(
+        agent_reward_value=agent_reward,
+        productivity_reward=productivity,
+        electricity_energy_cost=elec_cost,
+        natural_gas_energy_cost=gas_cost,
+        carbon_emitted=elec_carbon_kg + gas_carbon_kg,
+        total_occupancy=total_occupancy,
+        productivity_regret=productivity - max_productivity,
+        normalized_productivity_regret=torch.zeros_like(productivity),
+        normalized_energy_cost=torch.zeros_like(productivity),
+        normalized_carbon_emission=torch.zeros_like(productivity),
     )

@@ -6,8 +6,9 @@ hourly shard files named `<prefix>_YYYY.MM.DD.HH` (UTC) containing a
 stream of [4-byte little-endian length][serialized proto] records; one file
 prefix per message type; a `normalization_info` file of
 ContinuousVariableInfo records. Shards written by either package are
-readable by the other byte for byte. Records are framed in Python (the JAX
-package's native bulk scanner is not ported).
+readable by the other byte for byte. Shards are read through the port's
+native bulk scanner (sbsim_tpu_torch/native, record_io.cc); a truncated
+trailing record raises IOError. Records are appended in Python.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Type
 
 import numpy as np
 
-from sbsim_tpu_torch import constants
+from sbsim_tpu_torch import constants, native
 from sbsim_tpu_torch.proto import building_pb2, normalization_pb2, reward_pb2
 from sbsim_tpu_torch.proto._message import Message
 from sbsim_tpu_torch.utils.conversions import UTC, as_utc
@@ -47,13 +48,10 @@ def append_records(filepath: str, messages: Sequence[Message]) -> None:
 
 
 def read_records(filepath: str, message_type: Type[Message]) -> Iterator[Message]:
-    """Streams records from one shard (controller_reader.py:186-207)."""
-    with open(filepath, "rb") as f:
-        while True:
-            size_bytes = f.read(4)
-            if len(size_bytes) < 4:
-                return
-            yield message_type.FromString(f.read(int.from_bytes(size_bytes, "little")))
+    """Streams records from one shard (controller_reader.py:186-207),
+    scanned by the native reader. Raises IOError for a truncated shard."""
+    for data in native.read_record_payloads(filepath):
+        yield message_type.FromString(data)
 
 
 class RecordWriter:

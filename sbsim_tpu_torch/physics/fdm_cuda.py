@@ -56,15 +56,14 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
 import os
 import shutil
-import subprocess
 from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from sbsim_tpu_torch import buildcache
 from sbsim_tpu_torch.physics import convection as convection_lib
 from sbsim_tpu_torch.physics import fdm
 from sbsim_tpu_torch.physics.fdm import StencilCoefficients
@@ -91,7 +90,7 @@ MASK32 = convection_lib.MASK32
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "fdm_kernels.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+BUILD_DIR = buildcache.BUILD_DIR
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
@@ -122,30 +121,18 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"fdm_kernels_{digest.hexdigest()[:16]}.so")
+    return buildcache.library_path(SOURCE, "fdm_kernels", "nvcc", NVCC_FLAGS, BUILD_DIR)
 
 
 def build() -> str:
-    """Compiles csrc/fdm_kernels.cu unless its library is built already;
-    returns the library's path and keeps nvcc's output in build_log.
-    Raises if nvcc fails."""
+    """Compiles csrc/fdm_kernels.cu unless its library is built already
+    (through the port's build cache); returns the library's path and keeps
+    nvcc's output in build_log. Raises if nvcc fails."""
     global build_log
-    path = library_path()
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-        capture_output=True,
-        text=True,
-    )
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
-    os.replace(tmp, path)
+    path, log = buildcache.build(SOURCE, "fdm_kernels", "nvcc", NVCC_FLAGS, BUILD_DIR,
+                                 executable=_nvcc)
+    if log is not None:
+        build_log = log
     return path
 
 

@@ -4,7 +4,8 @@ Copy of sbsim_tpu/scenario/conv_cache.py over the port's own copy of
 data/conv_schedules.json. The searched (rounds, seed) of a floor plan is
 keyed by a content fingerprint of its raster, so the same plan array always
 maps to the same schedule in both packages. Unlike the JAX package, a
-missing cache file raises instead of silently meaning "no plan searched".
+missing cache file raises on lookup instead of silently meaning "no plan
+searched"; `record` writes an entry into a given cache file.
 """
 
 from __future__ import annotations
@@ -46,3 +47,33 @@ def lookup(
     selections, not explicit triples).
     """
     return _load(path).get(plan_fingerprint(plan))
+
+
+def record(
+    plan: np.ndarray,
+    rounds: int,
+    seed: int,
+    worst_zone_ks: float,
+    worst_zone_dmean_k: float,
+    plan_desc: str,
+    source: str,
+    path: Optional[str] = None,
+) -> str:
+    """Writes or updates the cache entry of this plan in the cache file at
+    `path` (the packaged cache by default; a file that does not exist yet
+    starts empty); returns the entry's key."""
+    path = path or _CACHE_PATH
+    cache = _load(path) if os.path.exists(path) else {}
+    key = plan_fingerprint(plan)
+    cache[key] = {
+        "rounds": int(rounds),
+        "seed": int(seed),
+        "worst_zone_ks": float(worst_zone_ks),
+        "worst_zone_dmean_K": float(worst_zone_dmean_k),
+        "plan_desc": plan_desc,
+        "source": source,
+    }
+    with open(path, "w") as f:
+        json.dump(cache, f, indent=2, sort_keys=True)
+        f.write("\n")
+    return key

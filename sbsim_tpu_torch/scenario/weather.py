@@ -13,7 +13,7 @@ from __future__ import annotations
 import csv
 import datetime
 import math
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -73,19 +73,47 @@ def sinusoid_temperature(
     return 0.5 * (math.sin(rad) + 1.0) * (high_t - low_t) + low_t
 
 
+def get_replay_temperatures(observation_responses) -> Dict[str, float]:
+    """Outside-air temperatures of recorded ObservationResponses.
+
+    Returns {str(timestamp): temperature K} (UTC timestamps, as pandas
+    prints them to the microsecond), with -1.0 where the response carries
+    no outside_air_temperature_sensor reading.
+    Parity: weather_controller.get_replay_temperatures
+    (weather_controller.py:135-162).
+    """
+    temps: Dict[str, float] = {}
+    for response in observation_responses:
+        value = -1.0
+        for r in response.single_observation_responses:
+            if r.single_observation_request.measurement_name == "outside_air_temperature_sensor":
+                value = r.continuous_value
+                break
+        ts = _EPOCH + datetime.timedelta(
+            seconds=response.timestamp.seconds, microseconds=response.timestamp.nanos // 1000)
+        temps[str(ts)] = value
+    return temps
+
+
 class ReplayWeather:
     """Linear interpolation over recorded weather.
 
-    Built from a CSV (Time, TempF columns) or a packaged .npz of the same
+    Built from a CSV (Time, TempF columns), a packaged .npz of the same
     data (epoch_seconds + temps_fahrenheit arrays; data/sb1_weather_moffett.npz
-    carries the sb1 Moffett Field record).
+    carries the sb1 Moffett Field record), or, through `from_observations`,
+    from recorded ObservationResponse protos.
 
     Parity: ReplayWeatherController (weather_controller.py:166-218). Like
-    the reference, interpolation runs in °F and converts to Kelvin AFTER
-    interpolating.
+    the reference, interpolation runs in the recorded unit (°F for weather
+    files) and converts to Kelvin AFTER interpolating.
     """
 
-    def __init__(self, path: str):
+    def __init__(self, path: Optional[str] = None):
+        self._fahrenheit = True
+        if path is None:
+            self._epoch_seconds = np.zeros((0,))
+            self._temps_raw = np.zeros((0,))
+            return
         if str(path).endswith(".npz"):
             with np.load(path) as blob:
                 seconds = np.asarray(blob["epoch_seconds"], np.float64)
@@ -101,19 +129,47 @@ class ReplayWeather:
         self._epoch_seconds = seconds[order]
         self._temps_raw = temps[order]
 
+    @classmethod
+    def from_observations(cls, observation_responses) -> "ReplayWeather":
+        """ReplayWeather driven by recorded building telemetry: the one-call
+        equivalent of get_replay_temperatures + ReplayWeatherController.
+        Responses without an outside-air reading are skipped."""
+        out = cls(None)
+        out._fahrenheit = False  # telemetry readings are already Kelvin
+        seconds, kelvin = [], []
+        for ts, value in get_replay_temperatures(observation_responses).items():
+            if value <= 0.0:
+                continue
+            seconds.append(epoch_seconds(datetime.datetime.fromisoformat(ts)))
+            kelvin.append(value)
+        order = np.argsort(np.asarray(seconds))
+        out._epoch_seconds = np.asarray(seconds, np.float64)[order]
+        out._temps_raw = np.asarray(kelvin, np.float64)[order]
+        return out
+
+    @property
+    def min_timestamp(self) -> datetime.datetime:
+        return _EPOCH + datetime.timedelta(seconds=float(self._epoch_seconds[0]))
+
+    @property
+    def max_timestamp(self) -> datetime.datetime:
+        return _EPOCH + datetime.timedelta(seconds=float(self._epoch_seconds[-1]))
+
     def temperatures(self, timestamps: Sequence[datetime.datetime]) -> np.ndarray:
         targets = np.array([epoch_seconds(t) for t in timestamps])
         if targets.min() < self._epoch_seconds[0] or (
             targets.max() > self._epoch_seconds[-1]
         ):
             raise ValueError(
-                "Requested weather outside the recorded range of epoch "
-                f"seconds [{self._epoch_seconds[0]}, {self._epoch_seconds[-1]}]"
+                "Requested weather outside the recorded range "
+                f"[{self.min_timestamp}, {self.max_timestamp}]"
             )
         values = np.interp(targets, self._epoch_seconds, self._temps_raw)
-        # conversion_utils.fahrenheit_to_kelvin, applied post-interp
-        # exactly as ReplayWeatherController.get_current_temp does.
-        return (values - 32.0) * 5.0 / 9.0 + 273.15
+        if self._fahrenheit:
+            # conversion_utils.fahrenheit_to_kelvin, applied post-interp
+            # exactly as ReplayWeatherController.get_current_temp does.
+            return (values - 32.0) * 5.0 / 9.0 + 273.15
+        return values
 
 
 def ambient_temperature_table(

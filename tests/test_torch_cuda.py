@@ -465,3 +465,30 @@ def test_dashboard_through_k2_equals_plain(env, tmp_path):
     for name, series in dash.energy_rates.items():
         np.testing.assert_array_equal(series, want.energy_rates[name], err_msg=name)
     assert dash.timestamps == want.timestamps and len(dash.timestamps) == 8
+
+
+def test_parity12_through_k2_within_the_drift_budget(env):
+    """24 per-env steps of the sb1 day (step-function occupancy, no
+    convection) through K2 against the port's exact host: every step within
+    5e-2 K with thermostat modes equal, one K2 launch per step."""
+    from sbsim_tpu_torch.envs import exact_host
+
+    cfg = presets.sb1_config(num_days_in_episode=1, convection_p=0.0)
+    cfg = dataclasses.replace(cfg, occupancy=dataclasses.replace(cfg.occupancy,
+                                                                 kind="step_function"))
+    parity_env = building_env.BuildingEnv(cfg)
+    host = exact_host.ExactHostSimulator(parity_env)
+    setpoints = {"supply_water_setpoint": 340.0,
+                 "supply_air_heating_temperature_setpoint": 285.0}
+    state, _ = parity_env.reset(rng.PRNGKey(0, device=parity_env.device)[None])
+    action = torch.as_tensor(parity_env.default_action(setpoints), device=parity_env.device)[None]
+    tracker = exact_host.ParityTracker()
+    fdm_cuda.reset_launch_counts()
+    for i in range(24):
+        state, _ = parity_env.step(state, action)
+        host.step(setpoints)
+        tracker.check(i, state.temp[0].cpu().numpy(), state.hvac.thermostat_mode[0].tolist(),
+                      state.hvac.zone_air_temp[0].tolist(), host)
+    assert fdm_cuda.launch_counts["fdm_jacobi"] == 24
+    report = tracker.finish(allow_crossings=False)
+    assert report.max_drift < exact_host.DRIFT_BUDGET

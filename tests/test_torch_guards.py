@@ -1,6 +1,7 @@
 """Guards of the port: it imports no JAX (nor flax, optax, orbax, pandas,
-protobuf, matplotlib, PIL, scikit-learn or the JAX package), runs on a CUDA
-device unless told otherwise, and makes no kernel launch on the CPU."""
+protobuf, matplotlib, PIL, scikit-learn, zoneinfo or the JAX package), runs
+on a CUDA device unless told otherwise, and makes no kernel launch on the
+CPU."""
 
 import os
 import subprocess
@@ -33,15 +34,17 @@ missing |= {"sbsim_tpu_torch.io.metrics", "sbsim_tpu_torch.io.checkpoint",
             "sbsim_tpu_torch.utils.energy", "sbsim_tpu_torch.utils.run_command_predictor",
             "sbsim_tpu_torch.utils.testing", "sbsim_tpu_torch.utils.profiling",
             "sbsim_tpu_torch.utils.frame", "sbsim_tpu_torch.io.render",
-            "sbsim_tpu_torch.io.plots", "sbsim_tpu_torch.examples.episode_dashboard"} - set(names)
+            "sbsim_tpu_torch.io.plots", "sbsim_tpu_torch.examples.episode_dashboard",
+            "sbsim_tpu_torch.native", "sbsim_tpu_torch.physics.reference_impl",
+            "sbsim_tpu_torch.envs.exact_host", "sbsim_tpu_torch.envs.gin_compat"} - set(names)
 import chip_smoke
 chip_smoke.make_env, chip_smoke.main, chip_smoke.training_phase, chip_smoke.entry_train_sac
-chip_smoke.host_phase, chip_smoke.offline_phase
+chip_smoke.host_phase, chip_smoke.offline_phase, chip_smoke.validation_phase
 # protobuf is google.protobuf (its runtime google._upb); the bare `google`
 # namespace may be set up by a .pth file at start-up.
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "pandas",
-                                    "matplotlib", "PIL", "sklearn", "sbsim_tpu")
+                                    "matplotlib", "PIL", "sklearn", "sbsim_tpu", "zoneinfo")
              or k.startswith(("google.protobuf", "google._upb")))
 print(bad, sorted(missing))
 sys.exit(1 if bad or missing else 0)
@@ -50,8 +53,9 @@ sys.exit(1 if bad or missing else 0)
 
 def test_port_agents_and_chip_smoke_import_no_jax_flax_optax_orbax_pandas():
     """Every module of the port, the agents, the training entry point and
-    its I/O, the wire runtime, the host path and the offline path among
-    them, and chip_smoke.py import none of these, nor protobuf."""
+    its I/O, the wire runtime, the host path, the offline path and the
+    validation path among them, and chip_smoke.py import none of these, nor
+    protobuf, nor zoneinfo (the card's machine has no tz database)."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
