@@ -8,6 +8,9 @@
     python3 chip_smoke.py --repeat SECONDS
         # phases 0-1, then phases 5-7 round after round for SECONDS,
         # counting failed parts and empty profiler windows
+    python3 chip_smoke.py --ranks N [--backend nccl]
+        # phases 0-1 and phase 10 with N ranks in (a) and (b); nccl puts
+        # rank r on card r (N cards), gloo (the default) all on one card
 
 Phases (each prints its own lines; any failure exits non-zero):
   0. CUDA runtime, nvcc and card (name and power limit, from nvidia-smi).
@@ -152,7 +155,32 @@ Phases (each prints its own lines; any failure exits non-zero):
      read by the native scanner equal to a Python framing. Host ms per
      exact-host step beside device ms per step. Launches of (a)-(e) join
      the kernels line.
-  10. A {"kernels": [...]} line, then the last line
+  10. The distributed path (sbsim_tpu_torch/distributed), its ranks spawned
+     processes joined by a FileStore, each with a deadline
+     (DIST_TIMEOUT) on the job and on every collective; the ranks report
+     their launch counts and times to this process. (a) 2 ranks over gloo
+     on this one card (NCCL refuses two ranks on one card; gloo's
+     collectives take the CUDA tensors through the host): the train_sac
+     recipe at full width (sb1, n_envs=64, 32 per rank, batch 256, replay
+     50,000) from PRNGKey(0), 8 schedule-table seeding steps through
+     make_distributed_collect_step, then 8 make_shardmapped_train_step
+     steps; this process runs one SACTrainer on the same init: the seeded
+     states bitwise (env fields, iteration counts, replay), after the
+     train steps tests/test_distributed.py's tolerances (reward 1e-5,
+     temperatures 1e-4 K, replay rewards 1e-5, parameters 1e-5, log_alpha
+     1e-6), sac.step, replay fill, key and env steps equal, every rank's
+     metrics equal; K2 launches per rank equal to its steps. Per-rank
+     train step ms and the all-reduce ms per update (CUDA events). (d) The
+     ranks save a TrainCheckpointer checkpoint at their end (gathered to
+     rank 0); restored in this process it is bitwise the gathered state,
+     and one more train step resumes from it. (b) make_shardmapped_rollout
+     at 12 zones B=2048 pallas_cheby over 4 ranks (512 each), 4 steps:
+     fields and fdm_iterations bitwise one process's step_batched, the
+     reward mean within 1e-6, K1 launches per rank equal to the steps. (c)
+     A one-rank NCCL group: 4 make_distributed_train_step steps bitwise 4
+     trainer.train_steps from the same init (state and metrics). Launches
+     of the ranks of (a)-(c) join the kernels line.
+  11. A {"kernels": [...]} line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 It refuses to run without a CUDA device and never falls back to the CPU.
@@ -1193,13 +1221,16 @@ class _Spies:
                 return out
             return call
 
-        def maybe_reset(trainer, env_states, obs, done, key):
-            new_states, new_obs = spies.saved["_maybe_reset"](trainer, env_states, obs, done, key)
+        def maybe_reset(trainer, env_states, obs, done, key, hooks=train._NO_HOOKS):
+            new_states, new_obs = spies.saved["_maybe_reset"](trainer, env_states, obs, done, key,
+                                                              hooks)
             spies.done.append(done.cpu())
             spies.step_idx.append(new_states.step_idx.cpu())
             if bool(done.any()):
                 from sbsim_tpu_torch import convert
-                fresh, fresh_obs = trainer.env.reset(rng.split(key, trainer.config.n_envs))
+                keys = (hooks.reset_keys(key) if hooks.reset_keys is not None
+                        else rng.split(key, trainer.config.n_envs))
+                fresh, fresh_obs = trainer.env.reset(keys)
                 rows = done.nonzero().flatten()
                 sel = lambda d: {k: (sel(v) if isinstance(v, dict) else v[rows.cpu().numpy()])
                                  for k, v in d.items()}
@@ -1210,8 +1241,8 @@ class _Spies:
                 spies.reset_diffs.append((len(spies.done), int(rows.numel()), diff))
             return new_states, new_obs
 
-        def seed_with_actions(trainer, state, table):
-            return timed(spies.saved["seed_with_actions"](trainer, state, table),
+        def seed_with_actions(trainer, state, table, hooks=train._NO_HOOKS):
+            return timed(spies.saved["seed_with_actions"](trainer, state, table, hooks),
                          spies.seed_events)
 
         cls._maybe_reset = maybe_reset
@@ -2610,6 +2641,385 @@ def validation_phase(tag) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the distributed path
+# ---------------------------------------------------------------------------
+
+DIST_ENVS = 64  # examples/train_sac.py's recipe
+DIST_SEED_STEPS = 8
+DIST_TRAIN_STEPS = 8
+DIST_RANKS = 2  # (a); NCCL cannot put two ranks on one card, gloo can
+ROLLOUT_RANKS = 4  # (b)
+ROLLOUT_BATCH = 2048
+ROLLOUT_STEPS = 4
+NCCL_STEPS = 4  # (c)
+DIST_TIMEOUT = 300.0  # seconds: each job's deadline, and its collectives'
+# tests/test_distributed.py's tolerances for N ranks against one program.
+DIST_TOL = {"reward": 1e-5, "temp": 1e-4, "replay_reward": 1e-5, "param": 1e-5,
+            "log_alpha": 1e-6}
+
+
+def _train_recipe(env):
+    from sbsim_tpu_torch.agents import train
+
+    return train.SACTrainer(env, train.recipe_for(
+        env, n_envs=DIST_ENVS, batch_size=256, replay_capacity=50_000,
+        updates_per_env_step=1, seed_steps=0))
+
+
+def _events():
+    import torch
+
+    return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+
+def _timed_all_reduce(spans):
+    """Wraps runtime.all_reduce_mean so that each call records its CUDA
+    events in `spans`."""
+    from sbsim_tpu_torch.distributed import runtime
+
+    inner = runtime.all_reduce_mean
+
+    def call(tensors, group):
+        s, e = _events()
+        s.record()
+        out = inner(tensors, group)
+        e.record()
+        spans.append((s, e, sum(t.numel() for t in tensors)))
+        return out
+
+    runtime.all_reduce_mean = call
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _dump(path, tree) -> None:
+    import numpy as np
+
+    np.savez(path, **_flat_tree(tree))
+
+
+def _undump(path) -> dict:
+    import numpy as np
+
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files}
+
+
+def _rank_train(rank, mesh, device, out) -> dict:
+    """(a) and (d) on one rank: schedule-table seeding through
+    make_distributed_collect_step, make_shardmapped_train_step, the
+    sharded checkpoint."""
+    import torch
+    from sbsim_tpu_torch import convert, rng
+    from sbsim_tpu_torch.agents import schedule_policy
+    from sbsim_tpu_torch.distributed import mesh as mesh_lib
+    from sbsim_tpu_torch.io.checkpoint import TrainCheckpointer
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    env = make_env("12zone", device)
+    trainer = _train_recipe(env)
+    state = mesh_lib.shard_train_state(trainer.init(rng.PRNGKey(0, device=device)), mesh)
+    seed = mesh_lib.make_distributed_collect_step(
+        trainer, mesh, schedule_policy.build_schedule_actions(env))
+    step = mesh_lib.make_shardmapped_train_step(trainer, mesh, state)
+    spans, steps, metrics = [], [], []
+    _timed_all_reduce(spans)
+    torch.cuda.synchronize()
+    fdm_cuda.reset_launch_counts()
+    for _ in range(DIST_SEED_STEPS):
+        state, _ = seed(state)
+    seeded = convert.train_state_to_numpy(mesh_lib.gather_train_state(state, mesh), trainer)
+    spans.clear()
+    for _ in range(DIST_TRAIN_STEPS):
+        s, e = _events()
+        s.record()
+        state, m = step(state)
+        e.record()
+        steps.append((s, e))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    launches = dict(fdm_cuda.launch_counts)
+    trained = convert.train_state_to_numpy(mesh_lib.gather_train_state(state, mesh), trainer)
+    if rank == 0:
+        _dump(f"{out}/seeded.npz", seeded)
+        _dump(f"{out}/trained.npz", trained)
+    TrainCheckpointer(f"{out}/ckpt", trainer, mesh=mesh).save(DIST_TRAIN_STEPS, state)
+    per_update = [s.elapsed_time(e) for s, e, _ in spans]
+    return {"launches": launches, "rows": int(state.last_obs.shape[0]),
+            "step_ms": [s.elapsed_time(e) for s, e in steps],
+            "all_reduce_ms": per_update, "all_reduce_floats": [n for *_, n in spans],
+            "metrics": [{k: float(v) for k, v in m.items()} for m in metrics]}
+
+
+def _rank_rollout(rank, mesh, device, out) -> dict:
+    """(b) on one rank: make_shardmapped_rollout of its rows of a 12-zone
+    B=2048 batch through K1."""
+    import torch
+    from sbsim_tpu_torch import rng
+    from sbsim_tpu_torch.agents import schedule_policy
+    from sbsim_tpu_torch.distributed import mesh as mesh_lib
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    env = make_env("12zone", device)
+    states, _ = env.reset(rng.split(rng.PRNGKey(5, device=device), ROLLOUT_BATCH))
+    states = mesh_lib.shard_rows(states, mesh)
+    roll = mesh_lib.make_shardmapped_rollout(
+        env, mesh, schedule_policy.build_schedule_actions(env), ROLLOUT_STEPS,
+        solver="pallas_cheby")
+    torch.cuda.synchronize()
+    fdm_cuda.reset_launch_counts()
+    s, e = _events()
+    s.record()
+    states, reward = roll(states)
+    e.record()
+    torch.cuda.synchronize()
+    launches = dict(fdm_cuda.launch_counts)
+    whole = mesh_lib.gather_rows(states, mesh)
+    if rank == 0:
+        _dump(f"{out}/rollout.npz", {"temp": whole.temp.cpu().numpy(),
+                                     "fdm_iterations": whole.fdm_iterations.cpu().numpy()})
+    return {"launches": launches, "rows": int(states.temp.shape[0]),
+            "reward": float(reward), "ms": s.elapsed_time(e)}
+
+
+def _rank_nccl(rank, mesh, device, out) -> dict:
+    """(c): make_distributed_train_step on a one-rank NCCL group against
+    trainer.train_step from the same init, NCCL_STEPS steps each."""
+    import torch
+    from sbsim_tpu_torch import convert, rng
+    from sbsim_tpu_torch.distributed import mesh as mesh_lib
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    env = make_env("12zone", device)
+    trainer = _train_recipe(env)
+    ref = trainer.init(rng.PRNGKey(3, device=device))
+    ref_metrics = []
+    for _ in range(NCCL_STEPS):
+        ref, m = trainer.train_step(ref)
+        ref_metrics.append(m)
+    state = mesh_lib.shard_train_state(trainer.init(rng.PRNGKey(3, device=device)), mesh)
+    step = mesh_lib.make_distributed_train_step(trainer, mesh)
+    torch.cuda.synchronize()
+    fdm_cuda.reset_launch_counts()
+    metrics = []
+    for _ in range(NCCL_STEPS):
+        state, m = step(state)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    launches = dict(fdm_cuda.launch_counts)
+    diff = _tree_diff(convert.train_state_to_numpy(state, trainer),
+                      convert.train_state_to_numpy(ref, trainer))
+    same_metrics = all(torch.equal(a[k], b[k]) for a, b in zip(metrics, ref_metrics) for k in a)
+    return {"launches": launches, "diff": diff, "same_metrics": same_metrics,
+            "backend": torch.distributed.get_backend()}
+
+
+RANK_JOBS = {"train": _rank_train, "rollout": _rank_rollout, "nccl": _rank_nccl}
+
+
+def rank_main(rank, world, job, out, backend, device) -> None:
+    """A spawned rank of phase 10: joins the group (a FileStore under `out`,
+    DIST_TIMEOUT on every collective) on `device` (None: the card
+    runtime.initialize makes current, LOCAL_RANK = rank), runs RANK_JOBS[job]
+    and writes its result to out/rank{rank}.json."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from sbsim_tpu_torch.distributed import mesh as mesh_lib
+    from sbsim_tpu_torch.distributed import runtime
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    runtime.initialize(backend=backend, init_method=f"file://{out}/store", world_size=world,
+                       rank=rank, timeout=DIST_TIMEOUT)
+    try:
+        if device is None:
+            device = f"cuda:{torch.cuda.current_device()}"
+        result = RANK_JOBS[job](rank, mesh_lib.make_mesh(), torch.device(device), out)
+        result["device"] = device
+        with open(f"{out}/rank{rank}.json", "w") as f:
+            json.dump(result, f)
+    finally:
+        runtime.shutdown()
+
+
+def _run_ranks(job, world, backend, device, out) -> list:
+    """Spawns `world` ranks of `job`; fails if a rank fails or the deadline
+    passes; returns the ranks' results."""
+    from sbsim_tpu_torch.distributed import runtime
+
+    os.makedirs(out, exist_ok=True)
+    t0 = time.time()
+    try:
+        runtime.spawn(rank_main, world, (job, out, backend, device), timeout=DIST_TIMEOUT)
+    except RuntimeError as exc:
+        fail(f"distributed {job} on {world} ranks ({backend}): {exc}")
+    results = []
+    for r in range(world):
+        with open(f"{out}/rank{r}.json") as f:
+            results.append(json.load(f))
+    print(f"  ({job}) {world} ranks over {backend} on "
+          f"{sorted({r['device'] for r in results})}: {time.time() - t0:.1f} s with start-up",
+          flush=True)
+    return results
+
+
+def _max_abs(a, b) -> float:
+    import numpy as np
+
+    return float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max()) if a.size else 0.0
+
+
+def distributed_phase(envs, tag, ranks=DIST_RANKS, rollout_ranks=ROLLOUT_RANKS,
+                      backend="gloo"):
+    """Phase 10: (a) the sharded train step over `ranks` ranks against one
+    process, (b) the sharded rollout over `rollout_ranks`, (c) NCCL at world
+    size 1, (d) the ranks' checkpoint restored in one process. With
+    backend "gloo" every rank runs on DEVICE (several ranks share the card);
+    with "nccl", rank r on card r. Returns the launches of the ranks."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from sbsim_tpu_torch import convert, rng
+    from sbsim_tpu_torch.agents import schedule_policy
+    from sbsim_tpu_torch.io.checkpoint import TrainCheckpointer
+
+    t_start = time.time()
+    device = DEVICE if backend == "gloo" else None
+    launches = dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- (a) the sharded train step ---------------------------------
+        results = _run_ranks("train", ranks, backend, device, f"{tmp}/train")
+        env = envs["12zone"]
+        trainer = _train_recipe(env)
+        state = trainer.init(rng.PRNGKey(0, device=env.device))
+        seed = trainer.seed_with_actions(state, schedule_policy.build_schedule_actions(env))
+        for _ in range(DIST_SEED_STEPS):
+            state, _ = seed(state)
+        diff = _tree_diff(_undump(f"{tmp}/train/seeded.npz"),
+                          _flat_tree(convert.train_state_to_numpy(state, trainer)))
+        if diff:
+            fail(f"(a) {ranks} ranks' seeding differs from one process in {diff}")
+        ref_metrics = []
+        for _ in range(DIST_TRAIN_STEPS):
+            state, m = trainer.train_step(state)
+            ref_metrics.append(m)
+        got = _undump(f"{tmp}/train/trained.npz")
+        want = _flat_tree(convert.train_state_to_numpy(state, trainer))
+        errs = {
+            "temp": _max_abs(got["env_states/temp"], want["env_states/temp"]),
+            "replay_reward": _max_abs(got["replay/data/reward"], want["replay/data/reward"]),
+            "param": max(_max_abs(got[k], want[k]) for k in want
+                         if k.startswith(("sac/actor_params/", "sac/critic_params/"))),
+            "log_alpha": _max_abs(got["sac/log_alpha"], want["sac/log_alpha"]),
+            "reward": max(abs(m["reward_mean"] - float(r["reward_mean"]))
+                          for res in results for m, r in zip(res["metrics"], ref_metrics)),
+        }
+        exact = [k for k in ("sac/step", "replay/size", "replay/insert_index", "env_steps",
+                             "rng") if not np.array_equal(got[k], want[k])]
+        if exact or any(errs[k] > DIST_TOL[k] for k in DIST_TOL):
+            fail(f"(a) {ranks} ranks after {DIST_TRAIN_STEPS} train steps: {errs} against "
+                 f"{DIST_TOL}; unequal {exact}")
+        if any(res["metrics"] != results[0]["metrics"] for res in results):
+            fail("(a) the ranks' metrics differ")
+        steps = DIST_SEED_STEPS + DIST_TRAIN_STEPS
+        for r, res in enumerate(results):
+            if res["launches"] != {k: (steps if k == "fdm_jacobi" else 0) for k in KERNELS}:
+                fail(f"(a) rank {r} launches {res['launches']}, want {steps} fdm_jacobi")
+            launches["fdm_jacobi"] += res["launches"]["fdm_jacobi"]
+        step_ms = [statistics.median(res["step_ms"][2:]) for res in results]
+        # A train step's all-reduces: its reward mean, then the update's
+        # critic and actor gradients (with their statistics).
+        calls = len(results[0]["all_reduce_ms"]) // DIST_TRAIN_STEPS
+        upd = [statistics.median(sum(res["all_reduce_ms"][i * calls + 1:(i + 1) * calls])
+                                 for i in range(2, DIST_TRAIN_STEPS)) for res in results]
+        print(f" (a) sharded train step, sb1 12 zones n_envs={DIST_ENVS} ({results[0]['rows']} "
+              f"per rank), batch 256, {ranks} ranks over {backend}: {DIST_SEED_STEPS} seeding "
+              f"steps bitwise one process (env states, iteration counts, replay); after "
+              f"{DIST_TRAIN_STEPS} train steps max |d| {errs} (limits {DIST_TOL}), sac.step "
+              f"{int(got['sac/step'])}, replay {int(got['replay/size'])}/env; K2 launches per "
+              f"rank {[res['launches']['fdm_jacobi'] for res in results]}; train step median "
+              f"per rank {[f'{ms:.3f}' for ms in step_ms]} ms -> "
+              f"{DIST_ENVS / max(step_ms) * 1e3:,.0f} env-steps/s; {calls} all-reduces per "
+              f"train step ({results[0]['all_reduce_floats'][:calls]} floats), median per "
+              f"rank {[f'{ms:.3f}' for ms in upd]} ms per update (CUDA events) {tag}",
+              flush=True)
+
+        # ---- (d) the ranks' checkpoint in one process --------------------
+        ckpt = TrainCheckpointer(f"{tmp}/train/ckpt", trainer)
+        restored = ckpt.restore(trainer.init(rng.PRNGKey(1, device=env.device)))
+        diff = _tree_diff(_flat_tree(convert.train_state_to_numpy(restored, trainer)), got)
+        if diff or ckpt.steps() != [DIST_TRAIN_STEPS]:
+            fail(f"(d) the {ranks} ranks' checkpoint {ckpt.steps()} restores with {diff}")
+        cont, m = trainer.train_step(restored)
+        if cont.env_steps != restored.env_steps + DIST_ENVS or not np.isfinite(
+                float(m["reward_mean"])):
+            fail(f"(d) resuming gave env_steps {cont.env_steps}, reward {float(m['reward_mean'])}")
+        print(f" (d) the {ranks} ranks' checkpoint restored in one process bitwise the gathered "
+              f"state; one more train step: env_steps {restored.env_steps} -> {cont.env_steps}",
+              flush=True)
+
+        # ---- (b) the sharded rollout -------------------------------------
+        results = _run_ranks("rollout", rollout_ranks, backend, device, f"{tmp}/rollout")
+        states, _ = env.reset(rng.split(rng.PRNGKey(5, device=env.device), ROLLOUT_BATCH))
+        table = torch.as_tensor(schedule_policy.build_schedule_actions(env), device=env.device)
+        rewards = []
+        s, e = _events()
+        s.record()
+        for _ in range(ROLLOUT_STEPS):
+            act = table[torch.clamp(states.step_idx.long(), 0, table.shape[0] - 1)]
+            states, o = env.step_batched(states, act, solver="pallas_cheby")
+            rewards.append(torch.mean(o.reward))
+        e.record()
+        torch.cuda.synchronize()
+        got = _undump(f"{tmp}/rollout/rollout.npz")
+        if not (np.array_equal(got["temp"], states.temp.cpu().numpy())
+                and np.array_equal(got["fdm_iterations"], states.fdm_iterations.cpu().numpy())):
+            fail(f"(b) the {rollout_ranks}-rank rollout differs from step_batched: max |dT| "
+                 f"{_max_abs(got['temp'], states.temp.cpu().numpy())}")
+        reward = float(torch.mean(torch.stack(rewards)))
+        if max(abs(res["reward"] - reward) for res in results) > 1e-6:
+            fail(f"(b) reward means {[res['reward'] for res in results]} against {reward}")
+        for r, res in enumerate(results):
+            if res["launches"] != {k: (ROLLOUT_STEPS if k == "fdm_cheby" else 0)
+                                   for k in KERNELS}:
+                fail(f"(b) rank {r} launches {res['launches']}")
+            launches["fdm_cheby"] += res["launches"]["fdm_cheby"]
+        print(f" (b) sharded rollout, 12 zones B={ROLLOUT_BATCH} pallas_cheby over "
+              f"{rollout_ranks} ranks ({results[0]['rows']} each), {ROLLOUT_STEPS} steps: fields "
+              f"and fdm_iterations bitwise one process's step_batched, reward mean within "
+              f"{max(abs(res['reward'] - reward) for res in results):.2e}; K1 launches per rank "
+              f"{[res['launches']['fdm_cheby'] for res in results]}; ms per rank "
+              f"{[round(res['ms'], 3) for res in results]} (one process "
+              f"{s.elapsed_time(e):.3f} ms) {tag}", flush=True)
+
+        # ---- (c) NCCL at world size 1 -------------------------------------
+        (res,) = _run_ranks("nccl", 1, "nccl", None, f"{tmp}/nccl")
+        if res["diff"] or not res["same_metrics"] or res["backend"] != "nccl":
+            fail(f"(c) the one-rank NCCL step differs from train_step: {res['diff']}, "
+                 f"metrics equal {res['same_metrics']}")
+        if res["launches"] != {k: (NCCL_STEPS if k == "fdm_jacobi" else 0) for k in KERNELS}:
+            fail(f"(c) launches {res['launches']}")
+        launches["fdm_jacobi"] += res["launches"]["fdm_jacobi"]
+        print(f" (c) one-rank NCCL group: {NCCL_STEPS} make_distributed_train_step steps "
+              f"bitwise trainer.train_step (state and metrics); K2 launches "
+              f"{res['launches']['fdm_jacobi']}", flush=True)
+    print(f"  phase 10 in {time.time() - t_start:.1f} s {tag}", flush=True)
+    return launches
+
+
 def repeat_phases(envs, seconds, bw, flops, tag) -> int:
     """Phases 5, 6 and 7, round after round until `seconds` have passed; a
     failed part is counted and the round goes on. Prints the rounds, the
@@ -2698,6 +3108,16 @@ def main() -> int:
     if "--repeat" in sys.argv:
         seconds = float(sys.argv[sys.argv.index("--repeat") + 1])
         return repeat_phases(envs, seconds, bw, flops, tag)
+    if "--ranks" in sys.argv:
+        # Only phase 10, at `--ranks N` ranks for (a) and (b) over
+        # `--backend` (nccl: one rank per card).
+        n = int(sys.argv[sys.argv.index("--ranks") + 1])
+        backend = sys.argv[sys.argv.index("--backend") + 1] if "--backend" in sys.argv else "gloo"
+        if backend == "nccl" and n > torch.cuda.device_count():
+            fail(f"{n} NCCL ranks need {n} cards; {torch.cuda.device_count()} present")
+        print(f"phase 10: the distributed path at {n} ranks over {backend}", flush=True)
+        distributed_phase(envs, tag, ranks=n, rollout_ranks=n, backend=backend)
+        return 0
     max_err = dict.fromkeys(KERNELS, 0.0)
     check_phase(envs, max_err)
     launches, timing = main_path_phase(envs, max_err, bw, flops, tag)
@@ -2732,6 +3152,11 @@ def main() -> int:
         launches[kname] += n
 
     # ---- Phase 10 --------------------------------------------------------
+    print("phase 10: the distributed path", flush=True)
+    for kname, n in distributed_phase(envs, tag).items():
+        launches[kname] += n
+
+    # ---- Phase 11 --------------------------------------------------------
     rows = {"fdm_cheby": "12zone", "fdm_jacobi": "12zone",
             "fdm_cheby_block": "12zone stack", "fdm_jacobi_block": "12zone stack"}
     kernels = []

@@ -15,6 +15,8 @@ Layer map:
               suites; the proto host adapter, host loop and real-building
               controller
   agents/     SAC: networks, replay, learner, trainer, schedule baseline
+  distributed/ ranks over the env axis on torch.distributed: the process
+              group, sharded train states, the per-rank train step
   io/         JSONL metrics, TrainState checkpoints (numpy archives),
               proto record shards
   proto/      the wire-format schemas on the port's own proto3 runtime
@@ -34,6 +36,22 @@ __version__ = "0.1.0"
 
 def __getattr__(name):
     """Lazy top-level conveniences, as the JAX package has them."""
+    if name == "BuildingEnv":
+        from sbsim_tpu_torch.envs.building_env import BuildingEnv
+
+        return BuildingEnv
+    if name == "presets":
+        from sbsim_tpu_torch.envs import presets
+
+        return presets
+    if name == "SACTrainer":
+        from sbsim_tpu_torch.agents.train import SACTrainer
+
+        return SACTrainer
+    if name == "TrainConfig":
+        from sbsim_tpu_torch.agents.train import TrainConfig
+
+        return TrainConfig
     if name == "SimulatedBuilding":
         from sbsim_tpu_torch.envs.host_adapter import SimulatedBuilding
 

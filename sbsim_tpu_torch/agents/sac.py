@@ -27,6 +27,7 @@ from torch.func import functional_call
 from sbsim_tpu_torch import rng as rng_lib
 from sbsim_tpu_torch.agents import networks
 from sbsim_tpu_torch.agents.replay import Transition
+from sbsim_tpu_torch.distributed import runtime
 from sbsim_tpu_torch.envs.building_env import resolve_device
 
 Params = Dict[str, torch.Tensor]
@@ -209,21 +210,49 @@ class SACLearner:
     # ------------------------------------------------------------------
 
     def update(
-        self, state: SACState, batch: Transition, key: torch.Tensor
+        self,
+        state: SACState,
+        batch: Transition,
+        key: torch.Tensor,
+        *,
+        group=None,
+        noise_block: Optional[Tuple[int, int]] = None,
     ) -> Tuple[SACState, Dict[str, torch.Tensor]]:
         """One SAC gradient step on a batch of transitions: the critic, then
         the actor against the new critic, then the temperature, then the
-        Polyak target update."""
+        Polyak target update.
+
+        On a mesh of ranks (distributed/mesh.make_shardmapped_train_step),
+        `batch` is this rank's block of a global batch:
+        `noise_block=(offset, total)` draws the reparameterisation noise at
+        the global (total, action_dim) shape and takes rows [offset,
+        offset + local batch), and `group` (the mesh's process group) is
+        the counterpart of the JAX package's `axis_name`: the gradients, and
+        the statistics the update reads or reports, are mean-reduced over
+        it before they are used. So N ranks each updating on 1/N of the
+        batch apply the update one process computes on the whole batch, up
+        to the order of the sums."""
         cfg = self.config
         k_next, k_actor = rng_lib.split(key)
         alpha = torch.exp(state.log_alpha)
-        shape = (batch.reward.shape[0], self.action_dim)
+        local_b = batch.reward.shape[0]
+
+        def draw_eps(k):
+            if noise_block is None:
+                return rng_lib.normal(k, (local_b, self.action_dim))
+            offset, total = noise_block
+            return rng_lib.normal(k, (total, self.action_dim))[offset:offset + local_b]
+
+        def pmean(*tensors):
+            if group is None:
+                return tensors
+            return runtime.all_reduce_mean(tensors, group)
 
         # --- Critic update -------------------------------------------------
         with torch.no_grad():
             mean_n, log_std_n = self.actor_apply(state.actor_params, batch.next_obs)
             next_action, next_logp = networks.sample_action(
-                mean_n, log_std_n, eps=rng_lib.normal(k_next, shape)
+                mean_n, log_std_n, eps=draw_eps(k_next)
             )
             tq1, tq2 = self.critic_apply(
                 state.target_critic_params, batch.next_obs, next_action
@@ -236,13 +265,15 @@ class SACLearner:
             q1, q2 = self.critic_apply(params, batch.obs, batch.action)
             critic_loss = torch.mean((q1 - target_q) ** 2 + (q2 - target_q) ** 2)
             grads = torch.autograd.grad(critic_loss, list(params.values()))
+        *grads, critic_loss, q1m, q2m = pmean(
+            *grads, critic_loss.detach(), torch.mean(q1.detach()), torch.mean(q2.detach()))
         critic_params, critic_opt = adam_step(
             dict(zip(params, grads)), state.critic_opt, state.critic_params,
             cfg.critic_lr, cfg.gradient_clipping,
         )
 
         # --- Actor update --------------------------------------------------
-        eps_actor = rng_lib.normal(k_actor, shape)
+        eps_actor = draw_eps(k_actor)
         with torch.enable_grad():
             params = {k: v.detach().requires_grad_() for k, v in state.actor_params.items()}
             mean, log_std = self.actor_apply(params, batch.obs)
@@ -252,7 +283,10 @@ class SACLearner:
             if cfg.mean_reg > 0.0:
                 actor_loss = actor_loss + cfg.mean_reg * torch.mean(mean * mean)
             grads = torch.autograd.grad(actor_loss, list(params.values()))
-        entropy_neg = torch.mean(logp.detach())
+        # entropy_neg feeds the alpha loss below: reduced first, so that the
+        # temperature update is the same on every rank.
+        *grads, actor_loss, entropy_neg = pmean(
+            *grads, actor_loss.detach(), torch.mean(logp.detach()))
         actor_params, actor_opt = adam_step(
             dict(zip(params, grads)), state.actor_opt, state.actor_params,
             cfg.actor_lr, cfg.gradient_clipping,
@@ -295,12 +329,12 @@ class SACLearner:
             step=state.step + 1,
         )
         metrics = {
-            "critic_loss": critic_loss.detach(),
-            "actor_loss": actor_loss.detach(),
+            "critic_loss": critic_loss,
+            "actor_loss": actor_loss,
             "alpha_loss": alpha_loss.detach(),
             "alpha": torch.exp(log_alpha),
-            "q1_mean": torch.mean(q1.detach()),
-            "q2_mean": torch.mean(q2.detach()),
+            "q1_mean": q1m,
+            "q2_mean": q2m,
             "entropy": -entropy_neg,
         }
         return new_state, metrics

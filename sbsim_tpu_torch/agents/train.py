@@ -10,15 +10,19 @@ The rng schedule is the JAX package's key for key (threefry, bitwise equal
 to jax.random), so a TrainState carried over from it takes the same steps.
 The two JAX-side branches become host branches: `_maybe_reset` resets only
 when some env finished (it reads `done.any()`, one device sync per env
-step), and the update gate reads the host-side `env_steps` count. The
-distributed ShardHooks are not ported here.
+step), and the update gate reads the host-side `env_steps` count.
+
+`ShardHooks` let the same `collect_step` / `train_step` run as each rank's
+program on a mesh (distributed/mesh.py): they draw at the global shape and
+take the rank's rows, and mean-reduce across ranks. Every default is the
+one-process behaviour.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Callable, Dict, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -81,6 +85,37 @@ class TrainState:
 
     def replace(self, **changes) -> "TrainState":
         return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardHooks:
+    """Localizes the trainer's stochastic draws and reductions for one rank
+    of a mesh, so that `collect_step` / `train_step` run unchanged as the
+    rank's program (distributed/mesh.make_shardmapped_train_step). Every
+    default is the one-process behaviour; the rank's versions draw at the
+    global batch shape from the replicated key and take the rank's rows,
+    which keeps N ranks consistent with one process (up to the order of the
+    reduced sums).
+
+    policy: (sac_state, obs, k_act) -> actions  (in place of learner.act)
+    reset_keys: k_reset -> the per-env reset keys of this rank's rows
+    sample: (replay, k_sample) -> the Transition batch of this rank's rows
+    reduce: metric reduction (identity, or the mean over the ranks)
+    update_kwargs: extra keyword arguments of learner.update (group,
+        noise_block)
+    """
+
+    policy: Optional[Callable[..., torch.Tensor]] = None
+    reset_keys: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    sample: Optional[Callable[..., Transition]] = None
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    update_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def reduce_metric(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.reduce is None else self.reduce(x)
+
+
+_NO_HOOKS = ShardHooks()
 
 
 def _select(mask: torch.Tensor, new, old):
@@ -158,19 +193,25 @@ class SACTrainer:
     # ------------------------------------------------------------------
 
     def _maybe_reset(
-        self, env_states: EnvState, obs: torch.Tensor, done: torch.Tensor, key: torch.Tensor
+        self, env_states: EnvState, obs: torch.Tensor, done: torch.Tensor, key: torch.Tensor,
+        hooks: ShardHooks = _NO_HOOKS,
     ) -> Tuple[EnvState, torch.Tensor]:
         """Resets envs that finished their episode (masked select), only
         when some env did (episodes are hundreds of steps)."""
         if not bool(done.any()):
             return env_states, obs
-        fresh_states, fresh_obs = self.env.reset(rng_lib.split(key, self.config.n_envs))
+        if hooks.reset_keys is not None:
+            keys = hooks.reset_keys(key)
+        else:
+            keys = rng_lib.split(key, self.config.n_envs)
+        fresh_states, fresh_obs = self.env.reset(keys)
         return _select(done, fresh_states, env_states), _select(done, fresh_obs, obs)
 
     def collect_step(
         self,
         state: TrainState,
         action_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+        hooks: ShardHooks = _NO_HOOKS,
     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One lockstep env transition for all envs, appended to replay."""
         rng, k_act, k_reset = rng_lib.split(state.rng, 3)
@@ -190,7 +231,8 @@ class SACTrainer:
             replay = replay_lib.add_batch_sharded(state.replay, batch)
         else:
             replay = replay_lib.add_batch(state.replay, batch)
-        env_states, obs = self._maybe_reset(env_states, out.observation, out.done, k_reset)
+        env_states, obs = self._maybe_reset(env_states, out.observation, out.done, k_reset,
+                                            hooks)
         new_state = state.replace(
             env_states=env_states,
             last_obs=obs,
@@ -198,14 +240,18 @@ class SACTrainer:
             rng=rng,
             env_steps=state.env_steps + self.config.n_envs,
         )
-        return new_state, {"reward_mean": torch.mean(out.reward)}
+        return new_state, {"reward_mean": hooks.reduce_metric(torch.mean(out.reward))}
 
-    def _sample(self, replay, key: torch.Tensor) -> Transition:
+    def _sample(self, replay, key: torch.Tensor, hooks: ShardHooks = _NO_HOOKS) -> Transition:
+        if hooks.sample is not None:
+            return hooks.sample(replay, key)
         if isinstance(replay, ShardedReplayState):
             return replay_lib.sample_sharded(replay, key, self.config.batch_size)
         return replay_lib.sample(replay, key, self.config.batch_size)
 
-    def update(self, state: TrainState) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    def update(
+        self, state: TrainState, hooks: ShardHooks = _NO_HOOKS
+    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """The K SAC updates of one train step (zero metrics before
         `seed_steps` env steps), each on a fresh replay sample."""
         rng, k_updates = rng_lib.split(state.rng)
@@ -215,26 +261,33 @@ class SACTrainer:
         if state.env_steps >= self.config.seed_steps:
             for key in update_keys:
                 k_sample, k_update = rng_lib.split(key)
-                batch = self._sample(state.replay, k_sample)
-                sac, metrics = self.learner.update(sac, batch, k_update)
+                batch = self._sample(state.replay, k_sample, hooks)
+                sac, metrics = self.learner.update(sac, batch, k_update, **hooks.update_kwargs)
         return state.replace(sac=sac, rng=rng), metrics
 
-    def train_step(self, state: TrainState) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One env step (policy actions) + K SAC updates."""
+    def train_step(
+        self, state: TrainState, hooks: ShardHooks = _NO_HOOKS
+    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One env step (policy actions) + K SAC updates. With `hooks` the
+        same body is each rank's program on a mesh; the rng schedule and the
+        order of the steps stay this function's."""
 
         def policy(obs, key):
+            if hooks.policy is not None:
+                return hooks.policy(state.sac, obs, key)
             return self.learner.act(state.sac, obs, key)
 
-        state, metrics = self.collect_step(state, policy)
-        state, update_metrics = self.update(state)
+        state, metrics = self.collect_step(state, policy, hooks)
+        state, update_metrics = self.update(state, hooks)
         metrics.update(update_metrics)
         return state, metrics
 
     def seed_with_actions(
-        self, state: TrainState, action_table: np.ndarray
+        self, state: TrainState, action_table: np.ndarray, hooks: ShardHooks = _NO_HOOKS
     ) -> Callable[[TrainState], Tuple[TrainState, Dict[str, torch.Tensor]]]:
         """Returns a collect-step fn driven by a per-step action table (the
-        schedule-policy replay bootstrap, SAC_Demo.ipynb cells 34-40)."""
+        schedule-policy replay bootstrap, SAC_Demo.ipynb cells 34-40). The
+        table's action depends on each env's own step only."""
         del state
         table = torch.as_tensor(np.asarray(action_table), dtype=torch.float32,
                                 device=self.device)
@@ -244,7 +297,7 @@ class SACTrainer:
                 t = st.env_states.step_idx.to(torch.int64)
                 return table[torch.clamp(t, 0, table.shape[0] - 1)]
 
-            return self.collect_step(st, policy)
+            return self.collect_step(st, policy, hooks)
 
         return step_fn
 

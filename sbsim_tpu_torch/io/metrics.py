@@ -6,6 +6,8 @@ dependency-free JSONL backend (one JSON object per line) and TensorBoard
 export through `torch.utils.tensorboard` when that imports. A step's
 scalars, tensors on any one device, reach the host in one copy;
 `load_metrics` returns numpy columns (the port does not use pandas).
+Under a process group only rank 0 records: the metrics it is given are
+already reduced over the ranks (distributed/mesh.py).
 """
 
 from __future__ import annotations
@@ -20,9 +22,12 @@ from typing import Any, Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
+from sbsim_tpu_torch.distributed import runtime
+
 
 class MetricsAccumulator:
-    """Accumulates per-step scalars; flushes means every N steps."""
+    """Accumulates per-step scalars; flushes means every N steps. On a rank
+    other than 0 of a process group it records and writes nothing."""
 
     def __init__(
         self,
@@ -30,6 +35,9 @@ class MetricsAccumulator:
         reporting_interval: int = 10,
         tensorboard_dir: Optional[str] = None,
     ):
+        self._records = runtime.process_info()["process_index"] == 0
+        if not self._records:
+            output_path = tensorboard_dir = None
         self._accumulator: Dict[str, List[float]] = collections.defaultdict(list)
         self._reporting_interval = reporting_interval
         self._step = 0
@@ -52,6 +60,8 @@ class MetricsAccumulator:
 
     def record(self, metrics: Mapping[str, Any]) -> None:
         """Adds one step's scalars (0-d tensors or numbers)."""
+        if not self._records:
+            return
         tensors = [v for v in metrics.values() if isinstance(v, torch.Tensor)]
         host = iter(
             torch.stack([t.detach().reshape(()).to(torch.float64) for t in tensors])

@@ -53,6 +53,7 @@ with ctypes.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -772,13 +773,15 @@ def _outputs(inp: KernelInputs, stats: Optional[ZoneStats]):
     )
 
 
-def blocks_per_sm(name: str, shape: Tuple[int, int], block_envs: int = 1) -> int:
+def blocks_per_sm(name: str, shape: Tuple[int, int], block_envs: int = 1,
+                  device=None) -> int:
     """Thread blocks of kernel `name` resident per SM on an (H, W) grid
-    (K3/K4 with `block_envs` envs per block), from the CUDA occupancy
-    calculator."""
+    (K3/K4 with `block_envs` envs per block) on `device` (the current CUDA
+    device by default), from the CUDA occupancy calculator."""
     h, w = shape
     e = block_envs if name.endswith("_block") else 0
-    return _library().fdm_blocks_per_sm(int(name.startswith("fdm_cheby")), e, h, w)
+    with torch.cuda.device(device):
+        return _library().fdm_blocks_per_sm(int(name.startswith("fdm_cheby")), e, h, w)
 
 
 def _launch(name: str, inp: KernelInputs, conv, stats, solver_args, block_envs=None,
@@ -786,8 +789,10 @@ def _launch(name: str, inp: KernelInputs, conv, stats, solver_args, block_envs=N
     """Checks the inputs, allocates the outputs and launches kernel `name`
     (K3/K4 with `block_envs` envs per thread block); raises on a refused
     launch. `solver_args` follow the planes (and E) in the C signature.
-    `lib`, a host C++ build of the kernel source bound with `bind`, runs
-    the same launch on CPU tensors (tests/test_torch_kernel_host.py)."""
+    The launch, its stream and the shared-memory setting of the kernel are
+    made on the inputs' device, whichever device is current. `lib`, a host
+    C++ build of the kernel source bound with `bind`, runs the same launch
+    on CPU tensors (tests/test_torch_kernel_host.py)."""
     _, h, w = _check_inputs(inp, conv, stats, lib)
     if block_envs is not None:
         fit = (cheby_max_envs if name == "fdm_cheby_block" else jacobi_max_envs)((h, w))
@@ -796,12 +801,14 @@ def _launch(name: str, inp: KernelInputs, conv, stats, solver_args, block_envs=N
                 f"block_envs={block_envs} outside 1..{fit} for {name} on a {h}x{w} "
                 "grid (effective_block_envs clamps it)"
             )
-    stream = None if lib is not None else torch.cuda.current_stream(inp.temp.device).cuda_stream
-    lib = lib or _library()
-    out, iters, flag, sums = _outputs(inp, stats)
-    planes, tail = _launch_args(inp, conv, stats, out, iters, flag, sums, stream)
-    head = [] if block_envs is None else [int(block_envs)]
-    err = getattr(lib, f"{name}_launch")(*planes, *head, *solver_args, *tail)
+    on_card = lib is None
+    with torch.cuda.device(inp.temp.device) if on_card else contextlib.nullcontext():
+        stream = torch.cuda.current_stream().cuda_stream if on_card else None
+        lib = lib or _library()
+        out, iters, flag, sums = _outputs(inp, stats)
+        planes, tail = _launch_args(inp, conv, stats, out, iters, flag, sums, stream)
+        head = [] if block_envs is None else [int(block_envs)]
+        err = getattr(lib, f"{name}_launch")(*planes, *head, *solver_args, *tail)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launch_counts[name] += 1

@@ -68,6 +68,25 @@ def test_cheby_kernel_equals_plain(env, fused, limit):
     assert bool(got[2].all()) == (limit == 100)
 
 
+def test_jacobi_kernel_launches_on_its_inputs_device(env):
+    """K2 on tensors given as cuda:0, called from under another current
+    device where the machine has one (the last card; cuda:0 itself on a
+    one-card machine): the launch runs on cuda:0, equals its plain version,
+    and leaves the current device as it was."""
+    inp, conv = _inputs(env, 8, seed=11)
+    assert inp.temp.device == torch.device("cuda", 0)
+    other = torch.cuda.device_count() - 1
+    kw = dict(threshold=0.1, iteration_limit=100, conv=conv)
+    with torch.cuda.device(other):
+        got = fdm_cuda.fdm_jacobi_cuda(inp, **kw)
+        assert torch.cuda.current_device() == other
+    want = fdm_cuda.fdm_jacobi_plain(inp, **kw)
+    torch.cuda.synchronize(0)
+    assert got[0].device == inp.temp.device
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("limit", [100, 3])
 @pytest.mark.parametrize("fused", [False, True])
 def test_jacobi_kernel_equals_plain(env, fused, limit):

@@ -113,9 +113,9 @@ def test_seeding_across_the_episode_end():
     resets = []
     real_reset = tt._maybe_reset
 
-    def spy(env_states, obs, done, key):
+    def spy(env_states, obs, done, key, *hooks):
         resets.append(bool(done.any()))
-        return real_reset(env_states, obs, done, key)
+        return real_reset(env_states, obs, done, key, *hooks)
 
     tt._maybe_reset = spy
     for i in range(EPISODE + 2):

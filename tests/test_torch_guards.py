@@ -36,10 +36,12 @@ missing |= {"sbsim_tpu_torch.io.metrics", "sbsim_tpu_torch.io.checkpoint",
             "sbsim_tpu_torch.utils.frame", "sbsim_tpu_torch.io.render",
             "sbsim_tpu_torch.io.plots", "sbsim_tpu_torch.examples.episode_dashboard",
             "sbsim_tpu_torch.native", "sbsim_tpu_torch.physics.reference_impl",
-            "sbsim_tpu_torch.envs.exact_host", "sbsim_tpu_torch.envs.gin_compat"} - set(names)
+            "sbsim_tpu_torch.envs.exact_host", "sbsim_tpu_torch.envs.gin_compat",
+            "sbsim_tpu_torch.distributed.runtime", "sbsim_tpu_torch.distributed.mesh"} - set(names)
 import chip_smoke
 chip_smoke.make_env, chip_smoke.main, chip_smoke.training_phase, chip_smoke.entry_train_sac
 chip_smoke.host_phase, chip_smoke.offline_phase, chip_smoke.validation_phase
+chip_smoke.distributed_phase, chip_smoke.rank_main
 # protobuf is google.protobuf (its runtime google._upb); the bare `google`
 # namespace may be set up by a .pth file at start-up.
 bad = sorted(k for k in sys.modules
@@ -53,13 +55,37 @@ sys.exit(1 if bad or missing else 0)
 
 def test_port_agents_and_chip_smoke_import_no_jax_flax_optax_orbax_pandas():
     """Every module of the port, the agents, the training entry point and
-    its I/O, the wire runtime, the host path, the offline path and the
-    validation path among them, and chip_smoke.py import none of these, nor
-    protobuf, nor zoneinfo (the card's machine has no tz database)."""
+    its I/O, the wire runtime, the host path, the offline path, the
+    validation path and the distributed layer among them, and chip_smoke.py
+    import none of these, nor protobuf, nor zoneinfo (the card's machine
+    has no tz database)."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_lazy_top_level_names_resolve_as_in_the_jax_package():
+    """Every lazy name of sbsim_tpu/__init__.py resolves in the port, to the
+    port's own object of that name."""
+    import ast
+
+    import sbsim_tpu_torch
+
+    src = open(os.path.join(REPO, "sbsim_tpu", "__init__.py")).read()
+    getattr_fn = next(n for n in ast.parse(src).body
+                      if isinstance(n, ast.FunctionDef) and n.name == "__getattr__")
+    names = sorted(c.comparators[0].value for c in ast.walk(getattr_fn)
+                   if isinstance(c, ast.Compare) and isinstance(c.left, ast.Name)
+                   and c.left.id == "name")
+    assert names == sorted(["BuildingEnv", "presets", "SACTrainer", "TrainConfig",
+                            "SimulatedBuilding", "interfaces"])
+    for name in names:
+        obj = getattr(sbsim_tpu_torch, name)
+        assert getattr(obj, "__name__", "").split(".")[-1] == name
+        assert (getattr(obj, "__module__", None) or obj.__name__).startswith("sbsim_tpu_torch.")
+    with pytest.raises(AttributeError):
+        sbsim_tpu_torch.no_such_name
 
 
 def test_env_without_device_needs_cuda(monkeypatch):

@@ -123,3 +123,46 @@ def test_sb1_launch_choices():
     assert one.staged and one.threads == 448 and one.slots == 2
     big = fdm_cuda.cheby_geometry((189, 124), 1)
     assert not big.staged and big.threads <= 1024 and big.slots == 6
+
+
+def test_launch_runs_on_the_inputs_device(monkeypatch):
+    """_launch takes the stream and launches with the inputs' device made
+    current (torch.cuda.device(inp.temp.device)), whichever device was
+    current: here with the card's calls stood in for on CPU tensors."""
+    env = building_env.BuildingEnv(presets.two_zone_test_config(), device="cpu")
+    b, (h, w) = 2, env.geom.shape
+    temp = torch.full((b, h, w), 294.0)
+    inp = fdm_cuda.kernel_inputs(temp, torch.zeros_like(temp), torch.full((b,), 280.0),
+                                 torch.full((b,), 100.0), env.coeffs)
+    entered, seen = [], []
+
+    class Guard:
+        def __init__(self, device):
+            self.device = device
+
+        def __enter__(self):
+            entered.append(self.device)
+
+        def __exit__(self, *exc):
+            entered.append(None)
+
+    class Stream:
+        cuda_stream = 0
+
+    class Lib:
+        def fdm_jacobi_launch(self, *args):
+            seen.append(list(entered))  # the guard is open while it launches
+            return 0
+
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: seen.append(("stream", list(entered))) or Stream())
+    monkeypatch.setattr(fdm_cuda, "_check_inputs", lambda *a: temp.shape)
+    monkeypatch.setattr(fdm_cuda, "_library", lambda: Lib())
+    before = fdm_cuda.launch_counts["fdm_jacobi"]
+    fdm_cuda._launch("fdm_jacobi", inp, None, None, [0.1, 10])
+    assert seen == [("stream", [temp.device]), [temp.device]]
+    assert entered == [temp.device, None]
+    assert fdm_cuda.launch_counts["fdm_jacobi"] == before + 1
+    fdm_cuda.launch_counts["fdm_jacobi"] = before
+
