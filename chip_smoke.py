@@ -9,8 +9,14 @@
         # phases 0-1, then phases 5-7 round after round for SECONDS,
         # counting failed parts and empty profiler windows
     python3 chip_smoke.py --ranks N [--backend nccl]
-        # phases 0-1 and phase 10 with N ranks in (a) and (b); nccl puts
-        # rank r on card r (N cards), gloo (the default) all on one card
+        # phases 0-1, phase 10 with N ranks in (a), and phase 11 (b) at 1,
+        # 2, ..., N ranks; nccl puts rank r on card r (N cards), gloo (the
+        # default) all on one card
+    python3 chip_smoke.py --learn [TRAIN_STEPS] [--out PATH]
+        # phases 0-1, tests/test_sac_learning.py's two-zone recipe with its
+        # asserts, and the 12-zone sac_sb1_train curve to TRAIN_STEPS
+        # (default 12000) with --parity-eval, written to PATH (default
+        # artifacts/sac_sb1_12zone_torch_curve.json)
 
 Phases (each prints its own lines; any failure exits non-zero):
   0. CUDA runtime, nvcc and card (name and power limit, from nvidia-smi).
@@ -141,20 +147,13 @@ Phases (each prints its own lines; any failure exits non-zero):
      tests/test_device_vs_host.py's boiler, return-water and energy-rate
      gates at step 24; (b) parity12 stack, the same 288 steps through K3
      at B=4 identical envs, the rows bitwise equal, the crossings (a)'s;
-     (c) parity126, the 126-room plan (layout="auto", 189 x 124, the host
-     reporting it transposed with the geometry's diffusers), 48 steps
-     through K2 unstaged, no crossing allowed; (d) shuffle12, mix32 swap
-     convection at B=4 for 36 steps against four exact-host runs of the
-     reference's shuffle (seeds 100-103): through K2 worst zone KS <= 0.25
-     and zone-mean difference <= 0.5 K; through K1 the same statistics
-     within 0.02 and 0.01 K of the JAX package's interleaved Chebyshev
-     kernel's on the same keys (tests/test_torch_shuffle.py); (e) gin12, an env
+     (c) parity126 and (d) shuffle12 run in phase 11; (e) gin12, an env
      from gin text through envs/gin_compat, 3 steps at B=64 through K1
      bitwise the plain versions, and the legacy wiring's host solver; (f)
      the g++ builds of the native libraries, and phase 7's host12 shards
      read by the native scanner equal to a Python framing. Host ms per
-     exact-host step beside device ms per step. Launches of (a)-(e) join
-     the kernels line.
+     exact-host step beside device ms per step. Launches of (a), (b) and
+     (e) join the kernels line.
   10. The distributed path (sbsim_tpu_torch/distributed), its ranks spawned
      processes joined by a FileStore, each with a deadline
      (DIST_TIMEOUT) on the job and on every collective; the ranks report
@@ -173,14 +172,43 @@ Phases (each prints its own lines; any failure exits non-zero):
      train step ms and the all-reduce ms per update (CUDA events). (d) The
      ranks save a TrainCheckpointer checkpoint at their end (gathered to
      rank 0); restored in this process it is bitwise the gathered state,
-     and one more train step resumes from it. (b) make_shardmapped_rollout
-     at 12 zones B=2048 pallas_cheby over 4 ranks (512 each), 4 steps:
-     fields and fdm_iterations bitwise one process's step_batched, the
-     reward mean within 1e-6, K1 launches per rank equal to the steps. (c)
-     A one-rank NCCL group: 4 make_distributed_train_step steps bitwise 4
+     and one more train step resumes from it. (b) The sharded rollout is
+     timed warm by the scaling harness in phase 11 (b). (c) A one-rank NCCL
+     group: 4 make_distributed_train_step steps bitwise 4
      trainer.train_steps from the same init (state and metrics). Launches
-     of the ranks of (a)-(c) join the kernels line.
-  11. A {"kernels": [...]} line, then the last line
+     of the ranks of (a) and (c) join the kernels line.
+  11. The scripts beside the package (sbsim_tpu_torch/benchmarks), each
+     through its functions, the launch counts set to 0 just before each
+     part and read just after: (a) curve12, sac_sb1_train.main at 12 zones
+     on a cut recipe (n_envs 64, 300 schedule-table seeding steps, 100
+     train steps in chunks of 50, an evaluation of a day at 4 envs every
+     50), through K2: its JSON has every key of the JAX package's curve
+     (artifacts/sac_sb1_12zone_curve.json), its returns finite, and the
+     schedule baseline's day through K2 is bitwise its day through the
+     plain versions (states and rewards); (b) the scaling harness, 12
+     zones pallas_cheby, 1024 envs per rank at 1 and 2 gloo ranks on the
+     one card (with --ranks N --backend nccl: 1, 2, ..., N cards): each
+     rank one untimed call on a copy of its rows, then 5 calls of 8 steps
+     fenced by a barrier and CUDA events; the gathered rows bitwise one
+     process's step_batched, K1 launches per rank 6 x 8, env-steps/s best
+     and median and the scaling efficiency; (c) parity126,
+     fullscale_parity_check.parity_day on the 126-room plan (layout="auto",
+     189 x 124, the host reporting it transposed with the geometry's
+     diffusers): 288 per-env steps through K2 unstaged beside the exact
+     host, no threshold crossing allowed, modes identical every step,
+     printed beside the JAX package's 2.197e-3 K; (d) shuffle12, mix32
+     swap convection at B=4 for 36 steps against four exact-host runs of
+     the reference's shuffle (seeds 100-103) through conv_rounds_sweep's
+     run_swap, run_exact and worst_stats: through K2 worst zone KS <= 0.25
+     and zone-mean difference <= 0.5 K; through K1 the same statistics
+     within 0.02 and 0.01 K of the JAX package's interleaved Chebyshev
+     kernel's on the same keys (tests/test_torch_shuffle.py); (e)
+     conv_schedule_search on a 2 x 2-room plan (10 CVs a side) with one
+     candidate (8 rounds, seed 5, budget 1.0) and --write-cache into a copy
+     of the schedule cache, which presets.sb1_config reads back (the
+     packaged cache untouched). Any failed gate exits non-zero. Launches of
+     (a)-(e) join the kernels line.
+  12. A {"kernels": [...]} line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 It refuses to run without a CUDA device and never falls back to the CPU.
@@ -2224,15 +2252,11 @@ def offline_phase(tag) -> dict:
 # Phase 9: the validation path. The port's device path against its exact
 # host simulator (the numpy FDM oracles, the reference's random streams).
 PARITY_STEPS = 288  # a simulated day
-PARITY126_STEPS = 48
 GATE_STEP = 24  # tests/test_device_vs_host.py:44-96's gates
 STACK_BATCH = 4
-SHUFFLE_STEPS = 36
-SHUFFLE_SEEDS = (100, 101, 102, 103)  # tests/test_convection.py:178-277
-SHUFFLE_KEY = 42
-KS_LIMIT, DMEAN_LIMIT = 0.25, 0.5
+KS_LIMIT, DMEAN_LIMIT = 0.25, 0.5  # tests/test_convection.py:178-277
 # K1's worst zone KS and zone-mean difference (K) against the exact shuffle
-# on SHUFFLE_KEY's keys, as the JAX package's own interleaved Chebyshev
+# on conv_rounds_sweep.SWAP_KEY's keys, as the JAX package's own interleaved Chebyshev
 # kernel (_fdm_cheby_kernel_interleaved in interpret mode, swap rounds in
 # the kernel) gives them on the CPU (tests/test_torch_shuffle.py). The
 # Chebyshev solve converges past the loosely stopped Jacobi solve of the
@@ -2287,18 +2311,12 @@ action_normalizer_map = {
 """
 
 
-def parity_config(plan=None, stack=False, convection_p=0.0):
-    """sb1_config(num_days_in_episode=1) with step-function occupancy (the
-    deterministic inputs of tests/test_device_vs_host.py), on the 12-zone
-    plan or on `plan` (nx, ny, room_cvs) with layout="auto"."""
-    from sbsim_tpu_torch.core import geometry
+def parity_config(stack=False):
+    """sb1_config(num_days_in_episode=1, convection_p=0) with step-function
+    occupancy (the deterministic inputs of tests/test_device_vs_host.py)."""
     from sbsim_tpu_torch.envs import presets
 
-    kw = {}
-    if plan is not None:
-        kw = dict(floor_plan=geometry.make_synthetic_office_plan(*plan[:2], room_cvs=plan[2]),
-                  layout="auto")
-    cfg = presets.sb1_config(num_days_in_episode=1, convection_p=convection_p, **kw)
+    cfg = presets.sb1_config(num_days_in_episode=1, convection_p=0.0)
     cfg = dataclasses.replace(cfg, occupancy=dataclasses.replace(cfg.occupancy,
                                                                  kind="step_function"))
     if stack:
@@ -2407,95 +2425,6 @@ def parity_run(label, env, steps, kname, tag, batch=1, gates=False, allow_crossi
     return counts[kname], r
 
 
-def ks_statistic(x, y) -> float:
-    """Two-sample Kolmogorov-Smirnov statistic (scipy.stats.ks_2samp's)."""
-    import numpy as np
-
-    x, y = np.sort(x), np.sort(y)
-    both = np.concatenate([x, y])
-    cdf_x = np.searchsorted(x, both, side="right") / len(x)
-    cdf_y = np.searchsorted(y, both, side="right") / len(y)
-    return float(np.max(np.abs(cdf_x - cdf_y)))
-
-
-def zone_stats(zone_ids, n_zones, a, b):
-    """Worst per-zone KS statistic and worst zone-mean difference between
-    two (runs, H, W) stacks of fields."""
-    worst_ks = worst_dmean = 0.0
-    for z in range(n_zones):
-        m = zone_ids == z
-        x, y = a[:, m].ravel(), b[:, m].ravel()
-        worst_ks = max(worst_ks, ks_statistic(x, y))
-        worst_dmean = max(worst_dmean, abs(float(x.mean()) - float(y.mean())))
-    return worst_ks, worst_dmean
-
-
-def shuffle_check(tag) -> dict:
-    """(d): mix32 swap convection at B=4 against four exact-host runs of the
-    reference's shuffle (tests/test_convection.py:178-277): through K2 (the
-    Jacobi solve the exact host runs, as the JAX test's use_pallas=False
-    does) within KS_LIMIT and DMEAN_LIMIT; through K1 (the Chebyshev solve,
-    whose zone means sit ~0.5 K from Jacobi's after 36 steps) within the
-    witness tolerances of K1_WITNESS, the JAX kernel's figures on the same
-    keys. Returns the launches."""
-    import numpy as np
-    import torch
-    from sbsim_tpu_torch import rng
-    from sbsim_tpu_torch.envs import building_env, exact_host
-    from sbsim_tpu_torch.physics import fdm_cuda
-
-    cfg = parity_config(convection_p=1.0)
-    env = building_env.BuildingEnv(cfg, device=torch.device(DEVICE))
-    b = len(SHUFFLE_SEEDS)
-    action = torch.as_tensor(env.default_action(SETPOINTS), device=env.device)[None]
-    action = action.expand(b, -1).contiguous()
-    swap, launches = {}, dict.fromkeys(KERNELS, 0)
-    for kname, solver in (("fdm_jacobi", "pallas_env"), ("fdm_cheby", "pallas_cheby")):
-        states, _ = env.reset(rng.split(rng.PRNGKey(SHUFFLE_KEY, device=env.device), b))
-        _sync()
-        fdm_cuda.reset_launch_counts()
-        for _ in range(SHUFFLE_STEPS):
-            states, _ = env.step_batched(states, action, solver=solver)
-        _sync()
-        counts = dict(fdm_cuda.launch_counts)
-        if counts != {k: (SHUFFLE_STEPS if k == kname else 0) for k in KERNELS}:
-            fail(f"shuffle12 through {kname}: launch counts {counts}")
-        launches[kname] += counts[kname]
-        swap[kname] = states.temp.cpu().numpy()
-        if not np.isfinite(swap[kname]).all():
-            fail(f"shuffle12 through {kname}: fields not finite")
-    exact, t0 = [], time.perf_counter()
-    for seed in SHUFFLE_SEEDS:
-        c = dataclasses.replace(cfg, convection=dataclasses.replace(cfg.convection, seed=seed))
-        host = exact_host.ExactHostSimulator(building_env.BuildingEnv(c, device=env.device))
-        for _ in range(SHUFFLE_STEPS):
-            host.step(SETPOINTS)
-        exact.append(host.temp.copy())
-    host_ms = (time.perf_counter() - t0) * 1e3 / (b * SHUFFLE_STEPS)
-    exact = np.stack(exact)
-    zone_ids = np.asarray(env.geom.zone_ids)
-    ks, dmean = zone_stats(zone_ids, env.n_zones, swap["fdm_jacobi"], exact)
-    if ks > KS_LIMIT or dmean > DMEAN_LIMIT:
-        fail(f"shuffle12 through fdm_jacobi: worst zone KS {ks} (limit {KS_LIMIT}), worst "
-             f"zone-mean difference {dmean} K (limit {DMEAN_LIMIT})")
-    ks1, dmean1 = zone_stats(zone_ids, env.n_zones, swap["fdm_cheby"], exact)
-    if abs(ks1 - K1_WITNESS[0]) > WITNESS_KS_TOL or abs(dmean1 - K1_WITNESS[1]) > WITNESS_DMEAN_TOL:
-        fail(f"shuffle12 through fdm_cheby: worst zone KS {ks1}, worst zone-mean difference "
-             f"{dmean1} K, against the JAX kernel's {K1_WITNESS} (tolerances "
-             f"{WITNESS_KS_TOL}, {WITNESS_DMEAN_TOL} K)")
-    _, solver_dmean = zone_stats(zone_ids, env.n_zones, swap["fdm_cheby"], swap["fdm_jacobi"])
-    print(f"  shuffle12 ({SHUFFLE_STEPS} steps of mix32 swap convection at B={b} against the "
-          f"exact shuffle with seeds {SHUFFLE_SEEDS[0]}-{SHUFFLE_SEEDS[-1]}): through "
-          f"fdm_jacobi (launches {launches['fdm_jacobi']}) worst zone KS {ks:.4f} (limit "
-          f"{KS_LIMIT}), worst zone-mean difference {dmean:.4f} K (limit {DMEAN_LIMIT}); "
-          f"through fdm_cheby (launches {launches['fdm_cheby']}) KS {ks1:.4f}, zone-mean "
-          f"difference {dmean1:.4f} K (the JAX kernel's {K1_WITNESS[0]:.4f}, "
-          f"{K1_WITNESS[1]:.4f} K, within {WITNESS_KS_TOL}, {WITNESS_DMEAN_TOL} K), "
-          f"fdm_cheby against fdm_jacobi on the same keys {solver_dmean:.4f} K; exact-host step "
-          f"{host_ms:.3f} ms (host clock, mean) {tag}", flush=True)
-    return launches
-
-
 def gin_check(tmp, tag) -> int:
     """(e): an env from a gin calibration through K1 and through the plain
     versions, bitwise; the legacy wiring's host solver. Returns K1's
@@ -2599,9 +2528,8 @@ def validation_phase(tag) -> dict:
     its kernel runs."""
     import tempfile
 
-    import numpy as np
     import torch
-    from sbsim_tpu_torch.envs import building_env, exact_host
+    from sbsim_tpu_torch.envs import building_env
 
     t_start = time.time()
     dev = torch.device(DEVICE)
@@ -2619,21 +2547,8 @@ def validation_phase(tag) -> dict:
     if [c[:2] for c in report.crossings] != [c[:2] for c in report12.crossings]:
         fail(f"parity12 stack: threshold crossings {report.crossings}, parity12's "
              f"{report12.crossings}")
-    # (c) parity126: the 126-room plan, transposed, through K2 unstaged.
-    env126 = building_env.BuildingEnv(parity_config(plan=(9, 14, 12)), device=dev)
-    host126 = exact_host.ExactHostSimulator(env126)
-    if env126.geom.shape != (189, 124) or not host126._plan_transposed or not np.array_equal(
-            host126._diffusers64.astype(np.float32), np.asarray(env126.geom.diffusers)):
-        fail(f"parity126: geometry {env126.geom.shape}, host transposed "
-             f"{host126._plan_transposed}, or the host's diffusers differ from the geometry's")
-    print("  parity126: geometry 189 x 124 (transposed by layout='auto'); the host reports it "
-          "transposed, its float64 diffusers equal to the geometry's", flush=True)
-    n, _ = parity_run("parity126", env126, PARITY126_STEPS, "fdm_jacobi", tag,
-                      allow_crossings=False)
-    launches["fdm_jacobi"] += n
-    # (d) shuffle12 through K2 and K1, (e) gin12 through K1, (f) native.
-    for kname, n in shuffle_check(tag).items():
-        launches[kname] += n
+    # (e) gin12 through K1, (f) native; (c) parity126 and (d) shuffle12 run
+    # through the scripts in phase 11.
     with tempfile.TemporaryDirectory() as tmp:
         launches["fdm_cheby"] += gin_check(tmp, tag)
         native_check(tmp)
@@ -2649,9 +2564,6 @@ DIST_ENVS = 64  # examples/train_sac.py's recipe
 DIST_SEED_STEPS = 8
 DIST_TRAIN_STEPS = 8
 DIST_RANKS = 2  # (a); NCCL cannot put two ranks on one card, gloo can
-ROLLOUT_RANKS = 4  # (b)
-ROLLOUT_BATCH = 2048
-ROLLOUT_STEPS = 4
 NCCL_STEPS = 4  # (c)
 DIST_TIMEOUT = 300.0  # seconds: each job's deadline, and its collectives'
 # tests/test_distributed.py's tolerances for N ranks against one program.
@@ -2760,37 +2672,6 @@ def _rank_train(rank, mesh, device, out) -> dict:
             "metrics": [{k: float(v) for k, v in m.items()} for m in metrics]}
 
 
-def _rank_rollout(rank, mesh, device, out) -> dict:
-    """(b) on one rank: make_shardmapped_rollout of its rows of a 12-zone
-    B=2048 batch through K1."""
-    import torch
-    from sbsim_tpu_torch import rng
-    from sbsim_tpu_torch.agents import schedule_policy
-    from sbsim_tpu_torch.distributed import mesh as mesh_lib
-    from sbsim_tpu_torch.physics import fdm_cuda
-
-    env = make_env("12zone", device)
-    states, _ = env.reset(rng.split(rng.PRNGKey(5, device=device), ROLLOUT_BATCH))
-    states = mesh_lib.shard_rows(states, mesh)
-    roll = mesh_lib.make_shardmapped_rollout(
-        env, mesh, schedule_policy.build_schedule_actions(env), ROLLOUT_STEPS,
-        solver="pallas_cheby")
-    torch.cuda.synchronize()
-    fdm_cuda.reset_launch_counts()
-    s, e = _events()
-    s.record()
-    states, reward = roll(states)
-    e.record()
-    torch.cuda.synchronize()
-    launches = dict(fdm_cuda.launch_counts)
-    whole = mesh_lib.gather_rows(states, mesh)
-    if rank == 0:
-        _dump(f"{out}/rollout.npz", {"temp": whole.temp.cpu().numpy(),
-                                     "fdm_iterations": whole.fdm_iterations.cpu().numpy()})
-    return {"launches": launches, "rows": int(states.temp.shape[0]),
-            "reward": float(reward), "ms": s.elapsed_time(e)}
-
-
 def _rank_nccl(rank, mesh, device, out) -> dict:
     """(c): make_distributed_train_step on a one-rank NCCL group against
     trainer.train_step from the same init, NCCL_STEPS steps each."""
@@ -2823,7 +2704,7 @@ def _rank_nccl(rank, mesh, device, out) -> dict:
             "backend": torch.distributed.get_backend()}
 
 
-RANK_JOBS = {"train": _rank_train, "rollout": _rank_rollout, "nccl": _rank_nccl}
+RANK_JOBS = {"train": _rank_train, "nccl": _rank_nccl}
 
 
 def rank_main(rank, world, job, out, backend, device) -> None:
@@ -2881,17 +2762,16 @@ def _max_abs(a, b) -> float:
     return float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max()) if a.size else 0.0
 
 
-def distributed_phase(envs, tag, ranks=DIST_RANKS, rollout_ranks=ROLLOUT_RANKS,
-                      backend="gloo"):
+def distributed_phase(envs, tag, ranks=DIST_RANKS, backend="gloo"):
     """Phase 10: (a) the sharded train step over `ranks` ranks against one
-    process, (b) the sharded rollout over `rollout_ranks`, (c) NCCL at world
-    size 1, (d) the ranks' checkpoint restored in one process. With
-    backend "gloo" every rank runs on DEVICE (several ranks share the card);
-    with "nccl", rank r on card r. Returns the launches of the ranks."""
+    process, (c) NCCL at world size 1, (d) the ranks' checkpoint restored in
+    one process ((b), the sharded rollout, is timed warm by the scaling
+    harness in phase 11). With backend "gloo" every rank runs on DEVICE
+    (several ranks share the card); with "nccl", rank r on card r. Returns
+    the launches of the ranks."""
     import tempfile
 
     import numpy as np
-    import torch
     from sbsim_tpu_torch import convert, rng
     from sbsim_tpu_torch.agents import schedule_policy
     from sbsim_tpu_torch.io.checkpoint import TrainCheckpointer
@@ -2971,40 +2851,6 @@ def distributed_phase(envs, tag, ranks=DIST_RANKS, rollout_ranks=ROLLOUT_RANKS,
               f"state; one more train step: env_steps {restored.env_steps} -> {cont.env_steps}",
               flush=True)
 
-        # ---- (b) the sharded rollout -------------------------------------
-        results = _run_ranks("rollout", rollout_ranks, backend, device, f"{tmp}/rollout")
-        states, _ = env.reset(rng.split(rng.PRNGKey(5, device=env.device), ROLLOUT_BATCH))
-        table = torch.as_tensor(schedule_policy.build_schedule_actions(env), device=env.device)
-        rewards = []
-        s, e = _events()
-        s.record()
-        for _ in range(ROLLOUT_STEPS):
-            act = table[torch.clamp(states.step_idx.long(), 0, table.shape[0] - 1)]
-            states, o = env.step_batched(states, act, solver="pallas_cheby")
-            rewards.append(torch.mean(o.reward))
-        e.record()
-        torch.cuda.synchronize()
-        got = _undump(f"{tmp}/rollout/rollout.npz")
-        if not (np.array_equal(got["temp"], states.temp.cpu().numpy())
-                and np.array_equal(got["fdm_iterations"], states.fdm_iterations.cpu().numpy())):
-            fail(f"(b) the {rollout_ranks}-rank rollout differs from step_batched: max |dT| "
-                 f"{_max_abs(got['temp'], states.temp.cpu().numpy())}")
-        reward = float(torch.mean(torch.stack(rewards)))
-        if max(abs(res["reward"] - reward) for res in results) > 1e-6:
-            fail(f"(b) reward means {[res['reward'] for res in results]} against {reward}")
-        for r, res in enumerate(results):
-            if res["launches"] != {k: (ROLLOUT_STEPS if k == "fdm_cheby" else 0)
-                                   for k in KERNELS}:
-                fail(f"(b) rank {r} launches {res['launches']}")
-            launches["fdm_cheby"] += res["launches"]["fdm_cheby"]
-        print(f" (b) sharded rollout, 12 zones B={ROLLOUT_BATCH} pallas_cheby over "
-              f"{rollout_ranks} ranks ({results[0]['rows']} each), {ROLLOUT_STEPS} steps: fields "
-              f"and fdm_iterations bitwise one process's step_batched, reward mean within "
-              f"{max(abs(res['reward'] - reward) for res in results):.2e}; K1 launches per rank "
-              f"{[res['launches']['fdm_cheby'] for res in results]}; ms per rank "
-              f"{[round(res['ms'], 3) for res in results]} (one process "
-              f"{s.elapsed_time(e):.3f} ms) {tag}", flush=True)
-
         # ---- (c) NCCL at world size 1 -------------------------------------
         (res,) = _run_ranks("nccl", 1, "nccl", None, f"{tmp}/nccl")
         if res["diff"] or not res["same_metrics"] or res["backend"] != "nccl":
@@ -3018,6 +2864,348 @@ def distributed_phase(envs, tag, ranks=DIST_RANKS, rollout_ranks=ROLLOUT_RANKS,
               f"{res['launches']['fdm_jacobi']}", flush=True)
     print(f"  phase 10 in {time.time() - t_start:.1f} s {tag}", flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the scripts beside the package (sbsim_tpu_torch/benchmarks)
+# ---------------------------------------------------------------------------
+
+# (a) sac_sb1_train at 12 zones, its recipe cut to a few hundred seeding
+# steps and 100 train steps.
+CURVE_ARGS = ["--n-envs", "64", "--seed-steps", "300", "--chunk", "50", "--train-steps", "100",
+              "--eval-every", "50", "--eval-envs", "4"]
+JAX_CURVE = "artifacts/sac_sb1_12zone_curve.json"
+# (b) the scaling harness: rows of 1 and 2 gloo ranks on the one card (with
+# --ranks N --backend nccl: 1, 2, ..., N cards).
+SCALING_ARGS = ["--batch-per-device", "1024", "--steps", "8", "--repeats", "5"]
+# (c) the first threshold crossing (step, zones) of the 126-room day on the
+# transposed plan, where the JAX package's per-env step run op by op (no
+# FMA contraction, bitwise the port's) leaves the exact host too
+# (tests/test_torch_opbyop.py); the jitted JAX package holds the day.
+PARITY126_WITNESS = (143, (28,))
+# (e) the schedule search on a small plan, one candidate with fewer rounds
+# than the plan's auto-sized 16, at a budget that admits it, so it is
+# recorded.
+SEARCH_ARGS = ["--rooms-x", "2", "--rooms-y", "2", "--room-cvs", "10", "--rounds", "8",
+               "--seeds", "5", "--budget", "1.0", "--write-cache"]
+
+
+def _counted(label, fn, want):
+    """fn() with the launch counts set to 0 just before and read just after;
+    fails unless they equal `want` (kernel -> launches, others 0)."""
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    _sync()
+    fdm_cuda.reset_launch_counts()
+    out = fn()
+    _sync()
+    counts = dict(fdm_cuda.launch_counts)
+    if counts != {k: want.get(k, 0) for k in KERNELS}:
+        fail(f"{label}: launch counts {counts}, want {want}")
+    return out, counts
+
+
+def script_curve(tmp, tag) -> dict:
+    """(a): sac_sb1_train.main on the cut recipe through K2; the JSON has
+    every key of the JAX package's curve and finite returns; the schedule
+    baseline's rollout through K2 bitwise its rollout through the plain
+    versions."""
+    import math
+
+    import numpy as np
+    import torch
+    from sbsim_tpu_torch import convert, rng
+    from sbsim_tpu_torch.agents import schedule_policy
+    from sbsim_tpu_torch.benchmarks import sac_sb1_train
+
+    args = sac_sb1_train.parse_args(CURVE_ARGS)
+    env, _ = sac_sb1_train.make_env(False, torch.device(DEVICE))
+    n_eval = env.steps_per_episode
+    evals = 2 + args.train_steps // args.eval_every + 2  # baselines, untrained, curve, held out
+    want = (args.seed_steps // args.chunk) * args.chunk + args.train_steps + evals * n_eval
+    out = os.path.join(tmp, "curve.json")
+    t0 = time.time()
+    result, counts = _counted("curve12", lambda: sac_sb1_train.main(CURVE_ARGS + ["--out", out]),
+                              {"fdm_jacobi": want})
+    seconds = time.time() - t0
+    with open(os.path.join(REPO, JAX_CURVE)) as f:
+        missing = sorted(set(json.load(f)) - set(result))
+    returns = [result[k] for k in ("schedule_baseline_return", "untrained_return",
+                                   "final_return", "best_return", "best_return_holdout_seed",
+                                   "schedule_return_holdout_seed")]
+    returns += [c["eval_return"] for c in result["curve"]]
+    if missing or not all(math.isfinite(r) for r in returns) or len(result["curve"]) != 3:
+        fail(f"curve12: keys missing {missing}, returns {returns}")
+    table = schedule_policy.build_schedule_actions(env)
+
+    def baseline(plain):
+        with plain_kernels() if plain else contextlib.nullcontext():
+            states, rewards = sac_sb1_train.schedule_rollout(env, table, rng.PRNGKey(7), n_eval,
+                                                             args.eval_envs)
+        return convert.env_state_to_numpy(states), rewards.cpu().numpy()
+
+    (got, got_r), _ = _counted("curve12 baseline", lambda: baseline(False),
+                               {"fdm_jacobi": n_eval})
+    want_s, want_r = baseline(True)
+    _check_equal_trees("curve12 schedule baseline", got, want_s)
+    if not np.array_equal(got_r, want_r):
+        fail("curve12: the schedule baseline's rewards through K2 differ from the plain run's")
+    print(f"  (a) curve12: sac_sb1_train.main {' '.join(CURVE_ARGS)} through K2 (launches "
+          f"{counts['fdm_jacobi']}) in {seconds:.1f} s: schedule baseline "
+          f"{result['schedule_baseline_return']}, untrained {result['untrained_return']}, curve "
+          f"{[round(c['eval_return'], 4) for c in result['curve']]}, best on the held-out seed "
+          f"{result['best_return_holdout_seed']} (schedule {result['schedule_return_holdout_seed']}); "
+          f"every key of {JAX_CURVE}; the schedule baseline's {n_eval}-step rollout through K2 "
+          f"bitwise the plain versions' (states and rewards) {tag}", flush=True)
+    return {"fdm_jacobi": counts["fdm_jacobi"] + n_eval}
+
+
+def script_scaling(tmp, tag, rank_counts, backend) -> dict:
+    """(b): the scaling harness, warm ranks; its rows bitwise one process
+    (the harness exits non-zero otherwise), launches per rank (1 + repeats)
+    x steps of K1."""
+    from sbsim_tpu_torch.benchmarks import scaling
+
+    argv = SCALING_ARGS + ["--devices", *map(str, rank_counts), "--backend", backend,
+                           "--out", os.path.join(tmp, "scaling.json")]
+    args = scaling.parse_args(argv)
+    try:
+        payload = scaling.main(argv)
+    except (RuntimeError, SystemExit) as exc:
+        fail(f"scaling harness: {exc}")
+    per_rank = (1 + args.repeats) * args.steps
+    launches = 0
+    for row in payload["results"]:
+        for r, counts in enumerate(row["launches"]):
+            if counts != {k: (per_rank if k == "fdm_cheby" else 0) for k in KERNELS}:
+                fail(f"scaling at {row['devices']} ranks: rank {r} launches {counts}")
+            launches += counts["fdm_cheby"]
+        print(f"  (b) scaling, 12 zones pallas_cheby, {row['devices']} rank(s) over {backend} x "
+              f"{args.batch_per_device} envs on {sorted(set(row['rank_devices']))}: "
+              f"one untimed call, then {args.repeats} calls of {args.steps} steps, slowest rank "
+              f"{[round(ms, 3) for ms in row['slowest_rank_ms']]} ms -> best "
+              f"{row['env_steps_per_sec']:,.1f}, median {row['median_env_steps_per_sec']:,.1f} "
+              f"env-steps/s ({row['per_device']:,.1f} per rank); rows bitwise one process's "
+              f"step_batched; K1 launches per rank {per_rank}; {row['seconds_with_start_up']} s "
+              f"with start-up {tag}", flush=True)
+    if len(payload["results"]) != len(rank_counts):
+        fail(f"scaling: {len(payload['results'])} rows for {rank_counts} ranks")
+    print(f"  (b) {json.dumps(payload['summary'])} {tag}", flush=True)
+    return {"fdm_cheby": launches}
+
+
+def script_parity126(tag) -> dict:
+    """(c): fullscale_parity_check.parity_day on the transposed 126-room
+    plan, a whole day through K2 unstaged beside the exact host. The day
+    passes when the tracker holds it all day with no threshold crossing
+    (the jitted JAX package's day); otherwise the tracker must hold it
+    strictly up to its first crossing, and that crossing must be
+    PARITY126_WITNESS, where the JAX package run op by op leaves the host
+    too."""
+    import math
+
+    import numpy as np
+    import torch
+    from sbsim_tpu_torch.benchmarks import fullscale_parity_check as fpc
+    from sbsim_tpu_torch.envs import building_env, exact_host
+
+    env = building_env.BuildingEnv(fpc.parity_config("auto"), device=torch.device(DEVICE))
+    host = exact_host.ExactHostSimulator(env)
+    if env.geom.shape != (189, 124) or not host._plan_transposed or not np.array_equal(
+            host._diffusers64.astype(np.float32), np.asarray(env.geom.diffusers)):
+        fail(f"parity126: geometry {env.geom.shape}, host transposed {host._plan_transposed}, "
+             "or the host's diffusers differ from the geometry's")
+    t0 = time.time()
+    day, counts = _counted(
+        "parity126", lambda: fpc.parity_day(env, fpc.STEPS, log=lambda m: print(f"    {m}", flush=True)),
+        {"fdm_jacobi": fpc.STEPS})
+    seconds = time.time() - t0
+    if not all(math.isfinite(d) for d in day.drifts):
+        fail("parity126: the device fields are not finite")
+    first = day.report.crossings[0] if day.report.crossings else None
+    if day.held:
+        verdict = "held every step: modes identical, no crossing"
+    elif first is None or first[:2] != PARITY126_WITNESS or not all(
+            day.modes_equal[:first[0]]) or day.error_step < first[0]:
+        fail(f"parity126: the tracker failed at step {day.error_step} ({day.error}); first "
+             f"crossing {first}, the JAX package op by op crosses at {PARITY126_WITNESS}")
+    else:
+        after = day.drifts[first[0]:]
+        verdict = (f"held strictly through step {first[0] - 1} (largest drift "
+                   f"{max(day.drifts[:first[0]]):.6e} K); zones {list(first[1])} cross the "
+                   f"heating setpoint at step {first[0]} (margin {first[2]:.3e} K), as the JAX "
+                   f"package run op by op does (PARITY126_WITNESS); the tracker fails at step "
+                   f"{day.error_step}; after the crossing modes differ on "
+                   f"{day.modes_equal.count(False)} steps, drift up to {max(after):.6e} K, last "
+                   f"step's {after[-1]:.6e} K")
+    print(f"  (c) parity126 (126 zones, 189 x 124 transposed, host transposed with the "
+          f"geometry's diffusers; {fpc.STEPS} steps through fdm_jacobi unstaged, launches "
+          f"{counts['fdm_jacobi']}, {seconds:.1f} s; the jitted JAX package's day "
+          f"{fpc.JAX_MAX_DRIFT_K:.6e} K, budget {exact_host.DRIFT_BUDGET} K): {verdict} {tag}",
+          flush=True)
+    return {"fdm_jacobi": counts["fdm_jacobi"]}
+
+
+def script_shuffle12(tag) -> dict:
+    """(d): mix32 swap convection against the exact shuffle through
+    conv_rounds_sweep's helpers: through K2 within KS_LIMIT / DMEAN_LIMIT,
+    through K1 within the witness tolerances of K1_WITNESS."""
+    import torch
+    from sbsim_tpu_torch.benchmarks import conv_rounds_sweep as crs
+
+    dev = torch.device(DEVICE)
+    cfg = crs.base_config()
+    swap, launches = {}, dict.fromkeys(KERNELS, 0)
+    for kname, solver in (("fdm_jacobi", "pallas_env"), ("fdm_cheby", "pallas_cheby")):
+        (swap[kname], env), counts = _counted(
+            f"shuffle12 through {kname}", lambda s=solver: crs.run_swap(cfg, dev, solver=s),
+            {kname: crs.N_STEPS})
+        launches[kname] += counts[kname]
+    t0 = time.perf_counter()
+    exact = crs.run_exact(cfg, dev)
+    host_ms = (time.perf_counter() - t0) * 1e3 / (crs.SEEDS * crs.N_STEPS)
+    ks, dmean = crs.worst_stats(env, swap["fdm_jacobi"], exact)
+    if ks > KS_LIMIT or dmean > DMEAN_LIMIT:
+        fail(f"shuffle12 through fdm_jacobi: worst zone KS {ks} (limit {KS_LIMIT}), worst "
+             f"zone-mean difference {dmean} K (limit {DMEAN_LIMIT})")
+    ks1, dmean1 = crs.worst_stats(env, swap["fdm_cheby"], exact)
+    if abs(ks1 - K1_WITNESS[0]) > WITNESS_KS_TOL or abs(dmean1 - K1_WITNESS[1]) > WITNESS_DMEAN_TOL:
+        fail(f"shuffle12 through fdm_cheby: worst zone KS {ks1}, worst zone-mean difference "
+             f"{dmean1} K, against the JAX kernel's {K1_WITNESS} (tolerances "
+             f"{WITNESS_KS_TOL}, {WITNESS_DMEAN_TOL} K)")
+    _, solver_dmean = crs.worst_stats(env, swap["fdm_cheby"], swap["fdm_jacobi"])
+    print(f"  (d) shuffle12 ({crs.N_STEPS} steps of mix32 swap convection at B={crs.SEEDS} "
+          f"against the exact shuffle, conv_rounds_sweep.run_swap / run_exact / worst_stats): "
+          f"through fdm_jacobi (launches {launches['fdm_jacobi']}) worst zone KS {ks:.4f} "
+          f"(limit {KS_LIMIT}), worst zone-mean difference {dmean:.4f} K (limit "
+          f"{DMEAN_LIMIT}); through fdm_cheby (launches {launches['fdm_cheby']}) KS "
+          f"{ks1:.4f}, zone-mean difference {dmean1:.4f} K (the JAX kernel's "
+          f"{K1_WITNESS[0]:.4f}, {K1_WITNESS[1]:.4f} K, within {WITNESS_KS_TOL}, "
+          f"{WITNESS_DMEAN_TOL} K), fdm_cheby against fdm_jacobi on the same keys "
+          f"{solver_dmean:.4f} K; exact-host step {host_ms:.3f} ms (host clock, mean) {tag}",
+          flush=True)
+    return launches
+
+
+def script_search(tmp, tag) -> dict:
+    """(e): conv_schedule_search with one candidate, writing into a copy of
+    the schedule cache, which presets.sb1_config then reads back."""
+    import shutil
+
+    from sbsim_tpu_torch.benchmarks import conv_rounds_sweep as crs
+    from sbsim_tpu_torch.benchmarks import conv_schedule_search
+    from sbsim_tpu_torch.core.geometry import make_synthetic_office_plan
+    from sbsim_tpu_torch.envs import presets
+    from sbsim_tpu_torch.scenario import conv_cache
+
+    args = conv_schedule_search.parse_args(SEARCH_ARGS)
+    cache = os.path.join(tmp, "conv_schedules.json")
+    shutil.copy(conv_cache._CACHE_PATH, cache)
+    packaged, conv_cache._CACHE_PATH = conv_cache._CACHE_PATH, cache
+    try:
+        t0 = time.time()
+        result, counts = _counted(
+            "conv search", lambda: conv_schedule_search.main(SEARCH_ARGS),
+            {"fdm_jacobi": (1 + len(args.rounds) * len(args.seeds)) * crs.N_STEPS})
+        seconds = time.time() - t0
+        plan = make_synthetic_office_plan(args.rooms_x, args.rooms_y, room_cvs=args.room_cvs)
+        conv = presets.sb1_config(floor_plan=plan).convection
+    finally:
+        conv_cache._CACHE_PATH = packaged
+    candidate = result["rows"][1]
+    if (result["verdict"]["recommendation"] != candidate["candidate"]
+            or (conv.rounds, conv.seed) != (candidate["rounds"], candidate["seed"])
+            or conv_cache.lookup(plan) is not None):
+        fail(f"conv search: verdict {result['verdict']}, presets read rounds {conv.rounds} seed "
+             f"{conv.seed} from the copy; the packaged cache has the plan: "
+             f"{conv_cache.lookup(plan) is not None}")
+    print(f"  (e) conv search ({result['verdict']['plan']}, {len(result['rows']) - 1} candidate, "
+          f"through fdm_jacobi, launches {counts['fdm_jacobi']}, {seconds:.1f} s): auto default "
+          f"({result['rows'][0]['rounds']} rounds) KS {result['rows'][0]['worst_zone_ks']}, "
+          f"{candidate['candidate']} KS {candidate['worst_zone_ks']}, zone-mean difference "
+          f"{candidate['worst_zone_dmean_K']} K; recorded in a copy of the cache (key "
+          f"{result['cache_key']}), read back by presets.sb1_config: rounds {conv.rounds}, seed "
+          f"{conv.seed}; the packaged cache untouched {tag}", flush=True)
+    return counts
+
+
+def scripts_phase(tag, rank_counts=(1, 2), backend="gloo", only=None) -> dict:
+    """Phase 11: (a) the learning run, (b) the scaling harness, (c) the
+    126-room parity day, (d) shuffle12 and (e) the schedule search, each
+    through its script's functions; returns their launches. `only` names
+    the parts to run (default all)."""
+    import tempfile
+
+    t_start = time.time()
+    launches = dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        parts = {"a": lambda: script_curve(tmp, tag),
+                 "b": lambda: script_scaling(tmp, tag, rank_counts, backend),
+                 "c": lambda: script_parity126(tag),
+                 "d": lambda: script_shuffle12(tag),
+                 "e": lambda: script_search(tmp, tag)}
+        for name, fn in parts.items():
+            if only is None or name in only:
+                for kname, n in fn().items():
+                    launches[kname] += n
+    print(f"  phase 11 in {time.time() - t_start:.1f} s {tag}", flush=True)
+    return launches
+
+
+# `chip_smoke.py --learn`: tests/test_sac_learning.py's two-zone recipe.
+LEARN_STEPS = 3000
+LEARN_SEED_STEPS = 100
+LEARN_EVAL_EVERY = 1000
+
+
+def learn_phase(train_steps, out, tag) -> None:
+    """The learning runs on the card: tests/test_sac_learning.py:18-53's
+    two-zone recipe with its three asserts, then the 12-zone sac_sb1_train
+    curve to `train_steps` with --parity-eval, written to `out`."""
+    import numpy as np
+    import torch
+    from sbsim_tpu_torch import rng
+    from sbsim_tpu_torch.agents import schedule_policy
+    from sbsim_tpu_torch.agents.train import SACTrainer, TrainConfig
+    from sbsim_tpu_torch.benchmarks import sac_sb1_train
+    from sbsim_tpu_torch.envs import building_env, presets
+
+    env = building_env.BuildingEnv(presets.two_zone_test_config(num_days_in_episode=1),
+                                   device=torch.device(DEVICE))
+    trainer = SACTrainer(env, TrainConfig(n_envs=8, replay_capacity=20_000, batch_size=128,
+                                          updates_per_env_step=2, seed_steps=0))
+    state = trainer.init(rng.PRNGKey(0))
+    seed = trainer.seed_with_actions(state, schedule_policy.build_schedule_actions(env))
+    t0 = time.time()
+    for _ in range(LEARN_SEED_STEPS):
+        state, _ = seed(state)
+    returns = []
+    for i in range(LEARN_STEPS):
+        state, metrics = trainer.train_step(state)
+        if (i + 1) % LEARN_EVAL_EVERY == 0:
+            returns.append(float(trainer.evaluate(state.sac, rng.PRNGKey(7), n_steps=48,
+                                                  n_envs=2)))
+            print(f"  learn2 step {i + 1}: eval {returns[-1]:.4f} critic "
+                  f"{float(metrics['critic_loss']):.4f} alpha {float(metrics['alpha']):.4f} "
+                  f"({time.time() - t0:.0f} s)", flush=True)
+    critic, alpha = float(metrics["critic_loss"]), float(metrics["alpha"])
+    ok = (np.isfinite(returns).all() and returns[-1] > returns[0] - 0.05 and critic < 1.0
+          and alpha < 0.9)
+    print(f"  learn2 (tests/test_sac_learning.py's recipe, two zones, n_envs 8, batch 128, 2 "
+          f"updates per step, {LEARN_SEED_STEPS} seeding + {LEARN_STEPS} train steps through "
+          f"K2 in {time.time() - t0:.1f} s): returns {returns}, critic loss {critic:.4f} "
+          f"(< 1.0), alpha {alpha:.4f} (< 0.9), last >= first - 0.05: "
+          f"{'passed' if ok else 'FAILED'} {tag}", flush=True)
+    t0 = time.time()
+    result = sac_sb1_train.main(["--train-steps", str(train_steps), "--parity-eval",
+                                 "--out", out])
+    print(f"  curve12 to {train_steps} train steps in {time.time() - t0:.1f} s: schedule "
+          f"{result['schedule_baseline_return']}, untrained {result['untrained_return']}, best "
+          f"{result['best_return']}, held out {result['best_return_holdout_seed']} against "
+          f"{result['schedule_return_holdout_seed']}, beats_schedule {result['beats_schedule']}; "
+          f"wrote {out} {tag}", flush=True)
+    if not ok:
+        fail("learn2: tests/test_sac_learning.py's asserts")
 
 
 def repeat_phases(envs, seconds, bw, flops, tag) -> int:
@@ -3109,14 +3297,28 @@ def main() -> int:
         seconds = float(sys.argv[sys.argv.index("--repeat") + 1])
         return repeat_phases(envs, seconds, bw, flops, tag)
     if "--ranks" in sys.argv:
-        # Only phase 10, at `--ranks N` ranks for (a) and (b) over
-        # `--backend` (nccl: one rank per card).
+        # Only phase 10 at `--ranks N` ranks in (a) over `--backend` (nccl:
+        # one rank per card), and phase 11 (b), the scaling harness at 1, 2,
+        # ..., N ranks.
         n = int(sys.argv[sys.argv.index("--ranks") + 1])
         backend = sys.argv[sys.argv.index("--backend") + 1] if "--backend" in sys.argv else "gloo"
         if backend == "nccl" and n > torch.cuda.device_count():
             fail(f"{n} NCCL ranks need {n} cards; {torch.cuda.device_count()} present")
         print(f"phase 10: the distributed path at {n} ranks over {backend}", flush=True)
-        distributed_phase(envs, tag, ranks=n, rollout_ranks=n, backend=backend)
+        distributed_phase(envs, tag, ranks=n, backend=backend)
+        counts = [1 << i for i in range(n.bit_length()) if 1 << i < n] + [n]
+        print(f"phase 11: the scaling harness at {counts} ranks over {backend}", flush=True)
+        scripts_phase(tag, rank_counts=counts, backend=backend, only="b")
+        return 0
+    if "--learn" in sys.argv:
+        # Only the learning runs: `--learn [TRAIN_STEPS] [--out PATH]`.
+        rest = sys.argv[sys.argv.index("--learn") + 1:]
+        steps = int(rest[0]) if rest and rest[0].isdigit() else 12_000
+        out = (rest[rest.index("--out") + 1] if "--out" in rest
+               else os.path.join(REPO, "artifacts", "sac_sb1_12zone_torch_curve.json"))
+        print(f"learn: the two-zone recipe, then the 12-zone curve to {steps} train steps",
+              flush=True)
+        learn_phase(steps, out, tag)
         return 0
     max_err = dict.fromkeys(KERNELS, 0.0)
     check_phase(envs, max_err)
@@ -3157,6 +3359,11 @@ def main() -> int:
         launches[kname] += n
 
     # ---- Phase 11 --------------------------------------------------------
+    print("phase 11: the scripts", flush=True)
+    for kname, n in scripts_phase(tag).items():
+        launches[kname] += n
+
+    # ---- Phase 12 --------------------------------------------------------
     rows = {"fdm_cheby": "12zone", "fdm_jacobi": "12zone",
             "fdm_cheby_block": "12zone stack", "fdm_jacobi_block": "12zone stack"}
     kernels = []

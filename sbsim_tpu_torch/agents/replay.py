@@ -79,8 +79,14 @@ def add_batch(state: ReplayState, batch: Transition) -> ReplayState:
 
 def sample(state: ReplayState, key: torch.Tensor, batch_size: int) -> Transition:
     """Uniform sampling over the filled prefix."""
-    idx = rng_lib.randint(key, (batch_size,), 0, torch.clamp(state.size, min=1))
-    return state.data.map(lambda buf: buf[idx.to(torch.int64)])
+    return sample_at(state, rng_lib.randint(key, (batch_size,), 0,
+                                            torch.clamp(state.size, min=1)))
+
+
+def sample_at(state: ReplayState, idx: torch.Tensor) -> Transition:
+    """Gathers the given ring slots."""
+    idx = idx.to(torch.int64)
+    return state.data.map(lambda buf: buf[idx])
 
 
 # ---------------------------------------------------------------------------

@@ -101,6 +101,9 @@ class ShardHooks:
     reset_keys: k_reset -> the per-env reset keys of this rank's rows
     sample: (replay, k_sample) -> the Transition batch of this rank's rows
     reduce: metric reduction (identity, or the mean over the ranks)
+    gather: this rank's Transition rows -> every rank's, in rank order (the
+        flat ring's insert: the ring is replicated and holds all n_envs
+        rows of each step, as the JAX package's GSPMD ring does)
     update_kwargs: extra keyword arguments of learner.update (group,
         noise_block)
     """
@@ -109,6 +112,7 @@ class ShardHooks:
     reset_keys: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
     sample: Optional[Callable[..., Transition]] = None
     reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    gather: Optional[Callable[[Transition], Transition]] = None
     update_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def reduce_metric(self, x: torch.Tensor) -> torch.Tensor:
@@ -230,6 +234,8 @@ class SACTrainer:
         if isinstance(state.replay, ShardedReplayState):
             replay = replay_lib.add_batch_sharded(state.replay, batch)
         else:
+            if hooks.gather is not None:
+                batch = hooks.gather(batch)
             replay = replay_lib.add_batch(state.replay, batch)
         env_states, obs = self._maybe_reset(env_states, out.observation, out.done, k_reset,
                                             hooks)

@@ -6,7 +6,9 @@ batch over a 1-D device mesh and runs one program over it (shard_map, with
 torch.distributed process group (distributed/runtime.py): each rank holds
 a contiguous block of the env rows, steps them through the kernels on its
 own device, inserts into and samples from its own per-env replay
-sub-rings, and mean-reduces the SAC gradients with the other ranks before
+sub-rings (or, under the flat layout, gathers every rank's transitions
+into a replicated ring and samples its block of the global batch from it),
+and mean-reduces the SAC gradients with the other ranks before
 the replicated optimizer update. The learner networks are small MLPs, so
 every rank keeps and updates a full copy; the FDM grids and replay bytes
 partition. Per-env physics has no cross-env dependency, and every random
@@ -197,24 +199,38 @@ def _rows(trainer: SACTrainer, mesh: Mesh) -> Tuple[int, slice]:
 
 
 def _collect_hooks(trainer: SACTrainer, mesh: Mesh) -> ShardHooks:
+    """The reset keys drawn at the global shape, this rank's rows taken; the
+    reward mean reduced; under the flat layout every rank's transition rows
+    gathered into the replicated ring."""
     n_envs = trainer.config.n_envs
     _, rows = _rows(trainer, mesh)
+    gather = None
+    if trainer.config.replay_layout == "flat":
+        gather = lambda batch: batch.map(lambda x: runtime.all_gather_rows(x, mesh.group))
     return ShardHooks(reset_keys=lambda k: rng_lib.split(k, n_envs)[rows],
-                      reduce=_pmean(mesh))
+                      reduce=_pmean(mesh), gather=gather)
 
 
 def _train_hooks(trainer: SACTrainer, mesh: Mesh) -> ShardHooks:
     """The rank's hooks of the train step: the action noise, reset keys and
     replay slots drawn at the global shape, this rank's rows taken; the
-    metrics and the learner's gradients mean-reduced."""
+    metrics and the learner's gradients mean-reduced. The per_env layout
+    draws batch_size // n_envs slots of each env's sub-ring (this rank's
+    envs); the flat layout batch_size slots of the replicated ring (this
+    rank's block of them)."""
     cfg = trainer.config
-    n_local, rows = _rows(trainer, mesh)
-    if cfg.batch_size % cfg.n_envs != 0:
+    _, rows = _rows(trainer, mesh)
+    per_env = cfg.replay_layout == "per_env"
+    if per_env and cfg.batch_size % cfg.n_envs != 0:
         raise ValueError(
             f"batch_size={cfg.batch_size} must be a multiple of n_envs={cfg.n_envs}"
         )
-    k_per_env = cfg.batch_size // cfg.n_envs
-    local_batch = n_local * k_per_env
+    if cfg.batch_size % mesh.size != 0:
+        raise ValueError(
+            f"batch_size={cfg.batch_size} must be a multiple of the mesh size {mesh.size}"
+        )
+    local_batch = cfg.batch_size // mesh.size
+    block = slice(mesh.rank * local_batch, (mesh.rank + 1) * local_batch)
     act_dim = trainer.env.n_actions
     learner = trainer.learner
 
@@ -226,16 +242,19 @@ def _train_hooks(trainer: SACTrainer, mesh: Mesh) -> ShardHooks:
         return actions
 
     def sample(replay, k_sample):
-        slots = rng_lib.randint(k_sample, (cfg.n_envs, k_per_env), 0,
-                                torch.clamp(replay.size, min=1))
-        return replay_lib.sample_sharded_at(replay, slots[rows])
+        high = torch.clamp(replay.size, min=1)
+        if per_env:
+            slots = rng_lib.randint(k_sample, (cfg.n_envs, cfg.batch_size // cfg.n_envs), 0,
+                                    high)
+            return replay_lib.sample_sharded_at(replay, slots[rows])
+        return replay_lib.sample_at(replay, rng_lib.randint(k_sample, (cfg.batch_size,), 0,
+                                                            high)[block])
 
     return dataclasses.replace(
         _collect_hooks(trainer, mesh),
         policy=policy,
         sample=sample,
-        update_kwargs=dict(group=mesh.group,
-                           noise_block=(mesh.rank * local_batch, cfg.batch_size)),
+        update_kwargs=dict(group=mesh.group, noise_block=(block.start, cfg.batch_size)),
     )
 
 
@@ -256,20 +275,17 @@ def make_shardmapped_train_step(
     process computes on the whole batch, up to the order of the sums.
 
     `replay_template` is the TrainState (or its replay) whose ring layout
-    the step takes: the per_env layout. n_envs must be a multiple of the
-    mesh size and batch_size a multiple of n_envs. Returns fn: (this rank's
+    the step takes: the per_env layout, as the JAX package's
+    `_train_state_specs` requires. n_envs must be a multiple of the mesh
+    size and batch_size a multiple of n_envs. Returns fn: (this rank's
     TrainState, as shard_train_state gives it) -> (TrainState, metrics);
     the metrics are the same on every rank.
     """
     if hasattr(replay_template, "replay"):
         replay_template = replay_template.replay
-    step = _train_step(trainer.with_solver(solver), mesh)
-    _require_per_env(replay_template)
-    return step
-
-
-def _train_step(trainer: SACTrainer, mesh: Mesh) -> StepFn:
     hooks = _train_hooks(trainer, mesh)
+    _require_per_env(replay_template)
+    trainer = trainer.with_solver(solver)
 
     def step(state: TrainState):
         _require_per_env(state.replay)
@@ -279,16 +295,25 @@ def _train_step(trainer: SACTrainer, mesh: Mesh) -> StepFn:
 
 
 def make_distributed_train_step(trainer: SACTrainer, mesh: Mesh) -> StepFn:
-    """The trainer's full step on the mesh. torch has no GSPMD partitioner,
-    so this is the per-rank program of make_shardmapped_train_step, with
-    the trainer's own solver: the kernels run per rank, and nothing is
-    rerouted (the JAX package's `_gspmd_safe_trainer` has no counterpart)."""
-    return _train_step(trainer, mesh)
+    """The trainer's full step on the mesh, either replay layout. torch has
+    no GSPMD partitioner, so this is the per-rank program of
+    make_shardmapped_train_step, with the trainer's own solver: the kernels
+    run per rank, and nothing is rerouted (the JAX package's
+    `_gspmd_safe_trainer` has no counterpart). The flat ring is replicated:
+    each collect step gathers every rank's transitions into it, and each
+    rank samples its block of the global batch. A mesh without a group runs
+    the plain `train_step`."""
+    if mesh.group is None:
+        return trainer.train_step
+    hooks = _train_hooks(trainer, mesh)
+    return lambda state: trainer.train_step(state, hooks)
 
 
 def make_distributed_collect_step(trainer: SACTrainer, mesh: Mesh, action_fn) -> StepFn:
     """One collect step on each rank's rows: the reset keys drawn at the
-    global shape, the reward mean reduced.
+    global shape, the reward mean reduced, and under the flat layout every
+    rank's transitions gathered into the replicated ring. A mesh without a
+    group runs the plain collect step.
 
     `action_fn` is the collect step's policy, (obs, key) -> actions, or a
     per-step action table (numpy, as `seed_with_actions` takes: each env's
@@ -297,7 +322,7 @@ def make_distributed_collect_step(trainer: SACTrainer, mesh: Mesh, action_fn) ->
     draw at the global shape and take the rank's rows, as the train step's
     policy hook does; the package passes nothing else.
     """
-    hooks = _collect_hooks(trainer, mesh)
+    hooks = _collect_hooks(trainer, mesh) if mesh.group is not None else ShardHooks()
     if not callable(action_fn):
         return trainer.seed_with_actions(None, action_fn, hooks)
     return lambda state: trainer.collect_step(state, action_fn, hooks)

@@ -3,7 +3,9 @@
 Run on a machine with an NVIDIA Hopper GPU and nvcc, without the JAX test
 configuration:
 
-    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+    python -m pytest --noconftest -m "cuda and not slow" tests/test_torch_cuda.py -q
+
+(`-m "cuda and slow"` runs the two-zone SAC learning recipe, ~10 min.)
 
 Each kernel must equal its plain PyTorch version bitwise (fields,
 iteration counts, converged flags, and the zone/grid sums of the
@@ -511,3 +513,32 @@ def test_parity12_through_k2_within_the_drift_budget(env):
     assert fdm_cuda.launch_counts["fdm_jacobi"] == 24
     report = tracker.finish(allow_crossings=False)
     assert report.max_drift < exact_host.DRIFT_BUDGET
+
+
+@pytest.mark.slow
+def test_sac_improves_with_seeded_replay_on_the_card(env):
+    """tests/test_sac_learning.py's two-zone recipe and its three asserts,
+    the env step through K2 (chip_smoke.py --learn runs the same)."""
+    from sbsim_tpu_torch.agents import schedule_policy
+    from sbsim_tpu_torch.agents.train import SACTrainer, TrainConfig
+
+    two_zone = building_env.BuildingEnv(presets.two_zone_test_config(num_days_in_episode=1))
+    trainer = SACTrainer(two_zone, TrainConfig(n_envs=8, replay_capacity=20_000,
+                                               batch_size=128, updates_per_env_step=2,
+                                               seed_steps=0))
+    state = trainer.init(rng.PRNGKey(0))
+    seed = trainer.seed_with_actions(state, schedule_policy.build_schedule_actions(two_zone))
+    for _ in range(100):
+        state, _ = seed(state)
+    returns = []
+    fdm_cuda.reset_launch_counts()
+    for i in range(3000):
+        state, metrics = trainer.train_step(state)
+        if (i + 1) % 1000 == 0:
+            returns.append(float(trainer.evaluate(state.sac, rng.PRNGKey(7), n_steps=48,
+                                                  n_envs=2)))
+    assert fdm_cuda.launch_counts["fdm_jacobi"] == 3000 + 3 * 48
+    assert np.isfinite(returns).all()
+    assert returns[-1] > returns[0] - 0.05, returns
+    assert float(metrics["critic_loss"]) < 1.0
+    assert float(metrics["alpha"]) < 0.9

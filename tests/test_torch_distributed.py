@@ -25,6 +25,13 @@ train steps.
   tests/test_torch_env.py). The rollout likewise.
 * Checkpoints: 2 ranks' checkpoint restores bitwise in one process and in
   2 ranks, a 1-process checkpoint restores in 2 ranks, training resumes.
+* The flat replay ring (FLAT: two_zone_test_config, n_envs 4, replay 64,
+  batch 8, seed_steps 0, both sides on xla_jacobi), from the JAX init of
+  PRNGKey(7): after SEED_STEPS schedule-table collect steps every one of 2
+  ranks holds the one-process ring bitwise (size 12); TRAIN_STEPS
+  make_distributed_train_step steps within the tolerances above of one
+  process and of the JAX package's make_distributed_train_step on a
+  2-device CPU mesh.
 """
 
 import dataclasses
@@ -53,6 +60,8 @@ TIMEOUT = 240.0  # seconds, a whole job; the collectives' deadline too
 WORLDS = (2, 4)
 # tests/test_distributed.py's tolerances; temperatures against JAX 2e-4 K.
 REWARD_ATOL, TEMP_ATOL, PARAM_ATOL, ALPHA_ATOL, JAX_TEMP_ATOL = 1e-5, 1e-4, 1e-5, 1e-6, 2e-4
+FLAT = dict(n_envs=4, replay_capacity=64, batch_size=8, seed_steps=0, replay_layout="flat",
+            env_solver="xla_jacobi")
 TRAIN_SAC_ARGS = ["--small", "--cpu", "--n_envs", "4", "--batch_size", "8",
                   "--replay_capacity", "64", "--seed_episodes_steps", "8", "--train_steps",
                   "3", "--eval_every", "2", "--eval_steps", "2"]
@@ -157,9 +166,29 @@ def _rank_job(rank, world, out, init):
 
     if world == 2:
         res.update(_solver_and_entry(mesh, out))
+        _flat_ring(mesh, out, init)
     with open(f"{out}/rank{rank}.json", "w") as f:
         json.dump(res, f)
     runtime.shutdown()
+
+
+def _flat_ring(mesh, out, init):
+    """The flat ring on the mesh from the JAX init: each rank's own ring
+    after the seeding, the gathered state after make_distributed_train_step."""
+    trainer = _trainer(**FLAT)
+    template = mesh_lib.shard_train_state(trainer.init(rng.PRNGKey(99)), mesh)
+    state = TrainCheckpointer(f"{init}/flat", trainer, mesh=mesh).restore(template, 0)
+    seed = mesh_lib.make_distributed_collect_step(
+        trainer, mesh, schedule_policy.build_schedule_actions(trainer.env))
+    for _ in range(SEED_STEPS):
+        state, _ = seed(state)
+    _save(f"{out}/flat_ring{mesh.rank}.npz", _state_tree(state, trainer)["replay"])
+    step = mesh_lib.make_distributed_train_step(trainer, mesh)
+    for _ in range(TRAIN_STEPS):
+        state, _ = step(state)
+    whole = _state_tree(mesh_lib.gather_train_state(state, mesh), trainer)
+    if mesh.rank == 0:
+        _save(f"{out}/flat_trained.npz", whole)
 
 
 def _solver_and_entry(mesh, out):
@@ -200,6 +229,55 @@ def _jax_init(init):
     port = _trainer()
     TrainCheckpointer(init, port).save(0, convert.train_state_from_numpy(_jax_tree(state), port))
     return trainer, state
+
+
+def _jax_flat_init(init):
+    """The JAX flat-ring trainer and its init from PRNGKey(KEY), saved as the
+    ranks' 1-process checkpoint."""
+    import jax
+
+    from sbsim_tpu.agents.train import SACTrainer, TrainConfig
+    from sbsim_tpu.envs import presets as jpresets
+    from sbsim_tpu.envs.building_env import BuildingEnv
+
+    trainer = SACTrainer(BuildingEnv(jpresets.two_zone_test_config()),
+                         TrainConfig(**{**CFG, **FLAT}))
+    state = jax.jit(trainer.init)(jax.random.PRNGKey(KEY))
+    port = _trainer(**FLAT)
+    TrainCheckpointer(f"{init}/flat", port).save(
+        0, convert.train_state_from_numpy(_jax_tree(state), port))
+    return trainer, state
+
+
+def _jax_flat_runs(trainer, state):
+    """Schedule-table seeding, then make_distributed_train_step on a
+    2-device CPU mesh (GSPMD)."""
+    import jax
+
+    from sbsim_tpu.agents import schedule_policy as jsched
+    from sbsim_tpu.distributed import mesh as jmesh
+
+    seed = jax.jit(trainer.seed_with_actions(state, jsched.build_schedule_actions(trainer.env)))
+    for _ in range(SEED_STEPS):
+        state, _ = seed(state)
+    mesh = jmesh.make_mesh(np.asarray(jax.devices()[:2]))
+    step = jmesh.make_distributed_train_step(trainer, mesh)
+    for _ in range(TRAIN_STEPS):
+        state, _ = step(state)
+    return _flat(_jax_tree(state))
+
+
+def _one_process_flat(init):
+    """The one-process port of the flat ring from the same init."""
+    trainer = _trainer(**FLAT)
+    state = TrainCheckpointer(f"{init}/flat", trainer).restore(trainer.init(rng.PRNGKey(99)), 0)
+    seed = trainer.seed_with_actions(state, schedule_policy.build_schedule_actions(trainer.env))
+    for _ in range(SEED_STEPS):
+        state, _ = seed(state)
+    ring = _flat(_state_tree(state, trainer)["replay"])
+    for _ in range(TRAIN_STEPS):
+        state, _ = trainer.train_step(state)
+    return {"ring": ring, "trained": _flat(_state_tree(state, trainer))}
 
 
 def _jax_tree(state):
@@ -270,6 +348,7 @@ def runs(tmp_path_factory):
     init = str(tmp_path_factory.mktemp("init"))
     outs = {w: tmp_path_factory.mktemp(f"world{w}") for w in WORLDS}
     jax_trainer, jax_state = _jax_init(init)
+    jax_flat = _jax_flat_init(init)
     errors = {}
 
     def job(w):
@@ -283,7 +362,9 @@ def runs(tmp_path_factory):
         t.start()
     try:
         ref = _one_process(init)
+        ref["flat"] = _one_process_flat(init)
         jax_ref = _jax_runs(jax_trainer, jax_state)
+        jax_ref["flat"] = _jax_flat_runs(*jax_flat)
     finally:
         for t in threads:
             t.join(TIMEOUT + 30)
@@ -481,6 +562,45 @@ def test_distributed_train_step_keeps_its_solver(runs):
     rerouted, the pallas_env step runs K2 (its plain version here) once
     per step on each rank."""
     assert [r["pallas_env_calls"] for r in runs["ranks"][2]] == [1, 1]
+
+
+def test_flat_ring_on_two_ranks_is_the_one_process_ring(runs):
+    """Every rank's replicated flat ring holds all n_envs rows of each
+    collect step, bitwise the one-process ring."""
+    want = runs["ref"]["flat"]["ring"]
+    assert int(want["size"]) == SEED_STEPS * FLAT["n_envs"] == 12
+    for r in range(2):
+        assert _equal(_load(runs["outs"][2] / f"flat_ring{r}.npz"), want) == [], r
+
+
+@pytest.mark.parametrize("against", ["one process", "JAX"])
+def test_flat_ring_distributed_train_step(runs, against):
+    """make_distributed_train_step on the flat ring: 2 ranks within
+    tests/test_distributed.py's tolerances of one process, and of the JAX
+    package's GSPMD step on a 2-device mesh (temperatures at 2e-4 K)."""
+    got = _load(runs["outs"][2] / "flat_trained.npz")
+    want = runs["ref"]["flat"]["trained"] if against == "one process" else runs["jax"]["flat"]
+    _close(got, want, f"flat ring against {against}",
+           TEMP_ATOL if against == "one process" else JAX_TEMP_ATOL)
+    assert int(got["sac/step"]) == TRAIN_STEPS
+    assert int(got["replay/size"]) == (SEED_STEPS + TRAIN_STEPS) * FLAT["n_envs"]
+
+
+def test_groupless_mesh_runs_the_plain_steps():
+    """A mesh without a group runs trainer.train_step and the plain collect
+    step, the flat ring included."""
+    trainer = _trainer(**FLAT)
+    mesh = mesh_lib.make_mesh()
+    assert mesh_lib.make_distributed_train_step(trainer, mesh) == trainer.train_step
+    a = trainer.init(rng.PRNGKey(KEY))
+    b = mesh_lib.shard_train_state(trainer.init(rng.PRNGKey(KEY)), mesh)
+    table = schedule_policy.build_schedule_actions(trainer.env)
+    seed_a = trainer.seed_with_actions(a, table)
+    seed_b = mesh_lib.make_distributed_collect_step(trainer, mesh, table)
+    for _ in range(2):
+        a, _ = seed_a(a)
+        b, _ = seed_b(b)
+    assert _equal(_flat(_state_tree(a, trainer)), _flat(_state_tree(b, trainer))) == []
 
 
 # ---------------------------------------------------------------------------

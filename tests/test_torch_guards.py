@@ -37,11 +37,17 @@ missing |= {"sbsim_tpu_torch.io.metrics", "sbsim_tpu_torch.io.checkpoint",
             "sbsim_tpu_torch.io.plots", "sbsim_tpu_torch.examples.episode_dashboard",
             "sbsim_tpu_torch.native", "sbsim_tpu_torch.physics.reference_impl",
             "sbsim_tpu_torch.envs.exact_host", "sbsim_tpu_torch.envs.gin_compat",
-            "sbsim_tpu_torch.distributed.runtime", "sbsim_tpu_torch.distributed.mesh"} - set(names)
+            "sbsim_tpu_torch.distributed.runtime", "sbsim_tpu_torch.distributed.mesh",
+            "sbsim_tpu_torch.benchmarks.conv_rounds_sweep",
+            "sbsim_tpu_torch.benchmarks.conv_schedule_search",
+            "sbsim_tpu_torch.benchmarks.fullscale_parity_check",
+            "sbsim_tpu_torch.benchmarks.scaling",
+            "sbsim_tpu_torch.benchmarks.sac_sb1_train"} - set(names)
 import chip_smoke
 chip_smoke.make_env, chip_smoke.main, chip_smoke.training_phase, chip_smoke.entry_train_sac
 chip_smoke.host_phase, chip_smoke.offline_phase, chip_smoke.validation_phase
-chip_smoke.distributed_phase, chip_smoke.rank_main
+chip_smoke.distributed_phase, chip_smoke.rank_main, chip_smoke.scripts_phase
+chip_smoke.learn_phase
 # protobuf is google.protobuf (its runtime google._upb); the bare `google`
 # namespace may be set up by a .pth file at start-up.
 bad = sorted(k for k in sys.modules
@@ -114,6 +120,20 @@ def test_episode_dashboard_without_device_needs_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         episode_dashboard.main(["--steps", "1", "--render-every", "0", "--out", str(tmp_path)])
+
+
+@pytest.mark.parametrize("script", ["conv_rounds_sweep", "conv_schedule_search",
+                                    "fullscale_parity_check", "scaling", "sac_sb1_train"])
+def test_scripts_without_cpu_need_cuda(monkeypatch, tmp_path, script):
+    """Each script of sbsim_tpu_torch/benchmarks runs on the card unless
+    --cpu is given, and stops before any work without one."""
+    import importlib
+
+    module = importlib.import_module(f"sbsim_tpu_torch.benchmarks.{script}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        module.main([])
 
 
 def test_agents_without_device_need_cuda(monkeypatch, tmp_path):

@@ -12,6 +12,14 @@ does not. This is the evidence behind exact_host.ParityTracker's recovery
 window on that day (tests/test_torch_exact_host.py, chip_smoke.py phase 9
 (a) and (b)); the jitted JAX package passes the strict gate of
 tests/test_device_vs_host.py only through XLA's FMA contraction.
+
+The 126-room day (the transposed plan of
+sbsim_tpu_torch/benchmarks/fullscale_parity_check.py) goes the same way:
+the port is the JAX package run op by op bitwise through step 143, where
+both switch zone 28 to heating while the host does not
+(chip_smoke.PARITY126_WITNESS); most zones then sit at the heating
+setpoint and the two trajectories part. The jitted JAX package holds that
+day (artifacts/FULLSCALE_PARITY_r05_transposed.json).
 """
 
 import dataclasses
@@ -21,9 +29,12 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import chip_smoke
+from sbsim_tpu.core import geometry as jgeometry
 from sbsim_tpu.envs import building_env as jbe
 from sbsim_tpu.envs import presets as jpresets
 from sbsim_tpu_torch import rng
+from sbsim_tpu_torch.benchmarks import fullscale_parity_check as fpc
 from sbsim_tpu_torch.envs import building_env as tbe
 from sbsim_tpu_torch.envs import exact_host as teh
 from sbsim_tpu_torch.envs import presets as tpresets
@@ -68,3 +79,35 @@ def test_sb1_crossing_is_the_jax_package_s_own_op_by_op():
     assert modes[1:] == host.mode[1:]
     ((step, zones, margin),) = tracker.report.crossings
     assert (step, zones) == (CROSSING_STEP, (0,)) and margin < 1e-2
+
+
+def test_126_room_crossing_is_the_jax_package_s_own_op_by_op():
+    cfg = jpresets.sb1_config(num_days_in_episode=1, convection_p=0.0, layout="auto",
+                              floor_plan=jgeometry.make_synthetic_office_plan(*fpc.PLAN[:2],
+                                                                              room_cvs=fpc.PLAN[2]))
+    jenv = jbe.BuildingEnv(dataclasses.replace(
+        cfg, occupancy=dataclasses.replace(cfg.occupancy, kind="step_function")))
+    tenv = tbe.BuildingEnv(fpc.parity_config("auto"), device="cpu")
+    host = teh.ExactHostSimulator(tenv)
+    tracker = teh.ParityTracker()
+    tstate, _ = tenv.reset(rng.PRNGKey(0)[None])
+    taction = torch.as_tensor(tenv.default_action(fpc.SETPOINTS))[None]
+    step, zones = chip_smoke.PARITY126_WITNESS
+    with jax.disable_jit():
+        jstate, _ = jenv.reset(jax.random.PRNGKey(0))
+        jaction = jnp.asarray(jenv.default_action(fpc.SETPOINTS))
+        for i in range(step + 1):
+            jstate, _ = jenv.step(jstate, jaction)
+            tstate, _ = tenv.step(tstate, taction)
+            host.step(fpc.SETPOINTS)
+            temp = tstate.temp[0].numpy()
+            np.testing.assert_array_equal(temp, np.asarray(jstate.temp), err_msg=f"step {i}")
+            modes = tstate.hvac.thermostat_mode[0].tolist()
+            assert modes == np.asarray(jstate.hvac.thermostat_mode).tolist(), i
+            if i < step:
+                assert modes == host.mode, i
+            tracker.check(i, temp, modes, tstate.hvac.zone_air_temp[0].tolist(), host)
+    assert [z for z, (a, b) in enumerate(zip(modes, host.mode)) if a != b] == list(zones)
+    assert all(modes[z] == MODE_HEAT for z in zones)
+    ((at, crossed, margin),) = tracker.report.crossings
+    assert (at, crossed) == (step, zones) and margin < 1e-2

@@ -36,14 +36,15 @@ from sbsim_tpu.envs import building_env as jbe
 from sbsim_tpu.envs import presets as jpresets
 from sbsim_tpu.physics import fdm_pallas
 from sbsim_tpu_torch import rng
+from sbsim_tpu_torch.benchmarks import conv_rounds_sweep as crs
 from sbsim_tpu_torch.envs import building_env as tbe
 from sbsim_tpu_torch.envs import exact_host as teh
 from sbsim_tpu_torch.envs import presets as tpresets
 
-SETPOINTS = chip_smoke.SETPOINTS
-STEPS = chip_smoke.SHUFFLE_STEPS  # 36, as tests/test_convection.py
-SEEDS = chip_smoke.SHUFFLE_SEEDS  # 100-103
-KEY = chip_smoke.SHUFFLE_KEY  # 42
+SETPOINTS = crs.SETPOINTS
+STEPS = crs.N_STEPS  # 36, as tests/test_convection.py
+SEEDS = tuple(100 + s for s in range(crs.SEEDS))  # 100-103, as crs.run_exact
+KEY = crs.SWAP_KEY  # 42
 B = len(SEEDS)
 FIELD_TOL = 1e-3  # K: K1's plain version against the JAX kernel after 36 steps
 
@@ -99,8 +100,9 @@ def test_distribution_matches_exact_shuffle(plan, solver):
     worst_ks, worst_dmean = _worst_stats(zone_ids, env.n_zones, swap, _exact(plan))
     assert worst_ks <= chip_smoke.KS_LIMIT, worst_ks
     assert worst_dmean <= chip_smoke.DMEAN_LIMIT, worst_dmean
-    # chip_smoke.py computes the same statistics without scipy.
-    assert chip_smoke.zone_stats(zone_ids, env.n_zones, swap, _exact(plan)) == pytest.approx(
+    # The scripts (and chip_smoke.py's shuffle12) compute the same
+    # statistics without scipy.
+    assert crs.worst_stats(env, swap, _exact(plan)) == pytest.approx(
         (worst_ks, worst_dmean), abs=1e-12)
 
 
