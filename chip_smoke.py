@@ -9,9 +9,9 @@
         # phases 0-1, then phases 5-7 round after round for SECONDS,
         # counting failed parts and empty profiler windows
     python3 chip_smoke.py --ranks N [--backend nccl]
-        # phases 0-1, phase 10 with N ranks in (a), and phase 11 (b) at 1,
-        # 2, ..., N ranks; nccl puts rank r on card r (N cards), gloo (the
-        # default) all on one card
+        # phases 0-1, phase 10 with N ranks in (a), phase 11 (b) at 1, 2,
+        # ..., N ranks and phase 12 (e) at N ranks; nccl puts rank r on
+        # card r (N cards), gloo (the default) all on one card
     python3 chip_smoke.py --learn [TRAIN_STEPS] [--out PATH]
         # phases 0-1, tests/test_sac_learning.py's two-zone recipe with its
         # asserts, and the 12-zone sac_sb1_train curve to TRAIN_STEPS
@@ -208,7 +208,31 @@ Phases (each prints its own lines; any failure exits non-zero):
      of the schedule cache, which presets.sb1_config reads back (the
      packaged cache untouched). Any failed gate exits non-zero. Launches of
      (a)-(e) join the kernels line.
-  12. A {"kernels": [...]} line, then the last line
+  12. The study scripts (sbsim_tpu_torch/benchmarks), each through its
+     functions, the launch counts set to 0 just before each part and read
+     just after: (a) null126, conv_fullscale_null on the 126-room plan (9 x
+     14 rooms, 12 CVs a side): two swap draws at B=4 for 36 steps through K2
+     (reset keys from PRNGKey(42) and PRNGKey(1042)), each bitwise its draw
+     through the plain versions, and two exact-host runs (seeds 100-103,
+     200-203); exact_vs_exact equal to 4 digits to the JAX script's row
+     (NULL_EXACT_WITNESS), the three rows printed beside
+     artifacts/CONV_FULLSCALE_NULL_r05.json's; (b) designed12,
+     conv_designed_sweep's six rows (the seeded 10-round control and the
+     five designed schedules) and (c) schedules12, conv_schedule_sweep at
+     16:5 and 10:101: each swap run through K2 bitwise the plain versions',
+     each row within WITNESS_KS_TOL and WITNESS_DMEAN_TOL of the JAX
+     script's (DESIGNED_WITNESS, SCHEDULE_WITNESS); (d) sac_smoke (two
+     zones) and sac_sb1_smoke (sb1) on the JAX recipes cut to 30 seeding
+     steps, 100 train steps and one evaluation, through K2: every number
+     finite, and each smoke's schedule-table rollout through K2 bitwise its
+     rollout through the plain versions (states and rewards); (e) the
+     scaling decomposition, scaling_decomp at phase 11 (b)'s configuration
+     (12 zones pallas_cheby, 1024 envs per rank, 2 gloo ranks on the one
+     card; with --ranks N --backend nccl, N cards): five rows of spawned
+     ranks, warm, each bitwise one process, K1 launches per rank 6 x 8, the
+     rates and the four taxes. Any failed gate exits non-zero. Launches of
+     (a)-(e) join the kernels line.
+  13. A {"kernels": [...]} line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 It refuses to run without a CUDA device and never falls back to the CPU.
@@ -3152,6 +3176,275 @@ def scripts_phase(tag, rank_counts=(1, 2), backend="gloo", only=None) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the study scripts (sbsim_tpu_torch/benchmarks)
+# ---------------------------------------------------------------------------
+
+# (a) The exact_vs_exact row of benchmarks/conv_fullscale_null.py at 126
+# rooms (worst zone KS, worst zone-mean difference K), as the JAX script
+# prints it (4 digits) on the CPU. The exact host is host numpy, bitwise the
+# JAX package's (tests/test_torch_scripts.py), so the port's row equals it.
+NULL_ARTIFACT = "artifacts/CONV_FULLSCALE_NULL_r05.json"
+NULL_EXACT_WITNESS = (0.0729, 0.023)
+# (b), (c): the rows of benchmarks/conv_designed_sweep.py and
+# conv_schedule_sweep.py (CONV_SWEEP_VARIANTS=16:5,10:101) on the CPU, the
+# swap path through the XLA Jacobi solve (equal to artifacts/CONV_DESIGNED_r04.json
+# and CONV_SCHEDULES_r04.json); the port's through K2 must lie within
+# WITNESS_KS_TOL and WITNESS_DMEAN_TOL of each.
+DESIGNED_WITNESS = {
+    "control_seed101_r10": (0.0957, 0.0508), "d8_balanced_diag": (0.3036, 0.1418),
+    "d8_long_axes": (0.4809, 0.2302), "d8_winner_motif": (0.2462, 0.11),
+    "d8_max_disp": (0.3099, 0.1378), "d10_winner_motif": (0.1148, 0.0455),
+}
+SCHEDULE_VARIANTS = "16:5,10:101"
+SCHEDULE_WITNESS = {(16, 5): (0.1339, 0.0604), (10, 101): (0.0957, 0.0508)}
+# (d) the SAC smokes cut to a few dozen seeding steps, 100 train steps and
+# one evaluation; the sb1 smoke's schedule rollout held bitwise over
+# SB1_BASELINE_STEPS steps.
+SMOKE_ARGS = ["--seed-steps", "30", "--train-steps", "100", "--eval-every", "100"]
+SB1_BASELINE_STEPS = 48
+# (e) the scaling decomposition at phase 11 (b)'s configuration.
+DECOMP_ARGS = ["--batch-per-device", "1024", "--steps", "8", "--repeats", "5",
+               "--solver", "pallas_cheby"]
+
+
+class _recorded_swaps:
+    """Within the block, every conv_rounds_sweep.run_swap call is recorded
+    as (args, kwargs, fields); `check` then runs each again under the plain
+    versions and fails unless the fields are bitwise equal."""
+
+    def __enter__(self):
+        from sbsim_tpu_torch.benchmarks import conv_rounds_sweep as crs
+
+        self.calls, self.saved = [], crs.run_swap
+
+        def run_swap(*args, **kwargs):
+            fields, env = self.saved(*args, **kwargs)
+            self.calls.append((args, kwargs, fields))
+            return fields, env
+
+        crs.run_swap = run_swap
+        return self
+
+    def __exit__(self, *exc):
+        from sbsim_tpu_torch.benchmarks import conv_rounds_sweep as crs
+
+        crs.run_swap = self.saved
+
+    def check(self, label) -> None:
+        import numpy as np
+
+        for args, kwargs, fields in self.calls:
+            with plain_kernels():
+                want, _ = self.saved(*args, **kwargs)
+            if not np.array_equal(fields, want):
+                fail(f"{label}: a swap draw through K2 differs from the plain versions' by "
+                     f"{float(np.abs(fields - want).max())} K")
+
+
+def _near(got, want) -> bool:
+    return (abs(got[0] - want[0]) <= WITNESS_KS_TOL
+            and abs(got[1] - want[1]) <= WITNESS_DMEAN_TOL)
+
+
+def study_null(tmp, tag) -> dict:
+    """(a): conv_fullscale_null at the full 126-room plan, both swap draws
+    through K2 bitwise the plain versions', exact_vs_exact the JAX
+    script's row."""
+    from sbsim_tpu_torch.benchmarks import conv_fullscale_null as null
+    from sbsim_tpu_torch.benchmarks import conv_rounds_sweep as crs
+
+    t0 = time.time()
+    with _recorded_swaps() as swaps:
+        result, counts = _counted("null126", lambda: null.main(
+            ["--out", os.path.join(tmp, "null.json")]), {"fdm_jacobi": 2 * crs.N_STEPS})
+    seconds = time.time() - t0
+    swaps.check("null126")
+    ee = result["exact_vs_exact"]
+    got = (round(ee["worst_zone_ks"], 4), round(ee["worst_zone_dmean_K"], 4))
+    if len(swaps.calls) != 2 or got != NULL_EXACT_WITNESS:
+        fail(f"null126: {len(swaps.calls)} swap draws; exact_vs_exact {got}, the JAX "
+             f"script's {NULL_EXACT_WITNESS}")
+    with open(os.path.join(REPO, NULL_ARTIFACT)) as f:
+        jax_rows = json.load(f)
+    rows = "; ".join(
+        f"{k} KS {result[k]['worst_zone_ks']:.4f} dmean {result[k]['worst_zone_dmean_K']:.4f} K "
+        f"(r05: {jax_rows[k]['worst_zone_ks']:.4f}, {jax_rows[k]['worst_zone_dmean_K']:.4f})"
+        for k in ("exact_vs_exact", "swap_vs_swap", "swap_vs_exact_auto"))
+    print(f"  (a) null126 ({result['plan']}, {crs.SEEDS} envs x {crs.N_STEPS} steps, two swap "
+          f"draws through fdm_jacobi, launches {counts['fdm_jacobi']}, each bitwise the plain "
+          f"versions'; exact_vs_exact the JAX script's {NULL_EXACT_WITNESS}; {seconds:.1f} "
+          f"s): {rows} {tag}", flush=True)
+    return counts
+
+
+def study_sweep(tmp, tag, which) -> dict:
+    """(b) conv_designed_sweep, all six rows, or (c) conv_schedule_sweep at
+    SCHEDULE_VARIANTS: each swap run through K2 bitwise the plain
+    versions', each row within the witness tolerances of the JAX
+    script's."""
+    from sbsim_tpu_torch.benchmarks import conv_designed_sweep as cds
+    from sbsim_tpu_torch.benchmarks import conv_rounds_sweep as crs
+    from sbsim_tpu_torch.benchmarks import conv_schedule_sweep as css
+
+    out = os.path.join(tmp, f"{which}.json")
+    if which == "designed":
+        label, main = "(b) designed12", lambda: cds.main(["--out", out])
+        n_rows, witness = 1 + len(cds.DESIGNS), DESIGNED_WITNESS
+        key = lambda row: row["name"]
+    else:
+        label, main = "(c) schedules12", lambda: css.main(
+            ["--variants", SCHEDULE_VARIANTS, "--out", out])
+        n_rows, witness = len(css.parse_variants(SCHEDULE_VARIANTS)), SCHEDULE_WITNESS
+        key = lambda row: (row["rounds"], row["schedule_seed"])
+    t0 = time.time()
+    with _recorded_swaps() as swaps:
+        result, counts = _counted(label, main, {"fdm_jacobi": n_rows * crs.N_STEPS})
+    seconds = time.time() - t0
+    swaps.check(label)
+    parts = []
+    for row in result["rows"]:
+        got, want = (row["worst_zone_ks"], row["worst_zone_dmean_K"]), witness[key(row)]
+        if not _near(got, want):
+            fail(f"{label} {key(row)}: KS, dmean {got}, the JAX script's {want} (tolerances "
+                 f"{WITNESS_KS_TOL}, {WITNESS_DMEAN_TOL} K)")
+        parts.append(f"{key(row)} {got[0]:.4f} / {got[1]:.4f} K (JAX {want[0]:.4f} / "
+                     f"{want[1]:.4f})")
+    if len(result["rows"]) != n_rows:
+        fail(f"{label}: {len(result['rows'])} rows, want {n_rows}")
+    print(f"  {label} ({n_rows} rows through fdm_jacobi, launches {counts['fdm_jacobi']}, "
+          f"each bitwise the plain versions'; worst zone KS / zone-mean difference within "
+          f"{WITNESS_KS_TOL} / {WITNESS_DMEAN_TOL} K of the JAX script's; {seconds:.1f} s): "
+          f"{'; '.join(parts)} {tag}", flush=True)
+    return counts
+
+
+def _finite_numbers(tree) -> bool:
+    import math
+
+    if isinstance(tree, dict):
+        return all(_finite_numbers(v) for v in tree.values())
+    if isinstance(tree, list):
+        return all(_finite_numbers(v) for v in tree)
+    return not isinstance(tree, float) or math.isfinite(tree)
+
+
+def study_sac(tag) -> dict:
+    """(d): sac_smoke and sac_sb1_smoke on the cut recipe through K2, every
+    number finite; each smoke's schedule-table rollout through K2 bitwise
+    its rollout through the plain versions (states and rewards)."""
+    import torch
+    from sbsim_tpu_torch import convert, rng
+    from sbsim_tpu_torch.agents import schedule_policy
+    from sbsim_tpu_torch.benchmarks import sac_sb1_smoke, sac_sb1_train, sac_smoke
+    from sbsim_tpu_torch.envs import building_env, presets
+
+    total = dict.fromkeys(KERNELS, 0)
+    for module, cfg, steps, envs in (
+            (sac_smoke, presets.two_zone_test_config(num_days_in_episode=1),
+             sac_smoke.N_EVAL, 4),
+            (sac_sb1_smoke, presets.sb1_config(num_days_in_episode=1), SB1_BASELINE_STEPS,
+             2)):
+        name = module.__name__.rsplit(".", 1)[1]
+        args = module.parse_args(SMOKE_ARGS)
+        evals = args.train_steps // args.eval_every
+        want = args.seed_steps + args.train_steps + (
+            (3 + evals) * module.N_EVAL if module is sac_smoke else (1 + evals) * module.N_EVAL)
+        t0 = time.time()
+        result, counts = _counted(name, lambda: module.main(SMOKE_ARGS), {"fdm_jacobi": want})
+        seconds = time.time() - t0
+        if not _finite_numbers(result) or len(result["curve"]) != evals:
+            fail(f"{name}: {result}")
+        env = building_env.BuildingEnv(cfg, device=torch.device(DEVICE))
+        table = schedule_policy.build_schedule_actions(env)
+
+        def baseline(plain):
+            with plain_kernels() if plain else contextlib.nullcontext():
+                states, rewards = sac_sb1_train.schedule_rollout(env, table, rng.PRNGKey(123),
+                                                                 steps, envs)
+            return convert.env_state_to_numpy(states), rewards
+
+        (got, got_r), _ = _counted(f"{name} baseline", lambda: baseline(False),
+                                   {"fdm_jacobi": steps})
+        want_s, want_r = baseline(True)
+        _check_equal_trees(f"{name} schedule rollout", got, want_s)
+        if not torch.equal(got_r, want_r):
+            fail(f"{name}: the schedule rollout's rewards through K2 differ from the plain "
+                 "run's")
+        if module is sac_smoke and float(torch.mean(got_r.sum(dim=0))) != result[
+                "schedule_return"]:
+            fail(f"sac_smoke: schedule return {result['schedule_return']} is not its "
+                 "rollout's")
+        curve = [(c["step"], round(c["eval_return"], 4)) for c in result["curve"]]
+        print(f"  (d) {name} ({' '.join(SMOKE_ARGS)}, through fdm_jacobi, launches "
+              f"{counts['fdm_jacobi']}, {seconds:.1f} s): "
+              + ", ".join(f"{k} {round(v, 4)}" for k, v in result.items()
+                          if isinstance(v, float))
+              + f", curve {curve}; every number finite; the schedule table's {steps}-step "
+              f"rollout at {envs} envs through K2 bitwise the plain versions' (states and "
+              f"rewards) {tag}", flush=True)
+        total["fdm_jacobi"] += counts["fdm_jacobi"] + steps
+    return total
+
+
+def study_decomp(tmp, tag, ranks, backend) -> dict:
+    """(e): scaling_decomp at phase 11 (b)'s configuration over `ranks`
+    ranks: every row bitwise one process (the script exits non-zero
+    otherwise), K1 launches per rank (1 + repeats) x steps; the rates and
+    the four taxes."""
+    from sbsim_tpu_torch.benchmarks import scaling_decomp
+
+    argv = DECOMP_ARGS + ["--ranks", str(ranks), "--backend", backend,
+                          "--out", os.path.join(tmp, "decomp.json")]
+    args = scaling_decomp.parse_args(argv)
+    t0 = time.time()
+    try:
+        payload = scaling_decomp.main(argv)
+    except (RuntimeError, SystemExit) as exc:
+        fail(f"scaling decomposition: {exc}")
+    seconds = time.time() - t0
+    per_rank = (1 + args.repeats) * args.steps
+    launches = 0
+    for name, row in payload["rows"].items():
+        for r, counts in enumerate(row["launches"]):
+            if counts != {k: (per_rank if k == "fdm_cheby" else 0) for k in KERNELS}:
+                fail(f"scaling decomposition {name}: rank {r} launches {counts}")
+            launches += counts["fdm_cheby"]
+        print(f"  (e) {name}: {row['devices']} rank(s) x {row['batch'] // row['devices']} envs "
+              f"on {sorted(set(row['rank_devices']))}, slowest rank "
+              f"{[round(ms, 3) for ms in row['slowest_rank_ms']]} ms per {args.steps} steps -> "
+              f"best {row['env_steps_per_sec']:,.1f}, median "
+              f"{row['median_env_steps_per_sec']:,.1f} env-steps/s; rows bitwise one "
+              f"process's step_batched {tag}", flush=True)
+    print(f"  (e) scaling decomposition ({ranks} {backend} ranks, 12 zones pallas_cheby, "
+          f"{args.batch_per_device} envs per rank, {seconds:.1f} s with start-up): "
+          f"{json.dumps(payload['attribution'])} {tag}", flush=True)
+    return {"fdm_cheby": launches}
+
+
+def study_phase(tag, ranks=2, backend="gloo", only=None) -> dict:
+    """Phase 12: (a) the 126-room convection null, (b) the designed and (c)
+    the seeded schedule sweeps, (d) the two SAC smokes and (e) the scaling
+    decomposition, each through its script's functions; returns their
+    launches. `only` names the parts to run (default all)."""
+    import tempfile
+
+    t_start = time.time()
+    launches = dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        parts = {"a": lambda: study_null(tmp, tag),
+                 "b": lambda: study_sweep(tmp, tag, "designed"),
+                 "c": lambda: study_sweep(tmp, tag, "schedules"),
+                 "d": lambda: study_sac(tag),
+                 "e": lambda: study_decomp(tmp, tag, ranks, backend)}
+        for name, fn in parts.items():
+            if only is None or name in only:
+                for kname, n in fn().items():
+                    launches[kname] += n
+    print(f"  phase 12 in {time.time() - t_start:.1f} s {tag}", flush=True)
+    return launches
+
+
 # `chip_smoke.py --learn`: tests/test_sac_learning.py's two-zone recipe.
 LEARN_STEPS = 3000
 LEARN_SEED_STEPS = 100
@@ -3298,8 +3591,8 @@ def main() -> int:
         return repeat_phases(envs, seconds, bw, flops, tag)
     if "--ranks" in sys.argv:
         # Only phase 10 at `--ranks N` ranks in (a) over `--backend` (nccl:
-        # one rank per card), and phase 11 (b), the scaling harness at 1, 2,
-        # ..., N ranks.
+        # one rank per card), phase 11 (b), the scaling harness at 1, 2,
+        # ..., N ranks, and phase 12 (e), the decomposition at N ranks.
         n = int(sys.argv[sys.argv.index("--ranks") + 1])
         backend = sys.argv[sys.argv.index("--backend") + 1] if "--backend" in sys.argv else "gloo"
         if backend == "nccl" and n > torch.cuda.device_count():
@@ -3309,6 +3602,8 @@ def main() -> int:
         counts = [1 << i for i in range(n.bit_length()) if 1 << i < n] + [n]
         print(f"phase 11: the scaling harness at {counts} ranks over {backend}", flush=True)
         scripts_phase(tag, rank_counts=counts, backend=backend, only="b")
+        print(f"phase 12: the scaling decomposition at {n} ranks over {backend}", flush=True)
+        study_phase(tag, ranks=n, backend=backend, only="e")
         return 0
     if "--learn" in sys.argv:
         # Only the learning runs: `--learn [TRAIN_STEPS] [--out PATH]`.
@@ -3364,6 +3659,11 @@ def main() -> int:
         launches[kname] += n
 
     # ---- Phase 12 --------------------------------------------------------
+    print("phase 12: the study scripts", flush=True)
+    for kname, n in study_phase(tag).items():
+        launches[kname] += n
+
+    # ---- Phase 13 --------------------------------------------------------
     rows = {"fdm_cheby": "12zone", "fdm_jacobi": "12zone",
             "fdm_cheby_block": "12zone stack", "fdm_jacobi_block": "12zone stack"}
     kernels = []

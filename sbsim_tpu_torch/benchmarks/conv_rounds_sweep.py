@@ -43,26 +43,26 @@ SETPOINTS = {
 }
 
 
-def run_swap(cfg, device=None, solver: str = "pallas_env"):
-    """SEEDS envs (keys split from PRNGKey(SWAP_KEY)) stepped N_STEPS times
+def run_swap(cfg, device=None, solver: str = "pallas_env", key: int = SWAP_KEY):
+    """SEEDS envs (keys split from PRNGKey(key)) stepped N_STEPS times
     through `solver` at the SETPOINTS action; returns (their fields as a
     (SEEDS, H, W) numpy stack, the env)."""
     env = BuildingEnv(cfg, device=device)
     action = torch.as_tensor(env.default_action(SETPOINTS), device=env.device)
     action = action[None].expand(SEEDS, -1).contiguous()
-    states, _ = env.reset(rng.split(rng.PRNGKey(SWAP_KEY, device=env.device), SEEDS))
+    states, _ = env.reset(rng.split(rng.PRNGKey(key, device=env.device), SEEDS))
     for _ in range(N_STEPS):
         states, _ = env.step_batched(states, action, solver=solver)
     return states.temp.cpu().numpy(), env
 
 
-def run_exact(cfg, device=None) -> np.ndarray:
-    """The exact shuffle: one ExactHostSimulator per convection seed 100 +
-    s, N_STEPS steps each; their (SEEDS, H, W) float64 fields."""
+def run_exact(cfg, device=None, seed_base: int = 100) -> np.ndarray:
+    """The exact shuffle: one ExactHostSimulator per convection seed
+    seed_base + s, N_STEPS steps each; their (SEEDS, H, W) float64 fields."""
     out = []
     for s in range(SEEDS):
         c2 = dataclasses.replace(
-            cfg, convection=dataclasses.replace(cfg.convection, seed=100 + s))
+            cfg, convection=dataclasses.replace(cfg.convection, seed=seed_base + s))
         host = ExactHostSimulator(BuildingEnv(c2, device=device))
         for _ in range(N_STEPS):
             host.step(SETPOINTS)

@@ -99,10 +99,12 @@ def _rank_device(args, rank: int) -> torch.device:
     return torch.device("cuda", 0)
 
 
-def rank_main(rank: int, world: int, args, out: str) -> None:
+def rank_main(rank: int, world: int, args, out: str, make_rollout=None) -> None:
     """One rank of a row: joins the group (a FileStore under `out`), runs
     the warm-up and the timed calls on its rows, writes its times and
-    launches to out/rank{rank}.json and, on rank 0, the gathered rows."""
+    launches to out/rank{rank}.json and, on rank 0, the gathered rows.
+    `make_rollout` builds the per-rank program from (env, mesh, actions
+    table, steps, solver=...); default mesh.make_shardmapped_rollout."""
     import torch.distributed as dist
 
     from sbsim_tpu_torch import rng
@@ -124,7 +126,7 @@ def rank_main(rank: int, world: int, args, out: str) -> None:
         keys = rng.split(rng.PRNGKey(0, device=device), batch)
         rows = slice(rank * args.batch_per_device, (rank + 1) * args.batch_per_device)
         states, _ = env.reset(keys[rows])
-        roll = mesh_lib.make_shardmapped_rollout(
+        roll = (make_rollout or mesh_lib.make_shardmapped_rollout)(
             env, mesh, schedule_policy.build_schedule_actions(env), args.steps,
             solver=args.solver)
         cuda = device.type == "cuda"
@@ -172,8 +174,9 @@ def one_process(args, batch: int, device):
     return rows_of(states)
 
 
-def run_row(args, n: int, tmp: str) -> Optional[dict]:
-    """One row at n ranks; None when there are fewer cards than ranks."""
+def run_row(args, n: int, tmp: str, make_rollout=None) -> Optional[dict]:
+    """One row at n ranks, each running `make_rollout`'s program (see
+    rank_main); None when there are fewer cards than ranks."""
     from sbsim_tpu_torch.distributed import runtime
 
     if not args.cpu and args.backend == "nccl" and n > torch.cuda.device_count():
@@ -182,7 +185,7 @@ def run_row(args, n: int, tmp: str) -> Optional[dict]:
     out = os.path.join(tmp, f"ranks{n}")
     os.makedirs(out)
     t0 = time.time()
-    runtime.spawn(rank_main, n, (args, out), timeout=TIMEOUT)
+    runtime.spawn(rank_main, n, (args, out, make_rollout), timeout=TIMEOUT)
     ranks = []
     for r in range(n):
         with open(f"{out}/rank{r}.json") as f:

@@ -542,3 +542,107 @@ def test_sac_improves_with_seeded_replay_on_the_card(env):
     assert returns[-1] > returns[0] - 0.05, returns
     assert float(metrics["critic_loss"]) < 1.0
     assert float(metrics["alpha"]) < 0.9
+
+
+# ---------------------------------------------------------------------------
+# The study scripts (sbsim_tpu_torch/benchmarks) at chip_smoke.py phase 12's
+# cut, each through K2 (K1 for the decomposition), against its witnesses.
+# ---------------------------------------------------------------------------
+
+
+def _chip_smoke():
+    import os
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    return chip_smoke
+
+
+def _launched(fn, *args):
+    """fn(*args) and the kernels it launched."""
+    fdm_cuda.reset_launch_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in fdm_cuda.launch_counts.items() if v}
+
+
+def _within(row, want, smoke):
+    assert abs(row["worst_zone_ks"] - want[0]) <= smoke.WITNESS_KS_TOL, (row, want)
+    assert abs(row["worst_zone_dmean_K"] - want[1]) <= smoke.WITNESS_DMEAN_TOL, (row, want)
+
+
+def test_conv_fullscale_null_on_the_card(env, tmp_path):
+    """The 126-room null: two swap draws through K2, exact_vs_exact the JAX
+    script's row."""
+    from sbsim_tpu_torch.benchmarks import conv_fullscale_null, conv_rounds_sweep
+
+    smoke = _chip_smoke()
+    result, counts = _launched(conv_fullscale_null.main, ["--out", str(tmp_path / "n.json")])
+    assert counts == {"fdm_jacobi": 2 * conv_rounds_sweep.N_STEPS}
+    ee = result["exact_vs_exact"]
+    assert (round(ee["worst_zone_ks"], 4), round(ee["worst_zone_dmean_K"], 4)) == \
+        smoke.NULL_EXACT_WITNESS
+    assert np.isfinite([v for k in ("swap_vs_swap", "swap_vs_exact_auto")
+                        for v in result[k].values()]).all()
+
+
+@pytest.mark.parametrize("script", ["conv_designed_sweep", "conv_schedule_sweep"])
+def test_schedule_sweeps_on_the_card(env, tmp_path, script):
+    """The designed sweep's six rows and the seeded sweep at two variants
+    through K2, each within the witness tolerances of the JAX script's."""
+    import importlib
+
+    from sbsim_tpu_torch.benchmarks import conv_rounds_sweep
+
+    smoke = _chip_smoke()
+    module = importlib.import_module(f"sbsim_tpu_torch.benchmarks.{script}")
+    argv = ["--out", str(tmp_path / "s.json")]
+    if script == "conv_schedule_sweep":
+        argv += ["--variants", smoke.SCHEDULE_VARIANTS]
+    result, counts = _launched(module.main, argv)
+    assert counts == {"fdm_jacobi": len(result["rows"]) * conv_rounds_sweep.N_STEPS}
+    for row in result["rows"]:
+        if script == "conv_designed_sweep":
+            _within(row, smoke.DESIGNED_WITNESS[row["name"]], smoke)
+        else:
+            _within(row, smoke.SCHEDULE_WITNESS[(row["rounds"], row["schedule_seed"])], smoke)
+    assert len(result["rows"]) == (6 if script == "conv_designed_sweep" else 2)
+
+
+@pytest.mark.parametrize("script", ["sac_smoke", "sac_sb1_smoke"])
+def test_sac_smokes_on_the_card(env, script):
+    """Each SAC smoke at the cut recipe through K2: every number finite,
+    one K2 launch per env step."""
+    import importlib
+
+    smoke = _chip_smoke()
+    module = importlib.import_module(f"sbsim_tpu_torch.benchmarks.{script}")
+    args = module.parse_args(smoke.SMOKE_ARGS)
+    result, counts = _launched(module.main, smoke.SMOKE_ARGS)
+    evals = args.train_steps // args.eval_every
+    evaluated = (3 + evals if script == "sac_smoke" else 1 + evals) * module.N_EVAL
+    assert counts == {"fdm_jacobi": args.seed_steps + args.train_steps + evaluated}
+    assert smoke._finite_numbers(result) and len(result["curve"]) == evals
+
+
+def test_scaling_decomp_on_the_card(env):
+    """The decomposition at 2 gloo ranks on the card: every row bitwise one
+    process, K1 launches per rank (1 + repeats) x steps."""
+    from sbsim_tpu_torch.benchmarks import scaling_decomp
+
+    smoke = _chip_smoke()
+    argv = smoke.DECOMP_ARGS + ["--ranks", "2", "--backend", "gloo"]
+    args = scaling_decomp.parse_args(argv)
+    payload = scaling_decomp.main(argv)
+    assert len(payload["rows"]) == 5
+    for row in payload["rows"].values():
+        assert row["bitwise_one_process"]
+        assert all(c["fdm_cheby"] == (1 + args.repeats) * args.steps for c in row["launches"])
+    assert set(payload["attribution"]) == {"naive_efficiency", "wrapper_tax",
+                                           "core_sharing_tax", "partition_tax",
+                                           "collective_share"}

@@ -42,12 +42,18 @@ missing |= {"sbsim_tpu_torch.io.metrics", "sbsim_tpu_torch.io.checkpoint",
             "sbsim_tpu_torch.benchmarks.conv_schedule_search",
             "sbsim_tpu_torch.benchmarks.fullscale_parity_check",
             "sbsim_tpu_torch.benchmarks.scaling",
-            "sbsim_tpu_torch.benchmarks.sac_sb1_train"} - set(names)
+            "sbsim_tpu_torch.benchmarks.sac_sb1_train",
+            "sbsim_tpu_torch.benchmarks.conv_fullscale_null",
+            "sbsim_tpu_torch.benchmarks.conv_designed_sweep",
+            "sbsim_tpu_torch.benchmarks.conv_schedule_sweep",
+            "sbsim_tpu_torch.benchmarks.sac_smoke",
+            "sbsim_tpu_torch.benchmarks.sac_sb1_smoke",
+            "sbsim_tpu_torch.benchmarks.scaling_decomp"} - set(names)
 import chip_smoke
 chip_smoke.make_env, chip_smoke.main, chip_smoke.training_phase, chip_smoke.entry_train_sac
 chip_smoke.host_phase, chip_smoke.offline_phase, chip_smoke.validation_phase
 chip_smoke.distributed_phase, chip_smoke.rank_main, chip_smoke.scripts_phase
-chip_smoke.learn_phase
+chip_smoke.learn_phase, chip_smoke.study_phase
 # protobuf is google.protobuf (its runtime google._upb); the bare `google`
 # namespace may be set up by a .pth file at start-up.
 bad = sorted(k for k in sys.modules
@@ -123,7 +129,10 @@ def test_episode_dashboard_without_device_needs_cuda(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("script", ["conv_rounds_sweep", "conv_schedule_search",
-                                    "fullscale_parity_check", "scaling", "sac_sb1_train"])
+                                    "fullscale_parity_check", "scaling", "sac_sb1_train",
+                                    "conv_fullscale_null", "conv_designed_sweep",
+                                    "conv_schedule_sweep", "sac_smoke", "sac_sb1_smoke",
+                                    "scaling_decomp"])
 def test_scripts_without_cpu_need_cuda(monkeypatch, tmp_path, script):
     """Each script of sbsim_tpu_torch/benchmarks runs on the card unless
     --cpu is given, and stops before any work without one."""
