@@ -232,7 +232,20 @@ Phases (each prints its own lines; any failure exits non-zero):
      ranks, warm, each bitwise one process, K1 launches per rank 6 x 8, the
      rates and the four taxes. Any failed gate exits non-zero. Launches of
      (a)-(e) join the kernels line.
-  13. A {"kernels": [...]} line, then the last line
+  13. The port bench (sbsim_tpu_torch/bench.py): (a) `python -m
+     sbsim_tpu_torch.bench` as a subprocess with a cut budget (BENCH_ARGS)
+     at 12 zones (B=2048, pallas_cheby: K1 interleaved) and with
+     --full-scale (126 rooms, B=512, K1 unstaged at 189 x 124), (b) with
+     --solver pallas_env at 12 zones (K2): each exits 0, its last line has
+     the solver, batch and weather asked for, a passed solver check and
+     finite positive rates from CUDA events, printed with the card. (c)
+     In-process, the bench's make_rollout for 8 steps at each run's config
+     and batch from the bench's reset, through the kernels and under the
+     plain versions: states and mean rewards bitwise equal; (d) the same
+     for 32 steps from step 570, across the tables' 592-step end (the
+     step tables clamp the step there). Launches of (c) and (d) join the
+     kernels line.
+  14. A {"kernels": [...]} line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 It refuses to run without a CUDA device and never falls back to the CPU.
@@ -3445,6 +3458,110 @@ def study_phase(tag, ranks=2, backend="gloo", only=None) -> dict:
     return launches
 
 
+# Phase 13: the port bench. (a), (b): `python -m sbsim_tpu_torch.bench` as a
+# subprocess with a cut budget, (label, extra flags, solver, batch); (c),
+# (d): its make_rollout in-process, (part, first step, steps), through the
+# kernels and the plain versions ((d) crosses the tables' 592-step end).
+BENCH_ARGS = ["--budget-sec", "20", "--max-repeats", "10"]
+BENCH_RUNS = (("(a) 12zone", [], "pallas_cheby", 2048),
+              ("(a) 126room", ["--full-scale"], "pallas_cheby", 512),
+              ("(b) 12zone", ["--solver", "pallas_env"], "pallas_env", 2048))
+BENCH_TIMEOUT = 300.0  # seconds, each bench process
+BENCH_ROLLOUTS = (("(c)", 0, 8), ("(d)", 570, 32))
+
+
+def bench_run(label, extra, solver, batch, card, tag) -> dict:
+    """One bench process: exit 0, its last line's solver, batch and weather
+    as asked, a passed solver check, finite positive rates from CUDA
+    events on this card."""
+    import math
+
+    cmd = [sys.executable, "-m", "sbsim_tpu_torch.bench", *BENCH_ARGS, *extra]
+    t0 = time.time()
+    try:
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=BENCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"phase 13 {label}: the bench took more than {BENCH_TIMEOUT} s")
+    seconds = time.time() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail(f"phase 13 {label}: the bench exited {proc.returncode}: "
+             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    line = json.loads(lines[-1])
+    rates = [line["value"], line["median"], *line["repeats"]]
+    if (line["solver"], line["batch"], line["weather"]) != (solver, batch, "replay"):
+        fail(f"phase 13 {label}: {line}")
+    if not line["solver_check"]["passed"] or line["timing"] != "cuda_events":
+        fail(f"phase 13 {label}: {line}")
+    if line["card"] != card or not all(math.isfinite(r) and r > 0 for r in rates):
+        fail(f"phase 13 {label}: {line}")
+    check = line["solver_check"]
+    print(f"  {label} bench {' '.join(BENCH_ARGS + extra)}: {solver} B={batch}, best "
+          f"{line['best']:,.1f}, median {line['median']:,.1f} env-steps/s over "
+          f"{len(line['repeats'])} repeats {line['repeats']}, plateaued {line['plateaued']}; "
+          f"solver check max |dT| {check['max_abs_dtemp']:.4g} K, max |d reward| "
+          f"{check['max_abs_dreward']:.3g}; {seconds:.1f} s with start-up "
+          f"[{line['card']}]", flush=True)
+    return line
+
+
+def bench_rollouts(tag) -> dict:
+    """(c), (d): the bench's make_rollout at each run's config and batch
+    from the bench's reset, through the kernels (launches counted) and
+    through the plain versions: states and mean rewards bitwise equal,
+    fields finite; (d) from step 570 across the tables' end."""
+    import numpy as np
+    import torch
+    from sbsim_tpu_torch import bench, convert, rng
+    from sbsim_tpu_torch.agents import schedule_policy
+    from sbsim_tpu_torch.envs import building_env
+
+    dev = torch.device(DEVICE)
+    launches = dict.fromkeys(KERNELS, 0)
+    for label, extra, solver, batch in BENCH_RUNS:
+        env = building_env.BuildingEnv(bench.bench_config("--full-scale" in extra), device=dev)
+        table = schedule_policy.build_schedule_actions(env)
+        states0, _ = env.reset(rng.split(rng.PRNGKey(0, device=dev), batch))
+        kname = kernel_of(env, solver)
+        for part, start, steps in BENCH_ROLLOUTS:
+            first = states0.replace(step_idx=torch.full_like(states0.step_idx, start))
+            roll = bench.make_rollout(env, table, steps, solver)
+
+            def run(plain):
+                with plain_kernels() if plain else contextlib.nullcontext():
+                    states, reward = roll(first)
+                return convert.env_state_to_numpy(states), reward
+
+            what = f"phase 13 {part} {label[4:]} {solver} from step {start}"
+            (got, got_r), _ = _counted(what, lambda: run(False), {kname: steps})
+            want, want_r = run(True)
+            _check_equal_trees(what, got, want)
+            if not torch.equal(got_r, want_r):
+                fail(f"{what}: mean reward {float(got_r)} through the kernel, "
+                     f"{float(want_r)} through the plain versions")
+            if not (np.isfinite(got["temp"]).all() and bool(torch.isfinite(got_r))
+                    and (got["step_idx"] == start + steps).all()):
+                fail(f"{what}: fields, reward or steps off")
+            launches[kname] += steps
+            print(f"  {part} {label[4:]} {solver} B={batch}: make_rollout of {steps} steps from "
+                  f"step {start} (tables hold {env._table_steps}) through "
+                  f"{kname} ({steps} launches) bitwise the plain versions' (states and mean "
+                  f"reward {float(got_r):.6f}) {tag}", flush=True)
+    return launches
+
+
+def bench_phase(card, tag) -> dict:
+    """Phase 13: the port bench on the card; returns the launches of (c)
+    and (d) (the bench processes of (a) and (b) count their own)."""
+    t_start = time.time()
+    for label, extra, solver, batch in BENCH_RUNS:
+        bench_run(label, extra, solver, batch, card, tag)
+    launches = bench_rollouts(tag)
+    print(f"  phase 13 in {time.time() - t_start:.1f} s {tag}", flush=True)
+    return launches
+
+
 # `chip_smoke.py --learn`: tests/test_sac_learning.py's two-zone recipe.
 LEARN_STEPS = 3000
 LEARN_SEED_STEPS = 100
@@ -3664,6 +3781,11 @@ def main() -> int:
         launches[kname] += n
 
     # ---- Phase 13 --------------------------------------------------------
+    print("phase 13: the port bench", flush=True)
+    for kname, n in bench_phase(card, tag).items():
+        launches[kname] += n
+
+    # ---- Phase 14 --------------------------------------------------------
     rows = {"fdm_cheby": "12zone", "fdm_jacobi": "12zone",
             "fdm_cheby_block": "12zone stack", "fdm_jacobi_block": "12zone stack"}
     kernels = []

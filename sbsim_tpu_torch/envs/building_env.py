@@ -154,6 +154,8 @@ class BuildingEnv:
                 if config.episode_windows == 1:
                     value = value[None]
                 self._tab[f.name] = torch.as_tensor(value, device=dev)
+        # The step tables' one length, T (unpacking raises if they differ).
+        (self._table_steps,) = {v.shape[1] for v in self._tab.values() if v.dim() == 2}
         self.occupancy_params = occupancy_lib.make_occupancy_params(
             config.occupancy, config.time_step_sec
         )
@@ -343,19 +345,30 @@ class BuildingEnv:
 
     def _state_tables(self, window: torch.Tensor):
         """Per-env table view: tab(name, t) reads each env's episode window
-        at step t ((B,) indices), tab(name) its window's reset value, (B,).
-        With one window the reads are plain step-indexed gathers (no index
-        conversion: the step is launch-bound)."""
+        at step t ((B,) int64 indices), tab(name) its window's reset value,
+        (B,). A step past the tables' end reads their last step, as a jnp
+        gather clamps its index (a rollout that never resets runs on past
+        the episode). Each index tensor is clamped once per view, however
+        many tables read it: the step is launch-bound."""
+        last = self._table_steps - 1
+        clamped = {}  # id(t) -> (t, its clamp); t is held so its id stays its own
+
+        def step(t: torch.Tensor) -> torch.Tensor:
+            hit = clamped.get(id(t))
+            if hit is None:
+                hit = clamped[id(t)] = (t, t.clamp(0, last))
+            return hit[1]
+
         if self.config.episode_windows == 1:
             def tab(name: str, t: Optional[torch.Tensor] = None) -> torch.Tensor:
                 value = self._tab[name][0]
-                return value.expand(window.shape) if t is None else value[t]
+                return value.expand(window.shape) if t is None else value[step(t)]
 
             return tab
         w = window.to(torch.int64)
 
         def tab(name: str, t: Optional[torch.Tensor] = None) -> torch.Tensor:
-            return self._tab[name][w] if t is None else self._tab[name][w, t]
+            return self._tab[name][w] if t is None else self._tab[name][w, step(t)]
 
         return tab
 
@@ -654,6 +667,8 @@ class BuildingEnv:
             "rng": rng.contiguous(),
             "obs_key": obs_key,
             "reward_key": reward_key,
+            "t": t,
+            "tab": tab,
         }
         return pre, conv_key.contiguous()
 
@@ -668,8 +683,7 @@ class BuildingEnv:
         new_grid_mean: torch.Tensor,
     ) -> Tuple[EnvState, StepOutput]:
         """Observation + reward at t+1, after the physics solve."""
-        tab = self._state_tables(state.window)
-        t = state.step_idx.to(torch.int64)
+        tab, t = pre["tab"], pre["t"]
         t_next = t + 1
         dt = torch.tensor(self.config.time_step_sec, dtype=torch.float32, device=self.device)
 
@@ -693,7 +707,7 @@ class BuildingEnv:
             fdm_converged=converged,
             fdm_iterations=n_iter.to(torch.int32),
         )
-        obs = self._observation(mid_state, t_next)
+        obs = self._observation(mid_state, t_next, tab)
 
         # ---- Phase 4: reward at t+1 --------------------------------------
         # Second occupancy peek for the reward interval [t+1, t+2]
@@ -705,7 +719,7 @@ class BuildingEnv:
             tab("workday_local", t_next),
         )
         zone_occ = self._zone_occupancy_at(occupants, t_next, tab)
-        breakdown = self._reward(mid_state, new_zone_means, zone_occ, t_next, dt)
+        breakdown = self._reward(mid_state, new_zone_means, zone_occ, t_next, dt, tab)
         new_state = mid_state.replace(occupants=occupants)
         out = StepOutput(
             observation=obs,
@@ -715,10 +729,10 @@ class BuildingEnv:
         )
         return new_state, out
 
-    def _reward(self, state, zone_temps, zone_occ, t, dt):
-        """3C regret from the post-step state (environment.py:1073-1097)."""
+    def _reward(self, state, zone_temps, zone_occ, t, dt, tab):
+        """3C regret from the post-step state (environment.py:1073-1097);
+        `tab` is the state's table view."""
         params = self.hvac_params
-        tab = self._state_tables(state.window)
         hvac = state.hvac
         ambient = tab("ambient_temp", t)
         blower = hvac_ops.ahu_blower_power(hvac, params)
@@ -739,11 +753,13 @@ class BuildingEnv:
             params=self.reward_params,
         )
 
-    def device_values(self, state: EnvState, t_obs: torch.Tensor):
+    def device_values(self, state: EnvState, t_obs: torch.Tensor, tab=None):
         """Native (unnormalized) observable values per device class:
         (ahu_values, boiler_values, vav_values), (B,) and (B, Z) tensors
-        (simulator_building.py:151-202)."""
+        (simulator_building.py:151-202). `tab` is the state's table view
+        where the caller has one."""
         params = self.hvac_params
+        tab = tab or self._state_tables(state.window)
         hvac = state.hvac
         flow = hvac.ahu_air_flow_rate
         fan_pct = flow / params.ahu_max_air_flow_rate
@@ -752,8 +768,7 @@ class BuildingEnv:
             "differential_pressure_setpoint": params.ahu_fan_differential_pressure,
             "discharge_fan_speed_percentage_command": fan_pct,
             "outside_air_flowrate_sensor": (1.0 - params.ahu_recirculation) * flow,
-            "outside_air_temperature_sensor": self._state_tables(state.window)(
-                "ambient_temp", t_obs),
+            "outside_air_temperature_sensor": tab("ambient_temp", t_obs),
             "supply_air_cooling_temperature_setpoint": hvac.ahu_cooling_setpoint,
             "supply_air_flowrate_sensor": flow,
             "supply_air_heating_temperature_setpoint": hvac.ahu_heating_setpoint,
@@ -771,17 +786,18 @@ class BuildingEnv:
         }
         return ahu_values, boiler_values, vav_values
 
-    def _observation(self, state: EnvState, t_obs: torch.Tensor) -> torch.Tensor:
-        """Flat normalized observations (B, obs_dim) at table index t_obs."""
+    def _observation(self, state: EnvState, t_obs: torch.Tensor, tab=None) -> torch.Tensor:
+        """Flat normalized observations (B, obs_dim) at table index t_obs;
+        `tab` is the state's table view where the caller has one."""
         t_obs = t_obs.to(torch.int64)
-        tab = self._state_tables(state.window)
-        ahu_values, boiler_values, vav_values = self.device_values(state, t_obs)
+        tab = tab or self._state_tables(state.window)
+        ahu_values, boiler_values, vav_values = self.device_values(state, t_obs, tab)
         if self.occupancy_params.kind == "randomized":
             total_occ = occupancy_lib.zone_occupancy(state.occupants).sum(dim=-1)
         else:
             # Average over the trailing 5-minute window per zone
             # (simulator_building.py:305-315).
-            probe = torch.clamp(t_obs - 1, min=0)
+            probe = t_obs - 1  # tab clamps it into [0, T-1], as max(t - 1, 0) then the gather
             total_occ = tab("step_occupancy", probe) * self.geom.n_zones
         # int() truncation then occupancy normalization
         # (simulator_building.py:315, environment.py:952-956).

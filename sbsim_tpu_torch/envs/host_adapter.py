@@ -147,15 +147,19 @@ class SimulatedBuilding(BaseBuilding):
     def is_comfort_mode(self, current_time: datetime.datetime) -> bool:
         t = int((as_utc(current_time) - self._start).total_seconds()
                 // self._env.config.time_step_sec)
-        t = max(0, min(t, self._comfort.shape[0] - 1))
-        return bool(self._comfort[t])
+        return bool(self._comfort[self._table_step(t)])
+
+    def _table_step(self, t: int) -> int:
+        """Step t clamped into the tables, as the env's reads (and a jnp
+        gather) clamp it: past the episode's end they read its last step."""
+        return max(0, min(t, self._step_occupancy.shape[0] - 1))
 
     @property
     def num_occupants(self) -> int:
         if self._env.occupancy_params.kind == "randomized":
             total = float(occupancy_lib.zone_occupancy(self._state.occupants).sum())
         else:
-            t = max(self._step_idx - 1, 0)
+            t = self._table_step(self._step_idx - 1)
             total = float(self._step_occupancy[t]) * self._env.n_zones
         return int(total)
 
@@ -272,7 +276,7 @@ class SimulatedBuilding(BaseBuilding):
         """RewardInfo proto from the current post-step state
         (simulator_flexible_floor_plan.py:285-313)."""
         env = self._env
-        t = self._step_idx
+        t = self._table_step(self._step_idx)
         start = self.current_timestamp
         info = reward_pb2.RewardInfo(
             start_timestamp=pandas_to_proto_timestamp(start),

@@ -646,3 +646,23 @@ def test_scaling_decomp_on_the_card(env):
     assert set(payload["attribution"]) == {"naive_efficiency", "wrapper_tax",
                                            "core_sharing_tax", "partition_tax",
                                            "collective_share"}
+
+
+def test_bench_on_the_card(env, capsys):
+    """The port bench at --steps 8 --max-repeats 2: pallas_cheby at B=2048,
+    a passed solver check, CUDA-event timing, K1 launched once for the
+    check and once per step of the warm-up and the timed calls."""
+    import json
+
+    from sbsim_tpu_torch import bench
+
+    fdm_cuda.reset_launch_counts()
+    assert bench.main(["--steps", "8", "--max-repeats", "2"]) == 0
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in fdm_cuda.launch_counts.items() if v}
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (line["solver"], line["batch"], line["timing"]) == ("pallas_cheby", 2048,
+                                                               "cuda_events")
+    assert line["solver_check"]["passed"] and len(line["repeats"]) == 2
+    assert all(np.isfinite(r) and r > 0 for r in line["repeats"])
+    assert counts == {"fdm_cheby": 1 + (1 + len(line["repeats"])) * 8}
