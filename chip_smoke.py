@@ -12,6 +12,8 @@
         # phases 0-1, phase 10 with N ranks in (a), phase 11 (b) at 1, 2,
         # ..., N ranks and phase 12 (e) at N ranks; nccl puts rank r on
         # card r (N cards), gloo (the default) all on one card
+    python3 chip_smoke.py --graphs
+        # phases 0-1 and phase 14 (the captured programs against eager)
     python3 chip_smoke.py --learn [TRAIN_STEPS] [--out PATH]
         # phases 0-1, tests/test_sac_learning.py's two-zone recipe with its
         # asserts, and the 12-zone sac_sb1_train curve to TRAIN_STEPS
@@ -64,7 +66,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      with recipe_for(env, n_envs=64, batch_size=256, replay_capacity=50_000,
      updates_per_env_step=1, seed_steps=0) (examples/train_sac.py's recipe;
      the env step is K2 with in-kernel zone statistics): init, 16
-     schedule-table seeding steps, 32 train_steps, evaluate(n_steps=8,
+     schedule-table seeding steps (a captured program: its launches are
+     those on the device, graphs.py), 32 train_steps, evaluate(n_steps=8,
      n_envs=4); then on the stack config through K3: 8 seeding steps, 8
      train_steps, evaluate(n_steps=4, n_envs=4). Launches must equal the env
      steps taken, the in-kernel zone means must equal the fold bitwise on
@@ -79,9 +82,11 @@ Phases (each prints its own lines; any failure exits non-zero):
      equal.
   6. Entry points at full width: (a) examples/train_sac.main in-process on
      sb1_config(num_days_in_episode=1), n_envs=64, batch 256: 290
-     schedule-table seeding steps (every env's `done` at step 288, reset
-     by _maybe_reset bitwise as env.reset on the same keys, step_idx 2
-     after step 290), 8 train_steps with an evaluation of 16 steps and a
+     schedule-table seeding steps (captured programs, as its train steps
+     and evaluations; every env reset after the collect step from step
+     287 and no other, read off each step's kept output after the run,
+     the reset envs bitwise env.reset on that step's reset keys, step_idx
+     2 after step 290), 8 train_steps with an evaluation of 16 steps and a
      checkpoint every 4, a final evaluation; the JSONL metrics finite,
      restoring checkpoint 8 gives the final state bitwise, and checkpoint
      4 plus 4 train_steps gives checkpoint 8 bitwise; seeding and
@@ -240,12 +245,37 @@ Phases (each prints its own lines; any failure exits non-zero):
      the solver, batch and weather asked for, a passed solver check and
      finite positive rates from CUDA events, printed with the card. (c)
      In-process, the bench's make_rollout for 8 steps at each run's config
-     and batch from the bench's reset, through the kernels and under the
-     plain versions: states and mean rewards bitwise equal; (d) the same
-     for 32 steps from step 570, across the tables' 592-step end (the
-     step tables clamp the step there). Launches of (c) and (d) join the
-     kernels line.
-  14. A {"kernels": [...]} line, then the last line
+     and batch from the bench's reset, through the kernels (the captured
+     program's first call) and under the plain versions (the rollout op
+     by op: they read back): states and mean rewards bitwise equal; (d)
+     the same for 32 steps from step 570, across the tables' 592-step end
+     (the step tables clamp the step there). Launches of (c) and (d) join
+     the kernels line.
+  14. The JAX package's jitted programs as CUDA graphs
+     (sbsim_tpu_torch/graphs.py), each replay held against the eager call
+     from a clone of the same start, under
+     torch.cuda.set_sync_debug_mode("error"), with the eager call's
+     launches (the launch counts are launches on the device: a capture
+     takes back what it counted, a replay adds it): (a) the bench's
+     make_rollout at phase 13's three configurations (12 zones B=2048 K1,
+     126 rooms B=512 K1 unstaged, 12 zones B=2048 `pallas_env` K2) for 8
+     steps from step 0 and 32 from step 570 across the 592-step end,
+     bitwise on every state field and the mean reward; then eager against
+     graph at the bench's 64-step call (eager, graph, graph, eager; 5
+     timed calls each, CUDA events), and one 8-step call of each under
+     torch.profiler (device busy, idle share, kernels on the device, the
+     host's cudaLaunchKernel and cudaGraphLaunch calls per step), with
+     each capture's time and memory pool; (b) the train12 recipe (sb1
+     1-day, n_envs 64, batch 256, replay 50,000) from step 286: 4
+     schedule-table seeding steps (every env resets inside the second,
+     a replay), then 5 train steps through captured_train_step (2 before
+     the update gate, 3 after: both sides captured and replayed), each
+     call's TrainState and metrics bitwise the eager call's; then 10
+     seeding and 10 train steps timed on each path and one train step
+     profiled on each; (c) evaluate of a day (288 steps, 4 envs): the
+     replay's return bitwise the eager call's. Launches of (a)-(c) join
+     the kernels line.
+  15. A {"kernels": [...]} line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 It refuses to run without a CUDA device and never falls back to the CPU.
@@ -1257,69 +1287,77 @@ WINDOWS = 4
 
 
 class _Spies:
-    """Within the block: SACTrainer._maybe_reset records each collect
-    step's `done` and, where an env finished, holds the reset envs against
-    env.reset on the same keys (bitwise); seeding steps and train_steps are
-    timed with CUDA events."""
+    """Within the block, the seeding and train steps that train_sac gets
+    from distributed/mesh.py (captured programs on the card) are timed with
+    CUDA events, and every collect step's input key and output env states
+    and observations are kept (each call's outputs are fresh tensors, so
+    later steps leave them as they were): the episode end is read off them
+    after the run, with no read inside it."""
 
     def __init__(self):
-        self.done, self.step_idx, self.reset_diffs = [], [], []
+        self.collects = []  # (rng before, env states after, observations after)
         self.seed_events, self.train_events = [], []
 
     def __enter__(self):
         import torch
-        from sbsim_tpu_torch import rng
-        from sbsim_tpu_torch.agents import train
+        from sbsim_tpu_torch.distributed import mesh
 
-        cls = train.SACTrainer
-        self.saved = {k: getattr(cls, k) for k in ("_maybe_reset", "seed_with_actions",
-                                                   "train_step")}
+        names = ("make_distributed_collect_step", "make_distributed_train_step")
+        self.saved = {k: getattr(mesh, k) for k in names}
         spies = self
 
-        def timed(fn, events):
-            def call(*args, **kwargs):
-                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                s.record()
-                out = fn(*args, **kwargs)
-                e.record()
-                events.append((s, e))
-                return out
-            return call
+        def spied(make, events):
+            def spied_make(*args, **kwargs):
+                step = make(*args, **kwargs)
 
-        def maybe_reset(trainer, env_states, obs, done, key, hooks=train._NO_HOOKS):
-            new_states, new_obs = spies.saved["_maybe_reset"](trainer, env_states, obs, done, key,
-                                                              hooks)
-            spies.done.append(done.cpu())
-            spies.step_idx.append(new_states.step_idx.cpu())
-            if bool(done.any()):
-                from sbsim_tpu_torch import convert
-                keys = (hooks.reset_keys(key) if hooks.reset_keys is not None
-                        else rng.split(key, trainer.config.n_envs))
-                fresh, fresh_obs = trainer.env.reset(keys)
-                rows = done.nonzero().flatten()
-                sel = lambda d: {k: (sel(v) if isinstance(v, dict) else v[rows.cpu().numpy()])
-                                 for k, v in d.items()}
-                diff = _tree_diff(sel(convert.env_state_to_numpy(fresh)),
-                                  sel(convert.env_state_to_numpy(new_states)))
-                if not torch.equal(fresh_obs[rows], new_obs[rows]):
-                    diff.append(("observation", float((fresh_obs[rows] - new_obs[rows]).abs().max())))
-                spies.reset_diffs.append((len(spies.done), int(rows.numel()), diff))
-            return new_states, new_obs
+                def call(state):
+                    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                        enable_timing=True)
+                    s.record()
+                    new, metrics = step(state)
+                    e.record()
+                    events.append((s, e))
+                    spies.collects.append((state.rng, new.env_states, new.last_obs))
+                    return new, metrics
 
-        def seed_with_actions(trainer, state, table, hooks=train._NO_HOOKS):
-            return timed(spies.saved["seed_with_actions"](trainer, state, table, hooks),
-                         spies.seed_events)
+                return call
+            return spied_make
 
-        cls._maybe_reset = maybe_reset
-        cls.seed_with_actions = seed_with_actions
-        cls.train_step = timed(self.saved["train_step"], self.train_events)
+        mesh.make_distributed_collect_step = spied(self.saved[names[0]], self.seed_events)
+        mesh.make_distributed_train_step = spied(self.saved[names[1]], self.train_events)
         return self
 
     def __exit__(self, *exc):
-        from sbsim_tpu_torch.agents import train
+        from sbsim_tpu_torch.distributed import mesh
 
         for k, fn in self.saved.items():
-            setattr(train.SACTrainer, k, fn)
+            setattr(mesh, k, fn)
+
+    def episode_end(self, trainer, episode):
+        """(collect steps at which some env was done, whether all were,
+        step_idx after each collect step, the differences of the reset
+        envs from env.reset on the collect step's reset keys)."""
+        import torch
+        from sbsim_tpu_torch import convert, rng
+
+        after = [st.step_idx.cpu() for _, st, _ in self.collects]
+        before = [torch.zeros_like(after[0])] + after[:-1]
+        done = torch.stack([b == episode - 1 for b in before])  # (collect steps, n_envs)
+        fired = done.any(1).nonzero().flatten().tolist()
+        diffs = []
+        for k in fired:
+            key, states, obs = self.collects[k]
+            _, _, k_reset = rng.split(key, 3)
+            fresh, fresh_obs = trainer.env.reset(rng.split(k_reset, trainer.config.n_envs))
+            rows = done[k].nonzero().flatten().numpy()
+            sel = lambda d: {n: (sel(v) if isinstance(v, dict) else v[rows])
+                             for n, v in d.items()}
+            diff = _tree_diff(sel(convert.env_state_to_numpy(fresh)),
+                              sel(convert.env_state_to_numpy(states)))
+            if not torch.equal(fresh_obs[rows], obs[rows]):
+                diff.append(("observation", float((fresh_obs[rows] - obs[rows]).abs().max())))
+            diffs.append((k + 1, len(rows), diff))
+        return fired, bool(done[fired].all()) if fired else False, after, diffs
 
 
 def _rate(events, per_call) -> str:
@@ -1361,18 +1399,16 @@ def entry_train_sac(tag) -> int:
         if counts != {k: (env_steps if k == "fdm_jacobi" else 0) for k in KERNELS}:
             fail(f"train_sac: launch counts {counts} != {env_steps} fdm_jacobi env steps")
         collects = seed_steps + train_steps
-        done = torch.stack(spies.done)  # (collect steps, n_envs)
-        fired = done.any(1).nonzero().flatten().tolist()
-        if len(spies.done) != collects or fired != [episode - 1] or not bool(
-                done[episode - 1].all()):
+        fired, all_done, step_idx, reset_diffs = spies.episode_end(trainer, episode)
+        if len(spies.collects) != collects or fired != [episode - 1] or not all_done:
             fail(f"train_sac: done fired at collect steps {[i + 1 for i in fired]} "
-                 f"(all envs at {episode}: {bool(done[episode - 1].all())})")
-        after = spies.step_idx[seed_steps - 1]
+                 f"(all envs: {all_done})")
+        after = step_idx[seed_steps - 1]
         if after.tolist() != [seed_steps - episode] * n_envs:
             fail(f"train_sac: step_idx after seeding step {seed_steps} is {after.unique()}")
-        if [(at, n) for at, n, _ in spies.reset_diffs] != [(episode, n_envs)] or any(
-                d for _, _, d in spies.reset_diffs):
-            fail(f"train_sac: the reset envs differ from env.reset: {spies.reset_diffs}")
+        if [(at, n) for at, n, _ in reset_diffs] != [(episode, n_envs)] or any(
+                d for _, _, d in reset_diffs):
+            fail(f"train_sac: the reset envs differ from env.reset: {reset_diffs}")
         cols = load_metrics(os.path.join(tmp, "train_metrics.jsonl"))
         if not cols or not all(np.isfinite(v).all() for v in cols.values()):
             fail(f"train_sac: metrics not finite: {cols}")
@@ -2927,14 +2963,16 @@ SEARCH_ARGS = ["--rooms-x", "2", "--rooms-y", "2", "--room-cvs", "10", "--rounds
                "--seeds", "5", "--budget", "1.0", "--write-cache"]
 
 
-def _counted(label, fn, want):
+def _counted(label, fn, want, sync_free=False):
     """fn() with the launch counts set to 0 just before and read just after;
-    fails unless they equal `want` (kernel -> launches, others 0)."""
+    fails unless they equal `want` (kernel -> launches, others 0). With
+    `sync_free` fn runs under torch.cuda.set_sync_debug_mode("error")."""
     from sbsim_tpu_torch.physics import fdm_cuda
 
     _sync()
     fdm_cuda.reset_launch_counts()
-    out = fn()
+    with _no_host_sync() if sync_free else contextlib.nullcontext():
+        out = fn()
     _sync()
     counts = dict(fdm_cuda.launch_counts)
     if counts != {k: want.get(k, 0) for k in KERNELS}:
@@ -3529,8 +3567,10 @@ def bench_rollouts(tag) -> dict:
             roll = bench.make_rollout(env, table, steps, solver)
 
             def run(plain):
+                # The plain versions read back: they run op by op (`fn`),
+                # the kernels through the captured program's first call.
                 with plain_kernels() if plain else contextlib.nullcontext():
-                    states, reward = roll(first)
+                    states, reward = (roll.fn if plain else roll)(first)
                 return convert.env_state_to_numpy(states), reward
 
             what = f"phase 13 {part} {label[4:]} {solver} from step {start}"
@@ -3559,6 +3599,319 @@ def bench_phase(card, tag) -> dict:
         bench_run(label, extra, solver, batch, card, tag)
     launches = bench_rollouts(tag)
     print(f"  phase 13 in {time.time() - t_start:.1f} s {tag}", flush=True)
+    return launches
+
+
+# Phase 14: the JAX package's jitted programs as CUDA graphs
+# (sbsim_tpu_torch/graphs.py), each replay held against the eager call from
+# a clone of the same starting state. (a) the bench's make_rollout at
+# BENCH_RUNS' configs for BENCH_ROLLOUTS' steps, then GRAPH_TIMED_CALLS
+# timed calls of the bench's GRAPH_TIMED_STEPS steps per path; (b) the
+# train12 recipe (GRAPH_ENVS envs, batch 256, replay 50,000) on a 1-day
+# episode: GRAPH_SEED_CALLS seeding steps from step GRAPH_SEED_START (the
+# second crosses the 288-step end inside a replay), then GRAPH_TRAIN_CALLS
+# train steps whose update gate opens after GRAPH_SKIP_CALLS of them; (c)
+# evaluate of a day (GRAPH_EVAL: steps, envs).
+GRAPH_TIMED_CALLS = 5
+GRAPH_TIMED_STEPS = 64
+GRAPH_ENVS = 64
+GRAPH_SEED_START = 286
+GRAPH_SEED_CALLS = 4
+GRAPH_SKIP_CALLS = 2
+GRAPH_TRAIN_CALLS = 5
+GRAPH_TRAIN_TIMED = 10
+GRAPH_EVAL = (288, 4)
+
+
+@contextlib.contextmanager
+def _no_host_sync():
+    """Within the block a synchronizing CUDA call raises."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _add(total, counts) -> None:
+    for k, n in counts.items():
+        total[k] += n
+
+
+def _launch_profile(fn, per_call, label, tag):
+    """torch.profiler over one call of fn (`per_call` env steps): wall and
+    device-busy ms per env step, the device's idle share, kernels run on
+    the device and the host's launch calls (cudaLaunchKernel,
+    cudaGraphLaunch) per env step. Returns the figures (busy None where the
+    profiler saw no device event)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.lower().startswith(("memcpy", "memset"))]
+    host = lambda *names: sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                              and e.name.startswith(names)) / per_call
+    busy = sum(e.time_range.elapsed_us() for e in kernels)
+    out = {"wall_ms": wall_us / per_call / 1e3,
+           "busy_ms": busy / per_call / 1e3 if kernels else None,
+           "device_kernels": len(kernels) / per_call,
+           "host_kernel_launches": host("cudaLaunchKernel", "cuLaunchKernel"),
+           "host_graph_launches": host("cudaGraphLaunch")}
+    busy_note = ("device busy not measured (the profiler recorded no device event)"
+                 if not kernels else f"device busy {out['busy_ms']:.4f} ms/step (idle "
+                 f"{1 - busy / wall_us:.1%})")
+    print(f"    {label}: wall {out['wall_ms']:.4f} ms/step, {busy_note}, "
+          f"{out['device_kernels']:.1f} kernels/step on the device; host launches/step: "
+          f"{out['host_kernel_launches']:.2f} kernels, {out['host_graph_launches']:.4f} "
+          f"graphs {tag}", flush=True)
+    return out
+
+
+def _timed_calls(fn, state, calls):
+    """(state, ms of each call): CUDA events around each of `calls` calls of
+    fn, the state carried from call to call."""
+    import torch
+
+    events = []
+    for _ in range(calls):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        state = fn(state)[0]
+        e.record()
+        events.append((s, e))
+    _sync()
+    return state, [s.elapsed_time(e) for s, e in events]
+
+
+def _program_note(captured) -> str:
+    return "; ".join(f"capture {p.capture_ms:.0f} ms (its warm-up call included), pool "
+                     f"{p.pool_bytes / 2**20:.1f} MiB" for p in captured.programs.values())
+
+
+def graph_rollouts(tag) -> dict:
+    """(a): the bench's make_rollout, one captured program per call shape,
+    against the rollout op by op (`fn`): a replay from a clone of the eager
+    run's start, under set_sync_debug_mode("error"), bitwise on every state
+    field and the mean reward, with the eager run's launches; then the two
+    paths timed (eager, graph, graph, eager) and profiled at the bench's
+    call."""
+    import torch
+    from sbsim_tpu_torch import bench, convert, graphs, rng
+    from sbsim_tpu_torch.agents import schedule_policy
+    from sbsim_tpu_torch.envs import building_env
+
+    dev = torch.device(DEVICE)
+    clone = lambda tree: graphs.tree_map(torch.clone, tree)
+    launches = dict.fromkeys(KERNELS, 0)
+    for label, extra, solver, batch in BENCH_RUNS:
+        t_start = time.time()
+        name = label[4:]
+        env = building_env.BuildingEnv(bench.bench_config("--full-scale" in extra), device=dev)
+        table = schedule_policy.build_schedule_actions(env)
+        states0, _ = env.reset(rng.split(rng.PRNGKey(0, device=dev), batch))
+        kname = kernel_of(env, solver)
+        rolls = {}
+        for _, start, steps in BENCH_ROLLOUTS:
+            first = states0.replace(step_idx=torch.full_like(states0.step_idx, start))
+            roll = rolls[start, steps] = bench.make_rollout(env, table, steps, solver)
+            what = f"phase 14 (a) {name} {solver} {steps} steps from step {start}"
+            want = {kname: steps}
+            (eager, eager_r), counts = _counted(f"{what} eager", lambda: roll.fn(clone(first)),
+                                                want)
+            _add(launches, counts)
+            _, counts = _counted(f"{what} first call", lambda: roll(clone(first)), want)
+            _add(launches, counts)
+            start_state = clone(first)
+            (got, got_r), counts = _counted(f"{what} replay", lambda: roll(start_state), want,
+                                            sync_free=True)
+            _add(launches, counts)
+            _check_equal_trees(what, convert.env_state_to_numpy(got),
+                               convert.env_state_to_numpy(eager))
+            (program,) = roll.programs.values()
+            if not torch.equal(got_r, eager_r) or program.replays != 1:
+                fail(f"{what}: mean reward {float(got_r)} replayed, {float(eager_r)} eager "
+                     f"({program.replays} replays)")
+            print(f"  (a) {name} {solver} B={batch}: {steps} steps from step {start}, the "
+                  f"replay bitwise the eager rollout (states, mean reward "
+                  f"{float(got_r):.6f}), {steps} {kname} launches per call on both paths, no "
+                  f"host sync in the replay; {_program_note(roll)} {tag}", flush=True)
+        roll = bench.make_rollout(env, table, GRAPH_TIMED_STEPS, solver)
+        ms = {"eager": [], "graph": []}
+        for path in ("eager", "graph", "graph", "eager"):
+            fn = roll.fn if path == "eager" else roll
+
+            def run():
+                state = fn(clone(states0))[0]  # untimed: the first call captures
+                return _timed_calls(fn, state, GRAPH_TIMED_CALLS)
+
+            (state, times), counts = _counted(
+                f"phase 14 (a) {name} {path} timed calls", run,
+                {kname: GRAPH_TIMED_STEPS * (1 + GRAPH_TIMED_CALLS)})
+            _add(launches, counts)
+            ms[path] += times
+        per_step = {p: statistics.median(t) / GRAPH_TIMED_STEPS for p, t in ms.items()}
+        best = {p: min(t) / GRAPH_TIMED_STEPS for p, t in ms.items()}
+        print(f"  (a) {name} {solver} B={batch}, {GRAPH_TIMED_STEPS}-step calls, "
+              f"{GRAPH_TIMED_CALLS} timed per run (eager, graph, graph, eager): eager median "
+              f"{per_step['eager']:.4f} ms/step ({batch / per_step['eager'] * 1e3:,.0f} "
+              f"env-steps/s, best {batch / best['eager'] * 1e3:,.0f}), graph median "
+              f"{per_step['graph']:.4f} ms/step ({batch / per_step['graph'] * 1e3:,.0f} "
+              f"env-steps/s, best {batch / best['graph'] * 1e3:,.0f}), "
+              f"x{per_step['eager'] / per_step['graph']:.2f}; {_program_note(roll)} {tag}",
+              flush=True)
+        # The profiles: one call of the first (8-step, captured) rollout.
+        (start, steps), roll = next(iter(rolls.items()))
+        first = states0.replace(step_idx=torch.full_like(states0.step_idx, start))
+        for path, fn in (("eager", roll.fn), ("graph", roll)):
+            _, counts = _counted(f"phase 14 (a) {name} {path} profile", lambda: _launch_profile(
+                lambda: fn(first), steps, f"{name} {path} profile", tag), {kname: steps})
+            _add(launches, counts)
+        print(f"  (a) {name} {solver} in {time.time() - t_start:.1f} s", flush=True)
+    return launches
+
+
+def graph_training(tag) -> dict:
+    """(b): the train12 recipe's seeding and train steps as captured
+    programs against the steps op by op, call for call from cloned
+    starting states: every TrainState field and every metric bitwise,
+    the replays (all calls but each program's first) under
+    set_sync_debug_mode("error") with the eager calls' launches; then
+    both paths timed. (c): evaluate of a day, captured, against eager."""
+    import torch
+    from sbsim_tpu_torch import convert, graphs, rng
+    from sbsim_tpu_torch.agents import schedule_policy, train
+    from sbsim_tpu_torch.envs import building_env, presets
+
+    dev = torch.device(DEVICE)
+    clone = lambda tree: graphs.tree_map(torch.clone, tree)
+    launches = dict.fromkeys(KERNELS, 0)
+    t_start = time.time()
+    env = building_env.BuildingEnv(presets.sb1_config(num_days_in_episode=1), device=dev)
+    seed_steps = (GRAPH_SEED_CALLS + GRAPH_SKIP_CALLS + 1) * GRAPH_ENVS
+    trainer = train.SACTrainer(env, train.recipe_for(
+        env, n_envs=GRAPH_ENVS, batch_size=256, replay_capacity=50_000,
+        updates_per_env_step=1, seed_steps=seed_steps))
+    state0 = trainer.init(rng.PRNGKey(0, device=dev))
+    state0 = state0.replace(env_states=state0.env_states.replace(
+        step_idx=torch.full_like(state0.env_states.step_idx, GRAPH_SEED_START)))
+    episode = env.steps_per_episode
+    table = schedule_policy.build_schedule_actions(env)
+    seed = trainer.seed_with_actions(state0, table)
+    step = trainer.captured_train_step()
+    plan = [("seed", seed, seed.program.fn)] * GRAPH_SEED_CALLS + [
+        ("train", step, trainer.train_step)] * GRAPH_TRAIN_CALLS
+    graph_state, eager_state = clone(state0), clone(state0)
+    done_at, sides, replays = [], [], 0
+    for i, (kind, graph_fn, eager_fn) in enumerate(plan):
+        program = seed.program if kind == "seed" else step.sides[
+            trainer.learns(graph_state.env_steps + GRAPH_ENVS)].program
+        replay = bool(program.programs)
+        what = f"phase 14 (b) {kind} call {i + 1}{' (replay)' if replay else ''}"
+        want = {"fdm_jacobi": 1}
+        (eager_state, eager_m), counts = _counted(f"{what} eager",
+                                                  lambda: eager_fn(eager_state), want)
+        _add(launches, counts)
+        (graph_state, graph_m), counts = _counted(what, lambda: graph_fn(graph_state), want,
+                                                  sync_free=replay)
+        _add(launches, counts)
+        diff = _tree_diff(convert.train_state_to_numpy(graph_state, trainer),
+                          convert.train_state_to_numpy(eager_state, trainer))
+        diff += [(k, float("nan")) for k in eager_m
+                 if not torch.equal(graph_m[k], eager_m[k])]
+        if diff or graph_state.env_steps != eager_state.env_steps:
+            fail(f"{what}: graph and eager differ in {diff}")
+        replays += replay
+        if kind == "train":
+            sides.append(bool(graph_m["critic_loss"] != 0))
+        if bool((graph_state.env_states.step_idx == 0).all()):
+            done_at.append(i + 1)
+    want_sides = [False] * GRAPH_SKIP_CALLS + [True] * (GRAPH_TRAIN_CALLS - GRAPH_SKIP_CALLS)
+    crossing = episode - GRAPH_SEED_START
+    if sides != want_sides or done_at != [crossing] or replays != len(plan) - 3:
+        fail(f"phase 14 (b): learned {sides} (want {want_sides}), every env reset at calls "
+             f"{done_at} (want [{crossing}]), {replays} replays")
+    print(f"  (b) train12 (sb1 1-day, n_envs {GRAPH_ENVS}, batch 256, replay 50,000, "
+          f"seed_steps {seed_steps}): {GRAPH_SEED_CALLS} seeding steps from step "
+          f"{GRAPH_SEED_START} (every env reset at step {episode}, inside replay {crossing}), "
+          f"then {GRAPH_TRAIN_CALLS} train steps ({GRAPH_SKIP_CALLS} before the gate, "
+          f"{GRAPH_TRAIN_CALLS - GRAPH_SKIP_CALLS} after): each call's TrainState and metrics "
+          f"bitwise the eager call's, {replays} replays with no host sync and 1 fdm_jacobi "
+          f"launch each as eager; seeding {_program_note(seed.program)}; skip side "
+          f"{_program_note(step.sides[0].program)}; learn side "
+          f"{_program_note(step.sides[1].program)} {tag}", flush=True)
+    # Both paths timed: seeding steps, then train steps past the gate.
+    ms = {}
+    for kind, fns in (("seed", (seed.program.fn, seed)),
+                      ("train", (trainer.train_step, step))):
+        for path, fn in zip(("eager", "graph"), fns):
+            start = clone(graph_state)
+            (_, times), counts = _counted(
+                f"phase 14 (b) timed {kind} {path}",
+                lambda: _timed_calls(fn, start, GRAPH_TRAIN_TIMED),
+                {"fdm_jacobi": GRAPH_TRAIN_TIMED})
+            _add(launches, counts)
+            ms[kind, path] = statistics.median(times)
+    for kind in ("seed", "train"):
+        e, g = ms[kind, "eager"], ms[kind, "graph"]
+        print(f"  (b) train12 {kind} step ({GRAPH_TRAIN_TIMED} calls each, CUDA events): "
+              f"eager median {e:.3f} ms ({GRAPH_ENVS / e * 1e3:,.0f} env-steps/s), graph "
+              f"median {g:.3f} ms ({GRAPH_ENVS / g * 1e3:,.0f} env-steps/s), x{e / g:.2f} "
+              f"{tag}", flush=True)
+    for path, fn in (("eager", trainer.train_step), ("graph", step)):
+        start = clone(graph_state)
+        _, counts = _counted(f"phase 14 (b) {path} profile", lambda: _launch_profile(
+            lambda: fn(start), 1, f"train12 train step {path} profile", tag),
+            {"fdm_jacobi": 1})
+        _add(launches, counts)
+
+    print(f"  (b) in {time.time() - t_start:.1f} s", flush=True)
+
+    # ---- (c) evaluate of a day ---------------------------------------------
+    t_start = time.time()
+    n_steps, n_envs = GRAPH_EVAL
+    evaluate = trainer.captured_evaluate()
+    key = rng.PRNGKey(7, device=dev)
+    sac = graph_state.sac
+    want = {"fdm_jacobi": n_steps}
+    runs = {}
+    for label, fn, sync_free in (("eager", trainer.evaluate, False),
+                                 ("first call", evaluate, False),
+                                 ("replay", evaluate, True)):
+        s, e = _events()
+        s.record()
+        ret, counts = _counted(f"phase 14 (c) evaluate {label}",
+                               lambda: fn(sac, key, n_steps, n_envs), want, sync_free)
+        e.record()
+        _sync()
+        _add(launches, counts)
+        runs[label] = (ret, s.elapsed_time(e))
+    if not torch.equal(runs["replay"][0], runs["eager"][0]):
+        fail(f"phase 14 (c): evaluate replayed {float(runs['replay'][0])}, eager "
+             f"{float(runs['eager'][0])}")
+    print(f"  (c) evaluate, {n_steps} steps at {n_envs} envs: the replay's return "
+          f"{float(runs['replay'][0]):.6f} bitwise the eager call's, {n_steps} launches each, "
+          f"no host sync in the replay; eager {runs['eager'][1]:.1f} ms, replay "
+          f"{runs['replay'][1]:.1f} ms; {_program_note(evaluate)}; in "
+          f"{time.time() - t_start:.1f} s {tag}", flush=True)
+    return launches
+
+
+def graph_phase(tag) -> dict:
+    """Phase 14; returns its launches."""
+    t_start = time.time()
+    launches = graph_rollouts(tag)
+    _add(launches, graph_training(tag))
+    print(f"  phase 14 in {time.time() - t_start:.1f} s {tag}", flush=True)
     return launches
 
 
@@ -3722,6 +4075,10 @@ def main() -> int:
         print(f"phase 12: the scaling decomposition at {n} ranks over {backend}", flush=True)
         study_phase(tag, ranks=n, backend=backend, only="e")
         return 0
+    if "--graphs" in sys.argv:
+        print("phase 14: the jitted programs as CUDA graphs", flush=True)
+        graph_phase(tag)
+        return 0
     if "--learn" in sys.argv:
         # Only the learning runs: `--learn [TRAIN_STEPS] [--out PATH]`.
         rest = sys.argv[sys.argv.index("--learn") + 1:]
@@ -3786,6 +4143,10 @@ def main() -> int:
         launches[kname] += n
 
     # ---- Phase 14 --------------------------------------------------------
+    print("phase 14: the jitted programs as CUDA graphs", flush=True)
+    _add(launches, graph_phase(tag))
+
+    # ---- Phase 15 --------------------------------------------------------
     rows = {"fdm_cheby": "12zone", "fdm_jacobi": "12zone",
             "fdm_cheby_block": "12zone stack", "fdm_jacobi_block": "12zone stack"}
     kernels = []

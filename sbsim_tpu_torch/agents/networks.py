@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from sbsim_tpu_torch import rng as rng_lib
+from sbsim_tpu_torch.graphs import constant
 
 LOG_STD_MIN = -20.0
 LOG_STD_MAX = 2.0
@@ -132,11 +133,11 @@ def sample_action(
         eps = rng_lib.normal(key, mean.shape)
     pre_tanh = mean + std * eps
     action = torch.tanh(pre_tanh)
-    log_2pi = torch.log(torch.tensor(2.0 * math.pi, dtype=mean.dtype, device=mean.device))
+    log_2pi = torch.log(constant(2.0 * math.pi, mean.dtype, mean.device))
     gauss_logp = -0.5 * (((pre_tanh - mean) / std) ** 2 + 2.0 * log_std + log_2pi)
     # log(1 - tanh(x)^2) = 2 * (log 2 - x - softplus(-2x)), numerically
     # stable; softplus as jax.nn.softplus, logaddexp(x, 0).
-    log_2 = torch.log(torch.tensor(2.0, dtype=mean.dtype, device=mean.device))
+    log_2 = torch.log(constant(2.0, mean.dtype, mean.device))
     softplus = torch.logaddexp(-2.0 * pre_tanh, torch.zeros_like(pre_tanh))
     correction = 2.0 * (log_2 - pre_tanh - softplus)
     log_prob = torch.sum(gauss_logp - correction, dim=-1)

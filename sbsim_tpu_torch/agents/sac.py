@@ -29,6 +29,7 @@ from sbsim_tpu_torch.agents import networks
 from sbsim_tpu_torch.agents.replay import Transition
 from sbsim_tpu_torch.distributed import runtime
 from sbsim_tpu_torch.envs.building_env import resolve_device
+from sbsim_tpu_torch.graphs import constant
 
 Params = Dict[str, torch.Tensor]
 
@@ -111,9 +112,8 @@ def adam_step(
         keep = g_norm < clip
         grads = {k: torch.where(keep, g, (g / g_norm) * clip) for k, g in grads.items()}
     count = opt.count + 1
-    f32 = dict(dtype=torch.float32, device=count.device)
-    c1 = 1.0 - torch.tensor(ADAM_B1, **f32) ** count.to(torch.float32)
-    c2 = 1.0 - torch.tensor(ADAM_B2, **f32) ** count.to(torch.float32)
+    c1 = 1.0 - constant(ADAM_B1, torch.float32, count.device) ** count.to(torch.float32)
+    c2 = 1.0 - constant(ADAM_B2, torch.float32, count.device) ** count.to(torch.float32)
     mu, nu, new_params = {}, {}, {}
     for k, g in grads.items():
         mu[k] = (1.0 - ADAM_B1) * g + ADAM_B1 * opt.mu[k]
@@ -307,8 +307,7 @@ class SACLearner:
         alpha_opt = AdamState(alpha_opt.count, alpha_opt.mu["log_alpha"],
                               alpha_opt.nu["log_alpha"])
         if cfg.min_alpha > 0.0:
-            floor = torch.log(torch.tensor(cfg.min_alpha, dtype=torch.float32,
-                                           device=log_alpha.device))
+            floor = torch.log(constant(cfg.min_alpha, torch.float32, log_alpha.device))
             log_alpha = torch.maximum(log_alpha, floor)
 
         # --- Target network Polyak update ---------------------------------

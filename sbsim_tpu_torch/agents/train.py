@@ -8,9 +8,13 @@ ring, and K SAC gradient steps run per env step.
 
 The rng schedule is the JAX package's key for key (threefry, bitwise equal
 to jax.random), so a TrainState carried over from it takes the same steps.
-The two JAX-side branches become host branches: `_maybe_reset` resets only
-when some env finished (it reads `done.any()`, one device sync per env
-step), and the update gate reads the host-side `env_steps` count.
+Of the JAX package's two `lax.cond`s, `_maybe_reset` becomes a masked
+select that always draws the reset (the same values: the reset keys come
+from `k_reset` alone), and the update gate reads the host-side `env_steps`
+count, which the host knows without a sync. No step reads a device value
+back, so each is captured whole into a CUDA graph (graphs.py), as the JAX
+package jits it: `captured` and `captured_train_step` (one program per
+side of the gate, lax.cond's two branches), `captured_evaluate`.
 
 `ShardHooks` let the same `collect_step` / `train_step` run as each rank's
 program on a mesh (distributed/mesh.py): they draw at the global shape and
@@ -22,11 +26,13 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from sbsim_tpu_torch import graphs
 from sbsim_tpu_torch import rng as rng_lib
 from sbsim_tpu_torch.agents import replay as replay_lib
 from sbsim_tpu_torch.agents.replay import ReplayState, ShardedReplayState, Transition
@@ -121,6 +127,8 @@ class ShardHooks:
 
 _NO_HOOKS = ShardHooks()
 
+StepFn = Callable[["TrainState"], Tuple["TrainState", Dict[str, torch.Tensor]]]
+
 
 def _select(mask: torch.Tensor, new, old):
     """Field by field: `new` where the (B,) mask holds, else `old`."""
@@ -156,6 +164,8 @@ class SACTrainer:
             )
         self.learner = SACLearner(env.obs_dim, env.n_actions, config.sac, device=env.device)
         self._solver = config.env_solver
+        self._discount = torch.tensor(env.config.discount_factor, dtype=torch.float32,
+                                      device=env.device)
 
     @property
     def device(self) -> torch.device:
@@ -200,10 +210,11 @@ class SACTrainer:
         self, env_states: EnvState, obs: torch.Tensor, done: torch.Tensor, key: torch.Tensor,
         hooks: ShardHooks = _NO_HOOKS,
     ) -> Tuple[EnvState, torch.Tensor]:
-        """Resets envs that finished their episode (masked select), only
-        when some env did (episodes are hundreds of steps)."""
-        if not bool(done.any()):
-            return env_states, obs
+        """Resets envs that finished their episode: the fresh states and
+        observations where `done`, the stepped ones elsewhere. The reset is
+        drawn on every step, with no read of `done` on the host; the keys
+        come from `key` alone, so the values are those of the JAX
+        package's lax.cond, which draws it only when some env is done."""
         if hooks.reset_keys is not None:
             keys = hooks.reset_keys(key)
         else:
@@ -221,12 +232,7 @@ class SACTrainer:
         rng, k_act, k_reset = rng_lib.split(state.rng, 3)
         actions = action_fn(state.last_obs, k_act)
         env_states, out = self._step_v(state.env_states, actions)
-        discount = torch.where(
-            out.done,
-            torch.zeros((), device=self.device),
-            torch.tensor(self.env.config.discount_factor, dtype=torch.float32,
-                         device=self.device),
-        )
+        discount = torch.where(out.done, 0.0, self._discount)
         batch = Transition(
             obs=state.last_obs, action=actions, reward=out.reward,
             discount=discount, next_obs=out.observation,
@@ -255,16 +261,22 @@ class SACTrainer:
             return replay_lib.sample_sharded(replay, key, self.config.batch_size)
         return replay_lib.sample(replay, key, self.config.batch_size)
 
+    def learns(self, env_steps: int) -> bool:
+        """The update gate: whether `update` learns at this env-step count."""
+        return env_steps >= self.config.seed_steps
+
     def update(
-        self, state: TrainState, hooks: ShardHooks = _NO_HOOKS
+        self, state: TrainState, hooks: ShardHooks = _NO_HOOKS, learn: Optional[bool] = None,
     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """The K SAC updates of one train step (zero metrics before
-        `seed_steps` env steps), each on a fresh replay sample."""
+        `seed_steps` env steps), each on a fresh replay sample. `learn`
+        takes a side of the gate regardless of env_steps (a captured
+        program per side); None reads the gate."""
         rng, k_updates = rng_lib.split(state.rng)
         update_keys = rng_lib.split(k_updates, self.config.updates_per_env_step)
         sac = state.sac
         metrics = _zero_metrics(sac)
-        if state.env_steps >= self.config.seed_steps:
+        if self.learns(state.env_steps) if learn is None else learn:
             for key in update_keys:
                 k_sample, k_update = rng_lib.split(key)
                 batch = self._sample(state.replay, k_sample, hooks)
@@ -272,11 +284,12 @@ class SACTrainer:
         return state.replace(sac=sac, rng=rng), metrics
 
     def train_step(
-        self, state: TrainState, hooks: ShardHooks = _NO_HOOKS
+        self, state: TrainState, hooks: ShardHooks = _NO_HOOKS, learn: Optional[bool] = None,
     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One env step (policy actions) + K SAC updates. With `hooks` the
-        same body is each rank's program on a mesh; the rng schedule and the
-        order of the steps stay this function's."""
+        """One env step (policy actions) + K SAC updates (`learn` as in
+        `update`). With `hooks` the same body is each rank's program on a
+        mesh; the rng schedule and the order of the steps stay this
+        function's."""
 
         def policy(obs, key):
             if hooks.policy is not None:
@@ -284,7 +297,7 @@ class SACTrainer:
             return self.learner.act(state.sac, obs, key)
 
         state, metrics = self.collect_step(state, policy, hooks)
-        state, update_metrics = self.update(state, hooks)
+        state, update_metrics = self.update(state, hooks, learn)
         metrics.update(update_metrics)
         return state, metrics
 
@@ -293,7 +306,9 @@ class SACTrainer:
     ) -> Callable[[TrainState], Tuple[TrainState, Dict[str, torch.Tensor]]]:
         """Returns a collect-step fn driven by a per-step action table (the
         schedule-policy replay bootstrap, SAC_Demo.ipynb cells 34-40). The
-        table's action depends on each env's own step only."""
+        table's action depends on each env's own step only. Without `hooks`
+        it is a captured program (`captured`; its `program.fn` is the step
+        op by op); a rank's step in a group runs op by op."""
         del state
         table = torch.as_tensor(np.asarray(action_table), dtype=torch.float32,
                                 device=self.device)
@@ -305,7 +320,51 @@ class SACTrainer:
 
             return self.collect_step(st, policy, hooks)
 
-        return step_fn
+        return self.captured(step_fn) if hooks == _NO_HOOKS else step_fn
+
+    # ------------------------------------------------------------------
+    # Captured programs (graphs.py), the counterparts of the JAX package's
+    # jitted steps
+
+    def captured(self, step: StepFn) -> StepFn:
+        """`step` (a TrainState -> (TrainState, metrics) function of this
+        trainer that reads env_steps only to count it: a collect step, or
+        `train_step` with a side of the gate) as a captured program, the
+        counterpart of `jax.jit(step)`. env_steps stays on the host: the
+        program sees it at 0, and the host adds n_envs to the caller's
+        count. Outputs follow graphs.py's aliasing rule: fresh tensors,
+        but for the replay ring, which is the program's buffer and is
+        written in place as `collect_step` writes it."""
+        program = graphs.capture(step)
+        n_envs = self.config.n_envs
+
+        def run(state: TrainState):
+            new_state, metrics = program(state.replace(env_steps=0))
+            return new_state.replace(env_steps=state.env_steps + n_envs), metrics
+
+        run.program = program
+        return run
+
+    def captured_train_step(self) -> StepFn:
+        """`train_step` as two captured programs, one per side of the update
+        gate (the two branches of the JAX package's lax.cond,
+        sbsim_tpu/agents/train.py:326); the host picks the side from its
+        env_steps count, as `update` does after the collect step."""
+        sides = [self.captured(functools.partial(self.train_step, learn=learn))
+                 for learn in (False, True)]
+        n_envs = self.config.n_envs
+
+        def step(state: TrainState):
+            return sides[self.learns(state.env_steps + n_envs)](state)
+
+        step.sides = sides
+        return step
+
+    def captured_evaluate(self) -> Callable[..., torch.Tensor]:
+        """`evaluate` as a captured program per (n_steps, n_envs), as the
+        JAX entry point jits it (examples/train_sac.py:97); `key` must lie
+        on the trainer's device."""
+        return graphs.capture(self.evaluate)
 
     # ------------------------------------------------------------------
 

@@ -10,11 +10,13 @@ It builds the JAX bench's env (`sb1_config(num_days_in_episode=2)`; with
 `--full-scale` the 126-room plan, `layout="auto"` set after the preset, so
 the interleave width stays the reference orientation's), resets the batch
 from `rng.split(rng.PRNGKey(0), batch)` and steps it with the schedule
-policy's action table for `--steps` steps per call (`make_rollout`). Before
-timing, one step of the timed solver is held against `xla_jacobi` on the
-fresh states with zero actions (max |dT| < 0.8 K for the Chebyshev paths,
-else 1e-2 K; max |d reward| < 1e-3). Then one untimed call (it builds the
-kernels), and timed calls under the JAX script's plateau rule: at least
+policy's action table for `--steps` steps per call (`make_rollout`: on the
+card one captured CUDA graph, graphs.py, as the JAX bench jits its scan).
+Before timing, one step of the timed solver is held against `xla_jacobi`
+on the fresh states with zero actions (max |dT| < 0.8 K for the Chebyshev
+paths, else 1e-2 K; max |d reward| < 1e-3). Then one untimed call (it builds the
+kernels and captures the rollout, as the JAX script's first call compiles
+it), and timed calls under the JAX script's plateau rule: at least
 `--min-repeats` (and 5), at most `--max-repeats`, stopping once the best
 has not grown by more than 1% over the last 4, or when `--budget-sec` has
 passed. Each call is timed by a pair of CUDA events (the host clock on the
@@ -33,8 +35,9 @@ Deviations from the JAX script, deliberate: no device probe and no quiet
 CPU fallback (without `--cpu` the bench needs a card, else it exits 1); no
 fallback between solvers (`auto` is "pallas_cheby" on the card,
 "xla_jacobi" with `--cpu` or `--no-pallas`; a failed solver check prints
-its line and exits 1, and a kernel's error propagates); `median` is
-`statistics.median`, not the upper middle element.
+its line and exits 1, and a kernel's or a capture's error propagates,
+with no eager rerun); `median` is `statistics.median`, not the upper
+middle element.
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from sbsim_tpu_torch import graphs
 
 SOLVERS = ("auto", "pallas_env", "pallas_cheby", "xla_jacobi", "xla_chebyshev")
 CPU_BATCH_CAP = 64  # bench.py:108
@@ -115,7 +120,10 @@ def make_rollout(env, actions, n_steps: int, solver: str) -> Callable:
     """rollout(states) -> (states, mean reward): `n_steps` step_batched
     calls, each env taking the action table's row at its own step (clamped
     into the table). The rewards stay on the device; nothing in the loop
-    waits for it."""
+    waits for it. On the card the whole call is one captured program
+    (graphs.capture, the counterpart of bench.py:146's `jax.jit`), captured
+    at its first call; its `fn` is the rollout op by op. The states it
+    returns are fresh tensors, bitwise the eager rollout's."""
     table = torch.tensor(np.asarray(actions), dtype=torch.float32, device=env.device)
     last = table.shape[0] - 1
 
@@ -127,7 +135,7 @@ def make_rollout(env, actions, n_steps: int, solver: str) -> Callable:
             rewards.append(out.reward)
         return states, torch.stack(rewards).mean()
 
-    return rollout
+    return graphs.capture(rollout)
 
 
 def solver_check(env, states, solver: str) -> dict:
@@ -232,7 +240,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(json.dumps(line), flush=True)
         return 1
     rollout = make_rollout(env, actions, args.steps, solver)
-    states, _ = rollout(states0)  # untimed: builds the kernels at first use
+    states, _ = rollout(states0)  # untimed: builds the kernels, captures the rollout
     if cuda:
         torch.cuda.synchronize(device)
 

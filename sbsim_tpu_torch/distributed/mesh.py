@@ -302,9 +302,12 @@ def make_distributed_train_step(trainer: SACTrainer, mesh: Mesh) -> StepFn:
     `_gspmd_safe_trainer` has no counterpart). The flat ring is replicated:
     each collect step gathers every rank's transitions into it, and each
     rank samples its block of the global batch. A mesh without a group runs
-    the plain `train_step`."""
+    `train_step` as captured programs (trainer.captured_train_step, the
+    counterpart of the JAX package's `jax.jit(step)`,
+    sbsim_tpu/distributed/mesh.py:174); a rank in a group runs op by op
+    (its collectives are not captured)."""
     if mesh.group is None:
-        return trainer.train_step
+        return trainer.captured_train_step()
     hooks = _train_hooks(trainer, mesh)
     return lambda state: trainer.train_step(state, hooks)
 
@@ -313,7 +316,9 @@ def make_distributed_collect_step(trainer: SACTrainer, mesh: Mesh, action_fn) ->
     """One collect step on each rank's rows: the reset keys drawn at the
     global shape, the reward mean reduced, and under the flat layout every
     rank's transitions gathered into the replicated ring. A mesh without a
-    group runs the plain collect step.
+    group runs the plain collect step as a captured program
+    (trainer.captured, the counterpart of sbsim_tpu/distributed/mesh.py:185);
+    a rank in a group runs op by op.
 
     `action_fn` is the collect step's policy, (obs, key) -> actions, or a
     per-step action table (numpy, as `seed_with_actions` takes: each env's
@@ -325,4 +330,5 @@ def make_distributed_collect_step(trainer: SACTrainer, mesh: Mesh, action_fn) ->
     hooks = _collect_hooks(trainer, mesh) if mesh.group is not None else ShardHooks()
     if not callable(action_fn):
         return trainer.seed_with_actions(None, action_fn, hooks)
-    return lambda state: trainer.collect_step(state, action_fn, hooks)
+    step = lambda state: trainer.collect_step(state, action_fn, hooks)
+    return trainer.captured(step) if mesh.group is None else step

@@ -191,6 +191,7 @@ class BuildingEnv:
             num_hod_features=config.num_hod_features,
             num_dow_features=config.num_dow_features,
         )
+        self._obs_layout = obs_lib.layout_on(self.obs_layout, dev)
         self._reset_temps = torch.as_tensor(
             np.asarray(self.geom.reset_temps, np.float32), device=dev
         )
@@ -200,6 +201,12 @@ class BuildingEnv:
         self._zone_ids = torch.as_tensor(
             np.asarray(self.geom.zone_ids, np.int64), device=dev
         )
+        # Device constants of the step (made once: a captured step reads
+        # them, graphs.py).
+        f32 = dict(dtype=torch.float32, device=dev)
+        self._dt = torch.tensor(config.time_step_sec, **f32)
+        self._occ_norm = torch.tensor(config.occupancy_normalization_constant, **f32)
+        self._zero = torch.tensor(0.0, **f32)
         self._build_actions(config)
 
     def _build_actions(self, config: EnvConfig) -> None:
@@ -246,8 +253,11 @@ class BuildingEnv:
                     )
                 vav_slots.append((zone_index[zname], i))
             self.action_entries.append((dev, field, config.action_normalizers[field]))
-        self._vav_action_zone_idx = [z for z, _ in vav_slots]
-        self._vav_action_slot = [i for _, i in vav_slots]
+        # Device index tensors (a list index would be copied to the device
+        # on every step).
+        idx = dict(dtype=torch.int64, device=self.device)
+        self._vav_action_zone_idx = torch.tensor([z for z, _ in vav_slots], **idx)
+        self._vav_action_slot = torch.tensor([i for _, i in vav_slots], **idx)
         self.action_names = tuple(f"{d}_{f}" for d, f, _ in self.action_entries)
         f32 = dict(dtype=torch.float32, device=self.device)
         self._action_low = torch.tensor(
@@ -315,9 +325,8 @@ class BuildingEnv:
         tab = self._state_tables(window)
         # Reset observation: boiler ramp initializes its action timestamp
         # with zero elapsed time (boiler.py:163-168).
-        hvac = hvac_ops.boiler_observe_supply_temp(
-            hvac, self.hvac_params, torch.tensor(0.0, device=dev)
-        )
+        hvac = hvac_ops.boiler_observe_supply_temp(hvac, self.hvac_params, self._zero)
+
         occupants = self._occupancy_peek_randomized(
             occupants,
             obs_key,
@@ -603,7 +612,7 @@ class BuildingEnv:
                 setters[field] = native[:, i]
         # Per-VAV damper commands override the thermostat defaults
         # (simulator_building.py:204-263).
-        if self._vav_action_slot:
+        if self._vav_action_slot.numel():
             damper = hvac.damper.clone()
             damper[:, self._vav_action_zone_idx] = native[:, self._vav_action_slot]
             hvac = hvac.replace(damper=damper)
@@ -685,7 +694,7 @@ class BuildingEnv:
         """Observation + reward at t+1, after the physics solve."""
         tab, t = pre["tab"], pre["t"]
         t_next = t + 1
-        dt = torch.tensor(self.config.time_step_sec, dtype=torch.float32, device=self.device)
+        dt = self._dt
 
         # ---- Phase 3: observation at t+1 ---------------------------------
         # Occupancy peek for the observation probes [t, t+1]
@@ -801,14 +810,10 @@ class BuildingEnv:
             total_occ = tab("step_occupancy", probe) * self.geom.n_zones
         # int() truncation then occupancy normalization
         # (simulator_building.py:315, environment.py:952-956).
-        c = torch.tensor(
-            self.config.occupancy_normalization_constant,
-            dtype=torch.float32,
-            device=self.device,
-        )
+        c = self._occ_norm
         num_occupants = (torch.trunc(total_occ) - c) / (c + 1.0)
         return obs_lib.assemble_observation(
-            self.obs_layout,
+            self._obs_layout,
             ahu_values=ahu_values,
             boiler_values=boiler_values,
             vav_values=vav_values,

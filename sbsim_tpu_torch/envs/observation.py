@@ -184,6 +184,24 @@ def build_obs_layout(
     )
 
 
+def layout_on(layout: ObsLayout, device) -> ObsLayout:
+    """The layout with the arrays that `assemble_observation` reads as data
+    on `device`, made once per env so that a step (and a captured one,
+    graphs.py) makes no tensor from host data; the fields that steer the
+    assembly (vav_zero, hist_n_bins, use_histogram) stay on the host."""
+    t = lambda a: torch.as_tensor(a, device=device)
+    return dataclasses.replace(
+        layout,
+        scalar_means=t(layout.scalar_means),
+        scalar_stds=t(layout.scalar_stds),
+        scalar_zero=t(layout.scalar_zero),
+        vav_means=t(layout.vav_means),
+        vav_stds=t(layout.vav_stds),
+        vav_device_order=t(layout.vav_device_order),
+        hist_bins=t(layout.hist_bins),
+    )
+
+
 def _clipped_histogram(values: torch.Tensor, edges: np.ndarray) -> torch.Tensor:
     """(B, Z) values -> (B, n_edges) counts per bin with min/max clipping.
 
@@ -221,7 +239,8 @@ def assemble_observation(
     comfort_soon: torch.Tensor,
     num_occupants: torch.Tensor,
 ) -> torch.Tensor:
-    """Builds the normalized flat observations, (B, obs_dim) float32."""
+    """Builds the normalized flat observations, (B, obs_dim) float32. The
+    layout's data arrays may be host numpy or device tensors (`layout_on`)."""
     ahu_fields = [
         m
         for m in AHU_MEASUREMENTS

@@ -15,7 +15,9 @@ over the ranks of a process group (distributed/): under torchrun each rank
 drives one card over NCCL (with --cpu, the CPU over gloo), steps
 n_envs / ranks of the envs and mean-reduces the SAC gradients; rank 0
 prints and writes the metrics and checkpoints. Run as one process, it is
-a mesh of one rank.
+a mesh of one rank, and on the card its seeding step, train step and
+evaluation are captured CUDA graphs (graphs.py), as the JAX script jits
+them.
 
 Usage:
   python -m sbsim_tpu_torch.examples.train_sac --train_steps 20000 \\
@@ -134,9 +136,12 @@ def _run(args: argparse.Namespace) -> TrainRun:
     state = mesh_lib.shard_train_state(state, mesh)
     train_step = mesh_lib.make_distributed_train_step(trainer, mesh)
 
+    # The evaluation is one captured program (examples/train_sac.py:97 jits it).
+    captured_evaluate = trainer.captured_evaluate()
+    eval_key = rng.PRNGKey(7, device=dev)
+
     def evaluate(sac) -> float:
-        return float(trainer.evaluate(sac, rng.PRNGKey(7, device=dev),
-                                      n_steps=args.eval_steps, n_envs=4))
+        return float(captured_evaluate(sac, eval_key, args.eval_steps, 4))
 
     metrics_out = MetricsAccumulator(
         os.path.join(args.output_dir, "train_metrics.jsonl"),

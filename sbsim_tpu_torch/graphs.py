@@ -1,0 +1,287 @@
+"""CUDA graphs: the port's counterpart of `jax.jit` at the JAX package's
+call sites.
+
+The JAX package runs its main path as compiled programs (the bench's
+`jax.jit` over `lax.scan`, the trainer's jitted steps, the jitted
+evaluation). PyTorch dispatches op by op, and at the port's batch sizes
+the host's launches, not the kernels, set the step time. `capture(fn)`
+returns a callable that, the first time it sees a shape of arguments,
+warms `fn` up on a side stream and captures it into a
+`torch.cuda.CUDAGraph`; every call after that copies the arguments into
+the graph's static inputs and replays it, with no Python-side kernel
+launch. The first call's results are the warm-up's (`fn` on the caller's
+own arguments, as the eager call), so every call runs `fn` once on the
+device. A replay runs the captured kernels in the captured order, so its
+results are bitwise those of the eager call on the same inputs.
+
+Aliasing rule. A replay copies the caller's argument tensors into private
+static inputs and never writes the caller's tensors. Every output of a
+replay is a fresh tensor, except an input buffer that `fn` updates in
+place and returns (the replay ring's insert): that output is the graph's
+static input buffer, updated in place at every replay, as the eager call
+updates its input in place; passed back in, it is not copied. So a state
+held from before a call does not change under it, except for such a
+buffer, which the eager call shares and updates too. (The first call is
+the eager call: it updates such a buffer of the caller's in place.) An
+input that `fn` updates in place without returning it is refused at
+capture.
+
+Arguments are nested tuples, lists, dicts and dataclasses of tensors and
+hashable constants. The constants are part of the program: a new value
+captures a new program, and the outputs' constants are those of the
+capture. Host scalars that change from call to call (a step count, a
+gate) stay outside `fn`, as a jitted program's static arguments select
+among programs.
+
+When no argument tensor lies on a CUDA device (the caller asked for the
+CPU), the callable calls `fn` directly. On the card a failed capture or
+replay raises; nothing runs eagerly in its place.
+
+`fn` must not read a device value back to the host, nor make a tensor
+from host data on each call (neither can be captured, and the host data
+would be gone at replay): device constants come from `constant`, built
+once per device.
+
+Launch counts: the kernels' wrappers add one to a Python counter where
+they launch (`fdm_cuda.launch_counts`). A capture moves the counters
+without a launch on the device, and a replay launches without moving
+them. So the program takes back what its capture added and adds it again
+at every replay: the counters count launches on the device (the first
+call's, the warm-up's, included).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+import time
+from typing import Any, Callable, Dict, List, Sequence, Tuple
+
+import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(key: Tuple[str, str], dtype: torch.dtype, device: torch.device,
+              value) -> torch.Tensor:
+    del key
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+def constant(value, dtype: torch.dtype, device) -> torch.Tensor:
+    """The 0-d tensor `torch.tensor(value, dtype=dtype, device=device)`,
+    made once per value, type and device and shared by every caller: a
+    device constant that a captured program may read. Never write it."""
+    # repr keeps -0.0 and 0.0 (equal, and hashed alike) apart.
+    return _constant((type(value).__name__, repr(value)), dtype, torch.device(device),
+                     value)
+
+
+# ---------------------------------------------------------------------------
+# Argument trees
+# ---------------------------------------------------------------------------
+
+_TENSOR = ("tensor",)
+
+
+def flatten(x, leaves: List[torch.Tensor]):
+    """Appends x's tensors to `leaves` in order; returns x's structure
+    (hashable), its constants included. `unflatten` inverts it."""
+    if torch.is_tensor(x):
+        leaves.append(x)
+        return _TENSOR
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        names = tuple(f.name for f in dataclasses.fields(x))
+        return ("dataclass", type(x), names,
+                tuple(flatten(getattr(x, n), leaves) for n in names))
+    if isinstance(x, (tuple, list)):
+        kind = type(x) if hasattr(x, "_fields") else type(x).__name__
+        return ("seq", kind, tuple(flatten(v, leaves) for v in x))
+    if isinstance(x, dict):
+        keys = tuple(x)
+        return ("dict", keys, tuple(flatten(x[k], leaves) for k in keys))
+    try:
+        hash(x)
+    except TypeError:
+        raise TypeError(f"a captured program's argument {type(x).__name__} is neither "
+                        "a tensor nor a hashable constant") from None
+    return ("const", x)
+
+
+def unflatten(spec, leaves) -> Any:
+    """The tree of `spec` (from flatten) with its tensors drawn in order
+    from the iterator `leaves`."""
+    kind = spec[0]
+    if kind == "tensor":
+        return next(leaves)
+    if kind == "dataclass":
+        _, cls, names, children = spec
+        return cls(**{n: unflatten(c, leaves) for n, c in zip(names, children)})
+    if kind == "seq":
+        _, seq, children = spec
+        values = [unflatten(c, leaves) for c in children]
+        if isinstance(seq, type):  # a namedtuple
+            return seq(*values)
+        return tuple(values) if seq == "tuple" else values
+    if kind == "dict":
+        _, keys, children = spec
+        return {k: unflatten(c, leaves) for k, c in zip(keys, children)}
+    return spec[1]
+
+
+def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree) -> Any:
+    """`tree` with each tensor t replaced by fn(t) (`tree_map(torch.clone,
+    state)` copies a state)."""
+    leaves: List[torch.Tensor] = []
+    spec = flatten(tree, leaves)
+    return unflatten(spec, iter([fn(t) for t in leaves]))
+
+
+def _by_dtype(tensors: Sequence[torch.Tensor]) -> Dict[torch.dtype, List[int]]:
+    groups: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.dtype, []).append(i)
+    return groups
+
+
+def _copy(dst: Sequence[torch.Tensor], src: Sequence[torch.Tensor]) -> None:
+    """dst[i].copy_(src[i]), one multi-tensor copy per dtype."""
+    for idx in _by_dtype(dst).values():
+        torch._foreach_copy_([dst[i] for i in idx], [src[i] for i in idx])
+
+
+# ---------------------------------------------------------------------------
+# Programs
+# ---------------------------------------------------------------------------
+
+
+class _CudaGraphs:
+    """The torch.cuda pieces a capture uses (tests stand a stub in)."""
+
+    new_graph = torch.cuda.CUDAGraph
+    capture = torch.cuda.graph
+    device = torch.cuda.device
+
+    @staticmethod
+    def reserved(device) -> int:
+        """Bytes the caching allocator holds on `device`, its free cached
+        blocks released first (as torch.cuda.graph's capture does)."""
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(device)
+
+    @staticmethod
+    @contextlib.contextmanager
+    def side_stream(device):
+        """Runs the body on a side stream, after the current stream's work
+        and before what the current stream does next (the warm-up)."""
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            yield
+        torch.cuda.current_stream(device).wait_stream(side)
+
+
+class Program:
+    """One captured shape of a function: its graph, static inputs and
+    outputs, and the launch counts that one replay makes. `first` holds
+    the warm-up's results (the first call's) until `take_first`;
+    `capture_ms` is the host time of the first call (warm-up and
+    capture), `pool_bytes` the device memory the capture kept (the
+    graph's private pool, static outputs included)."""
+
+    def __init__(self, fn: Callable, args: tuple, spec, leaves: Sequence[torch.Tensor],
+                 counters: Sequence[Dict[str, int]], api=_CudaGraphs):
+        device = leaves[0].device
+        self._counters = counters
+        t0 = time.perf_counter()
+        with api.device(device):
+            # Copied before the warm-up, which may update its inputs in place.
+            self.static_in = [torch.empty_like(t) for t in leaves]
+            _copy(self.static_in, leaves)
+            with api.side_stream(device):
+                self.first = fn(*args)
+            before = [dict(c) for c in counters]
+            versions = [t._version for t in self.static_in]
+            reserved = api.reserved(device)
+            self.graph = api.new_graph()
+            with api.capture(self.graph):
+                out = fn(*unflatten(spec, iter(self.static_in)))
+            self.pool_bytes = api.reserved(device) - reserved
+        # What the capture added is what one replay launches; the capture
+        # itself launched nothing on the device.
+        self.per_replay = []
+        for c, b in zip(counters, before):
+            delta = {k: c[k] - b.get(k, 0) for k in c if c[k] != b.get(k, 0)}
+            c.update(b)
+            self.per_replay.append(delta)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.replays = 0
+        out_leaves: List[torch.Tensor] = []
+        self._out_spec = flatten(out, out_leaves)
+        self.static_out = out_leaves
+        updated = {id(t) for t, v in zip(self.static_in, versions) if t._version != v}
+        returned = {id(t) for t in out_leaves}
+        if updated - returned:
+            raise ValueError("the captured function updates an input in place without "
+                             "returning it; the caller would not see the update")
+        # Outputs that are in-place-updated input buffers are handed out as
+        # they are; every other output is copied into a fresh tensor.
+        self._fresh = [i for i, t in enumerate(out_leaves) if id(t) not in updated]
+
+    def take_first(self):
+        first, self.first = self.first, None
+        return first
+
+    def __call__(self, leaves: Sequence[torch.Tensor]):
+        todo = [i for i, (s, t) in enumerate(zip(self.static_in, leaves)) if s is not t]
+        _copy([self.static_in[i] for i in todo], [leaves[i] for i in todo])
+        self.graph.replay()
+        self.replays += 1
+        for c, delta in zip(self._counters, self.per_replay):
+            for k, n in delta.items():
+                c[k] += n
+        out = list(self.static_out)
+        fresh = [torch.empty_like(out[i]) for i in self._fresh]
+        _copy(fresh, [out[i] for i in self._fresh])
+        for i, t in zip(self._fresh, fresh):
+            out[i] = t
+        return unflatten(self._out_spec, iter(out))
+
+
+class CapturedFunction:
+    """`fn` captured once per argument shape (see the module docstring).
+    `programs` maps each argument signature to its Program; `counters` are
+    the kernels' launch counts (`fdm_cuda.launch_counts`)."""
+
+    def __init__(self, fn: Callable):
+        # Imported here: fdm_cuda imports rng, which imports this module.
+        from sbsim_tpu_torch.physics import fdm_cuda
+
+        self.fn = fn
+        self.counters = (fdm_cuda.launch_counts,)
+        self.programs: Dict[Any, Program] = {}
+        functools.update_wrapper(self, fn)
+
+    def __call__(self, *args):
+        leaves: List[torch.Tensor] = []
+        spec = flatten(args, leaves)
+        devices = {t.device for t in leaves}
+        if not any(d.type == "cuda" for d in devices):
+            return self.fn(*args)
+        if len(devices) > 1:
+            raise ValueError("a captured program's tensors must lie on one device; got "
+                             f"{sorted(map(str, devices))}")
+        key = (spec, tuple((t.shape, t.dtype) for t in leaves), devices.pop())
+        program = self.programs.get(key)
+        if program is None:
+            program = self.programs[key] = Program(self.fn, args, spec, leaves,
+                                                   self.counters)
+            return program.take_first()
+        return program(leaves)
+
+
+def capture(fn: Callable) -> CapturedFunction:
+    """`fn` as a captured program, the port's `jax.jit` (the module
+    docstring has the rules)."""
+    return CapturedFunction(fn)

@@ -22,6 +22,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from sbsim_tpu_torch.graphs import constant
+
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -122,8 +124,8 @@ def uniform(
     fused (as XLA compiles it)."""
     mant = (bits(key, shape) >> 9) | 0x3F800000
     floats = mant.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = constant(minval, torch.float32, key.device)
+    hi = constant(maxval, torch.float32, key.device)
     return torch.maximum(lo, _fma_f32(floats, hi - lo, lo))
 
 
@@ -147,8 +149,8 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
     coeff = lambda i: torch.where(
         small,
-        torch.tensor(_ERFINV_SMALL[i], dtype=torch.float32, device=x.device),
-        torch.tensor(_ERFINV_LARGE[i], dtype=torch.float32, device=x.device),
+        constant(_ERFINV_SMALL[i], torch.float32, x.device),
+        constant(_ERFINV_LARGE[i], torch.float32, x.device),
     )
     p = coeff(0)
     for i in range(1, len(_ERFINV_SMALL)):
@@ -163,7 +165,7 @@ def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     polynomial's multiply-adds)."""
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, lo, 1.0)
-    return torch.tensor(np.sqrt(2.0), dtype=torch.float32, device=key.device) * erfinv(u)
+    return constant(float(np.sqrt(2.0)), torch.float32, key.device) * erfinv(u)
 
 
 def randint(
@@ -180,8 +182,9 @@ def randint(
     broadcast to `shape`."""
     dev = key.device
     i32 = torch.iinfo(torch.int32)
-    lo = torch.as_tensor(minval, device=dev).to(torch.int64).clamp(i32.min, i32.max)
-    hi = torch.as_tensor(maxval, device=dev).to(torch.int64).clamp(i32.min, i32.max)
+    as_i64 = lambda v: (v.to(dev) if torch.is_tensor(v) else constant(v, torch.int64, dev))
+    lo = as_i64(minval).to(torch.int64).clamp(i32.min, i32.max)
+    hi = as_i64(maxval).to(torch.int64).clamp(i32.min, i32.max)
     sub = split(key)
     higher, lower = bits(sub[..., 0, :], shape), bits(sub[..., 1, :], shape)
     span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & MASK32)

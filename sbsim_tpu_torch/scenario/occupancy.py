@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from sbsim_tpu_torch import rng
+from sbsim_tpu_torch.graphs import constant
 from sbsim_tpu_torch.envs.config import OccupancyConfig
 
 
@@ -85,7 +86,7 @@ def occupancy_peek(
     may depart any time at/after the earliest departure hour.
     """
     u = rng.uniform(key, working.shape[1:])
-    f32 = lambda p: torch.tensor(p, dtype=torch.float32, device=u.device)
+    f32 = lambda p: constant(p, torch.float32, u.device)
     hour = local_hour.view(-1, 1, 1)
     in_arrival = (hour >= params.earliest_arrival_hour) & (
         hour <= params.latest_arrival_hour

@@ -11,8 +11,11 @@ Each kernel must equal its plain PyTorch version bitwise (fields,
 iteration counts, converged flags, and the zone/grid sums of the
 statistics epilogue; NaN equal to NaN where an env's field holds one),
 count its launches, and refuse inputs it does not take; the block kernels
-K3/K4 must also equal K2/K1 env for env (K3 unless a residual is NaN). This file
-imports no JAX.
+K3/K4 must also equal K2/K1 env for env (K3 unless a residual is NaN). The
+captured programs (graphs.py: the bench rollout, the trainer's seeding and
+train steps on both sides of the update gate, evaluate) must replay bitwise
+their eager calls, with no host sync (set_sync_debug_mode("error")) and
+the eager calls' launches. This file imports no JAX.
 """
 
 import dataclasses
@@ -666,3 +669,99 @@ def test_bench_on_the_card(env, capsys):
     assert line["solver_check"]["passed"] and len(line["repeats"]) == 2
     assert all(np.isfinite(r) and r > 0 for r in line["repeats"])
     assert counts == {"fdm_cheby": 1 + (1 + len(line["repeats"])) * 8}
+
+
+# ---------------------------------------------------------------------------
+# Captured programs (graphs.py): each replay bitwise the eager call, from a
+# clone of the same start, with no host sync and the eager call's launches.
+# ---------------------------------------------------------------------------
+
+
+def _clone(tree):
+    from sbsim_tpu_torch import graphs
+
+    return graphs.tree_map(torch.clone, tree)
+
+
+def _replayed(fn, *args):
+    """fn(*args) under set_sync_debug_mode("error"), and its launches."""
+    torch.cuda.synchronize()
+    before = dict(fdm_cuda.launch_counts)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, {k: n - before[k] for k, n in fdm_cuda.launch_counts.items() if n != before[k]}
+
+
+def _trees_equal(a, b):
+    from sbsim_tpu_torch import graphs
+
+    la, lb = [], []
+    assert graphs.flatten(a, la) == graphs.flatten(b, lb)
+    return all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("solver,kernel", [("pallas_cheby", "fdm_cheby"),
+                                           ("pallas_env", "fdm_jacobi")])
+def test_rollout_replay_equals_eager(env, solver, kernel):
+    from sbsim_tpu_torch import bench
+    from sbsim_tpu_torch.agents import schedule_policy
+
+    table = schedule_policy.build_schedule_actions(env)
+    start, _ = env.reset(rng.split(rng.PRNGKey(4, device=env.device), 64))
+    start = start.replace(step_idx=torch.full_like(start.step_idx, 284))  # across the end
+    roll = bench.make_rollout(env, table, 6, solver)
+    want = roll.fn(_clone(start))
+    roll(_clone(start))  # the first call captures
+    got, launched = _replayed(roll, _clone(start))
+    assert launched == {kernel: 6}
+    assert _trees_equal(got, want)
+    (program,) = roll.programs.values()
+    assert program.replays == 1 and program.per_replay == [{kernel: 6}]
+
+
+def test_trainer_replays_equal_eager_across_the_end_and_the_gate(env):
+    from sbsim_tpu_torch.agents import schedule_policy, train
+
+    trainer = train.SACTrainer(env, train.recipe_for(
+        env, n_envs=8, batch_size=64, replay_capacity=800, seed_steps=6 * 8))
+    state = trainer.init(rng.PRNGKey(2, device=env.device))
+    state = state.replace(env_states=state.env_states.replace(
+        step_idx=torch.full_like(state.env_states.step_idx, 286)))
+    seed = trainer.seed_with_actions(state, schedule_policy.build_schedule_actions(env))
+    step = trainer.captured_train_step()
+    eager, graph = _clone(state), _clone(state)
+    # 3 seeding steps (the second crosses the 288-step end), then 2 train
+    # steps on each side of the gate: each program's first call captures.
+    plan = [(seed, seed.program.fn)] * 3 + [(step, trainer.train_step)] * 4
+    for i, (captured, op_by_op) in enumerate(plan):
+        eager, want_m = op_by_op(eager)
+        replay = i not in (0, 3, 5)
+        if replay:
+            (graph, got_m), launched = _replayed(captured, graph)
+            assert launched == {"fdm_jacobi": 1}
+        else:
+            graph, got_m = captured(graph)
+        assert graph.env_steps == eager.env_steps
+        assert _trees_equal((graph.env_states, graph.last_obs, graph.replay, graph.sac,
+                             graph.rng), (eager.env_states, eager.last_obs, eager.replay,
+                                          eager.sac, eager.rng))
+        assert _trees_equal(got_m, want_m)
+    assert [bool(s.program.programs) for s in step.sides] == [True, True]
+    assert seed.program.programs and (graph.env_states.step_idx == 5).all()
+
+
+def test_evaluate_replay_equals_eager(env):
+    from sbsim_tpu_torch.agents import train
+
+    trainer = train.SACTrainer(env, train.recipe_for(env, n_envs=8, batch_size=64))
+    sac = trainer.init(rng.PRNGKey(3, device=env.device)).sac
+    key = rng.PRNGKey(7, device=env.device)
+    evaluate = trainer.captured_evaluate()
+    want = trainer.evaluate(sac, key, 12, 4)
+    evaluate(sac, key, 12, 4)  # the first call captures
+    got, launched = _replayed(evaluate, sac, key, 12, 4)
+    assert launched == {"fdm_jacobi": 12} and torch.equal(got, want)

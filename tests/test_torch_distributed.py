@@ -587,19 +587,22 @@ def test_flat_ring_distributed_train_step(runs, against):
 
 
 def test_groupless_mesh_runs_the_plain_steps():
-    """A mesh without a group runs trainer.train_step and the plain collect
-    step, the flat ring included."""
+    """A mesh without a group runs the plain collect step and
+    trainer.train_step (as captured programs, which call them directly on
+    the CPU), the flat ring included."""
     trainer = _trainer(**FLAT)
     mesh = mesh_lib.make_mesh()
-    assert mesh_lib.make_distributed_train_step(trainer, mesh) == trainer.train_step
     a = trainer.init(rng.PRNGKey(KEY))
     b = mesh_lib.shard_train_state(trainer.init(rng.PRNGKey(KEY)), mesh)
     table = schedule_policy.build_schedule_actions(trainer.env)
-    seed_a = trainer.seed_with_actions(a, table)
+    seed_a = trainer.seed_with_actions(a, table).program.fn
     seed_b = mesh_lib.make_distributed_collect_step(trainer, mesh, table)
     for _ in range(2):
         a, _ = seed_a(a)
         b, _ = seed_b(b)
+    assert _equal(_flat(_state_tree(a, trainer)), _flat(_state_tree(b, trainer))) == []
+    a, _ = trainer.train_step(a)
+    b, _ = mesh_lib.make_distributed_train_step(trainer, mesh)(b)
     assert _equal(_flat(_state_tree(a, trainer)), _flat(_state_tree(b, trainer))) == []
 
 

@@ -153,9 +153,13 @@ def test_episode_reset_selects_fresh_envs():
     mixed, obs = tt._maybe_reset(stepped, out.observation, done, rng.PRNGKey(1))
     assert mixed.step_idx.tolist() == [0, 1]
     assert torch.equal(obs[1], out.observation[1])
-    same, _ = tt._maybe_reset(stepped, out.observation, torch.tensor([False, False]),
-                              rng.PRNGKey(1))
-    assert same is stepped
+    same, same_obs = tt._maybe_reset(stepped, out.observation,
+                                     torch.tensor([False, False]), rng.PRNGKey(1))
+    # No env done: the masked select keeps every stepped field, bitwise.
+    want = dict(_flat(convert.env_state_to_numpy(stepped)))
+    for key, value in _flat(convert.env_state_to_numpy(same)):
+        np.testing.assert_array_equal(value, want[key], err_msg=key)
+    assert torch.equal(same_obs, out.observation)
 
 
 # ---------------------------------------------------------------------------
