@@ -12,8 +12,9 @@
         # phases 0-1, phase 10 with N ranks in (a), phase 11 (b) at 1, 2,
         # ..., N ranks and phase 12 (e) at N ranks; nccl puts rank r on
         # card r (N cards), gloo (the default) all on one card
-    python3 chip_smoke.py --graphs
-        # phases 0-1 and phase 14 (the captured programs against eager)
+    python3 chip_smoke.py --graphs [14|15]
+        # phases 0-1 and phases 14 and 15 (the captured programs against
+        # eager), or the one named
     python3 chip_smoke.py --learn [TRAIN_STEPS] [--out PATH]
         # phases 0-1, tests/test_sac_learning.py's two-zone recipe with its
         # asserts, and the 12-zone sac_sb1_train curve to TRAIN_STEPS
@@ -185,10 +186,11 @@ Phases (each prints its own lines; any failure exits non-zero):
   11. The scripts beside the package (sbsim_tpu_torch/benchmarks), each
      through its functions, the launch counts set to 0 just before each
      part and read just after: (a) curve12, sac_sb1_train.main at 12 zones
-     on a cut recipe (n_envs 64, 300 schedule-table seeding steps, 100
-     train steps in chunks of 50, an evaluation of a day at 4 envs every
-     50), through K2: its JSON has every key of the JAX package's curve
-     (artifacts/sac_sb1_12zone_curve.json), its returns finite, and the
+     on a cut recipe (n_envs 64, 150 schedule-table seeding steps, 50
+     train steps in chunks of 25, an evaluation of a day at 4 envs every
+     25), through K2 (captured programs): its JSON has every key of the
+     JAX package's curve (artifacts/sac_sb1_12zone_curve.json), its
+     returns finite, and the
      schedule baseline's day through K2 is bitwise its day through the
      plain versions (states and rewards); (b) the scaling harness, 12
      zones pallas_cheby, 1024 envs per rank at 1 and 2 gloo ranks on the
@@ -275,7 +277,32 @@ Phases (each prints its own lines; any failure exits non-zero):
      profiled on each; (c) evaluate of a day (288 steps, 4 envs): the
      replay's return bitwise the eager call's. Launches of (a)-(c) join
      the kernels line.
-  15. A {"kernels": [...]} line, then the last line
+  15. The rest of the jitted programs as CUDA graphs, each replay held
+     against the eager call (the program's `eager`, or the run under
+     graphs.disabled()), the replays under
+     torch.cuda.set_sync_debug_mode("error"): (a) a one-rank NCCL group
+     (a spawned rank), the train12 recipe (n_envs 64, batch 256, replay
+     50,000): 5 calls each of make_distributed_collect_step,
+     make_distributed_train_step and make_shardmapped_train_step (the
+     train steps' update gate opening after 2 of them, both sides captured
+     and replayed), every TrainState and metric bitwise the eager call's;
+     make_shardmapped_rollout (8 steps) likewise; eager against graph ms
+     per call (6 timed calls each) and one call of each profiled
+     (kernels on the device, the host's launch calls); (b) a day (288
+     steps) of HostEnvironment through the captured per-env step
+     (BuildingEnv.captured_step) at host12 (K2), chebyshev12 (K1) and
+     host126, time steps, metrics, protos and record files byte-equal to
+     the day op by op, HostEnvironment.step and wait_time ms on each path;
+     episode_dashboard.main's day bitwise its day op by op;
+     fullscale_parity_check.parity_day's first 24 steps at 126 rooms
+     likewise; (c) load_policy's captured greedy forward bitwise the eager
+     actor on a day's observations, ms per action; (d) phase 11 (a)'s
+     sac_sb1_train.main run again op by op, its result equal to the
+     captured run's; conv_rounds_sweep's swap step program (its first
+     call and 35 replays) bitwise the steps op by op, and run_swap bitwise
+     its run op by op, its whole call timed on each path. Launches of
+     (a)-(d) join the kernels line.
+  16. A {"kernels": [...]} line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 
 It refuses to run without a CUDA device and never falls back to the CPU.
@@ -642,18 +669,24 @@ def _check_equal_trees(label, a, b) -> None:
 
 
 class plain_kernels:
-    """Within the block, every kernel wrapper runs its plain version."""
+    """Within the block, every kernel wrapper runs its plain version, and
+    every captured program runs op by op (graphs.disabled: the plain
+    versions read the device back, which a graph cannot capture)."""
 
     def __enter__(self):
+        from sbsim_tpu_torch import graphs
         from sbsim_tpu_torch.physics import fdm_cuda
 
         self.saved = {k: getattr(fdm_cuda, f"{k}_cuda") for k in KERNELS}
         for k in KERNELS:
             setattr(fdm_cuda, f"{k}_cuda", getattr(fdm_cuda, f"{k}_plain"))
+        self.eager = graphs.disabled()
+        self.eager.__enter__()
 
     def __exit__(self, *exc):
         from sbsim_tpu_torch.physics import fdm_cuda
 
+        self.eager.__exit__(*exc)
         for k, fn in self.saved.items():
             setattr(fdm_cuda, f"{k}_cuda", fn)
 
@@ -1633,16 +1666,19 @@ def host_policy(env, seed, directory):
     return lambda obs: policy(torch.as_tensor(obs[None], device=env.device))[0].cpu().numpy()
 
 
-def host_run(env, policy, steps, plain):
+def host_run(env, policy, steps, plain, eager=False, read_back=True):
     """HostEnvironment over SimulatedBuilding(env, seed=0) recording into a
     temporary directory: reset, then `steps` control steps with the policy's
-    actions, through the kernels or (with `plain`) their plain versions.
-    Returns the time steps, the metrics, the record files by name, the
-    messages written, the episode data, the launch counts and the CUDA
-    events of each step and of its wait_time."""
+    actions, through the kernels or (with `plain`) their plain versions;
+    with `eager` the captured programs (the per-env step, the policy) run
+    op by op. Returns the time steps, the metrics, the record files by
+    name, the messages written, the episode data and the messages read
+    back (unless not `read_back`), the launch counts and the CUDA events of
+    each step and of its wait_time."""
     import tempfile
 
     import torch
+    from sbsim_tpu_torch import graphs
     from sbsim_tpu_torch.envs import host_adapter, host_environment
     from sbsim_tpu_torch.io import records
     from sbsim_tpu_torch.physics import fdm_cuda
@@ -1657,7 +1693,8 @@ def host_run(env, policy, steps, plain):
         return write
 
     with tempfile.TemporaryDirectory() as tmp, (
-            plain_kernels() if plain else contextlib.nullcontext()):
+            plain_kernels() if plain else contextlib.nullcontext()), (
+            graphs.disabled() if eager else contextlib.nullcontext()):
         for k in RECORD_WRITES:
             setattr(records.RecordWriter, k, spy(k))
         try:
@@ -1694,9 +1731,11 @@ def host_run(env, policy, steps, plain):
         folder = os.path.join(tmp, episode)
         files = {name: open(os.path.join(folder, name), "rb").read()
                  for name in sorted(os.listdir(folder))}
-        reader = records.RecordReader(folder)
-        read = {r: getattr(reader, r)() for r in RECORD_READS}
-        data = records.get_episode_data(tmp)
+        read = data = None
+        if read_back:
+            reader = records.RecordReader(folder)
+            read = {r: getattr(reader, r)() for r in RECORD_READS}
+            data = records.get_episode_data(tmp)
     return dict(steps=steps_out, metrics=host.metrics, files=files, written=written, read=read,
                 data=data, counts=counts, building=building, step_events=step_events,
                 wait_events=wait_events)
@@ -2177,12 +2216,15 @@ def offline_check_fit(env, recorded, tag):
           f"scikit-learn fitted the predictor, train accuracy {score:.3f}", flush=True)
 
 
-def _dashboard(steps, out, draw, fields, times, plain=False, profile_step=None, tag=""):
+def _dashboard(steps, out, draw, fields, times, plain=False, profile_step=None, tag="",
+               eager=False):
     """episode_dashboard.main for `steps` steps, through K2 or (with
-    `plain`) its plain version; the run and its launch counts. Each step's
-    field goes into `fields` (the first OFFLINE_PLAIN_STEPS) and its host
-    time into `times`; step `profile_step` (0-based), if given, runs in a
-    profiler window."""
+    `plain`) its plain version, the per-env step captured (with `eager` op
+    by op); the run and its launch counts. Each step's field goes into
+    `fields` (the first OFFLINE_PLAIN_STEPS) and its host time into
+    `times`; step `profile_step` (0-based), if given, runs in a profiler
+    window."""
+    from sbsim_tpu_torch import graphs
     from sbsim_tpu_torch.examples import episode_dashboard
     from sbsim_tpu_torch.physics import fdm_cuda
 
@@ -2198,7 +2240,8 @@ def _dashboard(steps, out, draw, fields, times, plain=False, profile_step=None, 
             _close_window(window.pop(), f"dashboard12 profile of step {t + 1}", tag)
 
     argv = ["--steps", str(steps), "--render-every", str(72 if draw else 0), "--out", out]
-    with plain_kernels() if plain else contextlib.nullcontext():
+    with plain_kernels() if plain else contextlib.nullcontext(), (
+            graphs.disabled() if eager else contextlib.nullcontext()):
         _sync()
         fdm_cuda.reset_launch_counts()
         run = episode_dashboard.main(argv, on_step=hook)
@@ -2442,7 +2485,7 @@ def parity_run(label, env, steps, kname, tag, batch=1, gates=False, allow_crossi
         s, e = event(), event()
         s.record()
         if batch == 1:
-            state, _ = env.step(state, action)
+            state, _ = env.captured_step(state, action)
         else:
             state, _ = env.step_batched(state, action, solver="pallas_env")
         e.record()
@@ -2660,12 +2703,15 @@ def _events():
 
 def _timed_all_reduce(spans):
     """Wraps runtime.all_reduce_mean so that each call records its CUDA
-    events in `spans`."""
+    events in `spans` while `on[0]` holds (returns `on`; a call inside a
+    captured program, whose events would be captured, must not record)."""
     from sbsim_tpu_torch.distributed import runtime
 
-    inner = runtime.all_reduce_mean
+    inner, on = runtime.all_reduce_mean, [True]
 
     def call(tensors, group):
+        if not on[0]:
+            return inner(tensors, group)
         s, e = _events()
         s.record()
         out = inner(tensors, group)
@@ -2674,6 +2720,7 @@ def _timed_all_reduce(spans):
         return out
 
     runtime.all_reduce_mean = call
+    return on
 
 
 def _flat_tree(tree, prefix=""):
@@ -2702,11 +2749,15 @@ def _undump(path) -> dict:
 def _rank_train(rank, mesh, device, out) -> dict:
     """(a) and (d) on one rank: schedule-table seeding through
     make_distributed_collect_step, make_shardmapped_train_step, the
-    sharded checkpoint."""
+    sharded checkpoint. On an NCCL group the steps are captured programs;
+    the train steps then run again op by op (`eager`) from the seeded
+    state, whose state and metrics they must equal bitwise, and the
+    all-reduces are timed on that run."""
     import torch
-    from sbsim_tpu_torch import convert, rng
+    from sbsim_tpu_torch import convert, graphs, rng
     from sbsim_tpu_torch.agents import schedule_policy
     from sbsim_tpu_torch.distributed import mesh as mesh_lib
+    from sbsim_tpu_torch.distributed import runtime
     from sbsim_tpu_torch.io.checkpoint import TrainCheckpointer
     from sbsim_tpu_torch.physics import fdm_cuda
 
@@ -2716,31 +2767,54 @@ def _rank_train(rank, mesh, device, out) -> dict:
     seed = mesh_lib.make_distributed_collect_step(
         trainer, mesh, schedule_policy.build_schedule_actions(env))
     step = mesh_lib.make_shardmapped_train_step(trainer, mesh, state)
-    spans, steps, metrics = [], [], []
-    _timed_all_reduce(spans)
+    captured = runtime.captures(mesh.group)
+    spans, metrics = [], []
+    timing = _timed_all_reduce(spans)
+    timing[0] = not captured
     torch.cuda.synchronize()
     fdm_cuda.reset_launch_counts()
     for _ in range(DIST_SEED_STEPS):
         state, _ = seed(state)
     seeded = convert.train_state_to_numpy(mesh_lib.gather_train_state(state, mesh), trainer)
+    start = graphs.tree_map(torch.clone, state)
     spans.clear()
-    for _ in range(DIST_TRAIN_STEPS):
-        s, e = _events()
-        s.record()
-        state, m = step(state)
-        e.record()
-        steps.append((s, e))
-        metrics.append(m)
+
+    def run(fn, state):
+        events = []
+        for _ in range(DIST_TRAIN_STEPS):
+            s, e = _events()
+            s.record()
+            state, m = fn(state)
+            e.record()
+            events.append((s, e))
+            metrics.append(m)
+        return state, events
+
+    state, steps = run(step, state)
     torch.cuda.synchronize()
     launches = dict(fdm_cuda.launch_counts)
     trained = convert.train_state_to_numpy(mesh_lib.gather_train_state(state, mesh), trainer)
+    eager = {}
+    if captured:
+        graph_metrics = metrics[:]
+        metrics.clear()
+        timing[0] = True
+        eager_state, eager_steps = run(step.eager, start)
+        torch.cuda.synchronize()
+        diff = _tree_diff(convert.train_state_to_numpy(eager_state, trainer),
+                          convert.train_state_to_numpy(state, trainer))
+        diff += [(f"metric {k} of step {i}", float("nan"))
+                 for i, (a, b) in enumerate(zip(graph_metrics, metrics)) for k in a
+                 if not torch.equal(a[k], b[k])]
+        eager = {"diff": diff, "step_ms": [s.elapsed_time(e) for s, e in eager_steps]}
+        metrics = graph_metrics
     if rank == 0:
         _dump(f"{out}/seeded.npz", seeded)
         _dump(f"{out}/trained.npz", trained)
     TrainCheckpointer(f"{out}/ckpt", trainer, mesh=mesh).save(DIST_TRAIN_STEPS, state)
     per_update = [s.elapsed_time(e) for s, e, _ in spans]
     return {"launches": launches, "rows": int(state.last_obs.shape[0]),
-            "step_ms": [s.elapsed_time(e) for s, e in steps],
+            "step_ms": [s.elapsed_time(e) for s, e in steps], "eager": eager,
             "all_reduce_ms": per_update, "all_reduce_floats": [n for *_, n in spans],
             "metrics": [{k: float(v) for k, v in m.items()} for m in metrics]}
 
@@ -2777,7 +2851,16 @@ def _rank_nccl(rank, mesh, device, out) -> dict:
             "backend": torch.distributed.get_backend()}
 
 
-RANK_JOBS = {"train": _rank_train, "nccl": _rank_nccl}
+def _rank_nccl_graphs(rank, mesh, device, out) -> dict:
+    """(c), then phase 15 (a) in the same rank (one start-up for both)."""
+    nccl = _rank_nccl(rank, mesh, device, out)
+    return {**nccl, "graphs": _rank_graphs(rank, mesh, device, out)}
+
+
+RANK_JOBS = {"train": _rank_train, "nccl": _rank_nccl, "nccl_graphs": _rank_nccl_graphs,
+             "graphs": lambda *a: _rank_graphs(*a)}
+# Phase 15 (a)'s results when phase 10 (c) ran it.
+NCCL_GRAPHS = {}
 
 
 def rank_main(rank, world, job, out, backend, device) -> None:
@@ -2835,11 +2918,12 @@ def _max_abs(a, b) -> float:
     return float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max()) if a.size else 0.0
 
 
-def distributed_phase(envs, tag, ranks=DIST_RANKS, backend="gloo"):
+def distributed_phase(envs, tag, ranks=DIST_RANKS, backend="gloo", with_graphs=True):
     """Phase 10: (a) the sharded train step over `ranks` ranks against one
-    process, (c) NCCL at world size 1, (d) the ranks' checkpoint restored in
-    one process ((b), the sharded rollout, is timed warm by the scaling
-    harness in phase 11). With backend "gloo" every rank runs on DEVICE
+    process, (c) NCCL at world size 1 (`with_graphs`: its rank runs phase
+    15 (a) too), (d) the ranks' checkpoint restored in one process ((b),
+    the sharded rollout, is timed warm by the scaling harness in phase
+    11). With backend "gloo" every rank runs on DEVICE
     (several ranks share the card); with "nccl", rank r on card r. Returns
     the launches of the ranks."""
     import tempfile
@@ -2893,6 +2977,17 @@ def distributed_phase(envs, tag, ranks=DIST_RANKS, backend="gloo"):
                 fail(f"(a) rank {r} launches {res['launches']}, want {steps} fdm_jacobi")
             launches["fdm_jacobi"] += res["launches"]["fdm_jacobi"]
         step_ms = [statistics.median(res["step_ms"][2:]) for res in results]
+        if backend == "nccl":
+            diffs = [res["eager"]["diff"] for res in results]
+            if any(diffs):
+                fail(f"(a) the captured {ranks}-rank train steps differ from the eager ones: "
+                     f"{diffs}")
+            eager_ms = [statistics.median(res["eager"]["step_ms"][2:]) for res in results]
+            print(f" (a) {ranks} NCCL ranks: the captured train steps (state and metrics) "
+                  f"bitwise the eager per-rank steps; train step median per rank: eager "
+                  f"{[f'{ms:.3f}' for ms in eager_ms]} ms, graph "
+                  f"{[f'{ms:.3f}' for ms in step_ms]} ms (CUDA events; the all-reduces below "
+                  f"timed on the eager run) {tag}", flush=True)
         # A train step's all-reduces: its reward mean, then the update's
         # critic and actor gradients (with their statistics).
         calls = len(results[0]["all_reduce_ms"]) // DIST_TRAIN_STEPS
@@ -2925,7 +3020,9 @@ def distributed_phase(envs, tag, ranks=DIST_RANKS, backend="gloo"):
               flush=True)
 
         # ---- (c) NCCL at world size 1 -------------------------------------
-        (res,) = _run_ranks("nccl", 1, "nccl", None, f"{tmp}/nccl")
+        (res,) = _run_ranks("nccl_graphs" if with_graphs else "nccl", 1, "nccl", None,
+                            f"{tmp}/nccl")
+        NCCL_GRAPHS.update(res.get("graphs", {}))
         if res["diff"] or not res["same_metrics"] or res["backend"] != "nccl":
             fail(f"(c) the one-rank NCCL step differs from train_step: {res['diff']}, "
                  f"metrics equal {res['same_metrics']}")
@@ -2945,9 +3042,12 @@ def distributed_phase(envs, tag, ranks=DIST_RANKS, backend="gloo"):
 
 # (a) sac_sb1_train at 12 zones, its recipe cut to a few hundred seeding
 # steps and 100 train steps.
-CURVE_ARGS = ["--n-envs", "64", "--seed-steps", "300", "--chunk", "50", "--train-steps", "100",
-              "--eval-every", "50", "--eval-envs", "4"]
+CURVE_ARGS = ["--n-envs", "64", "--seed-steps", "150", "--chunk", "25", "--train-steps", "50",
+              "--eval-every", "25", "--eval-envs", "4"]
 JAX_CURVE = "artifacts/sac_sb1_12zone_curve.json"
+# (a)'s captured run of sac_sb1_train.main (phase 15 (d) holds it against
+# the run op by op).
+CURVE_RUN = {}
 # (b) the scaling harness: rows of 1 and 2 gloo ranks on the one card (with
 # --ranks N --backend nccl: 1, 2, ..., N cards).
 SCALING_ARGS = ["--batch-per-device", "1024", "--steps", "8", "--repeats", "5"]
@@ -2980,6 +3080,15 @@ def _counted(label, fn, want, sync_free=False):
     return out, counts
 
 
+def _curve_launches(n_eval) -> int:
+    """K2 launches of sac_sb1_train.main at CURVE_ARGS (n_eval steps a day)."""
+    from sbsim_tpu_torch.benchmarks import sac_sb1_train
+
+    args = sac_sb1_train.parse_args(CURVE_ARGS)
+    evals = 2 + args.train_steps // args.eval_every + 2  # baselines, untrained, curve, held out
+    return (args.seed_steps // args.chunk) * args.chunk + args.train_steps + evals * n_eval
+
+
 def script_curve(tmp, tag) -> dict:
     """(a): sac_sb1_train.main on the cut recipe through K2; the JSON has
     every key of the JAX package's curve and finite returns; the schedule
@@ -2996,13 +3105,13 @@ def script_curve(tmp, tag) -> dict:
     args = sac_sb1_train.parse_args(CURVE_ARGS)
     env, _ = sac_sb1_train.make_env(False, torch.device(DEVICE))
     n_eval = env.steps_per_episode
-    evals = 2 + args.train_steps // args.eval_every + 2  # baselines, untrained, curve, held out
-    want = (args.seed_steps // args.chunk) * args.chunk + args.train_steps + evals * n_eval
+    want = _curve_launches(n_eval)
     out = os.path.join(tmp, "curve.json")
     t0 = time.time()
     result, counts = _counted("curve12", lambda: sac_sb1_train.main(CURVE_ARGS + ["--out", out]),
                               {"fdm_jacobi": want})
     seconds = time.time() - t0
+    CURVE_RUN.update(result=result, seconds=seconds)
     with open(os.path.join(REPO, JAX_CURVE)) as f:
         missing = sorted(set(json.load(f)) - set(result))
     returns = [result[k] for k in ("schedule_baseline_return", "untrained_return",
@@ -3015,7 +3124,7 @@ def script_curve(tmp, tag) -> dict:
 
     def baseline(plain):
         with plain_kernels() if plain else contextlib.nullcontext():
-            states, rewards = sac_sb1_train.schedule_rollout(env, table, rng.PRNGKey(7), n_eval,
+            states, rewards = sac_sb1_train.rollout(env, table, rng.PRNGKey(7), n_eval,
                                                              args.eval_envs)
         return convert.env_state_to_numpy(states), rewards.cpu().numpy()
 
@@ -3411,7 +3520,7 @@ def study_sac(tag) -> dict:
 
         def baseline(plain):
             with plain_kernels() if plain else contextlib.nullcontext():
-                states, rewards = sac_sb1_train.schedule_rollout(env, table, rng.PRNGKey(123),
+                states, rewards = sac_sb1_train.rollout(env, table, rng.PRNGKey(123),
                                                                  steps, envs)
             return convert.env_state_to_numpy(states), rewards
 
@@ -3570,7 +3679,7 @@ def bench_rollouts(tag) -> dict:
                 # The plain versions read back: they run op by op (`fn`),
                 # the kernels through the captured program's first call.
                 with plain_kernels() if plain else contextlib.nullcontext():
-                    states, reward = (roll.fn if plain else roll)(first)
+                    states, reward = (roll.eager if plain else roll)(first)
                 return convert.env_state_to_numpy(states), reward
 
             what = f"phase 13 {part} {label[4:]} {solver} from step {start}"
@@ -3726,7 +3835,7 @@ def graph_rollouts(tag) -> dict:
             roll = rolls[start, steps] = bench.make_rollout(env, table, steps, solver)
             what = f"phase 14 (a) {name} {solver} {steps} steps from step {start}"
             want = {kname: steps}
-            (eager, eager_r), counts = _counted(f"{what} eager", lambda: roll.fn(clone(first)),
+            (eager, eager_r), counts = _counted(f"{what} eager", lambda: roll.eager(clone(first)),
                                                 want)
             _add(launches, counts)
             _, counts = _counted(f"{what} first call", lambda: roll(clone(first)), want)
@@ -3748,7 +3857,7 @@ def graph_rollouts(tag) -> dict:
         roll = bench.make_rollout(env, table, GRAPH_TIMED_STEPS, solver)
         ms = {"eager": [], "graph": []}
         for path in ("eager", "graph", "graph", "eager"):
-            fn = roll.fn if path == "eager" else roll
+            fn = roll.eager if path == "eager" else roll
 
             def run():
                 state = fn(clone(states0))[0]  # untimed: the first call captures
@@ -3772,7 +3881,7 @@ def graph_rollouts(tag) -> dict:
         # The profiles: one call of the first (8-step, captured) rollout.
         (start, steps), roll = next(iter(rolls.items()))
         first = states0.replace(step_idx=torch.full_like(states0.step_idx, start))
-        for path, fn in (("eager", roll.fn), ("graph", roll)):
+        for path, fn in (("eager", roll.eager), ("graph", roll)):
             _, counts = _counted(f"phase 14 (a) {name} {path} profile", lambda: _launch_profile(
                 lambda: fn(first), steps, f"{name} {path} profile", tag), {kname: steps})
             _add(launches, counts)
@@ -3808,7 +3917,7 @@ def graph_training(tag) -> dict:
     table = schedule_policy.build_schedule_actions(env)
     seed = trainer.seed_with_actions(state0, table)
     step = trainer.captured_train_step()
-    plan = [("seed", seed, seed.program.fn)] * GRAPH_SEED_CALLS + [
+    plan = [("seed", seed, seed.eager)] * GRAPH_SEED_CALLS + [
         ("train", step, trainer.train_step)] * GRAPH_TRAIN_CALLS
     graph_state, eager_state = clone(state0), clone(state0)
     done_at, sides, replays = [], [], 0
@@ -3851,7 +3960,7 @@ def graph_training(tag) -> dict:
           f"{_program_note(step.sides[1].program)} {tag}", flush=True)
     # Both paths timed: seeding steps, then train steps past the gate.
     ms = {}
-    for kind, fns in (("seed", (seed.program.fn, seed)),
+    for kind, fns in (("seed", (seed.eager, seed)),
                       ("train", (trainer.train_step, step))):
         for path, fn in zip(("eager", "graph"), fns):
             start = clone(graph_state)
@@ -3912,6 +4021,389 @@ def graph_phase(tag) -> dict:
     launches = graph_rollouts(tag)
     _add(launches, graph_training(tag))
     print(f"  phase 14 in {time.time() - t_start:.1f} s {tag}", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the rest of the jitted programs as CUDA graphs
+# ---------------------------------------------------------------------------
+
+# (a) a one-rank NCCL group at the train12 recipe: REST_CALLS calls of each
+# of mesh.py's steps (the train steps' update gate opening after REST_SKIP
+# of them), then REST_TIMED timed calls per path; the rollout
+# REST_ROLL_STEPS steps. (b) a day of HostEnvironment at each host config
+# and of the dashboard; the 126-room parity day cut to REST_PARITY_STEPS.
+REST_CALLS = 5
+REST_SKIP = 2
+REST_TIMED = 6
+REST_ROLL_STEPS = 8
+REST_DAY = 288
+REST_PARITY_STEPS = 24
+
+
+def _replays_equal(what, graph_fn, eager_fn, start, calls, captures, want, tree):
+    """`calls` calls of the captured `graph_fn` and of `eager_fn` from clones
+    of `start`, the state carried on each path: each call's state (as
+    `tree` gives it) and metrics bitwise equal, with the launches `want`;
+    the calls not in `captures` (0-based: those that capture) under
+    set_sync_debug_mode("error"). Returns (the graph path's state, the
+    launches)."""
+    import torch
+    from sbsim_tpu_torch import graphs
+
+    clone = lambda t: graphs.tree_map(torch.clone, t)
+    graph, eager = clone(start), clone(start)
+    total = 0
+    for i in range(calls):
+        label = f"{what} call {i + 1}"
+        (eager, em), counts = _counted(f"{label} eager", lambda: eager_fn(eager), want)
+        total += sum(counts.values())
+        (graph, gm), counts = _counted(label, lambda: graph_fn(graph), want,
+                                       sync_free=i not in captures)
+        total += sum(counts.values())
+        diff = _tree_diff(tree(graph), tree(eager))
+        if isinstance(em, dict):
+            diff += [(k, float("nan")) for k in em if not torch.equal(gm[k], em[k])]
+        elif not torch.equal(gm, em):
+            diff.append(("output", float("nan")))
+        if diff or getattr(graph, "env_steps", 0) != getattr(eager, "env_steps", 0):
+            fail(f"{label}: graph and eager differ in {diff}")
+    return graph, total
+
+
+def _eager_graph_ms(graph_fn, eager_fn, start, calls):
+    """Median ms per call of each path (CUDA events), `calls` calls from a
+    clone of `start`, eager then graph; and the launches."""
+    import torch
+    from sbsim_tpu_torch import graphs
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    ms = {}
+    _sync()
+    fdm_cuda.reset_launch_counts()
+    for path, fn in (("eager", eager_fn), ("graph", graph_fn)):
+        _, times = _timed_calls(fn, graphs.tree_map(torch.clone, start), calls)
+        ms[path] = statistics.median(times)
+    _sync()
+    return ms, sum(fdm_cuda.launch_counts.values())
+
+
+def _rank_graphs(rank, mesh, device, out) -> dict:
+    """(a) on one rank of an NCCL group: distributed/mesh.py's four steps as
+    captured programs against their eager calls (`eager`), call for call
+    from clones of one start: state and metrics bitwise, the replays
+    without a host sync, 1 K2 launch per env step on each path; then both
+    paths timed and profiled."""
+    import torch
+    from sbsim_tpu_torch import convert, graphs, rng
+    from sbsim_tpu_torch.agents import schedule_policy, train
+    from sbsim_tpu_torch.distributed import mesh as mesh_lib
+    from sbsim_tpu_torch.distributed import runtime
+
+    if not runtime.captures(mesh.group) or torch.distributed.get_backend() != "nccl":
+        fail("(a) the mesh's group is not an NCCL group whose steps are captured")
+    env = make_env("12zone", device)
+    trainer = train.SACTrainer(env, train.recipe_for(
+        env, n_envs=DIST_ENVS, batch_size=256, replay_capacity=50_000,
+        updates_per_env_step=1, seed_steps=(REST_CALLS + REST_SKIP + 1) * DIST_ENVS))
+    table = schedule_policy.build_schedule_actions(env)
+    state = mesh_lib.shard_train_state(trainer.init(rng.PRNGKey(3, device=device)), mesh)
+    tree = lambda st: convert.train_state_to_numpy(st, trainer)
+    res = {"launches": 0, "ms": {}, "profile": {}}
+    steps = (("collect", mesh_lib.make_distributed_collect_step(trainer, mesh, table), (0,)),
+             ("distributed train", mesh_lib.make_distributed_train_step(trainer, mesh),
+              (0, REST_SKIP)),
+             ("shardmapped train", mesh_lib.make_shardmapped_train_step(trainer, mesh, state),
+              (0, REST_SKIP)))
+    for name, step, captures in steps:
+        start = state
+        end, n = _replays_equal(f"phase 15 (a) {name}", step, step.eager, start, REST_CALLS,
+                                captures, {"fdm_jacobi": 1}, tree)
+        res["launches"] += n
+        if name == "collect":  # the train steps start from the seeded ring
+            state = graphs.tree_map(torch.clone, end)
+        res["ms"][name], n = _eager_graph_ms(step, step.eager, end, REST_TIMED)
+        res["launches"] += n
+        for path, fn in (("eager", step.eager), ("graph", step)):
+            first = graphs.tree_map(torch.clone, end)
+            res["profile"][f"{name} {path}"], counts = _counted(
+                f"phase 15 (a) {name} {path} profile",
+                lambda: _launch_profile(lambda: fn(first), 1, f"{name} {path} profile", ""),
+                {"fdm_jacobi": 1})
+            res["launches"] += sum(counts.values())
+    roll = mesh_lib.make_shardmapped_rollout(env, mesh, table, REST_ROLL_STEPS)
+    states, _ = env.reset(rng.split(rng.PRNGKey(5, device=device), DIST_ENVS))
+    # Each call from the same start: the rollout's state is its EnvState.
+    restart = lambda fn: lambda _: fn(graphs.tree_map(torch.clone, states))
+    _, n = _replays_equal("phase 15 (a) rollout", restart(roll), restart(roll.eager), states, 3,
+                          (0,), {"fdm_jacobi": REST_ROLL_STEPS}, convert.env_state_to_numpy)
+    res["launches"] += n
+    ms, n = _eager_graph_ms(roll, roll.eager, states, REST_TIMED)
+    res["ms"]["rollout"] = {k: v / REST_ROLL_STEPS for k, v in ms.items()}
+    res["launches"] += n
+    return res
+
+
+def rest_distributed(tag) -> int:
+    """(a): a one-rank NCCL group (`_rank_graphs`, run by phase 10 (c)'s rank
+    when phase 10 ran); returns its launches."""
+    import tempfile
+
+    t_start = time.time()
+    res, where = NCCL_GRAPHS, "in phase 10 (c)'s rank"
+    if not res:
+        with tempfile.TemporaryDirectory() as tmp:
+            (res,) = _run_ranks("graphs", 1, "nccl", None, f"{tmp}/graphs")
+        where = f"in {time.time() - t_start:.1f} s with start-up"
+    for name, ms in res["ms"].items():
+        per = "per env step" if name == "rollout" else "per call"
+        prof = {p: res["profile"].get(f"{name} {p}") for p in ("eager", "graph")}
+        kernels = "" if prof["eager"] is None else (
+            f"; device kernels per call eager {prof['eager']['device_kernels']:.0f}, graph "
+            f"{prof['graph']['device_kernels']:.0f}, host launch calls eager "
+            f"{prof['eager']['host_kernel_launches']:.0f}, graph "
+            f"{prof['graph']['host_kernel_launches']:.0f}")
+        print(f"  (a) one-rank NCCL group, train12 (n_envs {DIST_ENVS}, batch 256): {name}: the "
+              f"captured program bitwise its eager call on every call (replays without a host "
+              f"sync); eager {ms['eager']:.3f} ms, graph {ms['graph']:.3f} ms {per} "
+              f"(x{ms['eager'] / ms['graph']:.2f}, median of {REST_TIMED}, CUDA events)"
+              f"{kernels} {tag}", flush=True)
+    print(f"  (a) run {where}; K2 launches {res['launches']}", flush=True)
+    return res["launches"]
+
+
+def _same_host_runs(label, got, want) -> None:
+    import numpy as np
+
+    for i, (a, b) in enumerate(zip(got["steps"], want["steps"], strict=True)):
+        if (a.step_type, a.discount) != (b.step_type, b.discount) or not np.array_equal(
+                [a.reward], [b.reward]) or not np.array_equal(a.observation, b.observation):
+            fail(f"{label}: time step {i} differs from the eager run")
+    if not _same_metrics(got["metrics"], want["metrics"]) or got["files"] != want["files"] or [
+            m for _, m in got["written"]] != [m for _, m in want["written"]]:
+        fail(f"{label}: the metrics, record files or protos written differ from the eager run")
+
+
+def rest_host(envs, tag) -> dict:
+    """(b): a day of HostEnvironment through the captured per-env step at
+    host12 (K2), chebyshev12 (K1) and host126 (K2), protos and record files
+    byte-equal to the day op by op; the dashboard's day; the parity day's
+    first REST_PARITY_STEPS steps. Returns the launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from sbsim_tpu_torch import convert, graphs
+    from sbsim_tpu_torch.benchmarks import fullscale_parity_check as fpc
+    from sbsim_tpu_torch.envs import building_env, presets
+
+    dev = torch.device(DEVICE)
+    launches = dict.fromkeys(KERNELS, 0)
+    cfg = presets.sb1_config(num_days_in_episode=1)
+    env12 = building_env.BuildingEnv(cfg, device=dev)
+    runs = (("host12", env12, "fdm_jacobi"),
+            ("chebyshev12", building_env.BuildingEnv(
+                dataclasses.replace(cfg, fdm_solver="chebyshev"), device=dev), "fdm_cheby"),
+            ("host126", envs["126room"], "fdm_jacobi"))
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, env, kname in runs:
+            t_start = time.time()
+            policy = host_policy(env, 11, os.path.join(tmp, label))
+            graph = host_run(env, policy, REST_DAY, plain=False, read_back=False)
+            eager = host_run(env, policy, REST_DAY, plain=False, eager=True, read_back=False)
+            want = {k: (REST_DAY if k == kname else 0) for k in KERNELS}
+            if graph["counts"] != want or eager["counts"] != want:
+                fail(f"{label}: launch counts {graph['counts']}, eager {eager['counts']}")
+            _same_host_runs(label, graph, eager)
+            launches[kname] += 2 * REST_DAY
+            med = {}
+            for path, run in (("eager", eager), ("graph", graph)):
+                med[path] = [statistics.median(s.elapsed_time(e) for s, e in run[k][2:])
+                             for k in ("step_events", "wait_events")]
+            print(f"  (b) {label}: {REST_DAY} HostEnvironment steps through the captured "
+                  f"per-env step ({kname}), time steps, metrics, {len(graph['written'])} protos "
+                  f"and {len(graph['files'])} record files byte-equal to the day op by op; "
+                  f"HostEnvironment.step median eager {med['eager'][0]:.3f} ms, graph "
+                  f"{med['graph'][0]:.3f} ms; wait_time eager {med['eager'][1]:.3f} ms, graph "
+                  f"{med['graph'][1]:.3f} ms (x{med['eager'][1] / med['graph'][1]:.2f}); "
+                  f"{_program_note(env.captured_step)}; in {time.time() - t_start:.1f} s {tag}",
+                  flush=True)
+        # The dashboard's day.
+        t_start = time.time()
+        days = {}
+        for path in ("graph", "eager"):
+            times = []
+            run, counts = _dashboard(REST_DAY, os.path.join(tmp, f"dash_{path}"), False, [],
+                                     times, eager=path == "eager")
+            if counts != {k: (REST_DAY if k == "fdm_jacobi" else 0) for k in KERNELS}:
+                fail(f"dashboard {path}: launch counts {counts}")
+            days[path] = (run.dashboard, statistics.median(np.diff(times)[2:]) * 1e3)
+        launches["fdm_jacobi"] += 2 * REST_DAY
+        got, want = days["graph"][0], days["eager"][0]
+        if not (np.array_equal(np.stack(got.zone_temps), np.stack(want.zone_temps))
+                and got.energy_rates == want.energy_rates and got.timestamps == want.timestamps):
+            fail("dashboard: the captured day differs from the day op by op")
+        print(f"  (b) dashboard: {REST_DAY} steps of episode_dashboard.main through the captured "
+              f"per-env step, zone temperatures, energy rates and timestamps bitwise the day op "
+              f"by op; median {days['eager'][1]:.3f} ms per step eager, {days['graph'][1]:.3f} "
+              f"ms graph (host clock, the dashboard's per-step read included); in "
+              f"{time.time() - t_start:.1f} s {tag}", flush=True)
+        # The parity day, cut.
+        t_start = time.time()
+        env = building_env.BuildingEnv(fpc.parity_config("auto"), device=dev)
+        days = {}
+        for path in ("graph", "eager"):
+            t0 = time.time()
+            with graphs.disabled() if path == "eager" else contextlib.nullcontext():
+                day, counts = _counted(f"parity day {path}", lambda: fpc.parity_day(
+                    env, REST_PARITY_STEPS, log=lambda m: None),
+                    {"fdm_jacobi": REST_PARITY_STEPS})
+            days[path] = (day, time.time() - t0)
+        launches["fdm_jacobi"] += 2 * REST_PARITY_STEPS
+        got, want = days["graph"][0], days["eager"][0]
+        diff = _tree_diff(convert.env_state_to_numpy(got.state),
+                          convert.env_state_to_numpy(want.state))
+        if diff or got.drifts != want.drifts or got.modes_equal != want.modes_equal:
+            fail(f"parity day: the captured day differs from the day op by op: {diff}")
+        print(f"  (b) parity126: fullscale_parity_check.parity_day, its first {REST_PARITY_STEPS} "
+              f"steps through the captured per-env step (K2, 126 rooms transposed) bitwise the "
+              f"steps op by op (state, drifts, modes; largest drift {max(got.drifts):.6e} K); "
+              f"{days['eager'][1]:.1f} s eager, {days['graph'][1]:.1f} s graph with the exact "
+              f"host beside them; in {time.time() - t_start:.1f} s {tag}", flush=True)
+    return launches
+
+
+def rest_policy(tag) -> int:
+    """(c): the loaded policy, captured, against the eager actor on the
+    observations of a day of the 12-zone env (stepped by its captured
+    per-env step at the zero action); returns the launches."""
+    import tempfile
+
+    import torch
+    from sbsim_tpu_torch import rng
+    from sbsim_tpu_torch.agents import policies, sac
+    from sbsim_tpu_torch.envs import building_env, presets
+
+    dev = torch.device(DEVICE)
+    env = building_env.BuildingEnv(presets.sb1_config(num_days_in_episode=1), device=dev)
+    action = torch.zeros((1, env.n_actions), device=dev)
+
+    def day():
+        state, _ = env.reset(rng.PRNGKey(4, device=dev)[None])
+        obs = []
+        for _ in range(REST_DAY):
+            state, out = env.captured_step(state, action)
+            obs.append(out.observation)
+        return obs
+
+    obs, _ = _counted("phase 15 (c) the day's observations", day, {"fdm_jacobi": REST_DAY})
+    learner = sac.SACLearner(env.obs_dim, env.n_actions, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        policies.save_policy(tmp, learner, learner.init(rng.PRNGKey(13, device=dev)),
+                             env.action_names)
+        policy, _ = policies.load_policy(tmp, device=dev)
+    events = {"eager": [], "graph": []}
+    for i, o in enumerate(obs):
+        out = {}
+        for path, fn in (("eager", policy.program.eager), ("graph", policy)):
+            s, e = _events()
+            with _no_host_sync() if path == "graph" and i else contextlib.nullcontext():
+                s.record()
+                out[path] = fn(o)
+                e.record()
+            events[path].append((s, e))
+        if not torch.equal(out["graph"], out["eager"]):
+            fail(f"policy: the captured policy differs from the eager actor at step {i}")
+    _sync()
+    ms = {p: statistics.median(s.elapsed_time(e) for s, e in t[1:]) for p, t in events.items()}
+    print(f"  (c) policy: load_policy's captured greedy forward bitwise the eager actor on the "
+          f"{len(obs)} observations of a 12-zone day ({len(obs) - 1} replays without a host "
+          f"sync); median {ms['eager']:.4f} ms eager, {ms['graph']:.4f} ms graph per action "
+          f"(CUDA events) {tag}", flush=True)
+    return REST_DAY
+
+
+def rest_scripts(tmp, tag) -> int:
+    """(d): sac_sb1_train.main on phase 11 (a)'s cut recipe op by op, its
+    result equal to the captured run's (phase 11 (a)'s, run here when
+    phase 11 did not run); run_swap's step program (its first call and
+    replays) against the step op by op, and run_swap against its run op by
+    op. Returns the launches."""
+    import numpy as np
+    import torch
+    from sbsim_tpu_torch import convert, graphs, rng
+    from sbsim_tpu_torch.benchmarks import conv_rounds_sweep as crs
+    from sbsim_tpu_torch.benchmarks import sac_sb1_train
+    from sbsim_tpu_torch.envs import building_env
+
+    launches = 0
+    if not CURVE_RUN:
+        launches += script_curve(tmp, tag)["fdm_jacobi"]
+    graph = CURVE_RUN["result"]
+    t0 = time.time()
+    with graphs.disabled():
+        eager, counts = _counted("phase 15 (d) curve12 op by op", lambda: sac_sb1_train.main(
+            CURVE_ARGS + ["--out", os.path.join(tmp, "curve_eager.json")]),
+            {"fdm_jacobi": _curve_launches(REST_DAY)})
+    eager_s = time.time() - t0
+    launches += counts["fdm_jacobi"]
+    same = {k: v for k, v in graph.items() if k != "wall_sec"} == {
+        k: v for k, v in eager.items() if k != "wall_sec"}
+    if not same:
+        fail(f"(d) curve12: the captured run's result {graph} differs from the run op by op "
+             f"{eager}")
+    print(f"  (d) curve12: sac_sb1_train.main {' '.join(CURVE_ARGS)} op by op: its result "
+          f"(every return, the curve, every key but wall_sec) equal to the captured run's; "
+          f"{eager_s:.1f} s op by op, {CURVE_RUN['seconds']:.1f} s captured (host clock, whole "
+          f"run with set-up and captures) {tag}", flush=True)
+    # run_swap's step program, replayed once per step.
+    dev = torch.device(DEVICE)
+    cfg = crs.base_config()
+    env = building_env.BuildingEnv(cfg, device=dev)
+    action = torch.as_tensor(env.default_action(crs.SETPOINTS), device=dev)
+    action = action[None].expand(crs.SEEDS, -1).contiguous()
+    states, _ = env.reset(rng.split(rng.PRNGKey(crs.SWAP_KEY, device=dev), crs.SEEDS))
+    step = crs.swap_step(env)
+    on = lambda fn: lambda st: (fn(st, action), torch.zeros(()))
+    tree = lambda st: convert.env_state_to_numpy(st)
+    _, n = _replays_equal("phase 15 (d) swap step", on(step), on(step.eager), states,
+                          crs.N_STEPS, (0,), {"fdm_jacobi": 1}, tree)
+    launches += n
+    ms, n = _eager_graph_ms(on(step), on(step.eager), states, REST_TIMED)
+    launches += n
+    seconds = {}
+    for path in ("graph", "eager"):
+        _sync()
+        t0 = time.perf_counter()
+        with graphs.disabled() if path == "eager" else contextlib.nullcontext():
+            (seconds[path + "_out"], _), counts = _counted(
+                f"phase 15 (d) run_swap {path}", lambda: crs.run_swap(cfg, dev),
+                {"fdm_jacobi": crs.N_STEPS})
+        seconds[path] = (time.perf_counter() - t0) * 1e3
+    launches += 2 * crs.N_STEPS
+    if not np.array_equal(seconds["graph_out"], seconds["eager_out"]):
+        fail("(d) run_swap through its captured step differs from its run op by op")
+    print(f"  (d) run_swap (12 zones, {crs.SEEDS} envs, {crs.N_STEPS} steps through K2): its "
+          f"step one captured program, its first call and {crs.N_STEPS - 1} replays bitwise the "
+          f"steps op by op (the replays without a host sync), run_swap bitwise its run op by op; per step eager "
+          f"{ms['eager']:.3f} ms, graph {ms['graph']:.3f} ms (x{ms['eager'] / ms['graph']:.2f}, "
+          f"median of {REST_TIMED}, CUDA events); a whole run_swap call (a new env, its "
+          f"capture included; host clock) {seconds['graph']:.1f} ms captured, "
+          f"{seconds['eager']:.1f} ms op by op; {_program_note(step)} {tag}", flush=True)
+    return launches
+
+
+def rest_phase(envs, tag) -> dict:
+    """Phase 15; returns its launches."""
+    import tempfile
+
+    t_start = time.time()
+    launches = rest_host(envs, tag)
+    launches["fdm_jacobi"] += rest_distributed(tag)
+    launches["fdm_jacobi"] += rest_policy(tag)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["fdm_jacobi"] += rest_scripts(tmp, tag)
+    print(f"  phase 15 in {time.time() - t_start:.1f} s {tag}", flush=True)
     return launches
 
 
@@ -4068,7 +4560,7 @@ def main() -> int:
         if backend == "nccl" and n > torch.cuda.device_count():
             fail(f"{n} NCCL ranks need {n} cards; {torch.cuda.device_count()} present")
         print(f"phase 10: the distributed path at {n} ranks over {backend}", flush=True)
-        distributed_phase(envs, tag, ranks=n, backend=backend)
+        distributed_phase(envs, tag, ranks=n, backend=backend, with_graphs=False)
         counts = [1 << i for i in range(n.bit_length()) if 1 << i < n] + [n]
         print(f"phase 11: the scaling harness at {counts} ranks over {backend}", flush=True)
         scripts_phase(tag, rank_counts=counts, backend=backend, only="b")
@@ -4076,8 +4568,15 @@ def main() -> int:
         study_phase(tag, ranks=n, backend=backend, only="e")
         return 0
     if "--graphs" in sys.argv:
-        print("phase 14: the jitted programs as CUDA graphs", flush=True)
-        graph_phase(tag)
+        # `--graphs [14|15]`: phases 14 and 15, or the one named.
+        rest = sys.argv[sys.argv.index("--graphs") + 1:]
+        only = rest[0] if rest and rest[0] in ("14", "15") else None
+        if only != "15":
+            print("phase 14: the jitted programs as CUDA graphs", flush=True)
+            graph_phase(tag)
+        if only != "14":
+            print("phase 15: the rest of the jitted programs as CUDA graphs", flush=True)
+            rest_phase(envs, tag)
         return 0
     if "--learn" in sys.argv:
         # Only the learning runs: `--learn [TRAIN_STEPS] [--out PATH]`.
@@ -4147,6 +4646,10 @@ def main() -> int:
     _add(launches, graph_phase(tag))
 
     # ---- Phase 15 --------------------------------------------------------
+    print("phase 15: the rest of the jitted programs as CUDA graphs", flush=True)
+    _add(launches, rest_phase(envs, tag))
+
+    # ---- Phase 16 --------------------------------------------------------
     rows = {"fdm_cheby": "12zone", "fdm_jacobi": "12zone",
             "fdm_cheby_block": "12zone stack", "fdm_jacobi_block": "12zone stack"}
     kernels = []

@@ -4,7 +4,9 @@ Port of sbsim_tpu/agents/policies.py. The reference exports TF-Agents
 SavedModel policies (PolicySavedModelTrigger, SAC_Demo.ipynb cell 42); here
 a trained actor's `state_dict` is saved with `torch.save`, beside the same
 `policy_metadata.json` as the JAX package writes, and loads back into a
-`policy(obs) -> normalized action` function.
+`policy(obs) -> normalized action` function: the actor's greedy forward as
+a captured program (graphs.py, the JAX package's `@jax.jit`), fed by a
+wrapper that moves host observations onto the device outside it.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Callable, Sequence, Tuple
 import numpy as np
 import torch
 
+from sbsim_tpu_torch import graphs
 from sbsim_tpu_torch.agents import networks
 from sbsim_tpu_torch.agents.sac import SACLearner, SACState
 from sbsim_tpu_torch.envs.building_env import resolve_device
@@ -49,7 +52,9 @@ def load_policy(
     directory: str, device=None
 ) -> Tuple[Callable[[torch.Tensor], torch.Tensor], dict]:
     """Returns (greedy_policy_fn, metadata); the actor runs on `device`
-    ("cuda" unless the caller names another)."""
+    ("cuda" unless the caller names another). The function takes host or
+    device observations; `policy.program` is the captured greedy forward
+    (its `eager` op by op)."""
     directory = os.path.abspath(directory)
     dev = resolve_device(device)
     with open(os.path.join(directory, METADATA_FILE)) as f:
@@ -64,10 +69,16 @@ def load_policy(
     actor.to(dev).eval()
 
     @torch.no_grad()
-    def policy(obs: torch.Tensor) -> torch.Tensor:
-        mean, _ = actor(torch.as_tensor(obs, dtype=torch.float32, device=dev))
+    def greedy(obs: torch.Tensor) -> torch.Tensor:
+        mean, _ = actor(obs)
         return networks.deterministic_action(mean)
 
+    program = graphs.capture(greedy)
+
+    def policy(obs) -> torch.Tensor:
+        return program(torch.as_tensor(obs, dtype=torch.float32, device=dev))
+
+    policy.program = program
     return policy, metadata
 
 

@@ -14,7 +14,8 @@ from `k_reset` alone), and the update gate reads the host-side `env_steps`
 count, which the host knows without a sync. No step reads a device value
 back, so each is captured whole into a CUDA graph (graphs.py), as the JAX
 package jits it: `captured` and `captured_train_step` (one program per
-side of the gate, lax.cond's two branches), `captured_evaluate`.
+side of the gate, lax.cond's two branches), `captured_evaluate` (its step
+replayed once per evaluation step, as a compiled loop runs its body).
 
 `ShardHooks` let the same `collect_step` / `train_step` run as each rank's
 program on a mesh (distributed/mesh.py): they draw at the global shape and
@@ -32,7 +33,6 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from sbsim_tpu_torch import graphs
 from sbsim_tpu_torch import rng as rng_lib
 from sbsim_tpu_torch.agents import replay as replay_lib
 from sbsim_tpu_torch.agents.replay import ReplayState, ShardedReplayState, Transition
@@ -112,6 +112,9 @@ class ShardHooks:
         rows of each step, as the JAX package's GSPMD ring does)
     update_kwargs: extra keyword arguments of learner.update (group,
         noise_block)
+    op_by_op: the hooks' collectives cannot be captured (a gloo group's go
+        through the host), so the trainer's programs through them run op
+        by op (distributed/mesh.py's rule)
     """
 
     policy: Optional[Callable[..., torch.Tensor]] = None
@@ -120,6 +123,7 @@ class ShardHooks:
     reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
     gather: Optional[Callable[[Transition], Transition]] = None
     update_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    op_by_op: bool = False
 
     def reduce_metric(self, x: torch.Tensor) -> torch.Tensor:
         return x if self.reduce is None else self.reduce(x)
@@ -306,9 +310,8 @@ class SACTrainer:
     ) -> Callable[[TrainState], Tuple[TrainState, Dict[str, torch.Tensor]]]:
         """Returns a collect-step fn driven by a per-step action table (the
         schedule-policy replay bootstrap, SAC_Demo.ipynb cells 34-40). The
-        table's action depends on each env's own step only. Without `hooks`
-        it is a captured program (`captured`; its `program.fn` is the step
-        op by op); a rank's step in a group runs op by op."""
+        table's action depends on each env's own step only. It is a
+        captured program (`captured`; its `eager` is the step op by op)."""
         del state
         table = torch.as_tensor(np.asarray(action_table), dtype=torch.float32,
                                 device=self.device)
@@ -320,22 +323,25 @@ class SACTrainer:
 
             return self.collect_step(st, policy, hooks)
 
-        return self.captured(step_fn) if hooks == _NO_HOOKS else step_fn
+        return self.captured(step_fn, hooks)
 
     # ------------------------------------------------------------------
     # Captured programs (graphs.py), the counterparts of the JAX package's
     # jitted steps
 
-    def captured(self, step: StepFn) -> StepFn:
+    def captured(self, step: StepFn, hooks: ShardHooks = _NO_HOOKS) -> StepFn:
         """`step` (a TrainState -> (TrainState, metrics) function of this
         trainer that reads env_steps only to count it: a collect step, or
-        `train_step` with a side of the gate) as a captured program, the
-        counterpart of `jax.jit(step)`. env_steps stays on the host: the
+        `train_step` with a side of the gate, through `hooks`) as a
+        captured program, the counterpart of `jax.jit(step)`, or op by op
+        by `BuildingEnv.capture`'s rule (a plain solver, or hooks whose
+        collectives cannot be captured). env_steps stays on the host: the
         program sees it at 0, and the host adds n_envs to the caller's
         count. Outputs follow graphs.py's aliasing rule: fresh tensors,
         but for the replay ring, which is the program's buffer and is
-        written in place as `collect_step` writes it."""
-        program = graphs.capture(step)
+        written in place as `collect_step` writes it. `run.eager` is `step`
+        itself, op by op."""
+        program = self.env.capture(step, self._solver, op_by_op=hooks.op_by_op)
         n_envs = self.config.n_envs
 
         def run(state: TrainState):
@@ -343,14 +349,19 @@ class SACTrainer:
             return new_state.replace(env_steps=state.env_steps + n_envs), metrics
 
         run.program = program
+        run.eager = step
         return run
 
-    def captured_train_step(self) -> StepFn:
-        """`train_step` as two captured programs, one per side of the update
-        gate (the two branches of the JAX package's lax.cond,
+    def captured_train_step(self, hooks: ShardHooks = _NO_HOOKS) -> StepFn:
+        """`train_step` (with `hooks`: a rank's program on a mesh) as two
+        captured programs, one per side of the update gate (the two
+        branches of the JAX package's lax.cond,
         sbsim_tpu/agents/train.py:326); the host picks the side from its
-        env_steps count, as `update` does after the collect step."""
-        sides = [self.captured(functools.partial(self.train_step, learn=learn))
+        env_steps count, as `update` does after the collect step, so every
+        rank of a mesh picks the same side. `step.eager` is the step op by
+        op."""
+        sides = [self.captured(functools.partial(self.train_step, hooks=hooks, learn=learn),
+                               hooks)
                  for learn in (False, True)]
         n_envs = self.config.n_envs
 
@@ -358,28 +369,44 @@ class SACTrainer:
             return sides[self.learns(state.env_steps + n_envs)](state)
 
         step.sides = sides
+        step.eager = functools.partial(self.train_step, hooks=hooks)
         return step
 
     def captured_evaluate(self) -> Callable[..., torch.Tensor]:
-        """`evaluate` as a captured program per (n_steps, n_envs), as the
-        JAX entry point jits it (examples/train_sac.py:97); `key` must lie
-        on the trainer's device."""
-        return graphs.capture(self.evaluate)
+        """`evaluate` with its step as a captured program per n_envs, the
+        counterpart of the JAX entry point's jitted evaluation
+        (examples/train_sac.py:97): as the compiled loop runs its body
+        n_steps times, the host replays the step's program n_steps times,
+        and a capture costs one step however long the evaluation (a whole
+        day in one graph took 11.6 s to capture on the card, PERF.md §5);
+        op by op through a plain solver (`BuildingEnv.capture`). `key` must
+        lie on the trainer's device; `run.programs` are the step's
+        programs."""
+        step = self.env.capture(self._evaluate_step, self._solver)
+        run = functools.partial(self.evaluate, step=step)
+        run.programs = step.programs
+        return run
 
     # ------------------------------------------------------------------
 
+    def _evaluate_step(self, sac: SACState, env_states: EnvState, obs: torch.Tensor):
+        actions = self.learner.act_greedy(sac, obs)
+        env_states, out = self._step_v(env_states, actions)
+        return env_states, out.observation, out.reward
+
     def evaluate(
-        self, sac: SACState, key: torch.Tensor, n_steps: int, n_envs: int = 4
+        self, sac: SACState, key: torch.Tensor, n_steps: int, n_envs: int = 4, step=None,
     ) -> torch.Tensor:
-        """Mean undiscounted return of the greedy policy over n_steps."""
+        """Mean undiscounted return of the greedy policy over n_steps (each
+        step `step`, default op by op: captured_evaluate passes its
+        program)."""
+        step = step or self._evaluate_step
         env_states, obs = self.env.reset(rng_lib.split(key.to(self.device), n_envs))
         total = torch.zeros(n_envs, dtype=torch.float32, device=self.device)
         rewards = []
         for _ in range(n_steps):
-            actions = self.learner.act_greedy(sac, obs)
-            env_states, out = self._step_v(env_states, actions)
-            obs = out.observation
-            rewards.append(out.reward)
+            env_states, obs, reward = step(sac, env_states, obs)
+            rewards.append(reward)
         if rewards:
             total = torch.stack(rewards).sum(dim=0)
         return torch.mean(total)

@@ -4,11 +4,13 @@ of benchmarks/conv_rounds_sweep.py, and the helpers the schedule search
 
 The swap path (`run_swap`: step_batched at SEEDS envs through the CUDA
 kernel K2, `solver="pallas_env"`, the Jacobi solve with the swap rounds in
-the kernel; on the CPU its plain version) is scored against the exact
-Mersenne-Twister shuffle of the reference (`run_exact`: the port's
-ExactHostSimulator, SEEDS convection seeds) by the worst per-zone
-two-sample KS statistic and the worst zone-mean difference after N_STEPS
-steps, on the 12-zone sb1 plan at rounds 8, 12 and 16, mirroring
+the kernel, its step a captured program replayed N_STEPS times as the JAX
+script's jitted scan runs its body; on the CPU its plain version) is
+scored against the exact Mersenne-Twister shuffle of the reference
+(`run_exact`: the port's ExactHostSimulator, SEEDS convection seeds) by
+the worst per-zone two-sample KS statistic and the worst zone-mean
+difference after N_STEPS steps, on the 12-zone sb1 plan at rounds 8, 12
+and 16, mirroring
 tests/test_convection.py::TestSwapVsExactShuffleStatistics. The JAX
 script's `use_pallas=False` runs the XLA solver of the config's method
 (jacobi); K2 runs the same solve.
@@ -28,7 +30,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from sbsim_tpu_torch import rng
+from sbsim_tpu_torch import graphs, rng
 from sbsim_tpu_torch.benchmarks import card_line
 from sbsim_tpu_torch.envs import presets
 from sbsim_tpu_torch.envs.building_env import BuildingEnv
@@ -43,16 +45,27 @@ SETPOINTS = {
 }
 
 
+def swap_step(env, solver: str = "pallas_env") -> graphs.CapturedFunction:
+    """One step of `env` through `solver` as a captured program
+    (`BuildingEnv.capture`: op by op through a plain solver), the body of
+    the JAX script's jitted lax.scan, replayed once per step so that a
+    capture costs one step: (states, the (n, n_actions) action) -> the
+    states after it."""
+    return env.capture(lambda states, action: env.step_batched(states, action,
+                                                               solver=solver)[0], solver)
+
+
 def run_swap(cfg, device=None, solver: str = "pallas_env", key: int = SWAP_KEY):
     """SEEDS envs (keys split from PRNGKey(key)) stepped N_STEPS times
-    through `solver` at the SETPOINTS action; returns (their fields as a
-    (SEEDS, H, W) numpy stack, the env)."""
+    through `solver` at the SETPOINTS action (`swap_step`); returns (their
+    fields as a (SEEDS, H, W) numpy stack, the env)."""
     env = BuildingEnv(cfg, device=device)
     action = torch.as_tensor(env.default_action(SETPOINTS), device=env.device)
     action = action[None].expand(SEEDS, -1).contiguous()
     states, _ = env.reset(rng.split(rng.PRNGKey(key, device=env.device), SEEDS))
+    step = swap_step(env, solver)
     for _ in range(N_STEPS):
-        states, _ = env.step_batched(states, action, solver=solver)
+        states = step(states, action)
     return states.temp.cpu().numpy(), env
 
 

@@ -1,12 +1,13 @@
 """Full-scale (126-room) device-against-host drift over a simulated day; port
 of benchmarks/fullscale_parity_check.py.
 
-288 per-env `BuildingEnv.step` calls (the CUDA kernel K2 on the card, its
-plain version on the CPU) on the deterministic contract (convection p=0,
-step-function occupancy, replay weather, setpoints 340 / 285 K) beside the
-port's ExactHostSimulator, each step held by exact_host.ParityTracker (max
-|dT| under its 5e-2 K budget, thermostat modes equal) with no threshold
-crossing allowed (`finish(allow_crossings=False)`): the jitted JAX
+288 per-env steps (`BuildingEnv.captured_step`, the JAX script's
+`jax.jit(env.step)`: a captured program through the CUDA kernel K2 on the
+card, the plain version on the CPU) on the deterministic contract
+(convection p=0, step-function occupancy, replay weather, setpoints 340 /
+285 K) beside the port's ExactHostSimulator, each step held by
+exact_host.ParityTracker (max |dT| under its 5e-2 K budget, thermostat
+modes equal) with no threshold crossing allowed (`finish(allow_crossings=False)`): the jitted JAX
 package's day kept its modes identical throughout. The day runs to its
 end either way; the JSON records each step's drift and mode agreement and
 where the tracker failed, and the script then exits non-zero.
@@ -89,7 +90,7 @@ def parity_day(env, steps: int = STEPS, log=print) -> ParityDay:
     tracker = exact_host.ParityTracker()
     day = ParityDay(drifts=[], modes_equal=[], report=tracker.report, host=host)
     for i in range(steps):
-        state, _ = env.step(state, action)
+        state, _ = env.captured_step(state, action)
         host.step(SETPOINTS)
         temp = state.temp[0].cpu().numpy()
         modes = state.hvac.thermostat_mode[0].tolist()

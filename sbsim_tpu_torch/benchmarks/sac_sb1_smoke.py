@@ -5,7 +5,9 @@ The JAX script's recipe: n_envs 8, replay 50,000, batch 256, 2 updates per
 env step, the replay seeded with 500 schedule-table steps, then 8,000
 train steps with a greedy evaluation of a day (288 steps at 2 envs from
 PRNGKey(9)) every 2,000. The env step is the CUDA kernel K2 on the card,
-its plain version with --cpu. `--train-steps`, `--seed-steps` and
+its plain version with --cpu; on the card the seeding and train steps and
+the evaluations are captured programs (graphs.py), as the JAX script
+jits them. `--train-steps`, `--seed-steps` and
 `--eval-every` cut the run.
 
 Usage:
@@ -54,8 +56,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     trainer = SACTrainer(env, TrainConfig(**RECIPE))
     state = trainer.init(rng.PRNGKey(0))
-    evaluate = lambda sac: float(trainer.evaluate(sac, rng.PRNGKey(9), n_steps=N_EVAL,
-                                                  n_envs=2))
+    evaluator = trainer.captured_evaluate()
+    eval_key = rng.PRNGKey(9, device=env.device)
+    evaluate = lambda sac: float(evaluator(sac, eval_key, N_EVAL, 2))
 
     seed_fn = trainer.seed_with_actions(state, schedule_policy.build_schedule_actions(env))
     t0 = time.time()
@@ -70,9 +73,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
           flush=True)
 
     result["curve"] = []
+    train_step = trainer.captured_train_step()
     t0 = time.time()
     for i in range(args.train_steps):
-        state, metrics = trainer.train_step(state)
+        state, metrics = train_step(state)
         if (i + 1) % args.eval_every == 0:
             row = {"step": i + 1, "eval_return": evaluate(state.sac),
                    "critic_loss": float(metrics["critic_loss"]),

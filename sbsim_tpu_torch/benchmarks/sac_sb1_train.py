@@ -7,8 +7,15 @@ SAC_Demo.ipynb cells 26-48) on the 12-zone calibrated config (or the
 rules-based schedule baseline over full days, and writes the learning
 curve. The trainer's "auto" solver is the CUDA kernel K2 on the card (the
 JAX package resolved it to its XLA solver off the TPU); --cpu runs the
-plain versions on the CPU. The JAX script's lax.scan chunks are Python
-loops of --chunk steps.
+plain versions on the CPU. The JAX script's jitted programs are captured
+programs here (graphs.py): its lax.scan chunks are loops of --chunk calls
+of the captured train step (one program per side of the update gate) or
+seeding step, made once for the run, each evaluation the captured
+`evaluate`, and each baseline rollout's step a captured program made for
+the rollout; an evaluation's or rollout's step is replayed once per step.
+A rollout or evaluation through a plain solver ("xla_*", the parity
+re-scoring) runs op by op: its convergence loop reads the device back
+(`BuildingEnv.capture`).
 
 Usage:
   python -m sbsim_tpu_torch.benchmarks.sac_sb1_train --train-steps 12000 --parity-eval
@@ -26,7 +33,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from sbsim_tpu_torch import rng
+from sbsim_tpu_torch import graphs, rng
 from sbsim_tpu_torch.agents import schedule_policy
 from sbsim_tpu_torch.agents.sac import SACConfig
 from sbsim_tpu_torch.agents.train import SACTrainer, TrainConfig
@@ -92,25 +99,38 @@ def make_env(full_scale: bool, device):
     return env, label
 
 
-def rollout(env, actions_at, key, n_eval: int, eval_envs: int, solver: str = "auto"):
-    """eval_envs envs reset from `key`, stepped n_eval times with each env's
-    action actions_at(states); returns (the final states, the (n_eval,
-    eval_envs) rewards)."""
-    states, _ = env.reset(rng.split(key.to(env.device), eval_envs))
+def rollout_step(env, solver: str = "auto") -> graphs.CapturedFunction:
+    """One step of a baseline rollout, (the device action table, states) ->
+    (states, rewards), each env taking the table's row at its own step (the
+    last row past the table's end): a captured program
+    (`BuildingEnv.capture`: op by op through a plain solver), replayed once
+    per step as the JAX script's compiled scan runs its body, so that a
+    capture costs one step."""
+
+    def step(table, states):
+        act = table[torch.clamp(states.step_idx.to(torch.int64), 0, table.shape[0] - 1)]
+        states, out = env.step_batched(states, act, solver=solver)
+        return states, out.reward
+
+    return env.capture(step, solver)
+
+
+def _rollout(step, env, table, key, n_eval: int, eval_envs: int):
+    states, _ = env.reset(rng.split(key, eval_envs))
     rewards = []
     for _ in range(n_eval):
-        states, out = env.step_batched(states, actions_at(states), solver=solver)
-        rewards.append(out.reward)
+        states, reward = step(table, states)
+        rewards.append(reward)
     return states, torch.stack(rewards)
 
 
-def schedule_rollout(env, table, key, n_eval: int, eval_envs: int, solver: str = "auto"):
-    """The rules-based schedule baseline: each env's action from the
-    schedule table at its own step."""
+def rollout(env, table, key, n_eval: int, eval_envs: int, solver: str = "auto"):
+    """eval_envs envs reset from `key`, stepped n_eval times by
+    `rollout_step` (made for this call) over the action table; returns (the
+    final states, the (n_eval, eval_envs) rewards)."""
     table = torch.as_tensor(np.asarray(table), dtype=torch.float32, device=env.device)
-    return rollout(
-        env, lambda s: table[torch.clamp(s.step_idx.to(torch.int64), 0, table.shape[0] - 1)],
-        key, n_eval, eval_envs, solver)
+    return _rollout(rollout_step(env, solver), env, table, key.to(env.device), n_eval,
+                    eval_envs)
 
 
 def _day_return(rewards: torch.Tensor) -> float:
@@ -119,15 +139,15 @@ def _day_return(rewards: torch.Tensor) -> float:
 
 
 def schedule_return(env, table, key, n_eval: int, eval_envs: int, solver: str = "auto") -> float:
-    """The schedule baseline's return over n_eval steps."""
-    return _day_return(schedule_rollout(env, table, key, n_eval, eval_envs, solver)[1])
+    """The rules-based schedule baseline's return over n_eval steps: each
+    env's action from the schedule table at its own step."""
+    return _day_return(rollout(env, table, key, n_eval, eval_envs, solver)[1])
 
 
 def constant_return(env, act, key, n_eval: int, eval_envs: int, solver: str = "auto") -> float:
-    """The return of one action vector held all day by every env."""
-    act = torch.as_tensor(np.asarray(act), dtype=torch.float32, device=env.device)
-    batch = act[None].expand(eval_envs, -1).contiguous()
-    return _day_return(rollout(env, lambda s: batch, key, n_eval, eval_envs, solver)[1])
+    """The return of one action vector held all day by every env (a
+    one-row action table)."""
+    return _day_return(rollout(env, np.asarray(act)[None], key, n_eval, eval_envs, solver)[1])
 
 
 def run_constant_sweep(env, grid_n: int, n_eval: int, eval_envs: int, solver: str = "auto"):
@@ -146,10 +166,6 @@ def run_constant_sweep(env, grid_n: int, n_eval: int, eval_envs: int, solver: st
     return best, grid
 
 
-def evaluate(trainer, sac, key, n_eval: int, eval_envs: int) -> float:
-    return float(trainer.evaluate(sac, key, n_steps=n_eval, n_envs=eval_envs))
-
-
 def seed_replay(trainer, state, table, chunks: int, chunk: int):
     """`chunks` chunks of `chunk` schedule-table collect steps."""
     seed_one = trainer.seed_with_actions(state, table)
@@ -158,11 +174,11 @@ def seed_replay(trainer, state, table, chunks: int, chunk: int):
     return state
 
 
-def train_chunk(trainer, state, chunk: int):
-    """`chunk` train steps; returns the state and the last step's critic
-    loss and alpha."""
+def train_chunk(step, state, chunk: int):
+    """`chunk` calls of `step` (the trainer's captured train step); returns
+    the state and the last step's critic loss and alpha."""
     for _ in range(chunk):
-        state, m = trainer.train_step(state)
+        state, m = step(state)
     return state, float(m["critic_loss"]), float(m["alpha"])
 
 
@@ -186,7 +202,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ))
     state = trainer.init(rng.PRNGKey(args.seed))
     table = schedule_policy.build_schedule_actions(env)
-    ev = lambda sac, seed: evaluate(trainer, sac, rng.PRNGKey(seed), n_eval, args.eval_envs)
+    # The captured programs, made once for the run.
+    train_step, evaluator = trainer.captured_train_step(), trainer.captured_evaluate()
+    ev = lambda sac, seed: float(evaluator(sac, rng.PRNGKey(seed), n_eval, args.eval_envs))
 
     # --- baselines over one full simulated day ---------------------------
     sched_ret = schedule_return(env, table, rng.PRNGKey(7), n_eval, args.eval_envs)
@@ -209,7 +227,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     t0 = time.time()
     done_steps = 0
     while done_steps < args.train_steps:
-        state, critic_loss, alpha = train_chunk(trainer, state, args.chunk)
+        state, critic_loss, alpha = train_chunk(train_step, state, args.chunk)
         done_steps += args.chunk
         if done_steps % args.eval_every < args.chunk:
             ret = ev(state.sac, 9)
@@ -237,12 +255,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         cheby = "pallas_cheby" if env.device.type == "cuda" else "xla_chebyshev"
         parity = {}
         for solver in ("xla_jacobi", cheby):
-            tr = trainer.with_solver(solver)
+            tr_eval = trainer.with_solver(solver).captured_evaluate()
             block = {
-                "sac_best_eval_seed": round(evaluate(tr, best_sac, rng.PRNGKey(9), n_eval,
-                                                     args.eval_envs), 4),
-                "sac_best_holdout_seed": round(evaluate(tr, best_sac, rng.PRNGKey(11), n_eval,
-                                                        args.eval_envs), 4),
+                "sac_best_eval_seed": round(float(tr_eval(best_sac, rng.PRNGKey(9), n_eval,
+                                                          args.eval_envs)), 4),
+                "sac_best_holdout_seed": round(float(tr_eval(best_sac, rng.PRNGKey(11), n_eval,
+                                                             args.eval_envs)), 4),
                 "schedule_eval_seed": round(schedule_return(
                     env, table, rng.PRNGKey(7), n_eval, args.eval_envs, solver), 4),
                 "schedule_holdout_seed": round(schedule_return(

@@ -7,7 +7,9 @@ baseline? The recipe is the JAX script's: n_envs 8, replay 50,000, batch
 steps (SAC_Demo.ipynb cells 34-40), 12,000 train steps with a greedy
 evaluation of half a day (144 steps at 4 envs from PRNGKey(9)) every
 1,500. The env step is the CUDA kernel K2 on the card, its plain version
-with --cpu. `--train-steps`, `--seed-steps` and `--eval-every` cut the run.
+with --cpu; on the card the seeding and train steps, the evaluations and
+the baseline's rollout are captured programs (graphs.py), as the JAX
+script jits them. `--train-steps`, `--seed-steps` and `--eval-every` cut the run.
 
 Usage:
   python -m sbsim_tpu_torch.benchmarks.sac_smoke
@@ -62,8 +64,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     trainer = SACTrainer(env, TrainConfig(**RECIPE))
     state = trainer.init(rng.PRNGKey(0))
-    evaluate = lambda sac: float(trainer.evaluate(sac, rng.PRNGKey(9), n_steps=N_EVAL,
-                                                  n_envs=4))
+    evaluator = trainer.captured_evaluate()
+    eval_key = rng.PRNGKey(9, device=env.device)
+    evaluate = lambda sac: float(evaluator(sac, eval_key, N_EVAL, 4))
     result["untrained_return"] = evaluate(state.sac)
     print(f"untrained greedy return: {result['untrained_return']:.3f}", flush=True)
 
@@ -74,9 +77,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print(f"replay seeded: {result['replay_size']} transitions", flush=True)
 
     result["curve"] = []
+    train_step = trainer.captured_train_step()
     t0 = time.time()
     for i in range(args.train_steps):
-        state, metrics = trainer.train_step(state)
+        state, metrics = train_step(state)
         if (i + 1) % args.eval_every == 0:
             row = {"step": i + 1, "eval_return": evaluate(state.sac),
                    "critic_loss": float(metrics["critic_loss"]),

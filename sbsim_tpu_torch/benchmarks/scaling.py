@@ -16,7 +16,9 @@ the same steps bitwise, or the script exits non-zero.
 
 Deviation from the JAX script: torch has no GSPMD partitioner, so every
 row is the per-rank program of make_shardmapped_rollout, the JAX script's
-`--shard-map` mode; the flag is accepted and changes nothing.
+`--shard-map` mode; the flag is accepted and changes nothing. Under nccl
+that program is captured (a CUDA graph, the JAX script's jit), under gloo
+it runs op by op (distributed/mesh.py's rule).
 
 Usage:
   python -m sbsim_tpu_torch.benchmarks.scaling --devices 1 2 4 --batch-per-device 512

@@ -28,8 +28,10 @@ median of --repeats calls of --steps steps), and its gathered states must
 equal one process's step_batched bitwise, or the script exits non-zero.
 torch has no shard_map: the per-rank program is
 mesh.make_shardmapped_rollout, and the program it runs without a group
-(no collective) is both the plain rollout and the no-pmean variant. More
-ranks than cards under nccl are refused.
+(no collective) is both the plain rollout and the no-pmean variant. Under
+nccl every row is a captured program, under gloo every row runs op by op
+(distributed/mesh.py's rule). More ranks than cards under nccl are
+refused.
 
 Usage:
   python -m sbsim_tpu_torch.benchmarks.scaling_decomp --ranks 2 --backend gloo
@@ -39,7 +41,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import tempfile
@@ -52,11 +53,13 @@ from sbsim_tpu_torch.benchmarks import card_line, scaling
 
 def plain_rollout(env, mesh, actions_table, n_steps, solver="auto"):
     """The per-rank program without the reward's all-reduce: each rank
-    steps its rows and returns its own mean reward."""
+    steps its rows and returns its own mean reward. Captured or op by op by
+    the rank's mesh, as its make_shardmapped_rollout, so that every row of
+    a job runs the same way."""
     from sbsim_tpu_torch.distributed import mesh as mesh_lib
 
-    return mesh_lib.make_shardmapped_rollout(env, dataclasses.replace(mesh, group=None),
-                                             actions_table, n_steps, solver=solver)
+    return mesh_lib.make_shardmapped_rollout(env, mesh, actions_table, n_steps, solver=solver,
+                                             pmean=False)
 
 
 def attribution(rates: dict, n: int, bpd: int) -> dict:

@@ -22,6 +22,22 @@ same per-rank program as `make_shardmapped_train_step`, and keep the
 trainer's solver (the JAX package reroutes its Pallas solvers to XLA on a
 multi-device GSPMD mesh, `_gspmd_safe_trainer`; the kernels here run per
 rank).
+
+Captured programs. The JAX package jits each of the four steps here; the
+port returns each as a CUDA graph (graphs.py, the train step one program
+per side of the update gate), a replay bitwise its eager call, by this
+rule (`runtime.captures`): a mesh without a group, or with an NCCL group,
+gets captured programs, whose collectives run inside the graph on the
+card; a mesh whose group is on gloo gets the steps op by op, since gloo
+reduces host tensors and a host round trip cannot be captured. The rule
+reads the group's backend, never a failure: on NCCL a failed capture or
+replay raises. It is applied where the program is made
+(`BuildingEnv.capture`, through the trainer for the train and collect
+steps: the rank's hooks carry it as `ShardHooks.op_by_op`), together with
+the solver's rule there. Every rank captures the same programs in the same
+order (the same calls, the same side of the gate from the replicated
+env_steps count), so the collectives of the replays pair up across ranks.
+Each returned step's `eager` attribute is the step op by op.
 """
 
 from __future__ import annotations
@@ -157,16 +173,19 @@ def make_shardmapped_rollout(
     actions_table,
     n_steps: int,
     solver: str = "auto",
+    pmean: bool = True,
 ):
     """The env rollout on each rank's rows: `step_batched` with the table's
     action for each env's step, n_steps times. The env step has no
-    cross-env dependency, so only the mean reward is reduced.
+    cross-env dependency, so only the mean reward is reduced (`pmean=False`:
+    not reduced, each rank's own mean). A captured program by the module's
+    rule (`eager`: the rollout op by op).
 
     Returns fn: (this rank's EnvState rows, e.g. shard_rows of the batch)
     -> (its EnvState rows after n_steps, the mean reward over all ranks).
     """
     table = torch.as_tensor(np.asarray(actions_table), dtype=torch.float32, device=env.device)
-    reduce = _pmean(mesh)
+    reduce = _pmean(mesh) if pmean else None
 
     def rollout(states):
         rewards = []
@@ -177,7 +196,7 @@ def make_shardmapped_rollout(
         mean = torch.mean(torch.stack(rewards))
         return states, mean if reduce is None else reduce(mean)
 
-    return rollout
+    return env.capture(rollout, solver, op_by_op=not runtime.captures(mesh.group))
 
 
 def _require_per_env(replay) -> None:
@@ -208,7 +227,8 @@ def _collect_hooks(trainer: SACTrainer, mesh: Mesh) -> ShardHooks:
     if trainer.config.replay_layout == "flat":
         gather = lambda batch: batch.map(lambda x: runtime.all_gather_rows(x, mesh.group))
     return ShardHooks(reset_keys=lambda k: rng_lib.split(k, n_envs)[rows],
-                      reduce=_pmean(mesh), gather=gather)
+                      reduce=_pmean(mesh), gather=gather,
+                      op_by_op=not runtime.captures(mesh.group))
 
 
 def _train_hooks(trainer: SACTrainer, mesh: Mesh) -> ShardHooks:
@@ -285,12 +305,13 @@ def make_shardmapped_train_step(
         replay_template = replay_template.replay
     hooks = _train_hooks(trainer, mesh)
     _require_per_env(replay_template)
-    trainer = trainer.with_solver(solver)
+    run = trainer.with_solver(solver).captured_train_step(hooks)
 
     def step(state: TrainState):
         _require_per_env(state.replay)
-        return trainer.train_step(state, hooks)
+        return run(state)
 
+    step.eager = run.eager
     return step
 
 
@@ -301,24 +322,20 @@ def make_distributed_train_step(trainer: SACTrainer, mesh: Mesh) -> StepFn:
     run per rank, and nothing is rerouted (the JAX package's
     `_gspmd_safe_trainer` has no counterpart). The flat ring is replicated:
     each collect step gathers every rank's transitions into it, and each
-    rank samples its block of the global batch. A mesh without a group runs
-    `train_step` as captured programs (trainer.captured_train_step, the
-    counterpart of the JAX package's `jax.jit(step)`,
-    sbsim_tpu/distributed/mesh.py:174); a rank in a group runs op by op
-    (its collectives are not captured)."""
-    if mesh.group is None:
-        return trainer.captured_train_step()
-    hooks = _train_hooks(trainer, mesh)
-    return lambda state: trainer.train_step(state, hooks)
+    rank samples its block of the global batch. Captured by the module's
+    rule, one program per side of the update gate
+    (trainer.captured_train_step, the counterpart of the JAX package's
+    `jax.jit(step)`, sbsim_tpu/distributed/mesh.py:174)."""
+    hooks = _train_hooks(trainer, mesh) if mesh.group is not None else ShardHooks()
+    return trainer.captured_train_step(hooks)
 
 
 def make_distributed_collect_step(trainer: SACTrainer, mesh: Mesh, action_fn) -> StepFn:
     """One collect step on each rank's rows: the reset keys drawn at the
     global shape, the reward mean reduced, and under the flat layout every
-    rank's transitions gathered into the replicated ring. A mesh without a
-    group runs the plain collect step as a captured program
-    (trainer.captured, the counterpart of sbsim_tpu/distributed/mesh.py:185);
-    a rank in a group runs op by op.
+    rank's transitions gathered into the replicated ring. Captured by the
+    module's rule (trainer.captured, the counterpart of
+    sbsim_tpu/distributed/mesh.py:185).
 
     `action_fn` is the collect step's policy, (obs, key) -> actions, or a
     per-step action table (numpy, as `seed_with_actions` takes: each env's
@@ -330,5 +347,4 @@ def make_distributed_collect_step(trainer: SACTrainer, mesh: Mesh, action_fn) ->
     hooks = _collect_hooks(trainer, mesh) if mesh.group is not None else ShardHooks()
     if not callable(action_fn):
         return trainer.seed_with_actions(None, action_fn, hooks)
-    step = lambda state: trainer.collect_step(state, action_fn, hooks)
-    return trainer.captured(step) if mesh.group is None else step
+    return trainer.captured(lambda state: trainer.collect_step(state, action_fn, hooks), hooks)

@@ -13,6 +13,10 @@ The collectives the trainer needs are here too: the mean all-reduce of
 gradients and statistics and the all-gather of row blocks. gloo reduces
 host tensors, so for the gloo backend a CUDA tensor goes through the host
 (`_through_host`, the one place that decides it); NCCL reduces on the card.
+On NCCL each is one collective into one output tensor, with no host copy
+and no host read, so a CUDA graph captures it (`captures`: the mesh's
+steps are captured programs there, distributed/mesh.py); a gloo group's
+host round trip cannot be captured.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from sbsim_tpu_torch import graphs
 
 
 def initialize(
@@ -83,8 +89,11 @@ def initialize(
 
 
 def shutdown() -> None:
-    """Leaves the process group (a no-op without one)."""
+    """Leaves the process group (a no-op without one), after dropping every
+    captured program (`graphs.release`): a graph holding the group's NCCL
+    collectives must not outlive the group."""
     if dist.is_initialized():
+        graphs.release()
         dist.destroy_process_group()
 
 
@@ -104,26 +113,39 @@ def _through_host(group, x: torch.Tensor) -> bool:
     return x.device.type != "cpu" and dist.get_backend(group) == "gloo"
 
 
+def captures(group) -> bool:
+    """Whether a step whose collectives run on `group` can be captured into
+    a CUDA graph: no group (no collective), or an NCCL group (collectives
+    on the card). A gloo group's collectives go through the host
+    (`_through_host`), which a graph cannot capture."""
+    return group is None or dist.get_backend(group) == "nccl"
+
+
 def all_reduce_mean(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
     """The mean over the group's ranks of each float32 tensor, in one
     all-reduce of their concatenation (sum, then divided by the size)."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    buf = flat.cpu() if _through_host(group, flat) else flat
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
-    mean = buf.to(flat.device) / dist.get_world_size(group)
+    if _through_host(group, flat):
+        buf = flat.cpu()
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+        flat = buf.to(flat.device)
+    else:
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    mean = flat / dist.get_world_size(group)
     parts = mean.split([t.numel() for t in tensors])
     return [p.view(t.shape) for p, t in zip(parts, tensors)]
 
 
 def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """Every rank's block of rows (the same shape on each), concatenated in
-    rank order along dim 0, on x's device."""
+    rank order along dim 0, on x's device: one all-gather into one tensor
+    (bool travels as uint8)."""
     src = (x.to(torch.uint8) if x.dtype == torch.bool else x).contiguous()
     if _through_host(group, src):
         src = src.cpu()
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, src, group=group)
-    out = torch.cat(parts).to(x.device)
+    out = src.new_empty((dist.get_world_size(group) * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    out = out.to(x.device)
     return out.to(torch.bool) if x.dtype == torch.bool else out
 
 

@@ -35,11 +35,13 @@ gridstats fold after the solve; the sums are bitwise the same either way.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from sbsim_tpu_torch import graphs
 from sbsim_tpu_torch import rng as rng_lib
 from sbsim_tpu_torch.core import geometry as geometry_lib
 from sbsim_tpu_torch.core.geometry import BuildingGeometry
@@ -416,6 +418,18 @@ class BuildingEnv:
             return "pallas_env"
         return f"xla_{self.config.fdm_solver}"
 
+    def capture(self, fn, solver: Optional[str] = None,
+                op_by_op: bool = False) -> graphs.CapturedFunction:
+        """`fn`, a program that steps this env through `solver`, as a
+        captured program (graphs.py), or op by op by the rule the port's
+        programs share: through a plain solver ("xla_*", physics/fdm.py),
+        whose convergence loop reads the device back every iteration and
+        cannot be captured, and where the caller says so (`op_by_op`: a
+        gloo group's collectives, distributed/mesh.py); the kernels' routes
+        ("pallas_*") are captured."""
+        plain = self.resolve_solver(1, solver=solver).startswith("xla_")
+        return graphs.capture(fn, op_by_op=op_by_op or plain)
+
     def kernel_path(self, solver: str) -> Tuple[bool, bool]:
         """(convection fused into the kernel, statistics from the kernel)
         for an FDM solver name, by the JAX package's rules
@@ -461,6 +475,14 @@ class BuildingEnv:
             )
         solver = "pallas_cheby" if self.config.fdm_solver == "chebyshev" else "pallas_env"
         return self.step_batched(state, action, solver=solver)
+
+    @functools.cached_property
+    def captured_step(self) -> graphs.CapturedFunction:
+        """`step` as a captured program (graphs.py), made once per env and
+        shared by its callers: the counterpart of `jax.jit(env.step)` at the
+        JAX package's per-env call sites (envs/host_adapter.py, the
+        dashboard, the parity day). Its `eager` is `step` op by op."""
+        return graphs.capture(self.step)
 
     def step_batched(
         self,

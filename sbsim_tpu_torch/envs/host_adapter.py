@@ -9,10 +9,13 @@ This is the interop surface through which a policy written against a
 never touches protos.
 
 The building is one env of the BuildingEnv, held as a batch of one on the
-env's device, stepped by `BuildingEnv.step` (K2, or K1 for a Chebyshev
-config, on the card). Each call that reads the state makes one host copy
-of what it reads; the step count and the scenario tables are kept on the
-host.
+env's device, stepped by `BuildingEnv.captured_step` (`step` as a captured
+program, the JAX adapter's `jax.jit(env.step)`: K2, or K1 for a Chebyshev
+config, on the card). The action is made from the pending setpoints on the
+host before the step, and the observation and reward breakdown are read
+back after it, outside the program. Each call that reads the state makes
+one host copy of what it reads; the step count and the scenario tables
+are kept on the host.
 
 `RejectionSimulatedBuilding` reproduces the fault-injection decorator that
 refuses the first N action requests
@@ -262,7 +265,8 @@ class SimulatedBuilding(BaseBuilding):
             native = min(max(native, n.min_native_value), n.max_native_value)
             ratio = (native - n.min_native_value) / (n.max_native_value - n.min_native_value)
             action[0, i] = ratio * 2.0 - 1.0
-        self._state, out = env.step(self._state, torch.as_tensor(action, device=env.device))
+        self._state, out = env.captured_step(self._state,
+                                             torch.as_tensor(action, device=env.device))
         self._step_idx += 1
         names = [f.name for f in dataclasses.fields(out.reward_breakdown)]
         host = _to_host({"observation": out.observation[0],

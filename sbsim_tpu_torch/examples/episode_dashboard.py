@@ -6,8 +6,10 @@ The script form of the reference notebook's live plotting loop
 run the schedule policy for one day on the calibrated building, accumulate
 per-step metrics, and write the 3-panel composite (zone-temp timeline over
 the setpoint schedule / energy rates / thermal view) every N steps plus at
-the end. The env runs on the GPU (each step's FDM solve in the CUDA kernel
-`fdm_jacobi`); --cpu runs it on the CPU with the kernel's plain version.
+the end. The env runs on the GPU, each step the env's captured per-env
+step (`BuildingEnv.captured_step`, the JAX script's `jax.jit(env.step)`;
+its FDM solve the CUDA kernel `fdm_jacobi`); --cpu runs it on the CPU
+with the kernel's plain version.
 Drawing needs matplotlib; without it, pass --render-every 0 to accumulate
 the metrics only.
 
@@ -98,7 +100,7 @@ def main(
     steps = min(args.steps, env.steps_per_episode)
     for t in range(steps):
         act = table[min(t, table.shape[0] - 1)][None]
-        state, _ = env.step(state, act)
+        state, _ = env.captured_step(state, act)
         hvac = state.hvac
         ambient = float(tables.ambient_temp[min(t + 1, tables.n_steps - 1)])
         amb = torch.tensor([ambient], dtype=torch.float32, device=dev)

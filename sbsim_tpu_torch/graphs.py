@@ -34,8 +34,20 @@ gate) stay outside `fn`, as a jitted program's static arguments select
 among programs.
 
 When no argument tensor lies on a CUDA device (the caller asked for the
-CPU), the callable calls `fn` directly. On the card a failed capture or
-replay raises; nothing runs eagerly in its place.
+CPU), the callable calls `fn` directly, and so does every call inside
+`disabled()` (the port's `jax.disable_jit`: a run that must go op by op
+asks for it, such as a run of the kernels' plain versions, which read the
+device back), and every call of a function captured with `op_by_op` (one
+that by its caller's stated rule cannot be captured: a step through a
+plain solver, whose loop reads the device back, or through a gloo
+group's collectives, which go through the host). The callable's `eager`
+is `fn`, op by op. On the card a failed capture or replay raises; nothing
+runs eagerly in its place.
+
+A graph reads everything outside its inputs by address (constants, the
+stencil planes, a communicator's buffers): what a step caches must live as
+long as the program, and `release` drops every program before a process
+group goes (`distributed/runtime.shutdown`).
 
 `fn` must not read a device value back to the host, nor make a tensor
 from host data on each call (neither can be captured, and the host data
@@ -56,9 +68,26 @@ import contextlib
 import dataclasses
 import functools
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
+
+
+_disabled = False
+_live: "weakref.WeakSet[CapturedFunction]" = weakref.WeakSet()
+
+
+@contextlib.contextmanager
+def disabled():
+    """Within the block every captured function calls its function directly,
+    op by op, and captures nothing (the port's `jax.disable_jit`)."""
+    global _disabled
+    saved, _disabled = _disabled, True
+    try:
+        yield
+    finally:
+        _disabled = saved
 
 
 @functools.lru_cache(maxsize=None)
@@ -251,37 +280,56 @@ class Program:
 
 class CapturedFunction:
     """`fn` captured once per argument shape (see the module docstring).
-    `programs` maps each argument signature to its Program; `counters` are
-    the kernels' launch counts (`fdm_cuda.launch_counts`)."""
+    `eager` is `fn` op by op; `programs` maps each argument signature to
+    its Program; `counters` are the kernels' launch counts
+    (`fdm_cuda.launch_counts`)."""
 
-    def __init__(self, fn: Callable):
+    def __init__(self, fn: Callable, op_by_op: bool = False):
         # Imported here: fdm_cuda imports rng, which imports this module.
         from sbsim_tpu_torch.physics import fdm_cuda
 
-        self.fn = fn
+        functools.update_wrapper(self, fn)
+        self.eager = fn
+        self.op_by_op = op_by_op
         self.counters = (fdm_cuda.launch_counts,)
         self.programs: Dict[Any, Program] = {}
-        functools.update_wrapper(self, fn)
+        _live.add(self)
 
     def __call__(self, *args):
         leaves: List[torch.Tensor] = []
         spec = flatten(args, leaves)
         devices = {t.device for t in leaves}
-        if not any(d.type == "cuda" for d in devices):
-            return self.fn(*args)
+        if _disabled or self.op_by_op or not any(d.type == "cuda" for d in devices):
+            return self.eager(*args)
         if len(devices) > 1:
             raise ValueError("a captured program's tensors must lie on one device; got "
                              f"{sorted(map(str, devices))}")
         key = (spec, tuple((t.shape, t.dtype) for t in leaves), devices.pop())
         program = self.programs.get(key)
         if program is None:
-            program = self.programs[key] = Program(self.fn, args, spec, leaves,
+            program = self.programs[key] = Program(self.eager, args, spec, leaves,
                                                    self.counters)
             return program.take_first()
         return program(leaves)
 
 
-def capture(fn: Callable) -> CapturedFunction:
-    """`fn` as a captured program, the port's `jax.jit` (the module
-    docstring has the rules)."""
-    return CapturedFunction(fn)
+def release() -> None:
+    """Drops every captured program, its graph destroyed; the next call of a
+    captured function captures again. A program whose graph holds a process
+    group's collectives must go before the group does
+    (`distributed/runtime.shutdown` calls this first): destroying an NCCL
+    group while such a graph lived hung both ranks of a two-card job
+    (H100, PyTorch 2.11)."""
+    programs = [p for captured in list(_live) for p in captured.programs.values()]
+    if programs and torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for captured in list(_live):
+        for program in captured.programs.values():
+            program.graph.reset()
+        captured.programs.clear()
+
+
+def capture(fn: Callable, op_by_op: bool = False) -> CapturedFunction:
+    """`fn` as a captured program, the port's `jax.jit`, or with `op_by_op`
+    called directly at every call (the module docstring has the rules)."""
+    return CapturedFunction(fn, op_by_op)

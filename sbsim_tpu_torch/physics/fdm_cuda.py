@@ -56,9 +56,9 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
-import functools
 import os
 import shutil
+import weakref
 from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -403,18 +403,27 @@ def packed_coef(a_r, a_l, a_b, a_t) -> torch.Tensor:
     return torch.stack((a_r, a_l, a_b, a_t), dim=-1).contiguous()
 
 
-@functools.lru_cache(maxsize=8)
+# Keyed weakly by the coefficients: the planes live exactly as long as the
+# env's coefficients do, since a captured program (graphs.py) reads them by
+# address at every replay; a bounded cache would free them under it.
+_PLANES: "weakref.WeakKeyDictionary[StencilCoefficients, Tuple[torch.Tensor, ...]]" = (
+    weakref.WeakKeyDictionary())
+
+
 def _stencil_planes(coeffs: StencilCoefficients) -> Tuple[torch.Tensor, ...]:
     """The kernels' stencil planes, made once per env's coefficients
     rather than every step: a_r, a_l, a_b, a_t (with a ring exterior's pin
     folded in, a* = 0 at exterior cells), their packed coef plane, and the
     exterior as float32."""
-    ext_b = coeffs.exterior_mask
-    a = (coeffs.a_r, coeffs.a_l, coeffs.a_b, coeffs.a_t)
-    if coeffs.ring_exterior:
-        a = tuple(torch.where(ext_b, 0.0, x) for x in a)
-    a = tuple(x.contiguous() for x in a)
-    return a + (packed_coef(*a), ext_b.to(torch.float32).contiguous())
+    planes = _PLANES.get(coeffs)
+    if planes is None:
+        ext_b = coeffs.exterior_mask
+        a = (coeffs.a_r, coeffs.a_l, coeffs.a_b, coeffs.a_t)
+        if coeffs.ring_exterior:
+            a = tuple(torch.where(ext_b, 0.0, x) for x in a)
+        a = tuple(x.contiguous() for x in a)
+        planes = _PLANES[coeffs] = a + (packed_coef(*a), ext_b.to(torch.float32).contiguous())
+    return planes
 
 
 # ---------------------------------------------------------------------------

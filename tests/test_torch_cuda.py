@@ -13,9 +13,13 @@ statistics epilogue; NaN equal to NaN where an env's field holds one),
 count its launches, and refuse inputs it does not take; the block kernels
 K3/K4 must also equal K2/K1 env for env (K3 unless a residual is NaN). The
 captured programs (graphs.py: the bench rollout, the trainer's seeding and
-train steps on both sides of the update gate, evaluate) must replay bitwise
-their eager calls, with no host sync (set_sync_debug_mode("error")) and
-the eager calls' launches. This file imports no JAX.
+train steps on both sides of the update gate, evaluate, the per-env step
+in each layout, the loaded policy, distributed/mesh.py's four steps on a
+one-rank NCCL group and on two NCCL ranks where two cards are present,
+the swap step and the learning run's rollout step) must replay bitwise
+their eager calls, with no host sync
+(set_sync_debug_mode("error")) and the eager calls' launches. This file
+imports no JAX.
 """
 
 import dataclasses
@@ -457,8 +461,12 @@ def test_per_env_step_through_the_kernel_equals_plain(env, fdm_solver, kernel):
 
 def _dashboard_run(plain, steps, tmp_path):
     """episode_dashboard.main on the card for `steps` steps (drawing off),
-    through K2 or, with `plain`, its plain version; the launch counts, the
-    dashboard's accumulators and each step's field."""
+    through K2 (its per-env step captured) or, with `plain`, its plain
+    version op by op (the plain loop reads back: graphs.disabled); the
+    launch counts, the dashboard's accumulators and each step's field."""
+    import contextlib
+
+    from sbsim_tpu_torch import graphs
     from sbsim_tpu_torch.examples import episode_dashboard
 
     saved = fdm_cuda.fdm_jacobi_cuda
@@ -467,9 +475,10 @@ def _dashboard_run(plain, steps, tmp_path):
     fields = []
     try:
         fdm_cuda.reset_launch_counts()
-        run = episode_dashboard.main(
-            ["--steps", str(steps), "--render-every", "0", "--out", str(tmp_path)],
-            on_step=lambda t, state: fields.append(state.temp[0].cpu().numpy()))
+        with graphs.disabled() if plain else contextlib.nullcontext():
+            run = episode_dashboard.main(
+                ["--steps", str(steps), "--render-every", "0", "--out", str(tmp_path)],
+                on_step=lambda t, state: fields.append(state.temp[0].cpu().numpy()))
         counts = dict(fdm_cuda.launch_counts)
     finally:
         fdm_cuda.fdm_jacobi_cuda = saved
@@ -714,7 +723,7 @@ def test_rollout_replay_equals_eager(env, solver, kernel):
     start, _ = env.reset(rng.split(rng.PRNGKey(4, device=env.device), 64))
     start = start.replace(step_idx=torch.full_like(start.step_idx, 284))  # across the end
     roll = bench.make_rollout(env, table, 6, solver)
-    want = roll.fn(_clone(start))
+    want = roll.eager(_clone(start))
     roll(_clone(start))  # the first call captures
     got, launched = _replayed(roll, _clone(start))
     assert launched == {kernel: 6}
@@ -736,7 +745,7 @@ def test_trainer_replays_equal_eager_across_the_end_and_the_gate(env):
     eager, graph = _clone(state), _clone(state)
     # 3 seeding steps (the second crosses the 288-step end), then 2 train
     # steps on each side of the gate: each program's first call captures.
-    plan = [(seed, seed.program.fn)] * 3 + [(step, trainer.train_step)] * 4
+    plan = [(seed, seed.eager)] * 3 + [(step, trainer.train_step)] * 4
     for i, (captured, op_by_op) in enumerate(plan):
         eager, want_m = op_by_op(eager)
         replay = i not in (0, 3, 5)
@@ -765,3 +774,165 @@ def test_evaluate_replay_equals_eager(env):
     evaluate(sac, key, 12, 4)  # the first call captures
     got, launched = _replayed(evaluate, sac, key, 12, 4)
     assert launched == {"fdm_jacobi": 12} and torch.equal(got, want)
+
+
+# The rest of the jitted programs: the per-env step, the loaded policy, the
+# ranks' steps on a one-rank NCCL group, the scripts' loops.
+
+
+@pytest.mark.parametrize("layout", ["jacobi", "chebyshev", "stack"])
+def test_per_env_step_replay_equals_eager(layout):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the kernels are sm_90a CUDA)")
+    kw = {"jacobi": {}, "chebyshev": {"fdm_solver": "chebyshev"},
+          "stack": {"pallas_block_mode": "stack", "pallas_block_envs": 2}}[layout]
+    env = building_env.BuildingEnv(dataclasses.replace(
+        presets.sb1_config(num_days_in_episode=1), **kw))
+    kernel = ("fdm_cheby" if layout == "chebyshev" else "fdm_jacobi") + (
+        "_block" if layout == "stack" else "")
+    start, _ = env.reset(rng.PRNGKey(5, device=env.device)[None])
+    act = torch.linspace(-1.0, 1.0, env.n_actions, device=env.device)[None]
+    step = env.captured_step
+    want = step.eager(_clone(start), act)
+    step(_clone(start), act)  # the first call captures
+    got, launched = _replayed(step, _clone(start), act)
+    assert launched == {kernel: 1} and _trees_equal(got, want)
+
+
+def test_loaded_policy_replay_equals_eager(env, tmp_path):
+    from sbsim_tpu_torch.agents import policies, sac
+
+    learner = sac.SACLearner(env.obs_dim, env.n_actions, device=env.device)
+    policies.save_policy(str(tmp_path), learner,
+                         learner.init(rng.PRNGKey(6, device=env.device)), env.action_names)
+    policy, _ = policies.load_policy(str(tmp_path))
+    obs = torch.randn((5, 1, env.obs_dim), generator=torch.Generator().manual_seed(1))
+    obs = obs.to(env.device)
+    policy(obs[0])  # the first call captures
+    for o in obs[1:]:
+        got, _ = _replayed(policy, o)
+        assert torch.equal(got, policy.program.eager(o))
+
+
+def test_one_rank_nccl_mesh_steps_replay_equal_eager(env, tmp_path):
+    from sbsim_tpu_torch.agents import schedule_policy, train
+    from sbsim_tpu_torch.distributed import mesh as mesh_lib
+    from sbsim_tpu_torch.distributed import runtime
+
+    runtime.initialize(backend="nccl", init_method=f"file://{tmp_path}/store", world_size=1,
+                       rank=0, timeout=120.0)
+    try:
+        mesh = mesh_lib.make_mesh()
+        assert runtime.captures(mesh.group)
+        trainer = train.SACTrainer(env, train.recipe_for(
+            env, n_envs=8, batch_size=64, replay_capacity=800, seed_steps=5 * 8))
+        table = schedule_policy.build_schedule_actions(env)
+        state = mesh_lib.shard_train_state(trainer.init(rng.PRNGKey(2, device=env.device)),
+                                           mesh)
+        steps = [(mesh_lib.make_distributed_collect_step(trainer, mesh, table), (0,)),
+                 (mesh_lib.make_distributed_train_step(trainer, mesh), (0, 2)),
+                 (mesh_lib.make_shardmapped_train_step(trainer, mesh, state), (0, 2))]
+        for step, captures in steps:
+            eager, graph = _clone(state), _clone(state)
+            for i in range(3):
+                eager, want_m = step.eager(eager)
+                if i in captures:
+                    graph, got_m = step(graph)
+                else:
+                    (graph, got_m), launched = _replayed(step, graph)
+                    assert launched == {"fdm_jacobi": 1}
+                assert graph.env_steps == eager.env_steps
+                assert _trees_equal((graph.env_states, graph.replay, graph.sac, graph.rng),
+                                    (eager.env_states, eager.replay, eager.sac, eager.rng))
+                assert _trees_equal(got_m, want_m)
+            state = graph if step is steps[0][0] else state
+        roll = mesh_lib.make_shardmapped_rollout(env, mesh, table, 4)
+        start, _ = env.reset(rng.split(rng.PRNGKey(4, device=env.device), 8))
+        want = roll.eager(_clone(start))
+        roll(_clone(start))  # the first call captures
+        got, launched = _replayed(roll, _clone(start))
+        assert launched == {"fdm_jacobi": 4} and _trees_equal(got, want)
+    finally:
+        runtime.shutdown()
+
+
+def _two_nccl_ranks(rank, world, out):
+    """One of two NCCL ranks, one card each: distributed/mesh.py's train
+    step (both sides of the update gate) and rollout as captured programs,
+    their collectives inside the graphs, each replay bitwise the eager
+    call; then runtime.shutdown, which must return (the programs go before
+    the group: graphs.release). Saves the rank's actor parameters."""
+    from sbsim_tpu_torch.agents import schedule_policy, train
+    from sbsim_tpu_torch.distributed import mesh as mesh_lib
+    from sbsim_tpu_torch.distributed import runtime
+
+    runtime.initialize(backend="nccl", init_method=f"file://{out}/store", world_size=world,
+                       rank=rank, timeout=120.0)
+    try:
+        device = torch.device("cuda", rank)
+        env = building_env.BuildingEnv(presets.sb1_config(num_days_in_episode=1), device=device)
+        mesh = mesh_lib.make_mesh()
+        assert mesh.size == world and runtime.captures(mesh.group)
+        trainer = train.SACTrainer(env, train.recipe_for(
+            env, n_envs=8 * world, batch_size=64, replay_capacity=800, seed_steps=6 * 8 * world))
+        table = schedule_policy.build_schedule_actions(env)
+        state = mesh_lib.shard_train_state(trainer.init(rng.PRNGKey(2, device=device)), mesh)
+        seed = mesh_lib.make_distributed_collect_step(trainer, mesh, table)
+        for _ in range(3):
+            state, _ = seed(state)
+        step = mesh_lib.make_distributed_train_step(trainer, mesh)
+        eager, graph = _clone(state), _clone(state)
+        for _ in range(4):  # the gate opens at the third call: both sides captured, replayed
+            eager, want_m = step.eager(eager)
+            graph, got_m = step(graph)
+            assert _trees_equal((graph.env_states, graph.replay, graph.sac, graph.rng),
+                                (eager.env_states, eager.replay, eager.sac, eager.rng))
+            assert _trees_equal(got_m, want_m)
+        roll = mesh_lib.make_shardmapped_rollout(env, mesh, table, 4)
+        start, _ = env.reset(rng.split(rng.PRNGKey(4, device=device), 8 * world)[
+            8 * rank:8 * (rank + 1)])
+        want = roll.eager(_clone(start))
+        for _ in range(3):  # the first call captures, then replays
+            assert _trees_equal(roll(_clone(start)), want)
+        torch.save({k: v.cpu() for k, v in graph.sac.actor_params.items()},
+                   f"{out}/actor{rank}.pt")
+    finally:
+        runtime.shutdown()
+
+
+def test_two_nccl_ranks_replay_equal_eager_and_shut_down(tmp_path):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs (one NCCL rank per card)")
+    from sbsim_tpu_torch.distributed import runtime
+
+    runtime.spawn(_two_nccl_ranks, 2, (str(tmp_path),), timeout=300.0)
+    a, b = (torch.load(tmp_path / f"actor{r}.pt") for r in range(2))
+    assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_script_programs_replay_equal_eager(env):
+    from sbsim_tpu_torch import graphs
+    from sbsim_tpu_torch.agents import schedule_policy
+    from sbsim_tpu_torch.benchmarks import conv_rounds_sweep as crs
+    from sbsim_tpu_torch.benchmarks import sac_sb1_train
+
+    action = torch.zeros((crs.SEEDS, env.n_actions), device=env.device)
+    start, _ = env.reset(rng.split(rng.PRNGKey(9, device=env.device), crs.SEEDS))
+    step = crs.swap_step(env)
+    want = step.eager(_clone(start), action)
+    step(_clone(start), action)  # the first call captures
+    got, launched = _replayed(step, _clone(start), action)
+    assert launched == {"fdm_jacobi": 1} and _trees_equal(got, want)
+    swap, _ = crs.run_swap(env.config, env.device)
+    with graphs.disabled():
+        eager_swap, _ = crs.run_swap(env.config, env.device)
+    assert np.array_equal(swap, eager_swap)
+    table = torch.as_tensor(schedule_policy.build_schedule_actions(env), device=env.device)
+    key = rng.PRNGKey(7, device=env.device)
+    step = sac_sb1_train.rollout_step(env, "pallas_env")
+    want = sac_sb1_train._rollout(step.eager, env, table, key, 12, 4)
+    sac_sb1_train._rollout(step, env, table, key, 12, 4)  # the first captures
+    got, launched = _replayed(sac_sb1_train._rollout, step, env, table, key, 12, 4)
+    assert launched == {"fdm_jacobi": 12} and _trees_equal(got, want)
+    (program,) = step.programs.values()
+    assert program.replays == 12 + 11

@@ -595,7 +595,7 @@ def test_groupless_mesh_runs_the_plain_steps():
     a = trainer.init(rng.PRNGKey(KEY))
     b = mesh_lib.shard_train_state(trainer.init(rng.PRNGKey(KEY)), mesh)
     table = schedule_policy.build_schedule_actions(trainer.env)
-    seed_a = trainer.seed_with_actions(a, table).program.fn
+    seed_a = trainer.seed_with_actions(a, table).eager
     seed_b = mesh_lib.make_distributed_collect_step(trainer, mesh, table)
     for _ in range(2):
         a, _ = seed_a(a)

@@ -360,6 +360,9 @@ class _StubGraph:
     def replay(self):
         self.run()
 
+    def reset(self):
+        self.run = None
+
 
 def _insert(ring, value, counts):
     """A ring insert in place (as the replay ring's), and a fresh output."""
