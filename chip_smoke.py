@@ -3802,9 +3802,25 @@ def _timed_calls(fn, state, calls):
     return state, [s.elapsed_time(e) for s, e in events]
 
 
-def _program_note(captured) -> str:
-    return "; ".join(f"capture {p.capture_ms:.0f} ms (its warm-up call included), pool "
-                     f"{p.pool_bytes / 2**20:.1f} MiB" for p in captured.programs.values())
+# The last capture record and the pool bytes a note has reported.
+_NOTED = {"id": -1, "pool_bytes": 0}
+
+
+def _program_note() -> str:
+    """The captures since the previous note, from the tracing registry's
+    set-up records: each capture's ms (its warm-up call included) and the
+    device memory their graphs keep."""
+    from sbsim_tpu_torch.utils import profiling
+
+    setup = profiling.setup()
+    ms = [(r.end_ns - r.start_ns) / 1e6 for r in setup["records"]
+          if r.name == "sbsim.graphs.capture" and r.id > _NOTED["id"]]
+    if setup["records"]:
+        _NOTED["id"] = setup["records"][-1].id
+    pool = setup["counters"].get("graphs.pool_bytes", 0)
+    pool, _NOTED["pool_bytes"] = pool - _NOTED["pool_bytes"], pool
+    return (f"captures {', '.join(f'{t:.0f}' for t in ms) or 'none'} ms (warm-up calls "
+            f"included), pool {pool / 2**20:.1f} MiB")
 
 
 def graph_rollouts(tag) -> dict:
@@ -3853,7 +3869,7 @@ def graph_rollouts(tag) -> dict:
             print(f"  (a) {name} {solver} B={batch}: {steps} steps from step {start}, the "
                   f"replay bitwise the eager rollout (states, mean reward "
                   f"{float(got_r):.6f}), {steps} {kname} launches per call on both paths, no "
-                  f"host sync in the replay; {_program_note(roll)} {tag}", flush=True)
+                  f"host sync in the replay; {_program_note()} {tag}", flush=True)
         roll = bench.make_rollout(env, table, GRAPH_TIMED_STEPS, solver)
         ms = {"eager": [], "graph": []}
         for path in ("eager", "graph", "graph", "eager"):
@@ -3876,7 +3892,7 @@ def graph_rollouts(tag) -> dict:
               f"env-steps/s, best {batch / best['eager'] * 1e3:,.0f}), graph median "
               f"{per_step['graph']:.4f} ms/step ({batch / per_step['graph'] * 1e3:,.0f} "
               f"env-steps/s, best {batch / best['graph'] * 1e3:,.0f}), "
-              f"x{per_step['eager'] / per_step['graph']:.2f}; {_program_note(roll)} {tag}",
+              f"x{per_step['eager'] / per_step['graph']:.2f}; {_program_note()} {tag}",
               flush=True)
         # The profiles: one call of the first (8-step, captured) rollout.
         (start, steps), roll = next(iter(rolls.items()))
@@ -3955,9 +3971,8 @@ def graph_training(tag) -> dict:
           f"then {GRAPH_TRAIN_CALLS} train steps ({GRAPH_SKIP_CALLS} before the gate, "
           f"{GRAPH_TRAIN_CALLS - GRAPH_SKIP_CALLS} after): each call's TrainState and metrics "
           f"bitwise the eager call's, {replays} replays with no host sync and 1 fdm_jacobi "
-          f"launch each as eager; seeding {_program_note(seed.program)}; skip side "
-          f"{_program_note(step.sides[0].program)}; learn side "
-          f"{_program_note(step.sides[1].program)} {tag}", flush=True)
+          f"launch each as eager; seeding and both sides: {_program_note()} {tag}",
+          flush=True)
     # Both paths timed: seeding steps, then train steps past the gate.
     ms = {}
     for kind, fns in (("seed", (seed.eager, seed)),
@@ -4010,7 +4025,7 @@ def graph_training(tag) -> dict:
     print(f"  (c) evaluate, {n_steps} steps at {n_envs} envs: the replay's return "
           f"{float(runs['replay'][0]):.6f} bitwise the eager call's, {n_steps} launches each, "
           f"no host sync in the replay; eager {runs['eager'][1]:.1f} ms, replay "
-          f"{runs['replay'][1]:.1f} ms; {_program_note(evaluate)}; in "
+          f"{runs['replay'][1]:.1f} ms; {_program_note()}; in "
           f"{time.time() - t_start:.1f} s {tag}", flush=True)
     return launches
 
@@ -4226,7 +4241,7 @@ def rest_host(envs, tag) -> dict:
                   f"HostEnvironment.step median eager {med['eager'][0]:.3f} ms, graph "
                   f"{med['graph'][0]:.3f} ms; wait_time eager {med['eager'][1]:.3f} ms, graph "
                   f"{med['graph'][1]:.3f} ms (x{med['eager'][1] / med['graph'][1]:.2f}); "
-                  f"{_program_note(env.captured_step)}; in {time.time() - t_start:.1f} s {tag}",
+                  f"{_program_note()}; in {time.time() - t_start:.1f} s {tag}",
                   flush=True)
         # The dashboard's day.
         t_start = time.time()
@@ -4389,7 +4404,7 @@ def rest_scripts(tmp, tag) -> int:
           f"{ms['eager']:.3f} ms, graph {ms['graph']:.3f} ms (x{ms['eager'] / ms['graph']:.2f}, "
           f"median of {REST_TIMED}, CUDA events); a whole run_swap call (a new env, its "
           f"capture included; host clock) {seconds['graph']:.1f} ms captured, "
-          f"{seconds['eager']:.1f} ms op by op; {_program_note(step)} {tag}", flush=True)
+          f"{seconds['eager']:.1f} ms op by op; {_program_note()} {tag}", flush=True)
     return launches
 
 

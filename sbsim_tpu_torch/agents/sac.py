@@ -30,6 +30,7 @@ from sbsim_tpu_torch.agents.replay import Transition
 from sbsim_tpu_torch.distributed import runtime
 from sbsim_tpu_torch.envs.building_env import resolve_device
 from sbsim_tpu_torch.graphs import constant
+from sbsim_tpu_torch.utils import profiling
 
 Params = Dict[str, torch.Tensor]
 
@@ -231,7 +232,9 @@ class SACLearner:
         the statistics the update reads or reports, are mean-reduced over
         it before they are used. So N ranks each updating on 1/N of the
         batch apply the update one process computes on the whole batch, up
-        to the order of the sums."""
+        to the order of the sums. Traced, its parts are the spans
+        `sbsim.sac.critic`, `sbsim.sac.actor`, `sbsim.sac.alpha` and
+        `sbsim.sac.target`."""
         cfg = self.config
         k_next, k_actor = rng_lib.split(key)
         alpha = torch.exp(state.log_alpha)
@@ -249,73 +252,77 @@ class SACLearner:
             return runtime.all_reduce_mean(tensors, group)
 
         # --- Critic update -------------------------------------------------
-        with torch.no_grad():
-            mean_n, log_std_n = self.actor_apply(state.actor_params, batch.next_obs)
-            next_action, next_logp = networks.sample_action(
-                mean_n, log_std_n, eps=draw_eps(k_next)
-            )
-            tq1, tq2 = self.critic_apply(
-                state.target_critic_params, batch.next_obs, next_action
-            )
-            target_v = torch.minimum(tq1, tq2) - alpha * next_logp
-            target_q = cfg.reward_scale * batch.reward + cfg.gamma * batch.discount * target_v
+        with profiling.span("sbsim.sac.critic"):
+            with torch.no_grad():
+                mean_n, log_std_n = self.actor_apply(state.actor_params, batch.next_obs)
+                next_action, next_logp = networks.sample_action(
+                    mean_n, log_std_n, eps=draw_eps(k_next)
+                )
+                tq1, tq2 = self.critic_apply(
+                    state.target_critic_params, batch.next_obs, next_action
+                )
+                target_v = torch.minimum(tq1, tq2) - alpha * next_logp
+                target_q = cfg.reward_scale * batch.reward + cfg.gamma * batch.discount * target_v
 
-        with torch.enable_grad():
-            params = {k: v.detach().requires_grad_() for k, v in state.critic_params.items()}
-            q1, q2 = self.critic_apply(params, batch.obs, batch.action)
-            critic_loss = torch.mean((q1 - target_q) ** 2 + (q2 - target_q) ** 2)
-            grads = torch.autograd.grad(critic_loss, list(params.values()))
-        *grads, critic_loss, q1m, q2m = pmean(
-            *grads, critic_loss.detach(), torch.mean(q1.detach()), torch.mean(q2.detach()))
-        critic_params, critic_opt = adam_step(
-            dict(zip(params, grads)), state.critic_opt, state.critic_params,
-            cfg.critic_lr, cfg.gradient_clipping,
-        )
+            with torch.enable_grad():
+                params = {k: v.detach().requires_grad_() for k, v in state.critic_params.items()}
+                q1, q2 = self.critic_apply(params, batch.obs, batch.action)
+                critic_loss = torch.mean((q1 - target_q) ** 2 + (q2 - target_q) ** 2)
+                grads = torch.autograd.grad(critic_loss, list(params.values()))
+            *grads, critic_loss, q1m, q2m = pmean(
+                *grads, critic_loss.detach(), torch.mean(q1.detach()), torch.mean(q2.detach()))
+            critic_params, critic_opt = adam_step(
+                dict(zip(params, grads)), state.critic_opt, state.critic_params,
+                cfg.critic_lr, cfg.gradient_clipping,
+            )
 
         # --- Actor update --------------------------------------------------
-        eps_actor = draw_eps(k_actor)
-        with torch.enable_grad():
-            params = {k: v.detach().requires_grad_() for k, v in state.actor_params.items()}
-            mean, log_std = self.actor_apply(params, batch.obs)
-            action, logp = networks.sample_action(mean, log_std, eps=eps_actor)
-            q1n, q2n = self.critic_apply(critic_params, batch.obs, action)
-            actor_loss = torch.mean(alpha * logp - torch.minimum(q1n, q2n))
-            if cfg.mean_reg > 0.0:
-                actor_loss = actor_loss + cfg.mean_reg * torch.mean(mean * mean)
-            grads = torch.autograd.grad(actor_loss, list(params.values()))
-        # entropy_neg feeds the alpha loss below: reduced first, so that the
-        # temperature update is the same on every rank.
-        *grads, actor_loss, entropy_neg = pmean(
-            *grads, actor_loss.detach(), torch.mean(logp.detach()))
-        actor_params, actor_opt = adam_step(
-            dict(zip(params, grads)), state.actor_opt, state.actor_params,
-            cfg.actor_lr, cfg.gradient_clipping,
-        )
+        with profiling.span("sbsim.sac.actor"):
+            eps_actor = draw_eps(k_actor)
+            with torch.enable_grad():
+                params = {k: v.detach().requires_grad_() for k, v in state.actor_params.items()}
+                mean, log_std = self.actor_apply(params, batch.obs)
+                action, logp = networks.sample_action(mean, log_std, eps=eps_actor)
+                q1n, q2n = self.critic_apply(critic_params, batch.obs, action)
+                actor_loss = torch.mean(alpha * logp - torch.minimum(q1n, q2n))
+                if cfg.mean_reg > 0.0:
+                    actor_loss = actor_loss + cfg.mean_reg * torch.mean(mean * mean)
+                grads = torch.autograd.grad(actor_loss, list(params.values()))
+            # entropy_neg feeds the alpha loss below: reduced first, so that the
+            # temperature update is the same on every rank.
+            *grads, actor_loss, entropy_neg = pmean(
+                *grads, actor_loss.detach(), torch.mean(logp.detach()))
+            actor_params, actor_opt = adam_step(
+                dict(zip(params, grads)), state.actor_opt, state.actor_params,
+                cfg.actor_lr, cfg.gradient_clipping,
+            )
 
         # --- Temperature update -------------------------------------------
-        with torch.enable_grad():
-            log_alpha = state.log_alpha.detach().requires_grad_()
-            alpha_loss = -torch.exp(log_alpha) * (entropy_neg + self.target_entropy)
-            (alpha_grad,) = torch.autograd.grad(alpha_loss, [log_alpha])
-        new_alpha, alpha_opt = adam_step(
-            {"log_alpha": alpha_grad},
-            AdamState(state.alpha_opt.count, {"log_alpha": state.alpha_opt.mu},
-                      {"log_alpha": state.alpha_opt.nu}),
-            {"log_alpha": state.log_alpha}, cfg.alpha_lr,
-        )
-        log_alpha = new_alpha["log_alpha"]
-        alpha_opt = AdamState(alpha_opt.count, alpha_opt.mu["log_alpha"],
-                              alpha_opt.nu["log_alpha"])
-        if cfg.min_alpha > 0.0:
-            floor = torch.log(constant(cfg.min_alpha, torch.float32, log_alpha.device))
-            log_alpha = torch.maximum(log_alpha, floor)
+        with profiling.span("sbsim.sac.alpha"):
+            with torch.enable_grad():
+                log_alpha = state.log_alpha.detach().requires_grad_()
+                alpha_loss = -torch.exp(log_alpha) * (entropy_neg + self.target_entropy)
+                (alpha_grad,) = torch.autograd.grad(alpha_loss, [log_alpha])
+            new_alpha, alpha_opt = adam_step(
+                {"log_alpha": alpha_grad},
+                AdamState(state.alpha_opt.count, {"log_alpha": state.alpha_opt.mu},
+                          {"log_alpha": state.alpha_opt.nu}),
+                {"log_alpha": state.log_alpha}, cfg.alpha_lr,
+            )
+            log_alpha = new_alpha["log_alpha"]
+            alpha_opt = AdamState(alpha_opt.count, alpha_opt.mu["log_alpha"],
+                                  alpha_opt.nu["log_alpha"])
+            if cfg.min_alpha > 0.0:
+                floor = torch.log(constant(cfg.min_alpha, torch.float32, log_alpha.device))
+                log_alpha = torch.maximum(log_alpha, floor)
 
         # --- Target network Polyak update ---------------------------------
-        with torch.no_grad():
-            target = {
-                k: (1.0 - cfg.tau) * t + cfg.tau * critic_params[k]
-                for k, t in state.target_critic_params.items()
-            }
+        with profiling.span("sbsim.sac.target"):
+            with torch.no_grad():
+                target = {
+                    k: (1.0 - cfg.tau) * t + cfg.tau * critic_params[k]
+                    for k, t in state.target_critic_params.items()
+                }
 
         new_state = SACState(
             actor_params=actor_params,

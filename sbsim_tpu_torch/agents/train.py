@@ -38,6 +38,7 @@ from sbsim_tpu_torch.agents import replay as replay_lib
 from sbsim_tpu_torch.agents.replay import ReplayState, ShardedReplayState, Transition
 from sbsim_tpu_torch.agents.sac import SACConfig, SACLearner, SACState
 from sbsim_tpu_torch.envs.building_env import BuildingEnv, EnvState
+from sbsim_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,13 +219,15 @@ class SACTrainer:
         observations where `done`, the stepped ones elsewhere. The reset is
         drawn on every step, with no read of `done` on the host; the keys
         come from `key` alone, so the values are those of the JAX
-        package's lax.cond, which draws it only when some env is done."""
-        if hooks.reset_keys is not None:
-            keys = hooks.reset_keys(key)
-        else:
-            keys = rng_lib.split(key, self.config.n_envs)
-        fresh_states, fresh_obs = self.env.reset(keys)
-        return _select(done, fresh_states, env_states), _select(done, fresh_obs, obs)
+        package's lax.cond, which draws it only when some env is done.
+        Traced, the span `sbsim.train.reset`."""
+        with profiling.span("sbsim.train.reset"):
+            if hooks.reset_keys is not None:
+                keys = hooks.reset_keys(key)
+            else:
+                keys = rng_lib.split(key, self.config.n_envs)
+            fresh_states, fresh_obs = self.env.reset(keys)
+            return _select(done, fresh_states, env_states), _select(done, fresh_obs, obs)
 
     def collect_step(
         self,
@@ -232,7 +235,12 @@ class SACTrainer:
         action_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
         hooks: ShardHooks = _NO_HOOKS,
     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One lockstep env transition for all envs, appended to replay."""
+        """One lockstep env transition for all envs, appended to replay;
+        traced, the span `sbsim.train.collect`."""
+        with profiling.span("sbsim.train.collect"):
+            return self._collect_step(state, action_fn, hooks)
+
+    def _collect_step(self, state, action_fn, hooks):
         rng, k_act, k_reset = rng_lib.split(state.rng, 3)
         actions = action_fn(state.last_obs, k_act)
         env_states, out = self._step_v(state.env_states, actions)
@@ -275,7 +283,12 @@ class SACTrainer:
         """The K SAC updates of one train step (zero metrics before
         `seed_steps` env steps), each on a fresh replay sample. `learn`
         takes a side of the gate regardless of env_steps (a captured
-        program per side); None reads the gate."""
+        program per side); None reads the gate. Traced, the span
+        `sbsim.train.update`, each replay sample `sbsim.sac.sample`."""
+        with profiling.span("sbsim.train.update"):
+            return self._update(state, hooks, learn)
+
+    def _update(self, state, hooks, learn):
         rng, k_updates = rng_lib.split(state.rng)
         update_keys = rng_lib.split(k_updates, self.config.updates_per_env_step)
         sac = state.sac
@@ -283,7 +296,8 @@ class SACTrainer:
         if self.learns(state.env_steps) if learn is None else learn:
             for key in update_keys:
                 k_sample, k_update = rng_lib.split(key)
-                batch = self._sample(state.replay, k_sample, hooks)
+                with profiling.span("sbsim.sac.sample"):
+                    batch = self._sample(state.replay, k_sample, hooks)
                 sac, metrics = self.learner.update(sac, batch, k_update, **hooks.update_kwargs)
         return state.replace(sac=sac, rng=rng), metrics
 
@@ -359,14 +373,15 @@ class SACTrainer:
         sbsim_tpu/agents/train.py:326); the host picks the side from its
         env_steps count, as `update` does after the collect step, so every
         rank of a mesh picks the same side. `step.eager` is the step op by
-        op."""
+        op. Traced, each call is the span `sbsim.train.step`."""
         sides = [self.captured(functools.partial(self.train_step, hooks=hooks, learn=learn),
                                hooks)
                  for learn in (False, True)]
         n_envs = self.config.n_envs
 
         def step(state: TrainState):
-            return sides[self.learns(state.env_steps + n_envs)](state)
+            with profiling.span("sbsim.train.step"):
+                return sides[self.learns(state.env_steps + n_envs)](state)
 
         step.sides = sides
         step.eager = functools.partial(self.train_step, hooks=hooks)

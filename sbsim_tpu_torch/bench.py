@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from sbsim_tpu_torch import graphs
+from sbsim_tpu_torch.utils import profiling
 
 SOLVERS = ("auto", "pallas_env", "pallas_cheby", "xla_jacobi", "xla_chebyshev")
 CPU_BATCH_CAP = 64  # bench.py:108
@@ -123,7 +124,11 @@ def make_rollout(env, actions, n_steps: int, solver: str) -> Callable:
     waits for it. On the card the whole call is one captured program
     (graphs.capture, the counterpart of bench.py:146's `jax.jit`), captured
     at its first call; its `fn` is the rollout op by op. The states it
-    returns are fresh tensors, bitwise the eager rollout's."""
+    returns are fresh tensors, bitwise the eager rollout's. Traced, each
+    call adds the returned states' FDM iterations (the call's last step) to
+    the counter `fdm.iterations`, kept on the device and summed when read,
+    and their number to `env.steps`. `call.eager` and `call.programs` are
+    the captured function's."""
     table = torch.tensor(np.asarray(actions), dtype=torch.float32, device=env.device)
     last = table.shape[0] - 1
 
@@ -135,7 +140,17 @@ def make_rollout(env, actions, n_steps: int, solver: str) -> Callable:
             rewards.append(out.reward)
         return states, torch.stack(rewards).mean()
 
-    return graphs.capture(rollout)
+    captured = graphs.capture(rollout)
+
+    def call(states):
+        states, mean = captured(states)
+        profiling.count_tensor("fdm.iterations", states.fdm_iterations)
+        profiling.count("env.steps", states.fdm_iterations.shape[0])
+        return states, mean
+
+    call.eager = captured.eager
+    call.programs = captured.programs
+    return call
 
 
 def solver_check(env, states, solver: str) -> dict:

@@ -56,6 +56,7 @@ from sbsim_tpu_torch.physics import fdm_cuda
 from sbsim_tpu_torch.physics import gridstats
 from sbsim_tpu_torch.scenario import occupancy as occupancy_lib
 from sbsim_tpu_torch.scenario import tables as tables_lib
+from sbsim_tpu_torch.utils import profiling
 
 # FDM paths step_batched can run; "auto"/None resolves via resolve_solver.
 _SOLVERS = (
@@ -310,7 +311,12 @@ class BuildingEnv:
 
     def reset(self, keys: torch.Tensor) -> Tuple[EnvState, torch.Tensor]:
         """Fresh episode states for a (B, 2) batch of keys + the initial
-        observations (environment.py:1165)."""
+        observations (environment.py:1165); traced, the span
+        `sbsim.env.reset`."""
+        with profiling.span("sbsim.env.reset"):
+            return self._reset(keys)
+
+    def _reset(self, keys: torch.Tensor) -> Tuple[EnvState, torch.Tensor]:
         keys = keys.to(self.device, torch.int64)
         batch = keys.shape[0]
         dev = self.device
@@ -493,72 +499,88 @@ class BuildingEnv:
     ) -> Tuple[EnvState, StepOutput]:
         """One control step for the env batch. `solver` selects the FDM path
         ("pallas_env", "pallas_cheby", "xla_jacobi", "xla_chebyshev");
-        None/"auto" resolves via resolve_solver."""
-        pre, conv_keys = self._step_pre(states, actions)
-        solver = self.resolve_solver(
-            states.temp.shape[0], use_pallas=use_pallas, solver=solver
-        )
-        conv = self.convection
-        fuse_conv, kernel_stats = self.kernel_path(solver)
-        new_zm = new_gm = None
-        if solver.startswith("pallas"):
-            kwargs = dict(
-                convergence_threshold=self.config.convergence_threshold,
-                iteration_limit=self.config.iteration_limit,
-                block_envs=self.config.pallas_block_envs,
-                block_mode=self.config.pallas_block_mode,
+        None/"auto" resolves via resolve_solver. Traced, the span
+        `sbsim.env.step` with its phases as children: `.control`
+        (`_step_pre`), `.fdm`, `.convect` (after the solve, where it is not
+        fused into the kernel), `.stats` and `.post` (`_step_post`); inside
+        a captured program they run at capture."""
+        with profiling.span("sbsim.env.step"):
+            with profiling.span("sbsim.env.control"):
+                pre, conv_keys = self._step_pre(states, actions)
+            solver = self.resolve_solver(
+                states.temp.shape[0], use_pallas=use_pallas, solver=solver
             )
-            if solver == "pallas_cheby":
-                kwargs.update(
-                    method="chebyshev",
-                    spectral_radius=self._spectral_radius,
-                    check_every=self.config.cheby_check_every,
-                )
-            if fuse_conv:
-                kwargs.update(
-                    conv_offsets=conv.offsets,
-                    conv_lead=self._conv_lead,
-                    conv_foll=self._conv_foll,
-                )
-                if self._conv_word_params is not None:
-                    # mix32: the kernel makes the words from the raw keys.
-                    kwargs.update(
-                        conv_keys=conv_keys,
-                        conv_word_params=self._conv_word_params,
-                    )
+            conv = self.convection
+            fuse_conv, kernel_stats = self.kernel_path(solver)
+            with profiling.span("sbsim.env.fdm"):
+                if solver.startswith("pallas"):
+                    result = self._solve_cuda(states, pre, conv_keys, solver, fuse_conv,
+                                              kernel_stats)
+                    new_temp, n_iter, converged = result[:3]
                 else:
-                    kwargs.update(conv_word=convection_lib.swap_decision_word(
-                        conv, conv_keys, self.geom.shape
-                    ))
-            if kernel_stats:
-                kwargs.update(stat_layout=self._stats)
-            result = fdm_cuda.fdm_step_cuda(
-                states.temp,
-                states.input_q,
-                pre["ambient"],
-                pre["h_conv"],
-                self.coeffs,
-                **kwargs,
+                    new_temp, converged, n_iter = self._solve_fdm(
+                        states.temp,
+                        states.input_q,
+                        pre["ambient"],
+                        pre["h_conv"],
+                        kind=solver[len("xla_"):],
+                    )
+            if not fuse_conv and conv.enabled:
+                with profiling.span("sbsim.env.convect"):
+                    new_temp = self._convect(new_temp, conv_keys)
+            with profiling.span("sbsim.env.stats"):
+                if kernel_stats:
+                    sums = result[3]
+                    new_zm = sums.zone_sums / self._stats.sizes
+                    new_gm = sums.grid_sums / self.zone_stats.grid_n
+                else:
+                    new_zm, new_gm = self._grid_stats(new_temp)
+            with profiling.span("sbsim.env.post"):
+                return self._step_post(
+                    states, pre, new_temp, converged, n_iter, new_zm, new_gm
+                )
+
+    def _solve_cuda(self, states, pre, conv_keys, solver, fuse_conv, kernel_stats):
+        """The FDM solve of `step_batched` through the CUDA kernels (the
+        "pallas_*" names): fdm_cuda.fdm_step_cuda's result."""
+        conv = self.convection
+        kwargs = dict(
+            convergence_threshold=self.config.convergence_threshold,
+            iteration_limit=self.config.iteration_limit,
+            block_envs=self.config.pallas_block_envs,
+            block_mode=self.config.pallas_block_mode,
+        )
+        if solver == "pallas_cheby":
+            kwargs.update(
+                method="chebyshev",
+                spectral_radius=self._spectral_radius,
+                check_every=self.config.cheby_check_every,
             )
-            new_temp, n_iter, converged = result[:3]
-            if kernel_stats:
-                sums = result[3]
-                new_zm = sums.zone_sums / self._stats.sizes
-                new_gm = sums.grid_sums / self.zone_stats.grid_n
-        else:
-            new_temp, converged, n_iter = self._solve_fdm(
-                states.temp,
-                states.input_q,
-                pre["ambient"],
-                pre["h_conv"],
-                kind=solver[len("xla_"):],
+        if fuse_conv:
+            kwargs.update(
+                conv_offsets=conv.offsets,
+                conv_lead=self._conv_lead,
+                conv_foll=self._conv_foll,
             )
-        if not fuse_conv and conv.enabled:
-            new_temp = self._convect(new_temp, conv_keys)
-        if new_zm is None:
-            new_zm, new_gm = self._grid_stats(new_temp)
-        return self._step_post(
-            states, pre, new_temp, converged, n_iter, new_zm, new_gm
+            if self._conv_word_params is not None:
+                # mix32: the kernel makes the words from the raw keys.
+                kwargs.update(
+                    conv_keys=conv_keys,
+                    conv_word_params=self._conv_word_params,
+                )
+            else:
+                kwargs.update(conv_word=convection_lib.swap_decision_word(
+                    conv, conv_keys, self.geom.shape
+                ))
+        if kernel_stats:
+            kwargs.update(stat_layout=self._stats)
+        return fdm_cuda.fdm_step_cuda(
+            states.temp,
+            states.input_q,
+            pre["ambient"],
+            pre["h_conv"],
+            self.coeffs,
+            **kwargs,
         )
 
     def _convect(self, temp: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,7 @@ import numpy as np
 from sbsim_tpu_torch.envs.building_env import BuildingEnv
 from sbsim_tpu_torch.io import records as records_lib
 from sbsim_tpu_torch.proto import building_pb2, reward_pb2
+from sbsim_tpu_torch.utils import profiling
 
 ACTION_REJECTION_REWARD: float = -np.inf
 
@@ -167,49 +168,62 @@ class HostEnvironment:
         m["occupancy"].append(float(breakdown.total_occupancy))
 
     def step(self, action: np.ndarray) -> TimeStep:
-        """Applies a normalized [-1, 1] action vector for one control step."""
+        """Applies a normalized [-1, 1] action vector for one control step.
+        Traced, the span `sbsim.host.step` with the children
+        `sbsim.host.request` (the action request made and decoded by the
+        building), `sbsim.host.env` (the env step), `sbsim.host.observe`
+        (the observation response) and `sbsim.host.record` (metrics and
+        shards)."""
         if self._episode_ended:
             return self.reset()
-        request = native_action_request(self._env, action)
-        try:
-            response = self._building.request_action(request)
-            action_accepted = all(
-                r.response_type == building_pb2.SingleActionResponse.ACCEPTED
-                for r in response.single_action_responses)
-        except RuntimeError:
-            # Building refused control (e.g. RejectionSimulatedBuilding):
-            # the -inf rejection reward (environment.py:1270-1309).
-            response = None
-            action_accepted = False
+        with profiling.span("sbsim.host.step"):
+            return self._step(action)
 
-        if self._writer is not None and response is not None:
-            self._writer.write_action_response(response, self._building.current_timestamp)
+    def _step(self, action: np.ndarray) -> TimeStep:
+        with profiling.span("sbsim.host.request"):
+            request = native_action_request(self._env, action)
+            try:
+                response = self._building.request_action(request)
+                action_accepted = all(
+                    r.response_type == building_pb2.SingleActionResponse.ACCEPTED
+                    for r in response.single_action_responses)
+            except RuntimeError:
+                # Building refused control (e.g. RejectionSimulatedBuilding):
+                # the -inf rejection reward (environment.py:1270-1309).
+                response = None
+                action_accepted = False
 
-        self._building.wait_time()
+            if self._writer is not None and response is not None:
+                self._writer.write_action_response(response, self._building.current_timestamp)
 
-        obs_response = self._building.request_observations(
-            self._building.default_observation_request())
-        if self._writer is not None:
-            self._writer.write_observation_response(
-                obs_response, self._building.current_timestamp)
+        with profiling.span("sbsim.host.env"):
+            self._building.wait_time()
 
-        obs = np.asarray(self._building._last_obs_vector)
-        breakdown = self._building._last_breakdown
-        reward = float(breakdown.agent_reward_value)
-        if not action_accepted:
-            reward = ACTION_REJECTION_REWARD
+        with profiling.span("sbsim.host.observe"):
+            obs_response = self._building.request_observations(
+                self._building.default_observation_request())
+            if self._writer is not None:
+                self._writer.write_observation_response(
+                    obs_response, self._building.current_timestamp)
 
-        info = self._building.reward_info
-        self._update_metrics(obs_response, breakdown, info, reward)
+            obs = np.asarray(self._building._last_obs_vector)
+            breakdown = self._building._last_breakdown
+            reward = float(breakdown.agent_reward_value)
+            if not action_accepted:
+                reward = ACTION_REJECTION_REWARD
 
-        if self._writer is not None:
-            timestamp = self._building.current_timestamp
-            self._writer.write_reward_info(info, timestamp)
-            # The breakdown's fields are RewardResponse fields.
-            self._writer.write_reward_response(
-                reward_pb2.RewardResponse(**{f.name: float(getattr(breakdown, f.name))
-                                             for f in dataclasses.fields(breakdown)}),
-                timestamp)
+        with profiling.span("sbsim.host.record"):
+            info = self._building.reward_info
+            self._update_metrics(obs_response, breakdown, info, reward)
+
+            if self._writer is not None:
+                timestamp = self._building.current_timestamp
+                self._writer.write_reward_info(info, timestamp)
+                # The breakdown's fields are RewardResponse fields.
+                self._writer.write_reward_response(
+                    reward_pb2.RewardResponse(**{f.name: float(getattr(breakdown, f.name))
+                                                 for f in dataclasses.fields(breakdown)}),
+                    timestamp)
 
         self._step_count += 1
         self._episode_ended = self._step_count >= self.steps_per_episode

@@ -21,7 +21,7 @@ from sbsim_tpu_torch.envs import observation as obs_lib
 from sbsim_tpu_torch.envs.building_env import BuildingEnv
 from sbsim_tpu_torch.envs.host_environment import native_action_request
 from sbsim_tpu_torch.proto import building_pb2
-from sbsim_tpu_torch.utils import conversions, telemetry
+from sbsim_tpu_torch.utils import conversions, profiling, telemetry
 
 
 def response_to_value_map(
@@ -120,13 +120,20 @@ class RealBuildingController:
     def control_step(self) -> np.ndarray:
         """One closed-loop step: observe -> policy -> action -> wait.
 
-        Returns the normalized action applied.
+        Returns the normalized action applied. Traced, the span
+        `sbsim.host.step` with the children `sbsim.host.observe`,
+        `sbsim.host.policy`, `sbsim.host.request` and `sbsim.host.env`.
         """
-        obs = self.observe()
-        action = self._policy(obs[None, :])
-        if isinstance(action, torch.Tensor):
-            action = action.cpu().numpy()
-        action = np.asarray(action)[0]
-        self._building.request_action(native_action_request(self._env, action))
-        self._building.wait_time()
-        return action
+        with profiling.span("sbsim.host.step"):
+            with profiling.span("sbsim.host.observe"):
+                obs = self.observe()
+            with profiling.span("sbsim.host.policy"):
+                action = self._policy(obs[None, :])
+                if isinstance(action, torch.Tensor):
+                    action = action.cpu().numpy()
+                action = np.asarray(action)[0]
+            with profiling.span("sbsim.host.request"):
+                self._building.request_action(native_action_request(self._env, action))
+            with profiling.span("sbsim.host.env"):
+                self._building.wait_time()
+            return action

@@ -55,27 +55,45 @@ would be gone at replay): device constants come from `constant`, built
 once per device.
 
 Launch counts: the kernels' wrappers add one to a Python counter where
-they launch (`fdm_cuda.launch_counts`). A capture moves the counters
-without a launch on the device, and a replay launches without moving
-them. So the program takes back what its capture added and adds it again
-at every replay: the counters count launches on the device (the first
-call's, the warm-up's, included).
+they launch (`fdm_cuda.launch_counts`, the tracing registry's family
+`fdm.launches`). A capture moves the counters without a launch on the
+device, and a replay launches without moving them. So the program takes
+back what its capture added and adds it again at every replay: the
+counters count launches on the device (the first call's, the warm-up's,
+included).
+
+Tracing (utils/profiling.py). A capture is the span `sbsim.graphs.capture`
+and adds to the set-up counters `graphs.captures` and `graphs.pool_bytes`
+(the device memory its graph keeps), whether tracing is on or off. While
+tracing is on, a call is the span `sbsim.graphs.call`, with the children
+`sbsim.graphs.key` (the argument tree flattened and its program looked
+up), `.copy_in`, `.replay` (the replay's enqueue) and `.copy_out`, and
+each replay adds to `graphs.kernel_nodes` the kernel, memcpy and memset
+nodes of its graph (counted once, from the graph, at capture). The copies
+the call issues itself, outside the graph, are not counted. With the
+operator's switch and no profiler, CUDA timing events go just before and
+after each replay.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import functools
-import time
 import weakref
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
 
+from sbsim_tpu_torch.utils import profiling
+
 
 _disabled = False
 _live: "weakref.WeakSet[CapturedFunction]" = weakref.WeakSet()
+# The tracing registry's set-up counters `graphs.captures` and
+# `graphs.pool_bytes`.
+_SETUP = profiling.family("graphs", ("captures", "pool_bytes"))
 
 
 @contextlib.contextmanager
@@ -179,6 +197,51 @@ def _copy(dst: Sequence[torch.Tensor], src: Sequence[torch.Tensor]) -> None:
         torch._foreach_copy_([dst[i] for i in idx], [src[i] for i in idx])
 
 
+# CUgraphNodeType (cuda.h): the nodes that run on the device, and a child
+# graph, whose nodes count as its parent's.
+_DEVICE_NODES = (0, 1, 2)  # kernel, memcpy, memset
+_CHILD_GRAPH = 4
+
+
+@functools.lru_cache(maxsize=None)
+def _libcuda() -> ctypes.CDLL:
+    lib = ctypes.CDLL("libcuda.so.1")
+    ptr, size, out = ctypes.c_void_p, ctypes.c_size_t, ctypes.POINTER
+    lib.cuGraphGetNodes.argtypes = [ptr, out(ptr), out(size)]
+    lib.cuGraphNodeGetType.argtypes = [ptr, out(ctypes.c_int)]
+    lib.cuGraphChildGraphNodeGetGraph.argtypes = [ptr, out(ptr)]
+    for fn in (lib.cuGraphGetNodes, lib.cuGraphNodeGetType, lib.cuGraphChildGraphNodeGetGraph):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} failed: CUDA driver error {err}")
+
+
+def _device_nodes(graph: int) -> int:
+    """The kernel, memcpy and memset nodes of a CUDA graph (a `cudaGraph_t`
+    as an integer), child graphs' included: the operations one launch of
+    it runs on the device."""
+    lib = _libcuda()
+    n = ctypes.c_size_t(0)
+    _check(lib.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _check(lib.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    total, kind = 0, ctypes.c_int()
+    for node in nodes[:n.value]:
+        _check(lib.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value in _DEVICE_NODES:
+            total += 1
+        elif kind.value == _CHILD_GRAPH:
+            child = ctypes.c_void_p()
+            _check(lib.cuGraphChildGraphNodeGetGraph(node, ctypes.byref(child)),
+                   "cuGraphChildGraphNodeGetGraph")
+            total += _device_nodes(child.value)
+    return total
+
+
 # ---------------------------------------------------------------------------
 # Programs
 # ---------------------------------------------------------------------------
@@ -187,9 +250,22 @@ def _copy(dst: Sequence[torch.Tensor], src: Sequence[torch.Tensor]) -> None:
 class _CudaGraphs:
     """The torch.cuda pieces a capture uses (tests stand a stub in)."""
 
-    new_graph = torch.cuda.CUDAGraph
     capture = torch.cuda.graph
     device = torch.cuda.device
+
+    @staticmethod
+    def new_graph():
+        """A graph that keeps its `cudaGraph_t` after capture, so that
+        `instantiate` can count its nodes."""
+        return torch.cuda.CUDAGraph(keep_graph=True)
+
+    @staticmethod
+    def instantiate(graph) -> int:
+        """Instantiates a captured graph; returns its device operations
+        (`_device_nodes`)."""
+        nodes = _device_nodes(graph.raw_cuda_graph())
+        graph.instantiate()
+        return nodes
 
     @staticmethod
     def reserved(device) -> int:
@@ -213,18 +289,18 @@ class _CudaGraphs:
 
 class Program:
     """One captured shape of a function: its graph, static inputs and
-    outputs, and the launch counts that one replay makes. `first` holds
-    the warm-up's results (the first call's) until `take_first`;
-    `capture_ms` is the host time of the first call (warm-up and
-    capture), `pool_bytes` the device memory the capture kept (the
-    graph's private pool, static outputs included)."""
+    outputs, the launch counts that one replay makes, and `nodes`, the
+    device operations of its graph. `first` holds the warm-up's results
+    (the first call's) until `take_first`. The capture (warm-up included)
+    is the set-up span `sbsim.graphs.capture`; the device memory it kept
+    (the graph's private pool, static outputs included) goes to the set-up
+    counter `graphs.pool_bytes`."""
 
     def __init__(self, fn: Callable, args: tuple, spec, leaves: Sequence[torch.Tensor],
                  counters: Sequence[Dict[str, int]], api=_CudaGraphs):
         device = leaves[0].device
         self._counters = counters
-        t0 = time.perf_counter()
-        with api.device(device):
+        with profiling.span("sbsim.graphs.capture", keep=True), api.device(device):
             # Copied before the warm-up, which may update its inputs in place.
             self.static_in = [torch.empty_like(t) for t in leaves]
             _copy(self.static_in, leaves)
@@ -236,7 +312,9 @@ class Program:
             self.graph = api.new_graph()
             with api.capture(self.graph):
                 out = fn(*unflatten(spec, iter(self.static_in)))
-            self.pool_bytes = api.reserved(device) - reserved
+            _SETUP["pool_bytes"] += api.reserved(device) - reserved
+            self.nodes = api.instantiate(self.graph)
+        _SETUP["captures"] += 1
         # What the capture added is what one replay launches; the capture
         # itself launched nothing on the device.
         self.per_replay = []
@@ -244,7 +322,6 @@ class Program:
             delta = {k: c[k] - b.get(k, 0) for k in c if c[k] != b.get(k, 0)}
             c.update(b)
             self.per_replay.append(delta)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.replays = 0
         out_leaves: List[torch.Tensor] = []
         self._out_spec = flatten(out, out_leaves)
@@ -263,18 +340,27 @@ class Program:
         return first
 
     def __call__(self, leaves: Sequence[torch.Tensor]):
-        todo = [i for i, (s, t) in enumerate(zip(self.static_in, leaves)) if s is not t]
-        _copy([self.static_in[i] for i in todo], [leaves[i] for i in todo])
-        self.graph.replay()
+        with profiling.span("sbsim.graphs.copy_in"):
+            todo = [i for i, (s, t) in enumerate(zip(self.static_in, leaves)) if s is not t]
+            _copy([self.static_in[i] for i in todo], [leaves[i] for i in todo])
+        events = profiling.replay_events()
+        if events is not None:
+            events[0].record()
+        with profiling.span("sbsim.graphs.replay"):
+            self.graph.replay()
+        if events is not None:
+            events[1].record()
         self.replays += 1
         for c, delta in zip(self._counters, self.per_replay):
             for k, n in delta.items():
                 c[k] += n
-        out = list(self.static_out)
-        fresh = [torch.empty_like(out[i]) for i in self._fresh]
-        _copy(fresh, [out[i] for i in self._fresh])
-        for i, t in zip(self._fresh, fresh):
-            out[i] = t
+        with profiling.span("sbsim.graphs.copy_out"):
+            out = list(self.static_out)
+            fresh = [torch.empty_like(out[i]) for i in self._fresh]
+            _copy(fresh, [out[i] for i in self._fresh])
+            for i, t in zip(self._fresh, fresh):
+                out[i] = t
+        profiling.count("graphs.kernel_nodes", self.nodes)
         return unflatten(self._out_spec, iter(out))
 
 
@@ -296,21 +382,26 @@ class CapturedFunction:
         _live.add(self)
 
     def __call__(self, *args):
-        leaves: List[torch.Tensor] = []
-        spec = flatten(args, leaves)
-        devices = {t.device for t in leaves}
-        if _disabled or self.op_by_op or not any(d.type == "cuda" for d in devices):
-            return self.eager(*args)
-        if len(devices) > 1:
-            raise ValueError("a captured program's tensors must lie on one device; got "
-                             f"{sorted(map(str, devices))}")
-        key = (spec, tuple((t.shape, t.dtype) for t in leaves), devices.pop())
-        program = self.programs.get(key)
-        if program is None:
-            program = self.programs[key] = Program(self.eager, args, spec, leaves,
-                                                   self.counters)
-            return program.take_first()
-        return program(leaves)
+        with profiling.span("sbsim.graphs.call"):
+            with profiling.span("sbsim.graphs.key"):
+                leaves: List[torch.Tensor] = []
+                spec = flatten(args, leaves)
+                devices = {t.device for t in leaves}
+                direct = (_disabled or self.op_by_op
+                          or not any(d.type == "cuda" for d in devices))
+                if not direct:
+                    if len(devices) > 1:
+                        raise ValueError("a captured program's tensors must lie on one "
+                                         f"device; got {sorted(map(str, devices))}")
+                    key = (spec, tuple((t.shape, t.dtype) for t in leaves), devices.pop())
+                    program = self.programs.get(key)
+            if direct:
+                return self.eager(*args)
+            if program is None:
+                program = self.programs[key] = Program(self.eager, args, spec, leaves,
+                                                       self.counters)
+                return program.take_first()
+            return program(leaves)
 
 
 def release() -> None:

@@ -69,6 +69,7 @@ from sbsim_tpu_torch.physics import convection as convection_lib
 from sbsim_tpu_torch.physics import fdm
 from sbsim_tpu_torch.physics.fdm import StencilCoefficients
 from sbsim_tpu_torch.physics.gridstats import ZoneStatLayout, ZoneStats
+from sbsim_tpu_torch.utils import profiling
 
 # Zone sums fill one 128-lane row of the TPU kernels' stats tile; the port
 # keeps their limit (fdm_pallas.py:944-949).
@@ -98,9 +99,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Launches per kernel; a wrapper adds one where it launches its kernel.
-launch_counts = {"fdm_cheby": 0, "fdm_jacobi": 0, "fdm_cheby_block": 0,
-                 "fdm_jacobi_block": 0}
+# Launches per kernel; a wrapper adds one where it launches its kernel. The
+# tracing registry's set-up counters `fdm.launches.<kernel>`, counted whether
+# tracing is on or off.
+launch_counts = profiling.family("fdm.launches", ("fdm_cheby", "fdm_jacobi", "fdm_cheby_block",
+                                                  "fdm_jacobi_block"))
 # nvcc's output of the build in this process (ptxas register/smem use).
 build_log = ""
 _lib = None

@@ -329,11 +329,18 @@ class _Ring:
 
 class _StubGraphs:
     """torch.cuda's pieces on the CPU: the capture records nothing (the
-    function runs once), and `replays` is what a test makes replay() do."""
+    function runs once), and `replays` is what a test makes replay() do;
+    a graph has `nodes` device operations."""
+
+    nodes = 0
 
     @staticmethod
     def new_graph():
         return _StubGraph()
+
+    @classmethod
+    def instantiate(cls, graph):
+        return cls.nodes
 
     @staticmethod
     @contextlib.contextmanager
