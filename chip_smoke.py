@@ -275,8 +275,13 @@ Phases (each prints its own lines; any failure exits non-zero):
      call's TrainState and metrics bitwise the eager call's; then 10
      seeding and 10 train steps timed on each path and one train step
      profiled on each; (c) evaluate of a day (288 steps, 4 envs): the
-     replay's return bitwise the eager call's. Launches of (a)-(c) join
-     the kernels line.
+     replay's return bitwise the eager call's; (d) each draw at the main
+     paths' shapes (the env step's split and occupancy peeks at B=2048 and
+     512, the trainer's split at 64 envs, the actor's normals, the replay's
+     indices under a device bound, the threefry word plane) through the
+     draw kernel and its plain version on the same card keys, bitwise
+     equal, both timed in CUDA graphs beside the draw's bound. Launches of
+     (a)-(d) join the kernels line, and (d) gives its rng_draw row.
   15. The rest of the jitted programs as CUDA graphs, each replay held
      against the eager call (the program's `eager`, or the run under
      graphs.disabled()), the replays under
@@ -1180,6 +1185,7 @@ def decomposition(envs, tag, sass_dir=None, jacobi_envs=None) -> None:
     block (default 1 .. fdm_cuda.jacobi_max_envs)."""
     import numpy as np
     import torch
+    from sbsim_tpu_torch import buildcache
     from sbsim_tpu_torch.physics import fdm_cuda
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1232,7 +1238,7 @@ def decomposition(envs, tag, sass_dir=None, jacobi_envs=None) -> None:
                   f"{sms} SMs), intercept {icpt:.4f} ms {tag}", flush=True)
     if sass_dir:
         os.makedirs(sass_dir, exist_ok=True)
-        cuobjdump = os.path.join(os.path.dirname(fdm_cuda._nvcc()), "cuobjdump")
+        cuobjdump = os.path.join(os.path.dirname(buildcache.nvcc()), "cuobjdump")
         sass = subprocess.run([cuobjdump, "-sass", fdm_cuda.build()], capture_output=True,
                               text=True, check=True).stdout
         with open(os.path.join(sass_dir, "fdm_kernels.sass"), "w") as f:
@@ -3063,20 +3069,32 @@ SEARCH_ARGS = ["--rooms-x", "2", "--rooms-y", "2", "--room-cvs", "10", "--rounds
                "--seeds", "5", "--budget", "1.0", "--write-cache"]
 
 
-def _counted(label, fn, want, sync_free=False):
+# The draw kernel's launches that `_counted` has seen, and phase 14 (d)'s.
+DRAWN = {"launches": 0}
+
+
+def _counted(label, fn, want, sync_free=False, draws=None):
     """fn() with the launch counts set to 0 just before and read just after;
-    fails unless they equal `want` (kernel -> launches, others 0). With
-    `sync_free` fn runs under torch.cuda.set_sync_debug_mode("error")."""
+    fails unless they equal `want` (kernel -> launches, others 0) and, with
+    `draws`, unless the draw kernel's launches equal `draws` (kind ->
+    launches, others 0). With `sync_free` fn runs under
+    torch.cuda.set_sync_debug_mode("error")."""
+    from sbsim_tpu_torch import rng
     from sbsim_tpu_torch.physics import fdm_cuda
 
     _sync()
     fdm_cuda.reset_launch_counts()
+    rng.reset_launch_counts()
     with _no_host_sync() if sync_free else contextlib.nullcontext():
         out = fn()
     _sync()
     counts = dict(fdm_cuda.launch_counts)
     if counts != {k: want.get(k, 0) for k in KERNELS}:
         fail(f"{label}: launch counts {counts}, want {want}")
+    drawn = {k: n for k, n in rng.launch_counts.items() if n}
+    if draws is not None and drawn != draws:
+        fail(f"{label}: draw launches {drawn}, want {draws}")
+    DRAWN["launches"] += sum(drawn.values())
     return out, counts
 
 
@@ -3823,6 +3841,18 @@ def _program_note() -> str:
             f"included), pool {pool / 2**20:.1f} MiB")
 
 
+# The draw kernel's launches (rng.launch_counts) of one env step (the key
+# split, two occupancy peeks), a seeding step, and a train step before and
+# past the update gate (15: the collect step's 7, the update's 8).
+SEED_DRAWS = {"split": 4, "uniform": 3}
+TRAIN_DRAWS = {False: {"split": 6, "uniform": 3, "normal": 1},
+               True: {"split": 8, "uniform": 3, "normal": 3, "randint": 1}}
+
+
+def _rollout_draws(steps):
+    return {"split": steps, "uniform": 2 * steps}
+
+
 def graph_rollouts(tag) -> dict:
     """(a): the bench's make_rollout, one captured program per call shape,
     against the rollout op by op (`fn`): a replay from a clone of the eager
@@ -3850,15 +3880,16 @@ def graph_rollouts(tag) -> dict:
             first = states0.replace(step_idx=torch.full_like(states0.step_idx, start))
             roll = rolls[start, steps] = bench.make_rollout(env, table, steps, solver)
             what = f"phase 14 (a) {name} {solver} {steps} steps from step {start}"
-            want = {kname: steps}
+            want, draws = {kname: steps}, _rollout_draws(steps)
             (eager, eager_r), counts = _counted(f"{what} eager", lambda: roll.eager(clone(first)),
-                                                want)
+                                                want, draws=draws)
             _add(launches, counts)
-            _, counts = _counted(f"{what} first call", lambda: roll(clone(first)), want)
+            _, counts = _counted(f"{what} first call", lambda: roll(clone(first)), want,
+                                 draws=draws)
             _add(launches, counts)
             start_state = clone(first)
             (got, got_r), counts = _counted(f"{what} replay", lambda: roll(start_state), want,
-                                            sync_free=True)
+                                            sync_free=True, draws=draws)
             _add(launches, counts)
             _check_equal_trees(what, convert.env_state_to_numpy(got),
                                convert.env_state_to_numpy(eager))
@@ -3868,8 +3899,9 @@ def graph_rollouts(tag) -> dict:
                      f"({program.replays} replays)")
             print(f"  (a) {name} {solver} B={batch}: {steps} steps from step {start}, the "
                   f"replay bitwise the eager rollout (states, mean reward "
-                  f"{float(got_r):.6f}), {steps} {kname} launches per call on both paths, no "
-                  f"host sync in the replay; {_program_note()} {tag}", flush=True)
+                  f"{float(got_r):.6f}), {steps} {kname} launches and {3 * steps} draw "
+                  f"launches per call on both paths, no host sync in the replay; "
+                  f"{_program_note()} {tag}", flush=True)
         roll = bench.make_rollout(env, table, GRAPH_TIMED_STEPS, solver)
         ms = {"eager": [], "graph": []}
         for path in ("eager", "graph", "graph", "eager"):
@@ -3881,7 +3913,8 @@ def graph_rollouts(tag) -> dict:
 
             (state, times), counts = _counted(
                 f"phase 14 (a) {name} {path} timed calls", run,
-                {kname: GRAPH_TIMED_STEPS * (1 + GRAPH_TIMED_CALLS)})
+                {kname: GRAPH_TIMED_STEPS * (1 + GRAPH_TIMED_CALLS)},
+                draws=_rollout_draws(GRAPH_TIMED_STEPS * (1 + GRAPH_TIMED_CALLS)))
             _add(launches, counts)
             ms[path] += times
         per_step = {p: statistics.median(t) / GRAPH_TIMED_STEPS for p, t in ms.items()}
@@ -3943,11 +3976,14 @@ def graph_training(tag) -> dict:
         replay = bool(program.programs)
         what = f"phase 14 (b) {kind} call {i + 1}{' (replay)' if replay else ''}"
         want = {"fdm_jacobi": 1}
+        draws = (SEED_DRAWS if kind == "seed" else
+                 TRAIN_DRAWS[trainer.learns(graph_state.env_steps + GRAPH_ENVS)])
         (eager_state, eager_m), counts = _counted(f"{what} eager",
-                                                  lambda: eager_fn(eager_state), want)
+                                                  lambda: eager_fn(eager_state), want,
+                                                  draws=draws)
         _add(launches, counts)
         (graph_state, graph_m), counts = _counted(what, lambda: graph_fn(graph_state), want,
-                                                  sync_free=replay)
+                                                  sync_free=replay, draws=draws)
         _add(launches, counts)
         diff = _tree_diff(convert.train_state_to_numpy(graph_state, trainer),
                           convert.train_state_to_numpy(eager_state, trainer))
@@ -3971,7 +4007,9 @@ def graph_training(tag) -> dict:
           f"then {GRAPH_TRAIN_CALLS} train steps ({GRAPH_SKIP_CALLS} before the gate, "
           f"{GRAPH_TRAIN_CALLS - GRAPH_SKIP_CALLS} after): each call's TrainState and metrics "
           f"bitwise the eager call's, {replays} replays with no host sync and 1 fdm_jacobi "
-          f"launch each as eager; seeding and both sides: {_program_note()} {tag}",
+          f"launch each as eager, draw launches {sum(SEED_DRAWS.values())} per seeding step, "
+          f"{sum(TRAIN_DRAWS[False].values())} / {sum(TRAIN_DRAWS[True].values())} per train "
+          f"step before / past the gate; seeding and both sides: {_program_note()} {tag}",
           flush=True)
     # Both paths timed: seeding steps, then train steps past the gate.
     ms = {}
@@ -4030,13 +4068,122 @@ def graph_training(tag) -> dict:
     return launches
 
 
-def graph_phase(tag) -> dict:
-    """Phase 14; returns its launches."""
+# (d) the draws at the main paths' shapes: (label, draw, keys (None: one
+# key), its arguments after the keys). The env step's key split and
+# occupancy peeks at office12 B=2048 and office126 B=512, the trainer's
+# three-way split at 64 envs, the actor's normals and the replay's indices
+# at batch 256 (the bound a device int32, as the replay's size), the
+# threefry word plane of two planes at office12 B=2048.
+GRAPH_DRAWS = (
+    ("split 2048 x 4", "split", 2048, (4,)),
+    ("split 512 x 4", "split", 512, (4,)),
+    ("split 64 x 3", "split", 64, (3,)),
+    ("uniform 2048 x (12, 1)", "uniform", 2048, ((12, 1),)),
+    ("uniform 512 x (126, 1)", "uniform", 512, ((126, 1),)),
+    ("normal (256, 3)", "normal", None, ((256, 3),)),
+    ("randint (256,)", "randint", None, ((256,), 0, "bound")),
+    ("bits 2048 x (2, 52, 67)", "bits", 2048, ((2, 52, 67),)),
+)
+# Draws per timed graph (the word plane's, then the others'), replays timed.
+GRAPH_DRAW_CALLS = (2, 40)
+GRAPH_DRAW_REPS = 5
+# The kernels line's row: one office12 env step's draws at B=2048.
+DRAW_ROW = ("split 2048 x 4", "uniform 2048 x (12, 1)", "uniform 2048 x (12, 1)")
+# One threefry2x32 block in int32 operations: the key schedule's 2 xors,
+# 2 adds in, 20 rounds of an add, a funnel-shift rotate and an xor, and 5
+# injections of 3 adds.
+THREEFRY_OPS = 2 + 2 + 20 * 3 + 5 * 3
+
+
+def draw_bound_ms(kind, n_keys, n_out, out_bytes, bw, flops):
+    """Least time for one draw: its keys read and its output written once at
+    the card's bandwidth, or its threefry2x32 blocks (a pair of words each
+    for split, two per output and two per key for randint) at the card's
+    int32 rate, 64 operations per SM per clock, a quarter of the float32
+    FLOP/s of its fused multiply-adds; the larger of the two. The epilogues'
+    float work is not counted, so the bound is a floor."""
+    blocks = 2 * n_out + 2 * n_keys if kind == "randint" else n_out
+    t_bytes = (16 * n_keys + out_bytes) / bw * 1e3
+    t_ops = blocks * THREEFRY_OPS / (flops / 4) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _draw_graph_ms(fn, calls):
+    """Device ms per call of fn: `calls` calls captured in one CUDA graph,
+    the median of GRAPH_DRAW_REPS replays (CUDA events) over `calls`."""
+    import torch
+    from sbsim_tpu_torch import graphs
+
+    graph = torch.cuda.CUDAGraph()
+    with graphs._capture_open(), torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    ms = []
+    for _ in range(GRAPH_DRAW_REPS):
+        s, e = _events()
+        s.record()
+        graph.replay()
+        e.record()
+        _sync()
+        ms.append(s.elapsed_time(e) / calls)
+    graph.reset()
+    return statistics.median(ms)
+
+
+def graph_draws(bw, flops, tag) -> dict:
+    """(d): each draw of GRAPH_DRAWS through the kernel (rng.<draw>) and its
+    plain version (rng.<draw>_plain) on the same card keys, the keys
+    strided views as the call sites pass them: bitwise equal, one kernel
+    launch; both timed in CUDA graphs (_draw_graph_ms) beside
+    draw_bound_ms. Returns the kernels line's draw row (DRAW_ROW)."""
+    import torch
+    from sbsim_tpu_torch import rng
+
+    t_start = time.time()
+    dev = torch.device(DEVICE)
+    base = rng.PRNGKey(2_000_000_011, device=dev)
+    bound = torch.tensor(50_000, dtype=torch.int32, device=dev)
+    rows = {}
+    for label, kind, n_keys, args in GRAPH_DRAWS:
+        keys = base if n_keys is None else rng.split(rng.split(base, n_keys), 4)[:, 1]
+        args = tuple(bound if a == "bound" else a for a in args)
+        kernel = lambda: getattr(rng, kind)(keys, *args)
+        plain = lambda: getattr(rng, f"{kind}_plain")(keys, *args)
+        rng.reset_launch_counts()
+        got, want = kernel(), plain()
+        _sync()
+        drawn = {k: n for k, n in rng.launch_counts.items() if n}
+        if drawn != {kind: 1}:
+            fail(f"phase 14 (d) {label}: draw launches {drawn}, want {{{kind!r}: 1}}")
+        if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+            fail(f"phase 14 (d) {label}: the kernel's {got.dtype} {tuple(got.shape)} differs "
+                 f"from the plain version's {want.dtype} {tuple(want.shape)}")
+        calls = GRAPH_DRAW_CALLS[0] if kind == "bits" else GRAPH_DRAW_CALLS[1]
+        ms, plain_ms = _draw_graph_ms(kernel, calls), _draw_graph_ms(plain, calls)
+        DRAWN["launches"] += 1 + calls * (1 + GRAPH_DRAW_REPS)
+        n_out = got.numel() // (2 if kind == "split" else 1)
+        b_ms, b_by = draw_bound_ms(kind, 1 if n_keys is None else n_keys, n_out,
+                                   got.numel() * got.element_size(), bw, flops)
+        rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"  (d) {label}: the kernel bitwise its plain version on the same "
+              f"keys, one launch; {ms * 1e3:.2f} us per draw, plain {plain_ms * 1e3:.1f} us "
+              f"(a graph of {calls}, median of {GRAPH_DRAW_REPS} replays), bound "
+              f"{b_ms * 1e3:.4f} us ({b_by}) {tag}", flush=True)
+    row = {k: sum(rows[label][k] for label in DRAW_ROW) for k in ("ms", "plain_ms", "bound_ms")}
+    row["bound_by"] = "/".join(sorted({rows[label]["bound_by"] for label in DRAW_ROW}))
+    print(f"  (d) in {time.time() - t_start:.1f} s", flush=True)
+    return row
+
+
+def graph_phase(tag, bw, flops):
+    """Phase 14; returns its launches and the kernels line's draw row."""
     t_start = time.time()
     launches = graph_rollouts(tag)
     _add(launches, graph_training(tag))
+    row = graph_draws(bw, flops, tag)
     print(f"  phase 14 in {time.time() - t_start:.1f} s {tag}", flush=True)
-    return launches
+    return launches, row
 
 
 # ---------------------------------------------------------------------------
@@ -4520,6 +4667,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    from sbsim_tpu_torch import buildcache
     from sbsim_tpu_torch.physics import fdm_cuda
 
     t_start = time.time()
@@ -4527,7 +4675,7 @@ def main() -> int:
     card = card_line()
     name = torch.cuda.get_device_name(0)
     tag = f"[{card}]"
-    nvcc = subprocess.run([fdm_cuda._nvcc(), "--version"], capture_output=True,
+    nvcc = subprocess.run([buildcache.nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
     print(f"phase 0: torch {torch.__version__} cuda {torch.version.cuda}; nvcc: {nvcc}; "
           f"card: {card}; devices: {torch.cuda.device_count()}", flush=True)
@@ -4588,7 +4736,7 @@ def main() -> int:
         only = rest[0] if rest and rest[0] in ("14", "15") else None
         if only != "15":
             print("phase 14: the jitted programs as CUDA graphs", flush=True)
-            graph_phase(tag)
+            graph_phase(tag, bw, flops)
         if only != "14":
             print("phase 15: the rest of the jitted programs as CUDA graphs", flush=True)
             rest_phase(envs, tag)
@@ -4658,7 +4806,8 @@ def main() -> int:
 
     # ---- Phase 14 --------------------------------------------------------
     print("phase 14: the jitted programs as CUDA graphs", flush=True)
-    _add(launches, graph_phase(tag))
+    counts, draw_row = graph_phase(tag, bw, flops)
+    _add(launches, counts)
 
     # ---- Phase 15 --------------------------------------------------------
     print("phase 15: the rest of the jitted programs as CUDA graphs", flush=True)
@@ -4678,6 +4827,13 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "shape": f"{rows[kname]} B={t['batch']}",
         })
+    kernels.append({
+        "name": "rng_draw", "route": "cuda", "source": "sbsim_tpu_torch/csrc/rng_kernels.cu",
+        "replaces": None, "launches": DRAWN["launches"], "max_abs_err": 0.0,
+        "ms": draw_row["ms"], "plain_ms": draw_row["plain_ms"],
+        "bound_ms": draw_row["bound_ms"], "bound_by": draw_row["bound_by"],
+        "library_ms": None, "shape": "12zone B=2048, one env step's draws: " + ", ".join(DRAW_ROW),
+    })
     for (kname, label), t in sorted(timing.items()):
         print(f"{kname} at {label} B={t['batch']}: {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}) {tag}")

@@ -1,5 +1,5 @@
 """The build cache of the port's compiled libraries (the CUDA kernels of
-physics/fdm_cuda.py and the host C++ ops of native/).
+physics/fdm_cuda.py and rng.py, and the host C++ ops of native/).
 
 A library is built from one source at its first use into the package's
 _build/ directory, under a name keyed by the digest of the source, the
@@ -16,11 +16,24 @@ from __future__ import annotations
 
 import hashlib
 import os
+import shutil
 import subprocess
 import uuid
 from typing import Callable, Optional, Sequence, Tuple
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+
+
+def nvcc() -> str:
+    """The CUDA compiler: `nvcc` on the PATH, else the toolkit's default
+    place. Raises RuntimeError if neither is there."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def library_path(source: str, stem: str, compiler: str, flags: Sequence[str],

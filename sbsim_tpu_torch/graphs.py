@@ -47,7 +47,9 @@ runs eagerly in its place.
 A graph reads everything outside its inputs by address (constants, the
 stencil planes, a communicator's buffers): what a step caches must live as
 long as the program, and `release` drops every program before a process
-group goes (`distributed/runtime.shutdown`).
+group goes (`distributed/runtime.shutdown`). A graph may not be destroyed
+while a stream captures: a program freed during a capture keeps its graph
+until the capture ends.
 
 `fn` must not read a device value back to the host, nor make a tensor
 from host data on each call (neither can be captured, and the host data
@@ -55,12 +57,12 @@ would be gone at replay): device constants come from `constant`, built
 once per device.
 
 Launch counts: the kernels' wrappers add one to a Python counter where
-they launch (`fdm_cuda.launch_counts`, the tracing registry's family
-`fdm.launches`). A capture moves the counters without a launch on the
-device, and a replay launches without moving them. So the program takes
-back what its capture added and adds it again at every replay: the
-counters count launches on the device (the first call's, the warm-up's,
-included).
+they launch (`fdm_cuda.launch_counts` and `rng.launch_counts`, the tracing
+registry's families `fdm.launches` and `rng.launches`). A capture moves
+the counters without a launch on the device, and a replay launches without
+moving them. So the program takes back what its capture added and adds it
+again at every replay: the counters count launches on the device (the
+first call's, the warm-up's, included).
 
 Tracing (utils/profiling.py). A capture is the span `sbsim.graphs.capture`
 and adds to the set-up counters `graphs.captures` and `graphs.pool_bytes`
@@ -81,6 +83,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import gc
 import weakref
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
@@ -287,6 +290,38 @@ class _CudaGraphs:
         torch.cuda.current_stream(device).wait_stream(side)
 
 
+# Graphs of programs freed while a capture is open, kept until it closes.
+_capturing = 0
+_deferred: List[Any] = []
+
+
+def _drop_graph(graph) -> None:
+    """A freed program's graph: kept while a capture is open (destroying a
+    graph while a stream captures invalidates the capture), else let go."""
+    if _capturing:
+        _deferred.append(graph)
+
+
+@contextlib.contextmanager
+def _capture_open():
+    """The block of a capture. Python's cyclic collector is held off (a
+    collection could free an unreachable program), and the graph of any
+    program freed in the block, by the collector or by its last reference,
+    is destroyed only after the block (`_drop_graph`)."""
+    global _capturing
+    enabled = gc.isenabled()
+    gc.disable()
+    _capturing += 1
+    try:
+        yield
+    finally:
+        _capturing -= 1
+        if enabled:
+            gc.enable()
+        if not _capturing:
+            _deferred.clear()
+
+
 class Program:
     """One captured shape of a function: its graph, static inputs and
     outputs, the launch counts that one replay makes, and `nodes`, the
@@ -310,7 +345,8 @@ class Program:
             versions = [t._version for t in self.static_in]
             reserved = api.reserved(device)
             self.graph = api.new_graph()
-            with api.capture(self.graph):
+            weakref.finalize(self, _drop_graph, self.graph).atexit = False
+            with _capture_open(), api.capture(self.graph):
                 out = fn(*unflatten(spec, iter(self.static_in)))
             _SETUP["pool_bytes"] += api.reserved(device) - reserved
             self.nodes = api.instantiate(self.graph)
@@ -368,16 +404,17 @@ class CapturedFunction:
     """`fn` captured once per argument shape (see the module docstring).
     `eager` is `fn` op by op; `programs` maps each argument signature to
     its Program; `counters` are the kernels' launch counts
-    (`fdm_cuda.launch_counts`)."""
+    (`fdm_cuda.launch_counts`, `rng.launch_counts`)."""
 
     def __init__(self, fn: Callable, op_by_op: bool = False):
-        # Imported here: fdm_cuda imports rng, which imports this module.
+        # Imported here: rng imports this module, and fdm_cuda imports rng.
+        from sbsim_tpu_torch import rng
         from sbsim_tpu_torch.physics import fdm_cuda
 
         functools.update_wrapper(self, fn)
         self.eager = fn
         self.op_by_op = op_by_op
-        self.counters = (fdm_cuda.launch_counts,)
+        self.counters = (fdm_cuda.launch_counts, rng.launch_counts)
         self.programs: Dict[Any, Program] = {}
         _live.add(self)
 

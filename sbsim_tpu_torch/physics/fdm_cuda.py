@@ -57,7 +57,6 @@ import contextlib
 import ctypes
 import dataclasses
 import os
-import shutil
 import weakref
 from typing import NamedTuple, Optional, Tuple, Union
 
@@ -114,16 +113,6 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-
-
 def library_path() -> str:
     return buildcache.library_path(SOURCE, "fdm_kernels", "nvcc", NVCC_FLAGS, BUILD_DIR)
 
@@ -134,7 +123,7 @@ def build() -> str:
     nvcc's output in build_log. Raises if nvcc fails."""
     global build_log
     path, log = buildcache.build(SOURCE, "fdm_kernels", "nvcc", NVCC_FLAGS, BUILD_DIR,
-                                 executable=_nvcc)
+                                 executable=buildcache.nvcc)
     if log is not None:
         build_log = log
     return path

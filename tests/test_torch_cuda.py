@@ -22,6 +22,8 @@ their eager calls, with no host sync
 imports no JAX.
 """
 
+import collections
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -692,17 +694,25 @@ def _clone(tree):
     return graphs.tree_map(torch.clone, tree)
 
 
-def _replayed(fn, *args):
-    """fn(*args) under set_sync_debug_mode("error"), and its launches."""
+def _replayed(fn, *args, draws=None):
+    """fn(*args) under set_sync_debug_mode("error"), and its FDM kernel
+    launches; with `draws`, its draw kernel launches must equal them."""
     torch.cuda.synchronize()
     before = dict(fdm_cuda.launch_counts)
+    drawn = dict(rng.launch_counts)
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = fn(*args)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return out, {k: n - before[k] for k, n in fdm_cuda.launch_counts.items() if n != before[k]}
+    if draws is not None:
+        assert _moved(rng.launch_counts, drawn) == draws
+    return out, _moved(fdm_cuda.launch_counts, before)
+
+
+def _moved(counts, before):
+    return {k: n - before[k] for k, n in counts.items() if n != before[k]}
 
 
 def _trees_equal(a, b):
@@ -725,11 +735,12 @@ def test_rollout_replay_equals_eager(env, solver, kernel):
     roll = bench.make_rollout(env, table, 6, solver)
     want = roll.eager(_clone(start))
     roll(_clone(start))  # the first call captures
-    got, launched = _replayed(roll, _clone(start))
+    draws = {"split": 6, "uniform": 12}  # per step: the key split, two occupancy peeks
+    got, launched = _replayed(roll, _clone(start), draws=draws)
     assert launched == {kernel: 6}
     assert _trees_equal(got, want)
     (program,) = roll.programs.values()
-    assert program.replays == 1 and program.per_replay == [{kernel: 6}]
+    assert program.replays == 1 and program.per_replay == [{kernel: 6}, draws]
 
 
 def test_trainer_replays_equal_eager_across_the_end_and_the_gate(env):
@@ -746,11 +757,15 @@ def test_trainer_replays_equal_eager_across_the_end_and_the_gate(env):
     # 3 seeding steps (the second crosses the 288-step end), then 2 train
     # steps on each side of the gate: each program's first call captures.
     plan = [(seed, seed.eager)] * 3 + [(step, trainer.train_step)] * 4
+    # Draw launches of a replay: a seeding step, a train step before the
+    # gate, one after it (15: 8 splits, 3 uniforms, 3 normals, 1 randint).
+    draws = [{"split": 4, "uniform": 3}] * 3 + [{"split": 6, "uniform": 3, "normal": 1}] * 2 + [
+        {"split": 8, "uniform": 3, "normal": 3, "randint": 1}] * 2
     for i, (captured, op_by_op) in enumerate(plan):
         eager, want_m = op_by_op(eager)
         replay = i not in (0, 3, 5)
         if replay:
-            (graph, got_m), launched = _replayed(captured, graph)
+            (graph, got_m), launched = _replayed(captured, graph, draws=draws[i])
             assert launched == {"fdm_jacobi": 1}
         else:
             graph, got_m = captured(graph)
@@ -936,3 +951,161 @@ def test_script_programs_replay_equal_eager(env):
     assert launched == {"fdm_jacobi": 12} and _trees_equal(got, want)
     (program,) = step.programs.values()
     assert program.replays == 12 + 11
+
+
+# ---------------------------------------------------------------------------
+# The draw kernel (csrc/rng_kernels.cu): each draw kind bitwise its plain
+# version over 2**20 words or more, and whole runs bitwise the same runs
+# with every draw through the plain versions, the int64 elementwise chains
+# that the card ran before the kernel.
+# ---------------------------------------------------------------------------
+
+DRAWS = ("split", "fold_in", "bits", "uniform", "normal", "randint")
+
+
+def _card_keys(n, seed):
+    rs = np.random.default_rng(seed)
+    keys = rs.integers(0, 2**32, (n, 2), dtype=np.uint64).astype(np.int64)
+    keys[:4] = [(0, 0), (2**32 - 1, 2**32 - 1), (0, 2**32 - 1), (2**31, 2**31 - 1)]
+    return torch.as_tensor(keys, device="cuda")
+
+
+def _draw_cases(kind):
+    """(keys, args) of the draw `kind`: each case 2**20 outputs or more."""
+    size = lambda v, dtype=torch.int32: torch.tensor(v, dtype=dtype, device="cuda")
+    return {
+        "split": [(_card_keys(4096, 1), (256,)), (_card_keys(2**19, 2), (2,)),
+                  (_card_keys(2**18, 3), (4,))],
+        "fold_in": [(_card_keys(2**20, 4), (7,)), (_card_keys(2**20, 5), (2**32 - 1,))],
+        "bits": [(_card_keys(4, 6), ((2**18,),)), (_card_keys(2048, 7), ((2, 16, 32),))],
+        "uniform": [(_card_keys(2**14, 8), ((64, 1),)),
+                    (_card_keys(2**13, 9), ((126, 1), -0.1, 0.1)),
+                    (_card_keys(2**10, 10), ((2**10,), 2.0, 3.5))],
+        "normal": [(_card_keys(4, 11), ((2**22,),)), (_card_keys(4096, 12), ((256, 3),))],
+        "randint": [(_card_keys(4, 13), ((2**18,), 0, size(50_000))),
+                    (_card_keys(4, 14), ((2**18,), 0, size(1))),
+                    (_card_keys(4, 15), ((2**18,), size(9, torch.int64), 3)),
+                    (_card_keys(2**12, 16), ((64, 4), -2**31, 2**31 - 1))],
+    }[kind]
+
+
+def _bits_equal(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", DRAWS)
+def test_draw_kernel_equals_plain(env, kind):
+    """Each case one launch of the kernel, bitwise the plain version on the
+    card; normal over 2**24 words reaches both tails (u within 2**-17 of
+    -1 and of 1, where erfinv takes its w >= 5 branch)."""
+    for keys, args in _draw_cases(kind):
+        before = rng.launch_counts[kind]
+        got = getattr(rng, kind)(keys, *args)
+        assert rng.launch_counts[kind] == before + 1
+        want = getattr(rng, f"{kind}_plain")(keys, *args)
+        assert _bits_equal(got, want)
+    if kind == "normal":
+        keys, (shape,) = _draw_cases(kind)[0]
+        mant = rng.bits(keys, shape) >> 9
+        assert int(mant.min()) < 64 and int(mant.max()) >= 2**23 - 64
+        assert float(rng.normal(keys, shape).abs().max()) > 4.5
+
+
+def test_draw_kernel_reads_key_views_and_refuses_what_it_does_not_take(env):
+    keys = _card_keys(2048, 20)
+    sub = rng.split(keys, 4)
+    for i in range(4):
+        assert _bits_equal(rng.uniform(sub[:, i], (12, 1)), rng.uniform_plain(sub[:, i], (12, 1)))
+    assert _bits_equal(rng.split(keys.T.contiguous().T, 3), rng.split_plain(keys, 3))
+    with pytest.raises(ValueError, match="do not merge"):
+        rng.bits(keys.view(2, 1024, 2)[:, :512], (4,))
+    with pytest.raises(ValueError, match="keys' device"):
+        rng.randint(keys, (4,), 0, torch.tensor(5))
+    with pytest.raises(ValueError, match="one value or one per output"):
+        rng.randint(keys, (4,), 0, torch.ones(4, dtype=torch.int32, device="cuda"))
+
+
+def _plain_draws():
+    """A context in which every draw runs its plain version, as on the card
+    before the draw kernel."""
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = {k: getattr(rng, k) for k in DRAWS}
+        for k in DRAWS:
+            setattr(rng, k, getattr(rng, f"{k}_plain"))
+        try:
+            yield
+        finally:
+            for k, fn in saved.items():
+                setattr(rng, k, fn)
+
+    return ctx()
+
+
+def test_office12_episode_and_reset_equal_the_plain_draws(env):
+    """The office12 rollout cell's program (the bench config, B=2048, one
+    captured step per call): a 576-step episode, its reset and 8 steps
+    more, every state field and mean reward bitwise the same run with the
+    plain draws, 3 draw launches per step."""
+    from sbsim_tpu_torch import bench, convert, graphs
+    from sbsim_tpu_torch.agents import schedule_policy
+
+    env12 = building_env.BuildingEnv(bench.bench_config(False))
+    table = schedule_policy.build_schedule_actions(env12)
+    runs = []
+    for plain in (False, True):
+        with _plain_draws() if plain else contextlib.nullcontext():
+            roll = bench.make_rollout(env12, table, 1, "pallas_cheby")
+            states, _ = env12.reset(rng.split(rng.PRNGKey(1, device=env12.device), 2048))
+            means, drawn = [], collections.Counter()
+            for i in range(env12.steps_per_episode + 8):
+                if i == env12.steps_per_episode:
+                    kept = convert.env_state_to_numpy(states)
+                    states, _ = env12.reset(rng.split(rng.PRNGKey(2, device=env12.device),
+                                                      2048))
+                before = dict(rng.launch_counts)
+                states, mean = roll(states)
+                drawn.update(_moved(rng.launch_counts, before))
+                means.append(mean)
+            if not plain:
+                calls = env12.steps_per_episode + 8
+                assert drawn == {"split": calls, "uniform": 2 * calls}
+            runs.append((kept, convert.env_state_to_numpy(states), torch.stack(means)))
+        graphs.release()
+    (k0, s0, m0), (k1, s1, m1) = runs
+    assert torch.equal(m0, m1)
+    for got, want in ((k0, k1), (s0, s1)):
+        flat = lambda t: {**{k: v for k, v in t.items() if k != "hvac"}, **t["hvac"]}
+        a, b = flat(got), flat(want)
+        assert a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def test_office12_train_run_equals_the_plain_draws(env):
+    """The office12 train cell's recipe (64 envs, batch 256, replay
+    50,000, seed_steps 0): 100 captured train steps, the TrainState and
+    each step's metrics bitwise the same run with the plain draws."""
+    from sbsim_tpu_torch import bench, graphs
+    from sbsim_tpu_torch.agents import train
+
+    env12 = building_env.BuildingEnv(bench.bench_config(False))
+    runs = []
+    for plain in (False, True):
+        with _plain_draws() if plain else contextlib.nullcontext():
+            trainer = train.SACTrainer(env12, train.recipe_for(
+                env12, n_envs=64, batch_size=256, replay_capacity=50_000, seed_steps=0))
+            state = trainer.init(rng.PRNGKey(3, device=env12.device))
+            step = trainer.captured_train_step()
+            metrics = []
+            for _ in range(100):
+                state, m = step(state)
+                metrics.append(m)
+            runs.append((state, metrics))
+        graphs.release()
+    (a, ma), (b, mb) = runs
+    assert a.env_steps == b.env_steps
+    assert _trees_equal((a.env_states, a.last_obs, a.replay, a.sac, a.rng),
+                        (b.env_states, b.last_obs, b.replay, b.sac, b.rng))
+    assert all(_trees_equal(x, y) for x, y in zip(ma, mb))

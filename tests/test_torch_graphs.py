@@ -25,8 +25,10 @@ path capturable, on the CPU.
   back, re-added per replay), a replay leaves the caller's tensors alone,
   hands out fresh outputs but for the in-place-updated buffer it returns,
   and takes that buffer back without a copy; an input updated in place
-  and not returned is refused; argument trees round-trip; constants are
-  cached per value and device.
+  and not returned is refused; the cyclic collector is held off during a
+  capture alone, and a program freed during a capture keeps its graph
+  until the capture ends; argument trees round-trip; constants are cached
+  per value and device.
 
 The graphs' card twins (replays bitwise the eager calls, under
 torch.cuda.set_sync_debug_mode("error")) are in tests/test_torch_cuda.py.
@@ -34,6 +36,8 @@ torch.cuda.set_sync_debug_mode("error")) are in tests/test_torch_cuda.py.
 
 import contextlib
 import dataclasses
+import gc
+import weakref
 
 import flax.serialization
 import jax
@@ -440,6 +444,67 @@ def test_replay_aliasing_rule_with_a_stub_graph():
     assert newer.buf.data_ptr() == before
     assert torch.equal(newer.buf, torch.tensor([1.5, 2.5, 3.5, 0]))
     assert int(new.cursor) == 2 and int(newer.cursor) == 3
+
+
+def test_the_collector_is_paused_during_a_capture_alone():
+    """No cyclic collection runs inside a capture: one can free an
+    unreachable program, whose graph may not be destroyed while a stream
+    captures (its destruction invalidated a capture on the card). The
+    warm-up before it and the code after it run with the collector as it
+    was."""
+    seen = []
+
+    class Recording(_StubGraphs):
+        @staticmethod
+        @contextlib.contextmanager
+        def capture(graph):
+            seen.append(("capture", gc.isenabled()))
+            yield
+
+    def fn(x):
+        seen.append(("fn", gc.isenabled()))
+        return x * 2.0
+
+    leaves = [torch.ones(2)]
+    spec = graphs.flatten(tuple(leaves), [])
+    assert gc.isenabled()
+    graphs.Program(fn, tuple(leaves), spec, leaves, (), api=Recording)
+    assert seen == [("fn", True), ("capture", False), ("fn", False)] and gc.isenabled()
+    gc.disable()
+    try:
+        graphs.Program(fn, tuple(leaves), spec, leaves, (), api=Recording)
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
+def test_a_program_freed_during_a_capture_keeps_its_graph_until_it_ends():
+    """The graph of a program freed inside another program's capture (here
+    by its last reference) is destroyed after the capture, not in it:
+    destroying a graph while a stream captures invalidates the capture.
+    Freed outside a capture, a program's graph goes at once."""
+    leaves = [torch.ones(2)]
+    spec = graphs.flatten(tuple(leaves), [])
+    fn = lambda x: x * 2.0
+    held = [graphs.Program(fn, tuple(leaves), spec, leaves, (), api=_StubGraphs)]
+    graph = weakref.ref(held[0].graph)
+    seen = []
+
+    class Freeing(_StubGraphs):
+        @staticmethod
+        @contextlib.contextmanager
+        def capture(graph_):
+            held.clear()  # the old program's last reference
+            seen.append(graph() is not None)
+            yield
+            seen.append(graph() is not None)
+
+    graphs.Program(fn, tuple(leaves), spec, leaves, (), api=Freeing)
+    assert seen == [True, True] and graph() is None
+    program = graphs.Program(fn, tuple(leaves), spec, leaves, (), api=_StubGraphs)
+    graph = weakref.ref(program.graph)
+    del program
+    assert graph() is None
 
 
 def test_in_place_update_without_return_is_refused():
