@@ -15,6 +15,8 @@
     python3 chip_smoke.py --graphs [14|15]
         # phases 0-1 and phases 14 and 15 (the captured programs against
         # eager), or the one named
+    python3 chip_smoke.py --cluster
+        # phases 0-1 and phase 3 (b): the cluster bodies' rows alone
     python3 chip_smoke.py --learn [TRAIN_STEPS] [--out PATH]
         # phases 0-1, tests/test_sac_learning.py's two-zone recipe with its
         # asserts, and the 12-zone sac_sb1_train curve to TRAIN_STEPS
@@ -53,7 +55,14 @@ Phases (each prints its own lines; any failure exits non-zero):
      statistics and with the word plane; K3/K4 beside K2/K1; K3 and K4 at
      E = 1-4), with its thread blocks resident per SM; and a
      torch.profiler breakdown of 4 more steps (device busy and idle share,
-     kernels by device time). Then the decomposition of K1/K4 and K2/K3 at
+     kernels by device time). (b) A plan above one block's shared memory
+     (floor126: 9 x 14 rooms of 50 x 50 cells, 466 x 721) at B=128 through
+     "pallas_cheby" and "pallas_env": each step's solve on K1's and K2's
+     cluster bodies (one cluster of 8 CTAs an env), launches equal to the
+     steps, then each cluster body alone on its path's last-step inputs
+     against its kernel's plain version (bitwise), timed with its bound and
+     its barriers beside the iterations. Then the
+     decomposition of K1/K4 and K2/K3 at
      12 zones B=2048 and 126 rooms B=512 (K2/K3 also at B=64) on seeded
      inputs: the solve alone, with mix32 swaps, with the word plane, with
      statistics; the cost of one (sub-)iteration (slope over
@@ -339,6 +348,9 @@ _PLANS = {
     "12zone_argsort": dict(stack=True, conv=dict(method="argsort")),
 }
 KERNELS = ("fdm_cheby", "fdm_jacobi", "fdm_cheby_block", "fdm_jacobi_block")
+# Every launch counter (fdm_cuda.launch_counts): the four kernels and the
+# cluster bodies their wrappers launch on a plan that spans blocks.
+COUNTED = KERNELS + ("fdm_cheby_cluster", "fdm_jacobi_cluster")
 SOLO = {"fdm_cheby_block": "fdm_cheby", "fdm_jacobi_block": "fdm_jacobi"}
 REPLACES = {
     "fdm_cheby": "sbsim_tpu/physics/fdm_pallas.py:630",
@@ -349,12 +361,12 @@ REPLACES = {
 # Phase 3: (label, env, batch, solver, steps). The label names the row of
 # the kernels line; the first 12-zone run of each kernel is its row.
 MAIN_RUNS = (
-    ("12zone", "12zone", 2048, "pallas_cheby", 32),
-    ("126room", "126room", 512, "pallas_cheby", 32),
+    ("12zone", "12zone", 2048, "pallas_cheby", 16),
+    ("126room", "126room", 512, "pallas_cheby", 16),
     ("12zone", "12zone", 2048, "pallas_env", 8),
-    ("12zone stack", "12zone_stack", 2048, "pallas_cheby", 32),
+    ("12zone stack", "12zone_stack", 2048, "pallas_cheby", 16),
     ("12zone stack", "12zone_stack", 2048, "pallas_env", 8),
-    ("126room stack", "126room_stack", 512, "pallas_cheby", 32),
+    ("126room stack", "126room_stack", 512, "pallas_cheby", 16),
     ("12zone stack threefry", "12zone_threefry", 2048, "pallas_cheby", 8),
 )
 # Phase 2: (env, batch) and the cases (convection, iteration limit,
@@ -391,11 +403,81 @@ def peaks(name: str):
     return "SXM", _PEAKS["SXM"]  # "NVIDIA H100 80GB HBM3" is the SXM part
 
 
+# Phase 3 (b): (env, batch, steps) of the plan above one block's shared
+# memory, built only there, and each main path's (solver, cluster body).
+CLUSTER_RUN = ("floor126", 128, 6)
+CLUSTER_PATHS = (("pallas_cheby", "fdm_cheby_cluster"), ("pallas_env", "fdm_jacobi_cluster"))
+_CLUSTER_PLANS = {"floor126": dict(plan=(9, 14, 50), layout="auto")}
+
+
+def cluster_phase(max_err, bw, flops, tag):
+    """Phase 3 (b): returns ({cluster body: its launches on the main path},
+    {cluster body: its kernels-line row})."""
+    import numpy as np
+    import torch
+    from sbsim_tpu_torch import rng
+    from sbsim_tpu_torch.physics import fdm_cuda
+
+    which, batch, steps = CLUSTER_RUN
+    dev = torch.device(DEVICE)
+    t0 = time.time()
+    env = make_env(which, dev)
+    geo = fdm_cuda.cluster_geometry(env.geom.shape)
+    acts = torch.as_tensor(
+        np.random.default_rng(11).uniform(-1, 1, (steps, batch, env.n_actions)),
+        dtype=torch.float32, device=dev)
+    launches, rows = {}, {}
+    for solver, body in CLUSTER_PATHS:
+        kname = kernel_of(env, solver)
+        state, _ = env.reset(rng.split(rng.PRNGKey(7, device=dev), batch))
+        torch.cuda.synchronize()
+        fdm_cuda.reset_launch_counts()
+        events = []
+        for i in range(steps):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            state, out = env.step_batched(state, acts[i], solver=solver)
+            e.record()
+            events.append((s, e))
+        torch.cuda.synchronize()
+        counts = dict(fdm_cuda.launch_counts)
+        if counts != {k: (steps if k == body else 0) for k in COUNTED}:
+            fail(f"{which} {solver}: launch counts {counts} != {steps} {body} launches")
+        launches[body] = counts[body]
+        if not (torch.isfinite(state.temp).all() and torch.isfinite(out.observation).all()):
+            fail(f"{which} {solver}: non-finite field or observation")
+        med = statistics.median(s.elapsed_time(e) for s, e in events[2:])
+        pre, conv_keys = env._step_pre(state, acts[-1])
+        inp = fdm_cuda.kernel_inputs(state.temp, state.input_q, pre["ambient"], pre["h_conv"],
+                                     env.coeffs)
+        conv = word_conv(env, conv_keys, False)
+        limit = env.config.iteration_limit
+        barriers = torch.empty(batch, dtype=torch.int32, device=dev)
+        got = run_kernel(kname, env, inp, conv, limit, barriers=barriers)
+        want = run_kernel(kname, env, inp, conv, limit, plain=True)
+        max_err[body] = max(max_err[body], compare(f"{body} at {which} B={batch}", got, want))
+        k_ms = time_call(lambda: run_kernel(kname, env, inp, conv, limit), 10)
+        p_ms = time_call(lambda: run_kernel(kname, env, inp, conv, limit, plain=True), 1)
+        b_ms, b_by = bound_ms(inp, conv, got[1], kname, bw, flops)
+        fixed = float((barriers - got[1]).double().mean())
+        print(f" {which} B={batch} {solver} ({env.geom.shape[0]}x{env.geom.shape[1]}, "
+              f"clusters of {geo.cluster} CTAs x {geo.threads} threads, {geo.slots} runs a "
+              f"thread): {steps} steps, launches {launches[body]}; median step {med:.3f} ms "
+              f"-> {batch / med * 1e3:,.0f} env-steps/s; iterations mean "
+              f"{float(got[1].float().mean()):.1f}; barriers beside the iterations "
+              f"{fixed:.1f} a solve {tag}", flush=True)
+        print(f"  {body} ({kname}'s semantics) alone: {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}) -> {b_ms / k_ms:.1%} of bound {tag}", flush=True)
+        rows[body] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, batch=batch)
+    print(f"  phase 3 (b) {time.time() - t0:.1f} s {tag}", flush=True)
+    return launches, rows
+
+
 def make_env(which: str, device):
     from sbsim_tpu_torch.core import geometry
     from sbsim_tpu_torch.envs import building_env, presets
 
-    spec = _PLANS[which]
+    spec = _PLANS[which] if which in _PLANS else _CLUSTER_PLANS[which]
     kw = {}
     if "plan" in spec:
         nx, ny, cvs = spec["plan"]
@@ -479,13 +561,16 @@ def wide_stats(env, seed: int):
     return gridstats.ZoneStats(layout, env.device)
 
 
-def run_kernel(name, env, inp, conv, limit, plain=False, stats=None, e=None):
+def run_kernel(name, env, inp, conv, limit, plain=False, stats=None, e=None, barriers=None):
     """Kernel `name` (its plain version with `plain`) on the env's solver
-    settings; K3/K4 with `e` envs per thread block (default: the env's)."""
+    settings; K3/K4 with `e` envs per thread block (default: the env's);
+    `barriers` receives a cluster body's barrier counts."""
     from sbsim_tpu_torch.physics import fdm_cuda
 
     kw = dict(threshold=env.config.convergence_threshold, iteration_limit=limit,
               conv=conv, stats=stats)
+    if barriers is not None:
+        kw.update(barriers=barriers)
     if name.startswith("fdm_cheby"):
         kw.update(spectral_radius=env._spectral_radius,
                   check_every=env.config.cheby_check_every)
@@ -778,7 +863,7 @@ def training_phase(env, kname, n_envs, seed_steps, train_steps, eval_steps, max_
     torch.cuda.synchronize()
     counts = dict(fdm_cuda.launch_counts)
     env_steps = seed_steps + train_steps + eval_steps
-    if counts != {k: (env_steps if k == kname else 0) for k in KERNELS}:
+    if counts != {k: (env_steps if k == kname else 0) for k in COUNTED}:
         fail(f"training {label}: launch counts {counts} != {env_steps} {kname} env steps")
     last = state.env_states
     if not (torch.equal(last.zone_means, env._stats.zone_means(last.temp))
@@ -998,7 +1083,7 @@ def main_path_phase(envs, max_err, bw, flops, tag):
     from sbsim_tpu_torch.physics import fdm_cuda
 
     print("phase 3: main paths at full width", flush=True)
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(COUNTED, 0)
     timing = {}
     dev = torch.device(DEVICE)
     for label, which, batch, solver, steps in MAIN_RUNS:
@@ -1435,7 +1520,7 @@ def entry_train_sac(tag) -> int:
         if not episode < seed_steps < 2 * episode:
             fail(f"train_sac: {seed_steps} seeding steps do not cross one {episode}-step end")
         env_steps = seed_steps + train_steps + evals * eval_steps
-        if counts != {k: (env_steps if k == "fdm_jacobi" else 0) for k in KERNELS}:
+        if counts != {k: (env_steps if k == "fdm_jacobi" else 0) for k in COUNTED}:
             fail(f"train_sac: launch counts {counts} != {env_steps} fdm_jacobi env steps")
         collects = seed_steps + train_steps
         fired, all_done, step_idx, reset_diffs = spies.episode_end(trainer, episode)
@@ -1535,7 +1620,7 @@ def entry_suite(max_err, bw, flops, tag) -> int:
     torch.cuda.synchronize()
     counts = dict(fdm_cuda.launch_counts)
     want = SUITE_STEPS * suite.n_buildings
-    if counts != {k: (want if k == "fdm_jacobi" else 0) for k in KERNELS} or any(
+    if counts != {k: (want if k == "fdm_jacobi" else 0) for k in COUNTED} or any(
             p["launches"] != SUITE_STEPS for p in per_plan):
         fail(f"suite: launch counts {counts}, per plan {[p['launches'] for p in per_plan]}")
     r = out.reward
@@ -1778,7 +1863,7 @@ def host_check(label, env, policy, steps, kname, tag):
     from sbsim_tpu_torch.envs import host_adapter, host_environment
 
     got, want = host_run(env, policy, steps, plain=False), host_run(env, policy, steps, plain=True)
-    if got["counts"] != {k: (steps if k == kname else 0) for k in KERNELS} or any(
+    if got["counts"] != {k: (steps if k == kname else 0) for k in COUNTED} or any(
             want["counts"].values()):
         fail(f"{label}: launch counts {got['counts']}, plain run {want['counts']}")
     for i, (a, b) in enumerate(zip(got["steps"], want["steps"], strict=True)):
@@ -1846,7 +1931,7 @@ def host_phase(envs, tag) -> dict:
 
     t_start = time.time()
     dev = torch.device(DEVICE)
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(COUNTED, 0)
     cfg = presets.sb1_config(num_days_in_episode=1)
     env12 = building_env.BuildingEnv(cfg, device=dev)
     cheby12 = building_env.BuildingEnv(dataclasses.replace(cfg, fdm_solver="chebyshev"),
@@ -1928,7 +2013,7 @@ def host_phase(envs, tag) -> dict:
     torch.cuda.synchronize()
     n = fdm_cuda.launch_counts["fdm_jacobi"]
     if dict(fdm_cuda.launch_counts) != {k: (2 * ROW_STEPS if k == "fdm_jacobi" else 0)
-                                        for k in KERNELS}:
+                                        for k in COUNTED}:
         fail(f"step at B=1: launch counts {fdm_cuda.launch_counts}")
     launches["fdm_jacobi"] += n
     print(f"  step at B=1 ({ROW_STEPS} steps from env {ROW} of B={b}): state and outputs bitwise "
@@ -2069,7 +2154,7 @@ def offline_check_record(env, tmp, tag):
     folder, counts, ms = offline_record(env, steps, False, os.path.join(tmp, "kernel"), tag)
     plain_folder, plain_counts, plain_ms = offline_record(env, OFFLINE_PLAIN_STEPS, True,
                                                           os.path.join(tmp, "plain"), tag)
-    if counts != {k: (steps if k == "fdm_jacobi" else 0) for k in KERNELS} or any(
+    if counts != {k: (steps if k == "fdm_jacobi" else 0) for k in COUNTED} or any(
             plain_counts.values()):
         fail(f"offline record: launch counts {counts}, plain run {plain_counts}")
     # The plain run's files hold the records of its steps; the kernel run's
@@ -2275,7 +2360,7 @@ def offline_check_dashboard(recorded, tmp, tag):
                              profile_step=DASHBOARD_STEPS - 1, tag=tag)
     plain, plain_counts = _dashboard(OFFLINE_PLAIN_STEPS, os.path.join(tmp, "dash_plain"), False,
                                      plain_fields, [], plain=True)
-    if counts != {k: (DASHBOARD_STEPS if k == "fdm_jacobi" else 0) for k in KERNELS} or any(
+    if counts != {k: (DASHBOARD_STEPS if k == "fdm_jacobi" else 0) for k in COUNTED} or any(
             plain_counts.values()) or run.steps != DASHBOARD_STEPS:
         fail(f"dashboard: {run.steps} steps, launch counts {counts}, plain run {plain_counts}")
     env, dash, want = run.env, run.dashboard, plain.dashboard
@@ -2351,7 +2436,7 @@ def offline_phase(tag) -> dict:
     from sbsim_tpu_torch.utils import profiling
 
     t_start = time.time()
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(COUNTED, 0)
     env = building_env.BuildingEnv(presets.sb1_config(num_days_in_episode=1),
                                    device=torch.device(DEVICE))
     timer = profiling.PhaseTimer()
@@ -2526,7 +2611,7 @@ def parity_run(label, env, steps, kname, tag, batch=1, gates=False, allow_crossi
                 flush=True)
     _sync()
     counts = dict(fdm_cuda.launch_counts)
-    if counts != {k: (steps if k == kname else 0) for k in KERNELS}:
+    if counts != {k: (steps if k == kname else 0) for k in COUNTED}:
         fail(f"{label}: launch counts {counts}, want {steps} of {kname}")
     try:
         r = tracker.finish(allow_crossings)
@@ -2587,7 +2672,7 @@ def gin_check(tmp, tag) -> int:
     counts = dict(fdm_cuda.launch_counts)
     want, want_out = run(True)
     _sync()
-    if counts != {k: (GIN_STEPS if k == "fdm_cheby" else 0) for k in KERNELS} or any(
+    if counts != {k: (GIN_STEPS if k == "fdm_cheby" else 0) for k in COUNTED} or any(
             fdm_cuda.launch_counts[k] != counts[k] for k in KERNELS):
         fail(f"gin12: launch counts {counts}, after the plain run {fdm_cuda.launch_counts}")
     _check_equal_trees("gin12", got, want)
@@ -2655,7 +2740,7 @@ def validation_phase(tag) -> dict:
 
     t_start = time.time()
     dev = torch.device(DEVICE)
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(COUNTED, 0)
     # (a) parity12: the per-env step through K2 over a day.
     env12 = building_env.BuildingEnv(parity_config(), device=dev)
     n, report12 = parity_run("parity12", env12, PARITY_STEPS, "fdm_jacobi", tag, gates=True)
@@ -2941,7 +3026,7 @@ def distributed_phase(envs, tag, ranks=DIST_RANKS, backend="gloo", with_graphs=T
 
     t_start = time.time()
     device = DEVICE if backend == "gloo" else None
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(COUNTED, 0)
     with tempfile.TemporaryDirectory() as tmp:
         # ---- (a) the sharded train step ---------------------------------
         results = _run_ranks("train", ranks, backend, device, f"{tmp}/train")
@@ -2979,7 +3064,7 @@ def distributed_phase(envs, tag, ranks=DIST_RANKS, backend="gloo", with_graphs=T
             fail("(a) the ranks' metrics differ")
         steps = DIST_SEED_STEPS + DIST_TRAIN_STEPS
         for r, res in enumerate(results):
-            if res["launches"] != {k: (steps if k == "fdm_jacobi" else 0) for k in KERNELS}:
+            if res["launches"] != {k: (steps if k == "fdm_jacobi" else 0) for k in COUNTED}:
                 fail(f"(a) rank {r} launches {res['launches']}, want {steps} fdm_jacobi")
             launches["fdm_jacobi"] += res["launches"]["fdm_jacobi"]
         step_ms = [statistics.median(res["step_ms"][2:]) for res in results]
@@ -3032,7 +3117,7 @@ def distributed_phase(envs, tag, ranks=DIST_RANKS, backend="gloo", with_graphs=T
         if res["diff"] or not res["same_metrics"] or res["backend"] != "nccl":
             fail(f"(c) the one-rank NCCL step differs from train_step: {res['diff']}, "
                  f"metrics equal {res['same_metrics']}")
-        if res["launches"] != {k: (NCCL_STEPS if k == "fdm_jacobi" else 0) for k in KERNELS}:
+        if res["launches"] != {k: (NCCL_STEPS if k == "fdm_jacobi" else 0) for k in COUNTED}:
             fail(f"(c) launches {res['launches']}")
         launches["fdm_jacobi"] += res["launches"]["fdm_jacobi"]
         print(f" (c) one-rank NCCL group: {NCCL_STEPS} make_distributed_train_step steps "
@@ -3089,7 +3174,7 @@ def _counted(label, fn, want, sync_free=False, draws=None):
         out = fn()
     _sync()
     counts = dict(fdm_cuda.launch_counts)
-    if counts != {k: want.get(k, 0) for k in KERNELS}:
+    if counts != {k: want.get(k, 0) for k in COUNTED}:
         fail(f"{label}: launch counts {counts}, want {want}")
     drawn = {k: n for k, n in rng.launch_counts.items() if n}
     if draws is not None and drawn != draws:
@@ -3179,7 +3264,7 @@ def script_scaling(tmp, tag, rank_counts, backend) -> dict:
     launches = 0
     for row in payload["results"]:
         for r, counts in enumerate(row["launches"]):
-            if counts != {k: (per_rank if k == "fdm_cheby" else 0) for k in KERNELS}:
+            if counts != {k: (per_rank if k == "fdm_cheby" else 0) for k in COUNTED}:
                 fail(f"scaling at {row['devices']} ranks: rank {r} launches {counts}")
             launches += counts["fdm_cheby"]
         print(f"  (b) scaling, 12 zones pallas_cheby, {row['devices']} rank(s) over {backend} x "
@@ -3257,7 +3342,7 @@ def script_shuffle12(tag) -> dict:
 
     dev = torch.device(DEVICE)
     cfg = crs.base_config()
-    swap, launches = {}, dict.fromkeys(KERNELS, 0)
+    swap, launches = {}, dict.fromkeys(COUNTED, 0)
     for kname, solver in (("fdm_jacobi", "pallas_env"), ("fdm_cheby", "pallas_cheby")):
         (swap[kname], env), counts = _counted(
             f"shuffle12 through {kname}", lambda s=solver: crs.run_swap(cfg, dev, solver=s),
@@ -3339,7 +3424,7 @@ def scripts_phase(tag, rank_counts=(1, 2), backend="gloo", only=None) -> dict:
     import tempfile
 
     t_start = time.time()
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(COUNTED, 0)
     with tempfile.TemporaryDirectory() as tmp:
         parts = {"a": lambda: script_curve(tmp, tag),
                  "b": lambda: script_scaling(tmp, tag, rank_counts, backend),
@@ -3382,7 +3467,7 @@ SCHEDULE_WITNESS = {(16, 5): (0.1339, 0.0604), (10, 101): (0.0957, 0.0508)}
 SMOKE_ARGS = ["--seed-steps", "30", "--train-steps", "100", "--eval-every", "100"]
 SB1_BASELINE_STEPS = 48
 # (e) the scaling decomposition at phase 11 (b)'s configuration.
-DECOMP_ARGS = ["--batch-per-device", "1024", "--steps", "8", "--repeats", "5",
+DECOMP_ARGS = ["--batch-per-device", "1024", "--steps", "8", "--repeats", "3",
                "--solver", "pallas_cheby"]
 
 
@@ -3517,7 +3602,7 @@ def study_sac(tag) -> dict:
     from sbsim_tpu_torch.benchmarks import sac_sb1_smoke, sac_sb1_train, sac_smoke
     from sbsim_tpu_torch.envs import building_env, presets
 
-    total = dict.fromkeys(KERNELS, 0)
+    total = dict.fromkeys(COUNTED, 0)
     for module, cfg, steps, envs in (
             (sac_smoke, presets.two_zone_test_config(num_days_in_episode=1),
              sac_smoke.N_EVAL, 4),
@@ -3585,7 +3670,7 @@ def study_decomp(tmp, tag, ranks, backend) -> dict:
     launches = 0
     for name, row in payload["rows"].items():
         for r, counts in enumerate(row["launches"]):
-            if counts != {k: (per_rank if k == "fdm_cheby" else 0) for k in KERNELS}:
+            if counts != {k: (per_rank if k == "fdm_cheby" else 0) for k in COUNTED}:
                 fail(f"scaling decomposition {name}: rank {r} launches {counts}")
             launches += counts["fdm_cheby"]
         print(f"  (e) {name}: {row['devices']} rank(s) x {row['batch'] // row['devices']} envs "
@@ -3608,7 +3693,7 @@ def study_phase(tag, ranks=2, backend="gloo", only=None) -> dict:
     import tempfile
 
     t_start = time.time()
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(COUNTED, 0)
     with tempfile.TemporaryDirectory() as tmp:
         parts = {"a": lambda: study_null(tmp, tag),
                  "b": lambda: study_sweep(tmp, tag, "designed"),
@@ -3683,7 +3768,7 @@ def bench_rollouts(tag) -> dict:
     from sbsim_tpu_torch.envs import building_env
 
     dev = torch.device(DEVICE)
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(COUNTED, 0)
     for label, extra, solver, batch in BENCH_RUNS:
         env = building_env.BuildingEnv(bench.bench_config("--full-scale" in extra), device=dev)
         table = schedule_policy.build_schedule_actions(env)
@@ -3867,7 +3952,7 @@ def graph_rollouts(tag) -> dict:
 
     dev = torch.device(DEVICE)
     clone = lambda tree: graphs.tree_map(torch.clone, tree)
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(COUNTED, 0)
     for label, extra, solver, batch in BENCH_RUNS:
         t_start = time.time()
         name = label[4:]
@@ -3952,7 +4037,7 @@ def graph_training(tag) -> dict:
 
     dev = torch.device(DEVICE)
     clone = lambda tree: graphs.tree_map(torch.clone, tree)
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(COUNTED, 0)
     t_start = time.time()
     env = building_env.BuildingEnv(presets.sb1_config(num_days_in_episode=1), device=dev)
     seed_steps = (GRAPH_SEED_CALLS + GRAPH_SKIP_CALLS + 1) * GRAPH_ENVS
@@ -4360,7 +4445,7 @@ def rest_host(envs, tag) -> dict:
     from sbsim_tpu_torch.envs import building_env, presets
 
     dev = torch.device(DEVICE)
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(COUNTED, 0)
     cfg = presets.sb1_config(num_days_in_episode=1)
     env12 = building_env.BuildingEnv(cfg, device=dev)
     runs = (("host12", env12, "fdm_jacobi"),
@@ -4373,7 +4458,7 @@ def rest_host(envs, tag) -> dict:
             policy = host_policy(env, 11, os.path.join(tmp, label))
             graph = host_run(env, policy, REST_DAY, plain=False, read_back=False)
             eager = host_run(env, policy, REST_DAY, plain=False, eager=True, read_back=False)
-            want = {k: (REST_DAY if k == kname else 0) for k in KERNELS}
+            want = {k: (REST_DAY if k == kname else 0) for k in COUNTED}
             if graph["counts"] != want or eager["counts"] != want:
                 fail(f"{label}: launch counts {graph['counts']}, eager {eager['counts']}")
             _same_host_runs(label, graph, eager)
@@ -4397,7 +4482,7 @@ def rest_host(envs, tag) -> dict:
             times = []
             run, counts = _dashboard(REST_DAY, os.path.join(tmp, f"dash_{path}"), False, [],
                                      times, eager=path == "eager")
-            if counts != {k: (REST_DAY if k == "fdm_jacobi" else 0) for k in KERNELS}:
+            if counts != {k: (REST_DAY if k == "fdm_jacobi" else 0) for k in COUNTED}:
                 fail(f"dashboard {path}: launch counts {counts}")
             days[path] = (run.dashboard, statistics.median(np.diff(times)[2:]) * 1e3)
         launches["fdm_jacobi"] += 2 * REST_DAY
@@ -4741,6 +4826,9 @@ def main() -> int:
             print("phase 15: the rest of the jitted programs as CUDA graphs", flush=True)
             rest_phase(envs, tag)
         return 0
+    if "--cluster" in sys.argv:
+        cluster_phase(dict.fromkeys(COUNTED, 0.0), bw, flops, tag)
+        return 0
     if "--learn" in sys.argv:
         # Only the learning runs: `--learn [TRAIN_STEPS] [--out PATH]`.
         rest = sys.argv[sys.argv.index("--learn") + 1:]
@@ -4751,9 +4839,11 @@ def main() -> int:
               flush=True)
         learn_phase(steps, out, tag)
         return 0
-    max_err = dict.fromkeys(KERNELS, 0.0)
+    max_err = dict.fromkeys(COUNTED, 0.0)
     check_phase(envs, max_err)
     launches, timing = main_path_phase(envs, max_err, bw, flops, tag)
+    counts, cluster_rows = cluster_phase(max_err, bw, flops, tag)
+    _add(launches, counts)
     decomposition(envs, tag)
     wiring_phase(envs)
 
@@ -4826,6 +4916,14 @@ def main() -> int:
             "max_abs_err": max_err[kname], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "shape": f"{rows[kname]} B={t['batch']}",
+        })
+    for body, t in cluster_rows.items():  # K1-K4's semantics: no Pallas body of their own
+        kernels.append({
+            "name": body, "route": "cuda", "source": "sbsim_tpu_torch/csrc/fdm_kernels.cu",
+            "replaces": None, "launches": launches[body], "max_abs_err": max_err[body],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "shape": f"{CLUSTER_RUN[0]} B={t['batch']}",
         })
     kernels.append({
         "name": "rng_draw", "route": "cuda", "source": "sbsim_tpu_torch/csrc/rng_kernels.cu",

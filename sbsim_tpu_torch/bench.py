@@ -127,8 +127,11 @@ def make_rollout(env, actions, n_steps: int, solver: str) -> Callable:
     returns are fresh tensors, bitwise the eager rollout's. Traced, each
     call adds the returned states' FDM iterations (the call's last step) to
     the counter `fdm.iterations`, kept on the device and summed when read,
-    and their number to `env.steps`. `call.eager` and `call.programs` are
-    the captured function's."""
+    and their number to `env.steps`; where the solve runs on thread-block
+    clusters (a plan that spans blocks), the same step's barrier counts
+    (`StepOutput.fdm_barriers`, a third output of the program) to
+    `fdm.barriers`. `call.eager` is the rollout op by op, and
+    `call.programs` the captured function's."""
     table = torch.tensor(np.asarray(actions), dtype=torch.float32, device=env.device)
     last = table.shape[0] - 1
 
@@ -138,17 +141,22 @@ def make_rollout(env, actions, n_steps: int, solver: str) -> Callable:
             act = table[states.step_idx.to(torch.int64).clamp(0, last)]
             states, out = env.step_batched(states, act, solver=solver)
             rewards.append(out.reward)
-        return states, torch.stack(rewards).mean()
+        mean = torch.stack(rewards).mean()
+        if out.fdm_barriers is None:
+            return states, mean
+        return states, mean, out.fdm_barriers
 
     captured = graphs.capture(rollout)
 
     def call(states):
-        states, mean = captured(states)
+        states, mean, *barriers = captured(states)
         profiling.count_tensor("fdm.iterations", states.fdm_iterations)
+        for t in barriers:
+            profiling.count_tensor("fdm.barriers", t)
         profiling.count("env.steps", states.fdm_iterations.shape[0])
         return states, mean
 
-    call.eager = captured.eager
+    call.eager = lambda states: captured.eager(states)[:2]
     call.programs = captured.programs
     return call
 

@@ -15,6 +15,12 @@
 //                        threshold; K3 (E = 1..4, kBlock): _fdm_kernel_block
 //                        (:416), the stack layout with per-env freezing.
 //                        Then the same convection epilogue.
+//   fdm_cheby_cluster_body, fdm_jacobi_cluster_body<RULE> <- the same
+//                        semantics (K1/K4 at E = 1; K2, K3 at E = 1) on a
+//                        plan above one block's shared memory: one
+//                        thread-block cluster per env, the iterate pair in
+//                        global memory (see "Plans above one block's shared
+//                        memory" below).
 // The decision word of the swap rounds is the mix32 hash of the env's key,
 // made in the kernel, or, when the wrapper passes a (B, H, W) word plane
 // (the threefry words), read from that plane (_kernel_conv_word, :192).
@@ -185,6 +191,52 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src,
                : "memory");
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
   asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// Thread block clusters: a CTA's rank in its cluster; the cluster barrier,
+// whose release/acquire orders every memory access before it (global
+// memory included) against every access after it, in all the cluster's
+// CTAs; a store into another CTA's shared memory (distributed shared
+// memory).
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_store(float* local, unsigned rank, float v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"(smem_addr(local)), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(remote), "f"(v) : "memory");
+}
+
+// Launches `kernel` on `grid` CTAs in clusters of `cluster`; returns a CUDA
+// error code.
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kernel)(Params...), int grid, int cluster, int threads,
+                   size_t smem, cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err ? (int)err : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -450,6 +502,34 @@ __device__ __forceinline__ Run make_run(const Cursor& q, const RunGrid& g) {
 // (FULL: kRun cells) needs no guards.
 enum Pass { kFirst, kCheby, kFinal, kJacobi };
 
+// One cell's update in pass PASS, shared by the block and the cluster
+// bodies: the Jacobi value jx from the cell's neighbours (xr, xl, xb, xt)
+// and its stencil k, const cn and denom dn (the tinf pin where `edge` and
+// the cell is exterior), then for kCheby the recombination with x_prev
+// (xp), pinned likewise. Folds |jx - x| (x the cell's iterate) into m
+// where the pass samples. Returns the value the pass writes.
+template <int PASS>
+__device__ __forceinline__ float cell_update(float4 k, float xr, float xl, float xb, float xt,
+                                             float cn, float dn, float tinf, bool pin,
+                                             bool edge, float x, float xp, float omega_next,
+                                             bool sample, float& m) {
+  float num = k.x * xr;
+  num = num + k.y * xl;
+  num = num + k.z * xb;
+  num = num + k.w * xt;
+  num = num + cn;
+  const float v = num / dn;
+  const float jx = edge && pin ? tinf : v;
+  if (PASS == kCheby) {
+    float nx = omega_next * (jx - xp) + xp;
+    if (pin) nx = tinf;
+    if (sample) m = nan_max(m, fabsf(jx - x));
+    return nx;
+  }
+  if (PASS == kFirst || PASS == kJacobi) m = nan_max(m, fabsf(jx - x));
+  return jx;
+}
+
 template <int E, bool STAGED, int PASS, bool FULL>
 __device__ __forceinline__ void run_pass(const Run& u, uint32_t ext,
                                          const Planes& p, const RunGrid& g,
@@ -490,25 +570,10 @@ __device__ __forceinline__ void run_pass(const Run& u, uint32_t ext,
       const float xb = i + 1 < n ? xv[i + 1 < kRun ? i + 1 : i] : bottom;
       const float cn = STAGED ? env[2 * P + c] : __ldg(cn_g[e] + c);
       const float dn = STAGED ? env[3 * P + c] : __ldg(dn_g[e] + c);
-      float num = k[i].x * xr;
-      num = num + k[i].y * xl;
-      num = num + k[i].z * xb;
-      num = num + k[i].w * xt;
-      num = num + cn;
-      const float v = num / dn;
-      const bool pin = (ext >> i) & 1u;
-      const float jx = edge && pin ? tinf[e] : v;
-      if (PASS == kCheby) {
-        const float xp = dst[c];
-        float nx = omega_next * (jx - xp) + xp;
-        if (pin) nx = tinf[e];
-        if (sample) m[e] = nan_max(m[e], fabsf(jx - xv[i]));
-        // x_next overwrites x_prev in place: cell c reads only x_prev[c].
-        dst[c] = nx;
-      } else {
-        if (PASS == kFirst || PASS == kJacobi) m[e] = nan_max(m[e], fabsf(jx - xv[i]));
-        dst[c] = jx;
-      }
+      // kCheby: x_next overwrites x_prev in place; cell c reads only x_prev[c].
+      const float xp = PASS == kCheby ? dst[c] : 0.0f;
+      dst[c] = cell_update<PASS>(k[i], xr, xl, xb, xt, cn, dn, tinf[e], (ext >> i) & 1u, edge,
+                                 xv[i], xp, omega_next, sample, m[e]);
     }
   }
 }
@@ -933,6 +998,407 @@ __global__ void __launch_bounds__(BodyShape<E, STAGED>::kThreads,
 }
 
 // ---------------------------------------------------------------------------
+// Plans above one block's shared memory: one thread-block cluster per env
+// ---------------------------------------------------------------------------
+//
+// Where not even one env's two planes, exterior bits and decision bytes fit
+// one block's shared memory (run_geometry refuses E = 1: near 24,800
+// cells), an env is solved by one cluster of up to kClusterMax CTAs, the
+// portable cluster size, each owning a band of consecutive row blocks (the
+// runs of the bodies above, numbered and stepped the same way within the
+// band). The iterate pair lives in global memory: the output plane and a
+// scratch plane; const, denom and the shared stencil are read where they
+// lie, and the exterior bits of a run from the (H, W) plane. Every pass
+// that reads cells another CTA wrote in the pass before it is separated
+// from that pass by one cluster barrier: each Jacobi iteration, each
+// Chebyshev sub-iteration, the emitted J(x_f), and the swap rounds (their
+// decision bytes go to a global byte plane per env, then one barrier per
+// round). The iterate is read through L2 (ld.global.cg), never from a
+// CTA's L1. A sampled residual max is reduced in the block (one barrier),
+// then across the cluster through distributed shared memory: warp 0 stores
+// the block's max into slot [parity][rank] of every CTA, and after the
+// cluster barrier every thread folds the slots, so the cluster barrier
+// that orders the sweeps also carries the reduction. A CTA writes a
+// parity's slots again only after the next cluster barrier, which every
+// CTA passes only once it has read them. The solve's loop stays on the
+// device, so a step on this path is captured like the others.
+//
+// Numerics: each cell update, recombination and swap is the block bodies'
+// sequence of float32 operations, and the residual max is order-free, so
+// the field, counts and flags equal the plain versions bitwise (both
+// stopping rules of the Jacobi body, the Chebyshev chunks, the NaN rule).
+// The statistics are left to the caller (the gridstats fold).
+//
+// Bound: per sweep an env reads its iterate (with its neighbours), const,
+// denom and the 16-byte stencil of each cell, and writes the next iterate,
+// about 36 B a cell (the Chebyshev recombination 4 more), from L2 where
+// the in-flight envs' planes fit and from device memory where they do not;
+// at 466 x 721 (335,986 cells) 16 envs are in flight, one cluster of 8 per
+// 8 SMs, their planes ~86 MB against the 50 MB L2. Each env also writes
+// its barrier count (`barriers`, read as the counter fdm.barriers).
+
+constexpr int kClusterMax = 8;        // CTAs per env: the portable cluster size
+constexpr int kClusterThreads = 1024;  // threads per CTA (at most)
+
+// What a cluster body adds to the planes: the second iterate plane, the
+// decision byte plane, the per-env barrier counts, and the geometry.
+struct ClusterArgs {
+  float* scratch;     // (B, H, W)
+  uint8_t* dec;       // (B, H, W)
+  int32_t* barriers;  // (B,)
+  int cluster;        // CTAs per env
+  int band_blocks;    // row blocks a CTA owns (the last may own fewer)
+};
+
+__device__ __forceinline__ Cursor band_first_run(const RunGrid& g, int rb0) {
+  Cursor q = first_run(g);
+  q.yb += rb0;
+  return q;
+}
+
+// One run of a cluster body's pass: as run_pass for one env, with the
+// iterate x (and Chebyshev's x_prev, xp) read from global memory through
+// L2 and the result written to dst (kCheby: xp and dst are one plane after
+// the first sub-iteration; the first reads x_prev from temp). The run's
+// results are stored after all its loads: a load the compiler cannot prove
+// apart from an earlier store waits for it, which would make every cell an
+// L2 round trip of its own.
+template <int PASS, bool FULL>
+__device__ __forceinline__ void cluster_run(const Run& u, const Planes& p, const RunGrid& g,
+                                            const float* x, const float* xp, float* dst,
+                                            const float* cn, const float* dn, float tinf,
+                                            float omega_next, bool sample, float& m) {
+  const int n = FULL ? kRun : u.n;
+  const int W = g.W;
+  const bool edge = g.edge_fill != 0;
+  float xv[kRun];
+  uint32_t ext = 0;
+#pragma unroll
+  for (int i = 0; i < kRun; ++i) {
+    xv[i] = i < n ? __ldcg(x + u.c0 + i * W) : 0.0f;
+    if (i < n && __ldg(p.ext + u.c0 + i * W) > 0.0f) ext |= 1u << i;
+  }
+  const float top = u.fu ? tinf : __ldcg(x + u.iu);
+  const float bottom = u.fd ? tinf : __ldcg(x + u.id);
+  float res[kRun];
+#pragma unroll
+  for (int i = 0; i < kRun; ++i) {
+    res[i] = 0.0f;
+    if (i >= n) continue;
+    const int c = u.c0 + i * W;
+    const float4 k = __ldg(p.coef + c);
+    const float xl = u.fl ? tinf : __ldcg(x + c + u.dl);
+    const float xr = u.fr ? tinf : __ldcg(x + c + u.dr);
+    const float xt = i == 0 ? top : xv[i > 0 ? i - 1 : 0];
+    const float xb = i + 1 < n ? xv[i + 1 < kRun ? i + 1 : i] : bottom;
+    const float xpv = PASS == kCheby ? __ldcg(xp + c) : 0.0f;
+    res[i] = cell_update<PASS>(k, xr, xl, xb, xt, __ldg(cn + c), __ldg(dn + c), tinf,
+                               (ext >> i) & 1u, edge, xv[i], xpv, omega_next, sample, m);
+  }
+#pragma unroll
+  for (int i = 0; i < kRun; ++i) {
+    if (i < n) dst[u.c0 + i * W] = res[i];
+  }
+}
+
+// One pass of a cluster body over the CTA's band (runs of it from row
+// block rb0).
+template <int PASS>
+__device__ __forceinline__ void cluster_sweep(const Planes& p, const RunGrid& g, int rb0,
+                                              int runs, const float* x, const float* xp,
+                                              float* dst, const float* cn, const float* dn,
+                                              float tinf, float omega_next, bool sample,
+                                              float& m) {
+  for (Cursor q = band_first_run(g, rb0); q.r < runs; next_run(q, g)) {
+    const Run u = make_run(q, g);
+    if (u.n == kRun) {
+      cluster_run<PASS, true>(u, p, g, x, xp, dst, cn, dn, tinf, omega_next, sample, m);
+    } else {
+      cluster_run<PASS, false>(u, p, g, x, xp, dst, cn, dn, tinf, omega_next, sample, m);
+    }
+  }
+}
+
+// The cluster-wide max of every thread's m (see the note above); the
+// cluster barrier it takes also orders the sweep before it. `warps` holds
+// the block's per-warp maxima, `slots` the cluster's [2][kClusterMax].
+__device__ float cluster_max(float m, float* warps, float* slots, int& parity, int rank,
+                             int cluster) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = (blockDim.x + 31) >> 5;
+  const float v = warp_max(m);
+  if (lane == 0) warps[warp] = v;
+  __syncthreads();
+  float* mine = slots + parity * kClusterMax;
+  if (warp == 0) {
+    const float w = warp_max(lane < n_warps ? warps[lane] : 0.0f);
+    if (lane < cluster) cluster_store(mine + rank, (unsigned)lane, w);
+  }
+  cluster_sync();
+  float r = 0.0f;
+  for (int k = 0; k < cluster; ++k) r = nan_max(r, mine[k]);
+  parity ^= 1;
+  return r;
+}
+
+// The swap rounds of a cluster body on the CTA's band: as swap_runs, the
+// decision bytes of each group of up to 8 rounds into the env's byte plane
+// `dec`, then the rounds from src into the other of the two slots, a
+// cluster barrier after the bytes and after each round (`n_bar` counts
+// them). A round reads both partners of a run's cells before it selects
+// and stores (see cluster_run). Returns the plane that holds the result.
+__device__ const float* cluster_swaps(const float* src, float* s0, float* s1, uint8_t* dec,
+                                      const Planes& p, const ConvArgs& cv, const RunGrid& g,
+                                      int rb0, int runs, uint32_t k0, uint32_t k1,
+                                      const uint32_t* wrd, int& n_bar) {
+  const int H = g.H, W = g.W;
+  const int lanes = 32 / cv.lane_bits;
+  const uint32_t lane_mask = (1u << cv.lane_bits) - 1u;
+  int plane0 = 0, lane0 = 0;  // the (plane, lane) of the group's first round
+  for (int g0 = 0; g0 < cv.n_rounds; g0 += 8) {
+    const int ng = min(8, cv.n_rounds - g0);
+    for (Cursor q = band_first_run(g, rb0); q.r < runs; next_run(q, g)) {
+      const int y0 = q.yb * kRun;
+      const int n = min(kRun, H - y0);
+      for (int i = 0; i < n; ++i) {
+        const uint32_t c = (uint32_t)((y0 + i) * W + q.x);
+        uint32_t bits = 0;
+        if (wrd != nullptr) {
+          bits = (__ldg(wrd + c) >> g0) & 0xffu;
+        } else {
+          int pl = plane0, ln = lane0;
+          uint32_t h = fmix32(fmix32((c + (uint32_t)pl * (uint32_t)g.hw) ^ k0) ^ k1);
+          for (int jr = 0; jr < ng; ++jr) {
+            if (((h >> (cv.lane_bits * ln)) & lane_mask) < (uint32_t)cv.q) {
+              bits |= 1u << jr;
+            }
+            if (++ln == lanes && jr + 1 < ng) {
+              ln = 0;
+              ++pl;
+              h = fmix32(fmix32((c + (uint32_t)pl * (uint32_t)g.hw) ^ k0) ^ k1);
+            }
+          }
+        }
+        dec[c] = (uint8_t)bits;
+      }
+    }
+    cluster_sync();
+    ++n_bar;
+    for (int jr = 0; jr < ng; ++jr) {
+      const int r = g0 + jr;
+      const uint32_t bit = 1u << r;
+      const int dy = cv.dy[r], dx = cv.dx[r];
+      float* dst = src == s0 ? s1 : s0;
+      for (Cursor q = band_first_run(g, rb0); q.r < runs; next_run(q, g)) {
+        const int y0 = q.yb * kRun;
+        const int n = min(kRun, H - y0);
+        int xf = q.x + dx;  // the follower's column of a lead here
+        if (xf >= W) xf -= W;
+        int xl = q.x - dx;  // the lead's column of a follower here
+        if (xl < 0) xl += W;
+        int yf = y0 + dy;  // the follower's row of the run's first cell
+        if (yf >= H) yf -= H;
+        int yl = y0 - dy;  // the lead's row of a follower there
+        if (yl < 0) yl += H;
+        float v[kRun];
+#pragma unroll
+        for (int i = 0; i < kRun; ++i) {
+          v[i] = 0.0f;
+          if (i >= n) continue;
+          const int c = (y0 + i) * W + q.x;
+          const int lead_cell = yl * W + xl;
+          const float own = __ldcg(src + c);
+          const float follower = __ldcg(src + yf * W + xf);
+          const float lead = __ldcg(src + lead_cell);
+          const uint32_t own_dec = __ldcg(dec + c), lead_dec = __ldcg(dec + lead_cell);
+          float r = own;
+          if ((__ldg(p.lead + c) & bit) && ((own_dec >> jr) & 1u)) r = follower;
+          if ((__ldg(p.foll + c) & bit) && ((lead_dec >> jr) & 1u)) r = lead;
+          v[i] = r;
+          if (++yf == H) yf = 0;
+          if (++yl == H) yl = 0;
+        }
+#pragma unroll
+        for (int i = 0; i < kRun; ++i) {
+          if (i < n) dst[(y0 + i) * W + q.x] = v[i];
+        }
+      }
+      cluster_sync();
+      ++n_bar;
+      src = dst;
+    }
+    lane0 += 8;
+    while (lane0 >= lanes) {
+      lane0 -= lanes;
+      ++plane0;
+    }
+  }
+  return src;
+}
+
+// The epilogue of a cluster body: the swap rounds, then each thread copies
+// its own cells of the result into the output plane (s0) where the result
+// lies elsewhere (it wrote those cells itself, so no barrier is needed);
+// rank 0 writes the env's count, flag and barriers.
+__device__ void cluster_finish(const Planes& p, const ConvArgs& cv, const RunGrid& g,
+                               const ClusterArgs& ca, int rank, int b, int rb0, int runs,
+                               const float* field, float* s0, float* s1, int iters, bool conv,
+                               int n_bar) {
+  const size_t off = (size_t)b * g.hw;
+  const float* result = field;
+  if (cv.n_rounds > 0) {
+    uint32_t k0 = 0, k1 = 0;
+    const uint32_t* wrd = nullptr;
+    if (p.words != nullptr) {
+      wrd = p.words + off;
+    } else {
+      k0 = (uint32_t)p.keys[2 * b];
+      k1 = (uint32_t)p.keys[2 * b + 1];
+    }
+    result = cluster_swaps(field, s0, s1, ca.dec + off, p, cv, g, rb0, runs, k0, k1, wrd,
+                           n_bar);
+  }
+  if (result != s0) {
+    for (Cursor q = band_first_run(g, rb0); q.r < runs; next_run(q, g)) {
+      const int y0 = q.yb * kRun;
+      const int n = min(kRun, g.H - y0);
+      float v[kRun];
+#pragma unroll
+      for (int i = 0; i < kRun; ++i) v[i] = i < n ? __ldcg(result + (y0 + i) * g.W + q.x) : 0.0f;
+#pragma unroll
+      for (int i = 0; i < kRun; ++i) {
+        if (i < n) s0[(y0 + i) * g.W + q.x] = v[i];
+      }
+    }
+  }
+  if (rank == 0 && threadIdx.x == 0) {
+    p.iters[b] = iters;
+    p.converged[b] = conv ? 1 : 0;
+    ca.barriers[b] = n_bar;
+  }
+}
+
+// The band of a cluster body's CTA: its rank, env, first row block and
+// runs; the dynamic shared memory holds warps[32] and slots[2][kClusterMax].
+struct Band {
+  int rank, b, rb0, runs;
+};
+
+__device__ __forceinline__ Band cluster_band(const RunGrid& g, const ClusterArgs& ca) {
+  Band s;
+  s.rank = (int)cluster_rank();
+  s.b = blockIdx.x / ca.cluster;
+  s.rb0 = s.rank * ca.band_blocks;
+  s.runs = max(0, min(ca.band_blocks, g.row_blocks - s.rb0)) * g.W;
+  return s;
+}
+
+// K1's and K4's semantics (one env) on a cluster: x1 = J(x0), then chunks
+// of `check_every` sub-iterations, the residual of each chunk's last one
+// deciding the stop, then J(x_f), the swap rounds and the output. The
+// first sub-iteration reads x_prev from temp and writes slot 0; after it
+// x_next overwrites x_prev in place, as in the block body.
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    fdm_cheby_cluster_body(Planes p, ConvArgs cv, RunGrid g, ClusterArgs ca,
+                           float threshold, int limit, float rho2, float omega0,
+                           int check_every) {
+  FDM_DYNAMIC_SMEM(smem);
+  float* warps = smem;
+  float* slots = smem + 32;
+  const Band s = cluster_band(g, ca);
+  const size_t off = (size_t)s.b * g.hw;
+  const float* temp = p.temp + off;
+  const float* cn = p.cnst + off;
+  const float* dn = p.denom + off;
+  float* s0 = p.out + off;
+  float* s1 = ca.scratch + off;
+  const float tinf = p.tinf[s.b];
+  int n_bar = 0, parity = 0;
+  float m = 0.0f;
+  cluster_sweep<kFirst>(p, g, s.rb0, s.runs, temp, nullptr, s1, cn, dn, tinf, 0.0f, true, m);
+  m = cluster_max(m, warps, slots, parity, s.rank, ca.cluster);
+  ++n_bar;
+  bool done = m <= threshold;
+  int it = 1, iters = 1;
+  float omega = omega0;
+  const float* x = s1;
+  const float* xp = temp;
+  while (it < limit && !done) {
+    for (int kk = 0; kk < check_every; ++kk) {
+      const float omega_next = 1.0f / (1.0f - rho2 * omega / 4.0f);
+      const bool sample = kk == check_every - 1;
+      float* dst = xp == s1 ? s1 : s0;
+      m = 0.0f;
+      cluster_sweep<kCheby>(p, g, s.rb0, s.runs, x, xp, dst, cn, dn, tinf, omega_next, sample,
+                            m);
+      if (sample) {
+        m = cluster_max(m, warps, slots, parity, s.rank, ca.cluster);
+      } else {
+        cluster_sync();
+      }
+      ++n_bar;
+      xp = x;
+      x = dst;
+      ++it;
+      omega = omega_next;
+    }
+    iters = it;
+    if (m <= threshold) done = true;
+  }
+  // Emit J(x_final) into x_prev's slot.
+  float* field = xp == s1 ? s1 : s0;
+  cluster_sweep<kFinal>(p, g, s.rb0, s.runs, x, nullptr, field, cn, dn, tinf, 0.0f, false, m);
+  cluster_sync();
+  ++n_bar;
+  cluster_finish(p, cv, g, ca, s.rank, s.b, s.rb0, s.runs, field, s0, s1, iters, done, n_bar);
+}
+
+// K2's (kSolo) and K3's (kBlock) semantics (one env) on a cluster: Jacobi
+// from temp, alternating between the two slots, one cluster max per
+// iteration; then the swap rounds and the output.
+template <int RULE>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    fdm_jacobi_cluster_body(Planes p, ConvArgs cv, RunGrid g, ClusterArgs ca,
+                            float threshold, int limit) {
+  FDM_DYNAMIC_SMEM(smem);
+  float* warps = smem;
+  float* slots = smem + 32;
+  const Band s = cluster_band(g, ca);
+  const size_t off = (size_t)s.b * g.hw;
+  const float* temp = p.temp + off;
+  const float* cn = p.cnst + off;
+  const float* dn = p.denom + off;
+  float* s0 = p.out + off;
+  float* s1 = ca.scratch + off;
+  const float tinf = p.tinf[s.b];
+  int n_bar = 0, parity = 0;
+  float delta = threshold + 1.0f;  // kSolo: the last residual max
+  bool active = RULE == kBlock || delta > threshold;
+  bool conv = false;
+  int iters = 0;
+  const float* x = temp;
+  for (int it = 0; it < limit && active; ++it) {
+    float* dst = x == s1 ? s0 : s1;
+    float m = 0.0f;
+    cluster_sweep<kJacobi>(p, g, s.rb0, s.runs, x, nullptr, dst, cn, dn, tinf, 0.0f, true, m);
+    m = cluster_max(m, warps, slots, parity, s.rank, ca.cluster);
+    ++n_bar;
+    x = dst;
+    iters = it + 1;
+    if (RULE == kSolo) {
+      delta = m;
+      if (!(delta > threshold)) active = false;
+    } else if (m <= threshold) {
+      conv = true;
+      active = false;
+    }
+  }
+  if (RULE == kSolo) conv = delta <= threshold;
+  cluster_finish(p, cv, g, ca, s.rank, s.b, s.rb0, s.runs, x, s0, s1, iters, conv, n_bar);
+}
+
+// ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
 
@@ -1178,6 +1644,70 @@ int jacobi_launch(Planes p, ConvArgs cv, StatArgs st, int E, int rule,
                                  B, stream);
 }
 
+// Launch geometry of the cluster bodies (mirrored by physics/fdm_cuda.py
+// cluster_geometry): as many CTAs per env as row blocks, at most
+// kClusterMax, each owning an even share of them; the threads spread a
+// band's runs evenly over as few passes (slots) as kClusterThreads allow.
+// Refuses a grid whose cells overflow a 32-bit index.
+struct ClusterGeometry {
+  int cluster, band_blocks, threads, slots;
+  size_t smem;
+  RunGrid grid;
+};
+
+int cluster_geometry(int H, int W, int edge_fill, ClusterGeometry* out) {
+  if (H < 1 || W < 1 || (long long)H * W > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  RunGrid g;
+  g.H = H;
+  g.W = W;
+  g.hw = H * W;
+  g.plane = 0;  // the planes are in global memory
+  g.row_blocks = (H + kRun - 1) / kRun;
+  g.edge_fill = edge_fill;
+  ClusterGeometry geo;
+  geo.cluster = min(kClusterMax, g.row_blocks);
+  geo.band_blocks = (g.row_blocks + geo.cluster - 1) / geo.cluster;
+  geo.cluster = (g.row_blocks + geo.band_blocks - 1) / geo.band_blocks;
+  g.n_runs = geo.band_blocks * W;  // a band's most runs
+  geo.slots = (g.n_runs + kClusterThreads - 1) / kClusterThreads;
+  const int per_slot = (g.n_runs + geo.slots - 1) / geo.slots;
+  geo.threads = (per_slot + 31) / 32 * 32;
+  g.step_b = geo.threads / W;
+  g.step_x = geo.threads % W;
+  geo.smem = sizeof(float) * (32 + 2 * kClusterMax);
+  geo.grid = g;
+  *out = geo;
+  return 0;
+}
+
+// The cluster bodies' launch: K1/K4 (cheby) or K2/K3 (rule) on a cluster
+// per env.
+int cluster_launch(bool cheby, int rule, Planes p, ConvArgs cv, ClusterArgs ca,
+                   float threshold, int limit, float rho2, float omega0, int check_every,
+                   int B, cudaStream_t stream) {
+  ClusterGeometry geo;
+  int err = cluster_geometry(p.H, p.W, p.edge_fill, &geo);
+  if (err) return err;
+  if (B < 1 || (long long)B * geo.cluster > 0x7fffffffLL || check_every < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  normalise_offsets(cv, p.H, p.W);
+  ca.cluster = geo.cluster;
+  ca.band_blocks = geo.band_blocks;
+  const int grid = B * geo.cluster;
+  if (cheby) {
+    return launch_cluster(fdm_cheby_cluster_body, grid, geo.cluster, geo.threads, geo.smem,
+                          stream, p, cv, geo.grid, ca, threshold, limit, rho2, omega0,
+                          check_every);
+  }
+  if (rule == kSolo) {
+    return launch_cluster(fdm_jacobi_cluster_body<kSolo>, grid, geo.cluster, geo.threads,
+                          geo.smem, stream, p, cv, geo.grid, ca, threshold, limit);
+  }
+  return launch_cluster(fdm_jacobi_cluster_body<kBlock>, grid, geo.cluster, geo.threads,
+                        geo.smem, stream, p, cv, geo.grid, ca, threshold, limit);
+}
+
 int export_geometry(int E, int H, int W, int* out) {
   Geometry geo;
   int err = run_geometry(E, H, W, 0, &geo);
@@ -1276,6 +1806,50 @@ int fdm_cheby_block_launch(FDM_PLANE_PARAMS, int block_envs, float threshold, in
   FDM_PREPARE_ARGS;
   return cheby_launch(p, cv, st, block_envs, threshold, limit, rho2, omega0, check_every,
                       B, (cudaStream_t)stream);
+}
+
+// The cluster launch geometry on an H x W grid into out[8]: cluster,
+// band_blocks, threads, slots, shared bytes, row blocks, step_b, step_x.
+int fdm_cluster_geometry(int H, int W, int* out) {
+  ClusterGeometry geo;
+  int err = cluster_geometry(H, W, 0, &geo);
+  if (err) return err;
+  const int v[8] = {geo.cluster, geo.band_blocks, geo.threads, geo.slots, (int)geo.smem,
+                    geo.grid.row_blocks, geo.grid.step_b, geo.grid.step_x};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
+}
+
+// The cluster bodies, one cluster per env, for a plan above one block's
+// shared memory (any plan whose cells a 32-bit index holds): the planes as
+// for K1/K2, the solver's arguments, then `scratch` (B, H, W) float, `dec`
+// (B, H, W) bytes and `barriers` (B,) int32 (each env's cluster barriers),
+// then the convection's arguments. No statistics. `rule` picks the Jacobi
+// stopping rule: 0 K2's (solo), 1 K3's (block).
+#define FDM_CLUSTER_PARAMS                                                       \
+  float *scratch, uint8_t *dec, int32_t *barriers, const int *offsets, int n_rounds, \
+      int lane_bits, int q, void *stream
+#define FDM_CLUSTER_PREPARE                                                      \
+  Planes p = make_planes(temp, cnst, denom, tinf, coef, ext, lead, foll, keys,   \
+                         words, out, iters, converged, H, W, edge_fill);         \
+  int err = check_args(p, n_rounds, 0, 0, 0);                                    \
+  if (err) return err;                                                           \
+  ConvArgs cv = make_conv_args(offsets, n_rounds, lane_bits, q);                 \
+  ClusterArgs ca = {scratch, dec, barriers, 0, 0}
+
+int fdm_cheby_cluster_launch(FDM_PLANE_PARAMS, float threshold, int limit, float rho2,
+                             float omega0, int check_every, FDM_CLUSTER_PARAMS) {
+  FDM_CLUSTER_PREPARE;
+  return cluster_launch(true, kSolo, p, cv, ca, threshold, limit, rho2, omega0, check_every,
+                        B, (cudaStream_t)stream);
+}
+
+int fdm_jacobi_cluster_launch(FDM_PLANE_PARAMS, int rule, float threshold, int limit,
+                              FDM_CLUSTER_PARAMS) {
+  FDM_CLUSTER_PREPARE;
+  if (rule != kSolo && rule != kBlock) return (int)cudaErrorInvalidValue;
+  return cluster_launch(false, rule, p, cv, ca, threshold, limit, 0.0f, 0.0f, 1, B,
+                        (cudaStream_t)stream);
 }
 
 }  // extern "C"

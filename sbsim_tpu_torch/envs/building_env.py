@@ -93,6 +93,9 @@ class StepOutput:
     reward: torch.Tensor  # f32 (B,)
     done: torch.Tensor  # bool (B,)
     reward_breakdown: reward_lib.RewardBreakdown
+    # i32 (B,): each env's cluster barriers in the step's FDM solve, where
+    # the kernels ran it on a plan that spans thread blocks; else None.
+    fdm_barriers: Optional[torch.Tensor] = None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -186,6 +189,9 @@ class BuildingEnv:
         self.reward_params = reward_lib.make_reward_params(config.reward, device=dev)
         self.zone_stats = gridstats.make_zone_stat_layout(self.geom)
         self._stats = gridstats.ZoneStats(self.zone_stats, dev)
+        # A plan above one thread block's shared memory: the kernels' routes
+        # run the cluster bodies, which leave the statistics to the fold.
+        self._spans_blocks = fdm_cuda.spans_blocks(self.geom.shape)
         self.obs_layout = obs_lib.build_obs_layout(
             self.geom.zone_names,
             config.observation_normalization,
@@ -442,7 +448,8 @@ class BuildingEnv:
         (building_env.py:421-447): swap convection fuses into the kernels;
         statistics come from the kernel when it holds the final field
         (convection fused or off), the zones fit, and the kernel is not
-        the interleaved K1."""
+        the interleaved K1 nor a cluster body (a plan that spans thread
+        blocks: fdm_cuda.spans_blocks)."""
         conv = self.convection
         fuse_conv = (
             solver in ("pallas_env", "pallas_cheby")
@@ -457,6 +464,7 @@ class BuildingEnv:
         kernel_stats = (
             solver.startswith("pallas")
             and not interleaved
+            and not self._spans_blocks
             and (fuse_conv or not conv.enabled)
             and self.geom.n_zones
             <= min(fdm_cuda.MAX_STAT_ZONES, self.config.kernel_stats_max_zones)
@@ -512,10 +520,14 @@ class BuildingEnv:
             )
             conv = self.convection
             fuse_conv, kernel_stats = self.kernel_path(solver)
+            barriers = None
             with profiling.span("sbsim.env.fdm"):
                 if solver.startswith("pallas"):
+                    if self._spans_blocks and self.device.type == "cuda":
+                        barriers = torch.empty(states.temp.shape[0], dtype=torch.int32,
+                                               device=self.device)
                     result = self._solve_cuda(states, pre, conv_keys, solver, fuse_conv,
-                                              kernel_stats)
+                                              kernel_stats, barriers)
                     new_temp, n_iter, converged = result[:3]
                 else:
                     new_temp, converged, n_iter = self._solve_fdm(
@@ -536,13 +548,18 @@ class BuildingEnv:
                 else:
                     new_zm, new_gm = self._grid_stats(new_temp)
             with profiling.span("sbsim.env.post"):
-                return self._step_post(
+                new_state, out = self._step_post(
                     states, pre, new_temp, converged, n_iter, new_zm, new_gm
                 )
+            if barriers is not None:
+                out = dataclasses.replace(out, fdm_barriers=barriers)
+            return new_state, out
 
-    def _solve_cuda(self, states, pre, conv_keys, solver, fuse_conv, kernel_stats):
+    def _solve_cuda(self, states, pre, conv_keys, solver, fuse_conv, kernel_stats,
+                    barriers=None):
         """The FDM solve of `step_batched` through the CUDA kernels (the
-        "pallas_*" names): fdm_cuda.fdm_step_cuda's result."""
+        "pallas_*" names): fdm_cuda.fdm_step_cuda's result; `barriers`
+        receives the cluster bodies' barrier counts."""
         conv = self.convection
         kwargs = dict(
             convergence_threshold=self.config.convergence_threshold,
@@ -574,6 +591,8 @@ class BuildingEnv:
                 ))
         if kernel_stats:
             kwargs.update(stat_layout=self._stats)
+        if barriers is not None:
+            kwargs.update(barriers=barriers)
         return fdm_cuda.fdm_step_cuda(
             states.temp,
             states.input_q,

@@ -20,7 +20,15 @@ two device bodies in csrc/fdm_kernels.cu:
              block. E is clamped (effective_block_envs) to each body's
              measured best.
 
-Every kernel keeps its envs' iterate and partner plane in shared memory for
+On a plan above one thread block's shared memory (run_geometry refuses one
+env per block: near 24,800 cells) each wrapper launches, in place of its
+kernel, a cluster body with the same semantics, one thread-block cluster
+per env with the iterate pair in global memory: fdm_cheby_cluster for K1
+and K4, fdm_jacobi_cluster for K2 and K3 (each with its stopping rule).
+The plan's size alone picks it (spans_blocks); a plan whose cells overflow
+a 32-bit index, or whose launch the card cannot hold, is refused.
+
+Every block kernel keeps its envs' iterate and partner plane in shared memory for
 the whole solve, and stages const and denom there where they fit, so a
 step reads temp/const/denom once and writes the field once (the bound is
 in the note at the top of the source). Both bodies share one launch
@@ -33,11 +41,11 @@ The swap rounds take their decision words from the mix32 hash of the raw
 per-env key, made in the kernel, or from a precomputed (B, H, W) word plane
 (the threefry words), as _kernel_conv_word (fdm_pallas.py:192) does.
 
-With a zone-statistics layout every kernel also emits the zone and grid
+With a zone-statistics layout every block kernel also emits the zone and grid
 sums of the final field from shared memory (the epilogue that replaces
 _kernel_grid_stats, fdm_pallas.py:137, and _block_write_stats, :404), in
 the fold order of physics/gridstats.py, so the sums equal the fold's
-bitwise.
+bitwise; on the cluster path the wrapper folds the output with that fold.
 
 Beside each kernel is its plain PyTorch version (fdm_cheby_plain,
 fdm_jacobi_plain, fdm_cheby_block_plain, fdm_jacobi_block_plain) on the
@@ -74,6 +82,15 @@ from sbsim_tpu_torch.utils import profiling
 # keeps their limit (fdm_pallas.py:944-949).
 MAX_STAT_ZONES = 128
 SMEM_PER_BLOCK = 232448
+# The cluster bodies (kClusterMax, kClusterThreads): CTAs per env at most,
+# the portable cluster size, and threads per CTA at most.
+CLUSTER_MAX = 8
+CLUSTER_THREADS = 1024
+# Cells a plane may hold: the kernels index a cell in 32 bits.
+MAX_CELLS = 2**31 - 1
+# The memory of the card the host build of the kernels rehearses (an H100
+# 80GB), against which it refuses a launch; on the card, the card's own.
+CARD_BYTES = 80 * 10**9
 # Both bodies (csrc/fdm_kernels.cu): cells a thread owns per run down a
 # column, envs per block with their const/denom staged, and the shared
 # memory the launcher leaves for a body's static scratch (kRun, kMaxEnvs,
@@ -81,6 +98,8 @@ SMEM_PER_BLOCK = 232448
 RUN = 4
 MAX_ENVS = 4
 STATIC_SMEM = 2048
+# The shared memory a block may use for the planes of its envs.
+SMEM_BUDGET = SMEM_PER_BLOCK - STATIC_SMEM
 # The E that K4 runs for a larger request: the fastest of E = 1..4 on the
 # main paths' inputs at 12 zones B=2048 on an H100 (PERF.md: E = 1,
 # two blocks per SM of 448 threads; E = 2 3-5% slower, E = 3-4 25-30%).
@@ -102,7 +121,8 @@ NVCC_FLAGS = (
 # tracing registry's set-up counters `fdm.launches.<kernel>`, counted whether
 # tracing is on or off.
 launch_counts = profiling.family("fdm.launches", ("fdm_cheby", "fdm_jacobi", "fdm_cheby_block",
-                                                  "fdm_jacobi_block"))
+                                                  "fdm_jacobi_block", "fdm_cheby_cluster",
+                                                  "fdm_jacobi_cluster"))
 # nvcc's output of the build in this process (ptxas register/smem use).
 build_log = ""
 _lib = None
@@ -156,6 +176,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, f"fdm_{body}_geometry").restype = i32
     lib.fdm_blocks_per_sm.argtypes = [i32] * 4
     lib.fdm_blocks_per_sm.restype = i32
+    # scratch, dec, barriers, offsets, n_rounds, lane_bits, q, stream
+    cluster = [ptr] * 4 + [i32] * 3 + [ptr]
+    lib.fdm_cheby_cluster_launch.argtypes = planes + cheby + cluster
+    lib.fdm_jacobi_cluster_launch.argtypes = planes + [i32] + jacobi + cluster  # + rule
+    lib.fdm_cheby_cluster_launch.restype = lib.fdm_jacobi_cluster_launch.restype = i32
+    lib.fdm_cluster_geometry.argtypes = [i32, i32, ptr]
+    lib.fdm_cluster_geometry.restype = i32
     return lib
 
 
@@ -280,16 +307,16 @@ def _smem_bytes(shape: Tuple[int, int], block_envs: int, staged: bool) -> int:
     return block_envs * 2 * plane + ext + -(-(h * w) // 16) * 16
 
 
-def run_geometry(shape: Tuple[int, int], block_envs: int) -> Optional[RunGeometry]:
+def run_geometry(shape: Tuple[int, int], block_envs: int,
+                 budget: int = SMEM_BUDGET) -> Optional[RunGeometry]:
     """The launch for `block_envs` envs per block on an (H, W) grid, or
-    None where it does not fit in SMEM_PER_BLOCK - STATIC_SMEM bytes:
+    None where it does not fit in `budget` bytes (the card's, SMEM_BUDGET):
     staged for 1..MAX_ENVS envs where four planes each fit, else one env
     reading const/denom from global memory. Threads: at most 512 for
     staged blocks of 1-2 envs, else 1024, spread evenly over the fewest
     passes."""
     h, w = shape
     e = int(block_envs)
-    budget = SMEM_PER_BLOCK - STATIC_SMEM
     if 1 <= e <= MAX_ENVS and _smem_bytes(shape, e, True) <= budget:
         staged = True
     elif e == 1 and _smem_bytes(shape, 1, False) <= budget:
@@ -311,15 +338,62 @@ def run_geometry(shape: Tuple[int, int], block_envs: int) -> Optional[RunGeometr
 cheby_geometry = jacobi_geometry = run_geometry
 
 
-def _max_envs(shape: Tuple[int, int]) -> int:
+def _max_envs(shape: Tuple[int, int], budget: int = SMEM_BUDGET) -> int:
     """The most envs per block a body takes on this grid (0: none fit)."""
     e = MAX_ENVS
-    while e > 1 and run_geometry(shape, e) is None:
+    while e > 1 and run_geometry(shape, e, budget) is None:
         e -= 1
-    return e if run_geometry(shape, e) is not None else 0
+    return e if run_geometry(shape, e, budget) is not None else 0
 
 
 cheby_max_envs = jacobi_max_envs = _max_envs
+
+
+def spans_blocks(shape: Tuple[int, int], budget: int = SMEM_BUDGET) -> bool:
+    """Whether an env on this grid spans several thread blocks: not even
+    one env per block fits `budget` bytes of shared memory, so every
+    wrapper launches a cluster body."""
+    return run_geometry(shape, 1, budget) is None
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterGeometry:
+    """Launch geometry of the cluster bodies, mirroring cluster_geometry in
+    csrc/fdm_kernels.cu: `cluster` CTAs per env (at most CLUSTER_MAX, as
+    many as row blocks), each owning `band_blocks` consecutive row blocks
+    (the last may own fewer), the band's runs spread evenly over `slots`
+    passes of `threads` threads."""
+
+    cluster: int
+    band_blocks: int
+    threads: int
+    slots: int
+    smem: int  # dynamic shared memory bytes per CTA: warp maxima, cluster slots
+    row_blocks: int
+    step_b: int  # threads // W
+    step_x: int  # threads % W
+
+
+def cluster_geometry(shape: Tuple[int, int]) -> ClusterGeometry:
+    h, w = shape
+    row_blocks = -(-h // RUN)
+    cluster = min(CLUSTER_MAX, row_blocks)
+    band = -(-row_blocks // cluster)
+    cluster = -(-row_blocks // band)
+    runs = band * w
+    slots = -(-runs // CLUSTER_THREADS)
+    threads = -(-(-(-runs // slots)) // 32) * 32
+    return ClusterGeometry(cluster, band, threads, slots, 4 * (32 + 2 * CLUSTER_MAX),
+                           row_blocks, threads // w, threads % w)
+
+
+def cluster_bytes(batch: int, shape: Tuple[int, int]) -> int:
+    """Device memory a cluster launch works on: per env temp, const,
+    denom, the output and the scratch plane (float32), the decision bytes,
+    tinf, key, count, flag and barriers; the shared stencil (a_r, a_l, a_b,
+    a_t, the packed coef), exterior and lead/follower planes."""
+    cells = shape[0] * shape[1]
+    return batch * (cells * (5 * 4 + 1) + 4 + 8 + 4 + 4 + 4) + cells * (4 * 4 + 16 + 4 + 2 * 4)
 
 
 def run_neighbours(shape: Tuple[int, int], geo: RunGeometry, edge_fill: bool):
@@ -675,12 +749,6 @@ def _check_inputs(
         raise ValueError("per-env inputs must be (B, H, W) and tinf (B,)")
     if any(t.shape != (h, w) for t in shared) or inp.coef.shape != (h, w, 4):
         raise ValueError("shared stencil planes must be (H, W) and coef (H, W, 4)")
-    if run_geometry((h, w), 1) is None:  # not even the unstaged launch fits
-        budget = SMEM_PER_BLOCK - STATIC_SMEM
-        raise ValueError(
-            f"grid {h}x{w} does not fit one env per thread block: its two planes, "
-            f"exterior bits and decision bytes take {_smem_bytes((h, w), 1, False)} B of "
-            f"shared memory, more than the {budget} B a block may use")
     if conv is not None:
         if len(conv.offsets) > 32:
             raise ValueError("at most 32 convection rounds")
@@ -786,22 +854,35 @@ def blocks_per_sm(name: str, shape: Tuple[int, int], block_envs: int = 1,
 
 
 def _launch(name: str, inp: KernelInputs, conv, stats, solver_args, block_envs=None,
-            lib: Optional[ctypes.CDLL] = None):
+            lib: Optional[ctypes.CDLL] = None, budget: int = SMEM_BUDGET,
+            barriers: Optional[torch.Tensor] = None):
     """Checks the inputs, allocates the outputs and launches kernel `name`
     (K3/K4 with `block_envs` envs per thread block); raises on a refused
     launch. `solver_args` follow the planes (and E) in the C signature.
     The launch, its stream and the shared-memory setting of the kernel are
     made on the inputs' device, whichever device is current. `lib`, a host
     C++ build of the kernel source bound with `bind`, runs the same launch
-    on CPU tensors (tests/test_torch_kernel_host.py)."""
-    _, h, w = _check_inputs(inp, conv, stats, lib)
+    on CPU tensors (tests/test_torch_kernel_host.py). Where one env does not
+    fit `budget` bytes of a block's shared memory (the card's by default),
+    the cluster body of the kernel's semantics runs instead
+    (_launch_cluster), and `barriers`, a (B,) int32 tensor, receives each
+    env's cluster barriers (a block kernel leaves it as it is)."""
+    b, h, w = _check_inputs(inp, conv, stats, lib)
+    if barriers is not None and (barriers.shape != (b,) or barriers.dtype != torch.int32
+                                 or barriers.device != inp.temp.device
+                                 or not barriers.is_contiguous()):
+        raise ValueError("barriers must be a contiguous int32 (B,) tensor on the kernel's device")
+    spans = spans_blocks((h, w), budget)
     if block_envs is not None:
-        fit = (cheby_max_envs if name == "fdm_cheby_block" else jacobi_max_envs)((h, w))
+        fit = 1 if spans else (
+            cheby_max_envs if name == "fdm_cheby_block" else jacobi_max_envs)((h, w), budget)
         if not 1 <= block_envs <= fit:
             raise ValueError(
                 f"block_envs={block_envs} outside 1..{fit} for {name} on a {h}x{w} "
                 "grid (effective_block_envs clamps it)"
             )
+    if spans:
+        return _launch_cluster(name, inp, conv, stats, solver_args, lib, barriers)
     on_card = lib is None
     with torch.cuda.device(inp.temp.device) if on_card else contextlib.nullcontext():
         stream = torch.cuda.current_stream().cuda_stream if on_card else None
@@ -814,6 +895,54 @@ def _launch(name: str, inp: KernelInputs, conv, stats, solver_args, block_envs=N
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launch_counts[name] += 1
     return _result(out, iters, flag > 0, sums)
+
+
+def _check_capacity(inp: KernelInputs, on_card: bool) -> None:
+    """Refuses a cluster launch whose cells overflow the kernels' 32-bit
+    cell index, or which the card cannot hold (cluster_bytes against the
+    card's memory; the host build rehearses CARD_BYTES)."""
+    b, h, w = inp.temp.shape
+    if h * w > MAX_CELLS:
+        raise ValueError(
+            f"grid {h}x{w}: {h * w} cells, {4 * h * w} B a float32 plane, overflow the "
+            f"kernels' 32-bit cell index (at most {MAX_CELLS} cells)")
+    need = cluster_bytes(b, (h, w))
+    have = (torch.cuda.get_device_properties(inp.temp.device).total_memory if on_card
+            else CARD_BYTES)
+    if need > have:
+        raise ValueError(
+            f"{b} envs on a {h}x{w} grid need {need} B of device memory for the solve's "
+            f"planes, more than the card's {have} B")
+
+
+def _launch_cluster(name: str, inp: KernelInputs, conv, stats, solver_args, lib, barriers):
+    """The cluster body of kernel `name`'s semantics (K1/K4:
+    fdm_cheby_cluster; K2/K3: fdm_jacobi_cluster with the kernel's stopping
+    rule), one cluster per env; the statistics by the gridstats fold of the
+    output. Returns as _launch."""
+    on_card = lib is None
+    _check_capacity(inp, on_card)
+    cheby = name.startswith("fdm_cheby")
+    kernel = "fdm_cheby_cluster" if cheby else "fdm_jacobi_cluster"
+    head = [] if cheby else [0 if name == "fdm_jacobi" else 1]  # the stopping rule
+    b = inp.temp.shape[0]
+    with torch.cuda.device(inp.temp.device) if on_card else contextlib.nullcontext():
+        stream = torch.cuda.current_stream().cuda_stream if on_card else None
+        lib = lib or _library()
+        out, iters, flag, _ = _outputs(inp, None)
+        scratch = torch.empty_like(inp.temp)
+        dec = torch.empty(inp.temp.shape, dtype=torch.uint8, device=inp.temp.device)
+        if barriers is None:
+            barriers = torch.empty(b, dtype=torch.int32, device=inp.temp.device)
+        planes, tail = _launch_args(inp, conv, None, out, iters, flag, None, stream)
+        offsets, n_rounds, lane_bits, q = tail[:4]
+        err = getattr(lib, f"{kernel}_launch")(
+            *planes, *head, *solver_args, scratch.data_ptr(), dec.data_ptr(),
+            barriers.data_ptr(), offsets, n_rounds, lane_bits, q, stream)
+    if err:
+        raise RuntimeError(f"{kernel} launch for {name} failed: CUDA error {err}")
+    launch_counts[kernel] += 1
+    return _result(out, iters, flag > 0, fold_stats(out, stats))
 
 
 def _cheby_args(threshold, iteration_limit, spectral_radius, check_every):
@@ -830,11 +959,13 @@ def fdm_jacobi_cuda(
     iteration_limit: int,
     conv: Optional[ConvInputs] = None,
     stats: Optional[ZoneStats] = None,
+    barriers: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Launches K2 (fdm_jacobi_body with one env per block, the solo
-    stopping rule). Same results as fdm_jacobi_plain."""
+    stopping rule), or on a plan that spans blocks its cluster body
+    (`barriers`: see _launch). Same results as fdm_jacobi_plain."""
     return _launch("fdm_jacobi", inp, conv, stats,
-                   [float(threshold), int(iteration_limit)])
+                   [float(threshold), int(iteration_limit)], barriers=barriers)
 
 
 def fdm_cheby_cuda(
@@ -846,11 +977,13 @@ def fdm_cheby_cuda(
     check_every: int = 1,
     conv: Optional[ConvInputs] = None,
     stats: Optional[ZoneStats] = None,
+    barriers: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
-    """Launches K1 (fdm_cheby_body with one env per block). Same results as
-    fdm_cheby_plain."""
+    """Launches K1 (fdm_cheby_body with one env per block), or on a plan
+    that spans blocks its cluster body (`barriers`: see _launch). Same
+    results as fdm_cheby_plain."""
     return _launch("fdm_cheby", inp, conv, stats, _cheby_args(
-        threshold, iteration_limit, spectral_radius, check_every))
+        threshold, iteration_limit, spectral_radius, check_every), barriers=barriers)
 
 
 def fdm_jacobi_block_cuda(
@@ -861,12 +994,14 @@ def fdm_jacobi_block_cuda(
     block_envs: int,
     conv: Optional[ConvInputs] = None,
     stats: Optional[ZoneStats] = None,
+    barriers: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Launches K3 (fdm_jacobi_body, the block stopping rule) with
-    `block_envs` envs per thread block (1 .. jacobi_max_envs). Same
-    results as fdm_jacobi_block_plain."""
+    `block_envs` envs per thread block (1 .. jacobi_max_envs; 1 on a plan
+    that spans blocks, where its cluster body runs). Same results as
+    fdm_jacobi_block_plain."""
     return _launch("fdm_jacobi_block", inp, conv, stats,
-                   [float(threshold), int(iteration_limit)], block_envs)
+                   [float(threshold), int(iteration_limit)], block_envs, barriers=barriers)
 
 
 def fdm_cheby_block_cuda(
@@ -879,11 +1014,14 @@ def fdm_cheby_block_cuda(
     check_every: int = 1,
     conv: Optional[ConvInputs] = None,
     stats: Optional[ZoneStats] = None,
+    barriers: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Launches K4 (fdm_cheby_body) with `block_envs` envs per thread block
-    (1 .. cheby_max_envs). Same results as fdm_cheby_block_plain."""
+    (1 .. cheby_max_envs; 1 on a plan that spans blocks, where its cluster
+    body runs). Same results as fdm_cheby_block_plain."""
     return _launch("fdm_cheby_block", inp, conv, stats, _cheby_args(
-        threshold, iteration_limit, spectral_radius, check_every), block_envs)
+        threshold, iteration_limit, spectral_radius, check_every), block_envs,
+        barriers=barriers)
 
 
 def fdm_step_cuda(
@@ -907,6 +1045,7 @@ def fdm_step_cuda(
     stat_layout: Union[ZoneStatLayout, ZoneStats, None] = None,
     check_every: int = 1,
     block_mode: str = "stack",
+    barriers: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """The batched FDM step of fdm_step_pallas, with its signature.
 
@@ -923,6 +1062,9 @@ def fdm_step_cuda(
     rounds run in the kernel on the solved field, their decision words read
     from `conv_word` when given (the threefry words), else made from
     `conv_keys` with `conv_word_params` (mix32).
+    On a plan that spans thread blocks (spans_blocks) each kernel's cluster
+    body runs, and `barriers`, a (B,) int32 tensor, receives each env's
+    cluster barriers (only a cluster body writes it).
     fdm_step_pallas's unused `conv_params` argument is left out.
     """
     if block_mode not in ("stack", "interleave"):
@@ -963,9 +1105,13 @@ def fdm_step_cuda(
                                                   cheby=method == "chebyshev"))
     if method == "chebyshev":
         kw.update(spectral_radius=spectral_radius, check_every=check_every)
-        if stack:
-            return (fdm_cheby_block_plain if on_cpu else fdm_cheby_block_cuda)(inp, **kw)
-        return (fdm_cheby_plain if on_cpu else fdm_cheby_cuda)(inp, **kw)
-    if stack:
-        return (fdm_jacobi_block_plain if on_cpu else fdm_jacobi_block_cuda)(inp, **kw)
-    return (fdm_jacobi_plain if on_cpu else fdm_jacobi_cuda)(inp, **kw)
+        plain, cuda = ((fdm_cheby_block_plain, fdm_cheby_block_cuda) if stack
+                       else (fdm_cheby_plain, fdm_cheby_cuda))
+    else:
+        plain, cuda = ((fdm_jacobi_block_plain, fdm_jacobi_block_cuda) if stack
+                       else (fdm_jacobi_plain, fdm_jacobi_cuda))
+    if on_cpu:
+        return plain(inp, **kw)
+    if barriers is not None:
+        kw.update(barriers=barriers)
+    return cuda(inp, **kw)

@@ -174,7 +174,8 @@ def test_env_steps_through_the_kernels(env):
     for solver in ("pallas_cheby", "pallas_env"):
         state, out = env.step_batched(state, actions, solver=solver)
     assert fdm_cuda.launch_counts == {"fdm_cheby": 1, "fdm_jacobi": 1,
-                                      "fdm_cheby_block": 0, "fdm_jacobi_block": 0}
+                                      "fdm_cheby_block": 0, "fdm_jacobi_block": 0,
+                                      "fdm_cheby_cluster": 0, "fdm_jacobi_cluster": 0}
     assert env.resolve_solver(8) == "pallas_env"
     assert torch.isfinite(state.temp).all()
     # pallas_env took its statistics from the kernel: they are the fold's.
@@ -248,7 +249,8 @@ def test_stack_env_steps_through_the_block_kernels(env):
         # Statistics come from the block kernels' epilogue: the fold's.
         assert torch.equal(state.zone_means, stack._stats.zone_means(state.temp))
     assert fdm_cuda.launch_counts == {"fdm_cheby": 0, "fdm_jacobi": 0,
-                                      "fdm_cheby_block": 1, "fdm_jacobi_block": 1}
+                                      "fdm_cheby_block": 1, "fdm_jacobi_block": 1,
+                                      "fdm_cheby_cluster": 0, "fdm_jacobi_cluster": 0}
     assert torch.isfinite(state.temp).all()
 
 
@@ -282,6 +284,124 @@ def test_cheby_body_at_126_rooms(big_env):
     _equal(got, fdm_cuda.fdm_cheby_block_plain(inp, block_envs=1, **kw))
     _equal(got, solo)
     torch.cuda.synchronize()
+
+
+def test_office_plans_keep_their_block_launch(env, big_env):
+    """office12 (52 x 67) and office126 (189 x 124) fit one env per block:
+    they launch the block bodies with the geometry they had before the
+    cluster bodies (staged 448 threads in 2 passes; unstaged 992 in 6)."""
+    assert not fdm_cuda.spans_blocks(env.geom.shape)
+    assert not fdm_cuda.spans_blocks(big_env.geom.shape)
+    assert fdm_cuda.run_geometry(env.geom.shape, 1) == fdm_cuda.RunGeometry(
+        True, 448, 2, 56624, 13, 871, 6, 46)
+    assert fdm_cuda.run_geometry(big_env.geom.shape, 1) == fdm_cuda.RunGeometry(
+        False, 992, 6, 216880, 48, 5952, 8, 0)
+
+
+@pytest.fixture(scope="module")
+def floor_env(env):
+    """floor126's plan: 9 x 14 rooms of 50 x 50 cells, 466 x 721."""
+    from sbsim_tpu_torch.core import geometry
+    plan = geometry.make_synthetic_office_plan(9, 14, room_cvs=50)
+    return building_env.BuildingEnv(presets.sb1_config(
+        num_days_in_episode=1, floor_plan=plan, layout="auto"))
+
+
+CLUSTER_BODY = {"fdm_cheby": "fdm_cheby_cluster", "fdm_cheby_block": "fdm_cheby_cluster",
+                "fdm_jacobi": "fdm_jacobi_cluster", "fdm_jacobi_block": "fdm_jacobi_cluster"}
+
+
+def _plain_for(kernel):
+    """Kernel `kernel`'s plain version in its wrapper's place; the
+    wrapper's `barriers`, which only a cluster body writes, is dropped."""
+    plain = getattr(fdm_cuda, f"{kernel}_plain")
+    return lambda inp, barriers=None, **kw: plain(inp, **kw)
+
+
+def _cluster_kw(env, kernel, conv, limit=100):
+    kw = dict(threshold=0.1, iteration_limit=limit, conv=conv, stats=env._stats)
+    if kernel.startswith("fdm_cheby"):
+        kw.update(spectral_radius=env._spectral_radius, check_every=4)
+    if kernel.endswith("_block"):
+        kw.update(block_envs=1)
+    return kw
+
+
+@pytest.mark.parametrize("kernel", sorted(CLUSTER_BODY))
+def test_cluster_bodies_at_floor126(floor_env, kernel):
+    """floor126's 466 x 721 plan (335,986 cells: one env's planes far above
+    a block's shared memory), B = 4: each kernel runs its cluster body (8
+    CTAs of 992 threads an env), one launch, with mix32 and word-plane swap
+    rounds and the statistics by the fold, bitwise its plain version; a
+    capped limit converges no env. Each env's barriers are counted."""
+    shape = floor_env.geom.shape
+    assert shape == (466, 721) and fdm_cuda.spans_blocks(shape)
+    assert fdm_cuda.cluster_geometry(shape).cluster == 8
+    inp, conv = _inputs(floor_env, 4, seed=41)
+    for c in (conv, _word_plane(floor_env, conv)):
+        kw = _cluster_kw(floor_env, kernel, c)
+        barriers = torch.full((4,), -1, dtype=torch.int32, device=floor_env.device)
+        got = _counted(CLUSTER_BODY[kernel], getattr(fdm_cuda, f"{kernel}_cuda"), inp,
+                       barriers=barriers, **kw)
+        _equal(got, getattr(fdm_cuda, f"{kernel}_plain")(inp, **kw))
+        assert bool(got[2].all()) and bool((barriers > got[1]).all())
+    kw = _cluster_kw(floor_env, kernel, conv, limit=1 if "cheby" in kernel else 3)
+    capped = getattr(fdm_cuda, f"{kernel}_cuda")(inp, **kw)
+    _equal(capped, getattr(fdm_cuda, f"{kernel}_plain")(inp, **kw))
+    assert not bool(capped[2].any())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("solver,kernel", [("pallas_cheby", "fdm_cheby_cluster"),
+                                           ("pallas_env", "fdm_jacobi_cluster")])
+def test_floor126_captured_step_equals_plain(floor_env, solver, kernel):
+    """One captured step of floor126 at B=4 (bench.make_rollout, one step a
+    call) through the cluster body replays bitwise the same step op by op
+    through the plain versions, with no host sync and one launch; traced,
+    the call counts each env's barriers (fdm.barriers)."""
+    from sbsim_tpu_torch import bench
+    from sbsim_tpu_torch.agents import schedule_policy
+    from sbsim_tpu_torch.utils import profiling
+
+    table = schedule_policy.build_schedule_actions(floor_env)
+    start, _ = floor_env.reset(rng.split(rng.PRNGKey(5, device=floor_env.device), 4))
+    start = start.replace(step_idx=torch.full_like(start.step_idx, 100))
+    roll = bench.make_rollout(floor_env, table, 1, solver)
+    names = ("fdm_cheby", "fdm_jacobi", "fdm_cheby_block", "fdm_jacobi_block")
+    saved = {k: getattr(fdm_cuda, f"{k}_cuda") for k in names}
+    try:
+        for k in names:
+            setattr(fdm_cuda, f"{k}_cuda", _plain_for(k))
+        want = roll.eager(_clone(start))
+    finally:
+        for k, fn in saved.items():
+            setattr(fdm_cuda, f"{k}_cuda", fn)
+    roll(_clone(start))  # the first call captures
+    got, launched = _replayed(roll, _clone(start))
+    assert launched == {kernel: 1}
+    assert _trees_equal(got, want)
+    with profiling.tracing():
+        roll(_clone(start))
+        counters = profiling.snapshot()["counters"]
+    assert counters["fdm.barriers"] > counters["fdm.iterations"] > 0
+
+
+def test_a_million_cell_plan_steps_bitwise_plain(env):
+    """9 x 14 rooms of 90 cells (826 x 1,281 = 1,058,106 cells; 8 CTAs of
+    1,024 threads an env, 33 runs a thread): one step_batched at B=1
+    through K1's cluster body equals the step through the plain version."""
+    from sbsim_tpu_torch.core import geometry
+    plan = geometry.make_synthetic_office_plan(9, 14, room_cvs=90)
+    huge = building_env.BuildingEnv(presets.sb1_config(
+        num_days_in_episode=1, floor_plan=plan, layout="auto"))
+    assert huge.geom.shape[0] * huge.geom.shape[1] == 1058106
+    step = lambda: _steps_through(huge, "pallas_cheby", 1, plain=False, seed=13, steps=1)
+    counts, got, got_out = step()
+    assert counts["fdm_cheby_cluster"] == 1 and sum(counts.values()) == 1
+    _, want, want_out = _steps_through(huge, "pallas_cheby", 1, plain=True, seed=13, steps=1)
+    for name, value in want.items():
+        np.testing.assert_array_equal(got[name], value, err_msg=name)
+    np.testing.assert_array_equal(got_out, want_out)
 
 
 @pytest.mark.parametrize("e", [1, 2, 3, 4])
@@ -383,8 +503,8 @@ def test_nan_env_follows_each_stopping_rule(env, kernel, e):
     assert not bool(got[2][1])
 
 
-def _steps_through(env, solver, batch, plain, seed):
-    """3 step_batched steps from a fresh reset (with solver None, 3 steps of
+def _steps_through(env, solver, batch, plain, seed, steps=3):
+    """`steps` step_batched steps from a fresh reset (with solver None, of
     the per-env `step` at batch 1), through the kernels or, with `plain`,
     through their plain versions on the card; the launch counts, final
     state and outputs."""
@@ -394,11 +514,11 @@ def _steps_through(env, solver, batch, plain, seed):
     saved = {k: getattr(fdm_cuda, f"{k}_cuda") for k in names}
     if plain:
         for k in names:
-            setattr(fdm_cuda, f"{k}_cuda", getattr(fdm_cuda, f"{k}_plain"))
+            setattr(fdm_cuda, f"{k}_cuda", _plain_for(k))
     try:
         state, _ = env.reset(rng.split(rng.PRNGKey(seed, device=env.device), batch))
         acts = torch.as_tensor(np.random.default_rng(seed).uniform(
-            -1, 1, (3, batch, env.n_actions)), dtype=torch.float32, device=env.device)
+            -1, 1, (steps, batch, env.n_actions)), dtype=torch.float32, device=env.device)
         fdm_cuda.reset_launch_counts()
         outs = []
         for a in acts:
@@ -492,7 +612,7 @@ def test_dashboard_through_k2_equals_plain(env, tmp_path):
     accumulate bitwise what the plain version's run does."""
     counts, dash, fields = _dashboard_run(False, 8, tmp_path)
     assert counts == {"fdm_cheby": 0, "fdm_jacobi": 8, "fdm_cheby_block": 0,
-                      "fdm_jacobi_block": 0}
+                      "fdm_jacobi_block": 0, "fdm_cheby_cluster": 0, "fdm_jacobi_cluster": 0}
     plain_counts, want, want_fields = _dashboard_run(True, 8, tmp_path)
     assert not any(plain_counts.values())
     np.testing.assert_array_equal(fields, want_fields)

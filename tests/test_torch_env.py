@@ -134,7 +134,8 @@ def test_three_steps_match_jax(envs, solver, monkeypatch):
     assert (np.asarray(jstate.fdm_iterations) > 0).all()
     # CPU tensors take the plain versions: no kernel launches.
     assert fdm_cuda.launch_counts == {"fdm_cheby": 0, "fdm_jacobi": 0,
-                                      "fdm_cheby_block": 0, "fdm_jacobi_block": 0}
+                                      "fdm_cheby_block": 0, "fdm_jacobi_block": 0,
+                                      "fdm_cheby_cluster": 0, "fdm_jacobi_cluster": 0}
 
 
 @pytest.mark.parametrize("solver", ["pallas_cheby", "pallas_env"])

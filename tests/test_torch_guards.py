@@ -269,7 +269,8 @@ def test_cpu_run_makes_no_kernel_launch(solver):
     for _ in range(2):
         state, out = env.step_batched(state, actions, solver=solver)
     assert fdm_cuda.launch_counts == {"fdm_cheby": 0, "fdm_jacobi": 0,
-                                      "fdm_cheby_block": 0, "fdm_jacobi_block": 0}
+                                      "fdm_cheby_block": 0, "fdm_jacobi_block": 0,
+                                      "fdm_cheby_cluster": 0, "fdm_jacobi_cluster": 0}
     assert torch.isfinite(state.temp).all() and torch.isfinite(out.observation).all()
     assert out.observation.shape == (2, env.obs_dim)
     assert np.all((out.reward.numpy() >= -1) & (out.reward.numpy() <= 0))
@@ -298,6 +299,7 @@ def test_cpu_training_makes_no_kernel_launch():
     for _ in range(2):
         state, metrics = trainer.train_step(state)
     assert fdm_cuda.launch_counts == {"fdm_cheby": 0, "fdm_jacobi": 0,
-                                      "fdm_cheby_block": 0, "fdm_jacobi_block": 0}
+                                      "fdm_cheby_block": 0, "fdm_jacobi_block": 0,
+                                      "fdm_cheby_cluster": 0, "fdm_jacobi_cluster": 0}
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert int(state.replay.size) == 2 and state.env_steps == 4

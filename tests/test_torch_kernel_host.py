@@ -10,9 +10,15 @@ and K4 (the one Chebyshev body) and K2 and K3 must equal their plain
 PyTorch versions bitwise on the 12-zone sb1 grid (B <= 5, K4 at E = 1,
 2 and 4, K3 at E = 2) and on a 9 x 11 grid whose width is not a multiple of
 the run length (B <= 13, K3 at E = 1-4); an env whose field holds a NaN follows each Jacobi kernel's
-stopping rule; a grid too large for a block is refused before launch. It shows logic faults (ownership, parity, freezing, counts,
-the swap rounds' decision bytes), not races or the card's timing. The test
-skips where there is no g++ and takes well under a minute.
+stopping rule. The cluster bodies (a plan above one block's shared memory:
+one cluster of CTAs per env, the host threads of all its blocks at once,
+meeting at the cluster barrier) are forced on those grids by a shared-memory
+budget of 0 B and must equal the same plain versions bitwise; a grid too
+large for a block runs through them, and a launch the card cannot hold, or
+whose cells overflow a 32-bit index, is refused before launch. It shows
+logic faults (ownership, parity, freezing, counts, the swap rounds' decision
+bytes, the bands' borders), not races or the card's timing. The test skips
+where there is no g++ and takes about a minute.
 """
 
 import ctypes
@@ -90,16 +96,19 @@ def _equal(got, want):
         same(got[3].grid_sums, want[3].grid_sums)
 
 
-def _run(host_lib, name, env, inp, conv, stats, limit, e=None):
-    """The kernel through the host library, and its plain version."""
+def _run(host_lib, name, env, inp, conv, stats, limit, e=None, budget=fdm_cuda.SMEM_BUDGET,
+         check_every=4, barriers=None):
+    """The kernel through the host library (with `budget` bytes of shared
+    memory a block, 0 for the cluster bodies), and its plain version."""
     kw = dict(threshold=0.1, iteration_limit=limit, conv=conv, stats=stats)
     args = [0.1, limit]
     if name.startswith("fdm_cheby"):
-        kw.update(spectral_radius=env._spectral_radius, check_every=4)
-        args = fdm_cuda._cheby_args(0.1, limit, env._spectral_radius, 4)
+        kw.update(spectral_radius=env._spectral_radius, check_every=check_every)
+        args = fdm_cuda._cheby_args(0.1, limit, env._spectral_radius, check_every)
     if e is not None:
         kw.update(block_envs=e)
-    got = fdm_cuda._launch(name, inp, conv, stats, args, e, lib=host_lib)
+    got = fdm_cuda._launch(name, inp, conv, stats, args, e, lib=host_lib, budget=budget,
+                           barriers=barriers)
     want = getattr(fdm_cuda, f"{name}_plain")(inp, **kw)
     return got, want
 
@@ -119,6 +128,21 @@ def test_geometry_matches_python_mirror(host_lib):
                 if geo is not None:
                     assert list(out) == [int(geo.staged), geo.threads, geo.slots, geo.smem,
                                          geo.row_blocks, geo.n_runs, geo.step_b, geo.step_x]
+
+
+@pytest.mark.parametrize("shape", [(466, 721), (721, 466), (826, 1287), (189, 124), (52, 67),
+                                   (9, 11), (7, 5), (1, 3)])
+def test_cluster_geometry_matches_python_mirror(host_lib, shape):
+    """The cluster bodies' C launch geometry equals its Python mirror, and
+    the bands cover every row block once."""
+    out = (ctypes.c_int * 8)()
+    geo = fdm_cuda.cluster_geometry(shape)
+    assert host_lib.fdm_cluster_geometry(*shape, out) == 0
+    assert list(out) == [geo.cluster, geo.band_blocks, geo.threads, geo.slots, geo.smem,
+                         geo.row_blocks, geo.step_b, geo.step_x]
+    assert 1 <= geo.cluster <= fdm_cuda.CLUSTER_MAX and geo.threads <= fdm_cuda.CLUSTER_THREADS
+    assert (geo.cluster - 1) * geo.band_blocks < geo.row_blocks <= geo.cluster * geo.band_blocks
+    assert geo.threads * geo.slots >= geo.band_blocks * shape[1]
 
 
 @pytest.mark.parametrize("conv_kind", [None, "mix32", "words"])
@@ -192,22 +216,134 @@ def test_nan_env_follows_each_stopping_rule(host_lib, envs, kernel, e):
     assert not bool(torch.isnan(got[0][0]).any())
 
 
+def _planes(h, w, batch, seed, device="cpu"):
+    """Kernel inputs on an (h, w) grid without a building: edge fill, random
+    stencils whose denominators dominate, so Jacobi converges."""
+    rs = np.random.default_rng(seed)
+    f = lambda *s: torch.as_tensor(rs.uniform(0.0, 1.0, s).astype(np.float32), device=device)
+    a = [f(h, w) for _ in range(4)]
+    ext = torch.zeros(h, w, device=device)
+    ext[0, :] = ext[-1, :] = ext[:, 0] = ext[:, -1] = 1.0
+    denom = (sum(a) + 0.5 + f(batch, h, w)).contiguous()
+    return fdm_cuda.KernelInputs(
+        temp=(294.0 + 4.0 * f(batch, h, w)).contiguous(), const=(300.0 * f(batch, h, w)),
+        denom=denom, tinf=280.0 + f(batch), a_r=a[0], a_l=a[1], a_b=a[2], a_t=a[3], ext=ext,
+        edge_fill=True, coef=fdm_cuda.packed_coef(*a))
+
+
 def test_grid_too_large_for_a_block_is_refused(host_lib):
-    """160 x 170 cells fit two planes in shared memory but not with the
-    exterior bits and the decision bytes: refused with the limit named,
-    before any launch; 126 rooms (189 x 124) still run unstaged."""
-    h, w = 160, 170
-    f = lambda *s: torch.ones(s, dtype=torch.float32)
-    inp = fdm_cuda.KernelInputs(
-        temp=f(1, h, w), const=f(1, h, w), denom=f(1, h, w), tinf=f(1), a_r=f(h, w),
-        a_l=f(h, w), a_b=f(h, w), a_t=f(h, w), ext=f(h, w), edge_fill=True,
-        coef=f(h, w, 4))
-    for kernel, e in (("fdm_jacobi", None), ("fdm_jacobi_block", 1), ("fdm_cheby", None)):
+    """8 x 3,200 cells (25,600) do not fit one env's two planes, exterior
+    bits and decision bytes in a block's shared memory: no longer refused,
+    each kernel runs its cluster body (2 CTAs of 800 threads an env) with
+    the card's budget, bitwise its plain version, and counts the launch as
+    the cluster body's; 126 rooms (189 x 124) still run unstaged in a
+    block."""
+    h, w = 8, 3200
+    assert fdm_cuda.spans_blocks((h, w)) and fdm_cuda.cluster_geometry((h, w)).cluster == 2
+    inp = _planes(h, w, 2, seed=11)
+    for kernel, e in (("fdm_jacobi", None), ("fdm_jacobi_block", 1), ("fdm_cheby", None),
+                      ("fdm_cheby_block", 1)):
+        body = "fdm_cheby_cluster" if kernel.startswith("fdm_cheby") else "fdm_jacobi_cluster"
         before = dict(fdm_cuda.launch_counts)
-        with pytest.raises(ValueError, match="B a block may use"):
+        args = [0.1, 40] if "jacobi" in kernel else fdm_cuda._cheby_args(0.1, 40, 0.9, 2)
+        got = fdm_cuda._launch(kernel, inp, None, None, args, e, lib=host_lib)
+        kw = dict(threshold=0.1, iteration_limit=40)
+        if "cheby" in kernel:
+            kw.update(spectral_radius=0.9, check_every=2)
+        if e is not None:
+            kw.update(block_envs=e)
+        _equal(got, getattr(fdm_cuda, f"{kernel}_plain")(inp, **kw))
+        assert fdm_cuda.launch_counts == dict(before, **{body: before[body] + 1})
+    assert fdm_cuda.jacobi_geometry((189, 124), 1) is not None
+
+
+def _meta(batch, h, w):
+    """Kernel inputs that hold no memory: only the checks before a launch
+    can see them."""
+    f = lambda *s: torch.empty(s, dtype=torch.float32, device="meta")
+    return fdm_cuda.KernelInputs(
+        temp=f(batch, h, w), const=f(batch, h, w), denom=f(batch, h, w), tinf=f(batch),
+        a_r=f(h, w), a_l=f(h, w), a_b=f(h, w), a_t=f(h, w), ext=f(h, w), edge_fill=True,
+        coef=f(h, w, 4))
+
+
+@pytest.mark.parametrize("batch,h,w,match", [
+    (12000, 466, 721, "more than the card's 80000000000 B"),
+    (1, 46341, 46341, "overflow the kernels' 32-bit cell index"),
+])
+def test_what_the_card_cannot_hold_is_refused(host_lib, batch, h, w, match):
+    """12,000 envs of floor126's 466 x 721 plan need ~84.7 GB for the
+    solve's planes, more than the card's 80 GB; a 46,341 x 46,341 plan has
+    more cells than a 32-bit index holds. Both are refused with the bytes
+    named, before any allocation or launch, by every kernel."""
+    inp = _meta(batch, h, w)
+    for kernel, e in (("fdm_jacobi", None), ("fdm_jacobi_block", 1), ("fdm_cheby", None),
+                      ("fdm_cheby_block", 1)):
+        before = dict(fdm_cuda.launch_counts)
+        with pytest.raises(ValueError, match=match):
             fdm_cuda._launch(kernel, inp, None, None, [0.1, 5], e, lib=host_lib)
         assert fdm_cuda.launch_counts == before
-    assert fdm_cuda.jacobi_geometry((189, 124), 1) is not None
+
+
+CLUSTER_CASES = [("fdm_cheby", None), ("fdm_cheby_block", 1), ("fdm_jacobi", None),
+                 ("fdm_jacobi_block", 1)]
+
+
+@pytest.mark.parametrize("conv_kind", [None, "mix32", "words"])
+@pytest.mark.parametrize("kernel,e", CLUSTER_CASES)
+def test_cluster_body_equals_plain(host_lib, envs, kernel, e, conv_kind):
+    """Each kernel's cluster body, forced by a budget of 0 B, on the 9 x 11
+    grid (3 CTAs of 32 threads an env: bands of one row block, the last a
+    run of one cell), B = 5 with statistics (the fold of the output), and
+    with a capped limit where no env converges: bitwise the plain version,
+    and each env's barrier count that of the body's passes."""
+    env = envs["small"]
+    inp, conv = _inputs(env, 5, seed=21, conv_kind=conv_kind)
+    barriers = torch.full((5,), -1, dtype=torch.int32)
+    got, want = _run(host_lib, kernel, env, inp, conv, env._stats, 100, e, budget=0,
+                     barriers=barriers)
+    _equal(got, want)
+    assert bool(got[2].all())
+    rounds = len(conv.offsets) if conv is not None else 0
+    per_solve = rounds + -(-rounds // 8)  # each round, each group's decision bytes
+    iters = got[1].to(torch.int32)
+    if kernel.startswith("fdm_cheby"):
+        per_solve = per_solve + 1  # J(x_f)
+    assert torch.equal(barriers, iters + per_solve)
+    # Capped: Chebyshev at J(x0) alone, Jacobi after 3 iterations.
+    limit = 1 if kernel.startswith("fdm_cheby") else 3
+    capped, want = _run(host_lib, kernel, env, inp, conv, None, limit, e, budget=0)
+    _equal(capped, want)
+    assert not bool(capped[2].any())
+
+
+@pytest.mark.parametrize("kernel,e", CLUSTER_CASES)
+def test_cluster_body_equals_plain_sb1(host_lib, envs, kernel, e):
+    """The cluster bodies on the 12-zone sb1 grid (7 CTAs of 160 threads an
+    env: bands of two row blocks over 67 columns), mix32 rounds, B = 2,
+    Chebyshev sampled every sub-iteration: bitwise the plain versions."""
+    env = envs["sb1"]
+    inp, conv = _inputs(env, 2, seed=22, conv_kind="mix32")
+    got, want = _run(host_lib, kernel, env, inp, conv, env._stats, 100, e, budget=0,
+                     check_every=1)
+    _equal(got, want)
+
+
+@pytest.mark.parametrize("kernel,e", [("fdm_jacobi", None), ("fdm_jacobi_block", 1)])
+def test_nan_env_follows_each_stopping_rule_on_a_cluster(host_lib, envs, kernel, e):
+    """A NaN in one env's temp: its cluster residual is NaN, so K2's body
+    stops it at iteration 1 and K3's runs it to the limit, as the plain
+    versions do; the other envs are untouched."""
+    env = envs["small"]
+    inp, conv = _inputs(env, 3, seed=23, conv_kind="mix32")
+    temp = inp.temp.clone()
+    temp[1, 4, 5] = float("nan")
+    inp = dataclasses.replace(inp, temp=temp)
+    got, want = _run(host_lib, kernel, env, inp, conv, env._stats, 12, e, budget=0)
+    _equal(got, want)
+    assert int(got[1][1]) == (1 if kernel == "fdm_jacobi" else 12)
+    assert not bool(got[2][1]) and bool(torch.isnan(got[0][1]).any())
+    assert not bool(torch.isnan(got[0][0]).any())
 
 
 @pytest.mark.parametrize("kernel,e", [("fdm_cheby", None), ("fdm_cheby_block", 4),
@@ -221,3 +357,17 @@ def test_ragged_grid_equals_plain(host_lib, envs, kernel, e):
     inp, conv = _inputs(env, 13, seed=5, conv_kind="mix32")
     got, want = _run(host_lib, kernel, env, inp, conv, None, 100, e)
     _equal(got, want)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape"])
+def test_a_wrong_barrier_tensor_is_refused(host_lib, envs, bad):
+    """The barrier counts' tensor is checked before its pointer reaches a
+    kernel: int32 and one entry per env."""
+    env = envs["small"]
+    inp, conv = _inputs(env, 3, seed=24, conv_kind="mix32")
+    barriers = (torch.zeros(3, dtype=torch.int64) if bad == "dtype"
+                else torch.zeros(2, dtype=torch.int32))
+    before = dict(fdm_cuda.launch_counts)
+    with pytest.raises(ValueError, match="barriers must be"):
+        _run(host_lib, "fdm_jacobi", env, inp, conv, None, 5, budget=0, barriers=barriers)
+    assert fdm_cuda.launch_counts == before
