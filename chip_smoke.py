@@ -60,8 +60,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      "pallas_cheby" and "pallas_env": each step's solve on K1's and K2's
      cluster bodies (one cluster of 8 CTAs an env), launches equal to the
      steps, then each cluster body alone on its path's last-step inputs
-     against its kernel's plain version (bitwise), timed with its bound and
-     its barriers beside the iterations. Then the
+     against its kernel's plain version (bitwise), its barriers beside the
+     iterations those its swap plan predicts (fdm.swap_groups counting the
+     plan's groups), timed with its bound and with the rounds off. Then the
      decomposition of K1/K4 and K2/K3 at
      12 zones B=2048 and 126 rooms B=512 (K2/K3 also at B=64) on seeded
      inputs: the solve alone, with mix32 swaps, with the word plane, with
@@ -452,11 +453,22 @@ def cluster_phase(max_err, bw, flops, tag):
                                      env.coeffs)
         conv = word_conv(env, conv_keys, False)
         limit = env.config.iteration_limit
+        plan = fdm_cuda.swap_plan(env.geom.shape, conv.offsets)
         barriers = torch.empty(batch, dtype=torch.int32, device=dev)
+        groups = fdm_cuda.swap_counts["swap_groups"]
         got = run_kernel(kname, env, inp, conv, limit, barriers=barriers)
         want = run_kernel(kname, env, inp, conv, limit, plain=True)
         max_err[body] = max(max_err[body], compare(f"{body} at {which} B={batch}", got, want))
+        # One cluster barrier between groups of the plan, and J(x_f).
+        planned = len(plan.groups) - 1 + (1 if kname.startswith("fdm_cheby") else 0)
+        if not torch.equal(barriers, got[1] + planned):
+            fail(f"{body}: barriers {barriers.tolist()} != iterations {got[1].tolist()} "
+                 f"+ {planned} (swap plan {plan.groups})")
+        if fdm_cuda.swap_counts["swap_groups"] != groups + len(plan.groups):
+            fail(f"{body}: fdm.swap_groups counted {fdm_cuda.swap_counts['swap_groups'] - groups}"
+                 f" for a plan of {len(plan.groups)} groups")
         k_ms = time_call(lambda: run_kernel(kname, env, inp, conv, limit), 10)
+        off_ms = time_call(lambda: run_kernel(kname, env, inp, None, limit), 10)
         p_ms = time_call(lambda: run_kernel(kname, env, inp, conv, limit, plain=True), 1)
         b_ms, b_by = bound_ms(inp, conv, got[1], kname, bw, flops)
         fixed = float((barriers - got[1]).double().mean())
@@ -467,8 +479,11 @@ def cluster_phase(max_err, bw, flops, tag):
               f"{float(got[1].float().mean()):.1f}; barriers beside the iterations "
               f"{fixed:.1f} a solve {tag}", flush=True)
         print(f"  {body} ({kname}'s semantics) alone: {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}) -> {b_ms / k_ms:.1%} of bound {tag}", flush=True)
-        rows[body] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, batch=batch)
+              f"bound {b_ms:.4f} ms ({b_by}) -> {b_ms / k_ms:.1%} of bound; rounds off "
+              f"{off_ms:.4f} ms, so the {len(conv.offsets)} rounds in {len(plan.groups)} "
+              f"group(s) {k_ms - off_ms:.4f} ms {tag}", flush=True)
+        rows[body] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, batch=batch,
+                          rounds_off_ms=off_ms, swap_groups=len(plan.groups))
     print(f"  phase 3 (b) {time.time() - t0:.1f} s {tag}", flush=True)
     return launches, rows
 

@@ -1007,13 +1007,13 @@ __global__ void __launch_bounds__(BodyShape<E, STAGED>::kThreads,
 // portable cluster size, each owning a band of consecutive row blocks (the
 // runs of the bodies above, numbered and stepped the same way within the
 // band). The iterate pair lives in global memory: the output plane and a
-// scratch plane; const, denom and the shared stencil are read where they
-// lie, and the exterior bits of a run from the (H, W) plane. Every pass
-// that reads cells another CTA wrote in the pass before it is separated
-// from that pass by one cluster barrier: each Jacobi iteration, each
-// Chebyshev sub-iteration, the emitted J(x_f), and the swap rounds (their
-// decision bytes go to a global byte plane per env, then one barrier per
-// round). The iterate is read through L2 (ld.global.cg), never from a
+// scratch plane (with swap rounds a spare plane too: see below); const,
+// denom and the shared stencil are read where they lie, and the exterior
+// bits of a run from the (H, W) plane. Every pass that reads cells another
+// CTA wrote in the pass before it is separated from that pass by one
+// cluster barrier: each Jacobi iteration, each Chebyshev sub-iteration,
+// the emitted J(x_f), and each group of swap rounds after the first. The
+// iterate is read through L2 (ld.global.cg), never from a
 // CTA's L1. A sampled residual max is reduced in the block (one barrier),
 // then across the cluster through distributed shared memory: warp 0 stores
 // the block's max into slot [parity][rank] of every CTA, and after the
@@ -1036,19 +1036,89 @@ __global__ void __launch_bounds__(BodyShape<E, STAGED>::kThreads,
 // at 466 x 721 (335,986 cells) 16 envs are in flight, one cluster of 8 per
 // 8 SMs, their planes ~86 MB against the 50 MB L2. Each env also writes
 // its barrier count (`barriers`, read as the counter fdm.barriers).
+//
+// The swap rounds run in groups of consecutive rounds, planned at launch
+// from the static offsets and the grid alone (swap_plan). A round is a set
+// of disjoint transpositions, each pair a lead and its partner at the
+// round's offset (dy, dx) (convection._lead_mask; the follower plane is the
+// lead plane rolled by the offset), so after rounds r0..r1 a cell's value
+// comes from cells within sum |dy_r| rows and sum |dx_r| columns of it
+// (each offset taken as its shortest way round the torus), and from no cell
+// further. A group therefore runs in a CTA's shared memory, tile by tile of
+// its band: the field over the tile and a halo of that reach is loaded from
+// global memory (rows and columns wrapped round the torus, so a region
+// larger than the grid holds some cells twice, each of which evolves as the
+// torus does), each cell's swap bits are formed once (its lead word AND its
+// decisions: the word plane, or the mix32 hash made where the cell is, its
+// lanes compared four bytes at a time; a pair whose partner lies outside
+// the region is dropped), the group's rounds run in place (the lead of each
+// pair swaps both cells; one __syncthreads a round), and the tile's
+// interior, which no dropped pair can reach, is written to a plane that
+// does not hold the field. No decision plane exists. The tile (th x tw) is
+// the one that loads fewest cells within kSwapTileBytes, which leaves the
+// rest of the SM's unified memory to the solve as L1; a group is extended
+// while its tiles load at most kTileLoad times the band's cells. So the
+// epilogue's bound is one read of the field (with its halos: 1.95x at
+// floor126, one group of 16 rounds, reach 19 x 14, five tiles of 60 x 145 a
+// band) and one write per group, one cluster barrier between groups and
+// none inside one. A round whose reach alone admits no such tile (a
+// doubling-ladder round on a large room) is a group of its own, run as a
+// pass over the band in global memory, its decisions made where they are
+// read (a lead's own, a follower's its lead's). With swap rounds the solve
+// leaves its field out of the output plane (Chebyshev emits J(x_f) into the
+// spare plane; Jacobi alternates between scratch and spare) and the groups
+// alternate between scratch and spare, the last writing the output: no copy
+// and no barrier after the last group.
 
 constexpr int kClusterMax = 8;        // CTAs per env: the portable cluster size
 constexpr int kClusterThreads = 1024;  // threads per CTA (at most)
+// Floats at the start of a cluster body's shared memory: the block's warp
+// maxima and the cluster's reduction slots [2][kClusterMax].
+constexpr int kClusterScalars = 32 + 2 * kClusterMax;
+// Shared memory a cluster CTA may give a tile of swap rounds: an SM's
+// 256 KB of unified L1 and shared memory less 96 KB of L1 for the solve's
+// sweeps (a 214 KB tile, which leaves 28 KB, slowed the whole solve by
+// 27-36% on the H100, PERF.md), less the CTA's reserved 1 KB and scalars.
+constexpr size_t kSwapTileBytes = (256 - 96 - 1) * 1024 - sizeof(float) * kClusterScalars;
+// A group's tiles may load at most this many times its band's cells.
+constexpr int kTileLoad = 4;
+
+// One group of the swap plan: rounds [r0, r1); tw > 0: in shared memory
+// over tiles of th x tw cells with a halo of hy rows and hx columns; tw ==
+// 0: one round as a pass over the band in global memory.
+struct SwapGroup {
+  int r0, r1, hy, hx, th, tw;
+};
+
+struct SwapPlan {
+  int n;  // groups
+  SwapGroup g[kMaxRounds];
+};
 
 // What a cluster body adds to the planes: the second iterate plane, the
-// decision byte plane, the per-env barrier counts, and the geometry.
+// spare plane of the swap rounds, the per-env barrier counts, the
+// geometry and the swap plan.
 struct ClusterArgs {
   float* scratch;     // (B, H, W)
-  uint8_t* dec;       // (B, H, W)
+  float* spare;       // (B, H, W); null without swap rounds
   int32_t* barriers;  // (B,)
   int cluster;        // CTAs per env
   int band_blocks;    // row blocks a CTA owns (the last may own fewer)
+  SwapPlan plan;
 };
+
+// A round's offset d, normalised to [0, n), as its shortest way round a
+// torus of n: in (-n/2, n/2].
+__host__ __device__ __forceinline__ int torus_offset(int d, int n) {
+  return 2 * d > n ? d - n : d;
+}
+
+// Shared bytes of a tile region of R x C cells: the field and the swap
+// bits per cell, then per row and per column its global offset and the
+// rounds whose partner stays in the region.
+size_t tile_bytes(int R, int C) {
+  return 8 * ((size_t)R * C + R + C);
+}
 
 __device__ __forceinline__ Cursor band_first_run(const RunGrid& g, int rb0) {
   Cursor q = first_run(g);
@@ -1142,111 +1212,211 @@ __device__ float cluster_max(float m, float* warps, float* slots, int& parity, i
   return r;
 }
 
-// The swap rounds of a cluster body on the CTA's band: as swap_runs, the
-// decision bytes of each group of up to 8 rounds into the env's byte plane
-// `dec`, then the rounds from src into the other of the two slots, a
-// cluster barrier after the bytes and after each round (`n_bar` counts
-// them). A round reads both partners of a run's cells before it selects
-// and stores (see cluster_run). Returns the plane that holds the result.
-__device__ const float* cluster_swaps(const float* src, float* s0, float* s1, uint8_t* dec,
-                                      const Planes& p, const ConvArgs& cv, const RunGrid& g,
-                                      int rb0, int runs, uint32_t k0, uint32_t k1,
-                                      const uint32_t* wrd, int& n_bar) {
-  const int H = g.H, W = g.W;
-  const int lanes = 32 / cv.lane_bits;
-  const uint32_t lane_mask = (1u << cv.lane_bits) - 1u;
-  int plane0 = 0, lane0 = 0;  // the (plane, lane) of the group's first round
-  for (int g0 = 0; g0 < cv.n_rounds; g0 += 8) {
-    const int ng = min(8, cv.n_rounds - g0);
-    for (Cursor q = band_first_run(g, rb0); q.r < runs; next_run(q, g)) {
-      const int y0 = q.yb * kRun;
-      const int n = min(kRun, H - y0);
-      for (int i = 0; i < n; ++i) {
-        const uint32_t c = (uint32_t)((y0 + i) * W + q.x);
-        uint32_t bits = 0;
-        if (wrd != nullptr) {
-          bits = (__ldg(wrd + c) >> g0) & 0xffu;
-        } else {
-          int pl = plane0, ln = lane0;
-          uint32_t h = fmix32(fmix32((c + (uint32_t)pl * (uint32_t)g.hw) ^ k0) ^ k1);
-          for (int jr = 0; jr < ng; ++jr) {
-            if (((h >> (cv.lane_bits * ln)) & lane_mask) < (uint32_t)cv.q) {
-              bits |= 1u << jr;
-            }
-            if (++ln == lanes && jr + 1 < ng) {
-              ln = 0;
-              ++pl;
-              h = fmix32(fmix32((c + (uint32_t)pl * (uint32_t)g.hw) ^ k0) ^ k1);
-            }
-          }
-        }
-        dec[c] = (uint8_t)bits;
-      }
-    }
-    cluster_sync();
-    ++n_bar;
-    for (int jr = 0; jr < ng; ++jr) {
-      const int r = g0 + jr;
-      const uint32_t bit = 1u << r;
-      const int dy = cv.dy[r], dx = cv.dx[r];
-      float* dst = src == s0 ? s1 : s0;
-      for (Cursor q = band_first_run(g, rb0); q.r < runs; next_run(q, g)) {
-        const int y0 = q.yb * kRun;
-        const int n = min(kRun, H - y0);
-        int xf = q.x + dx;  // the follower's column of a lead here
-        if (xf >= W) xf -= W;
-        int xl = q.x - dx;  // the lead's column of a follower here
-        if (xl < 0) xl += W;
-        int yf = y0 + dy;  // the follower's row of the run's first cell
-        if (yf >= H) yf -= H;
-        int yl = y0 - dy;  // the lead's row of a follower there
-        if (yl < 0) yl += H;
-        float v[kRun];
-#pragma unroll
-        for (int i = 0; i < kRun; ++i) {
-          v[i] = 0.0f;
-          if (i >= n) continue;
-          const int c = (y0 + i) * W + q.x;
-          const int lead_cell = yl * W + xl;
-          const float own = __ldcg(src + c);
-          const float follower = __ldcg(src + yf * W + xf);
-          const float lead = __ldcg(src + lead_cell);
-          const uint32_t own_dec = __ldcg(dec + c), lead_dec = __ldcg(dec + lead_cell);
-          float r = own;
-          if ((__ldg(p.lead + c) & bit) && ((own_dec >> jr) & 1u)) r = follower;
-          if ((__ldg(p.foll + c) & bit) && ((lead_dec >> jr) & 1u)) r = lead;
-          v[i] = r;
-          if (++yf == H) yf = 0;
-          if (++yl == H) yl = 0;
-        }
-#pragma unroll
-        for (int i = 0; i < kRun; ++i) {
-          if (i < n) dst[(y0 + i) * W + q.x] = v[i];
-        }
-      }
-      cluster_sync();
-      ++n_bar;
-      src = dst;
-    }
-    lane0 += 8;
-    while (lane0 >= lanes) {
-      lane0 -= lanes;
-      ++plane0;
-    }
+// Bit l set where lane l (lane_bits wide) of the word h is below q: the
+// 8- and 4-bit lanes of the decision words by byte compares, others lane
+// by lane.
+__device__ __forceinline__ uint32_t lanes_below(uint32_t h, const ConvArgs& cv) {
+  // Bit k of the result from byte k of m (each 0 or 1): no two products
+  // of the multiply meet below bit 28.
+  auto gather = [](uint32_t m) { return ((m & 0x01010101u) * 0x01020408u) >> 24; };
+  if ((cv.lane_bits == 8 || cv.lane_bits == 4) && cv.q < 256) {
+    const uint32_t q = (uint32_t)cv.q * 0x01010101u;
+    if (cv.lane_bits == 8) return gather(__vcmpltu4(h, q));
+    // Nibbles 0, 2, 4, 6 from the low halves of the bytes, 1, 3, 5, 7 from
+    // the high; each 4-bit gather spread to alternate bits.
+    auto spread = [](uint32_t x) {
+      x = (x | (x << 2)) & 0x33u;
+      return (x | (x << 1)) & 0x55u;
+    };
+    return spread(gather(__vcmpltu4(h & 0x0f0f0f0fu, q))) |
+           spread(gather(__vcmpltu4((h >> 4) & 0x0f0f0f0fu, q))) << 1;
   }
-  return src;
+  const int lanes = 32 / cv.lane_bits;
+  const uint32_t lane_mask = cv.lane_bits == 32 ? ~0u : (1u << cv.lane_bits) - 1u;
+  uint32_t out = 0;
+  for (int ln = 0; ln < lanes; ++ln) {
+    if (((h >> (cv.lane_bits * ln)) & lane_mask) < (uint32_t)cv.q) out |= 1u << ln;
+  }
+  return out;
 }
 
-// The epilogue of a cluster body: the swap rounds, then each thread copies
-// its own cells of the result into the output plane (s0) where the result
-// lies elsewhere (it wrote those cells itself, so no barrier is needed);
-// rank 0 writes the env's count, flag and barriers.
+// The decision bits of cell c for the rounds of `bits` (a subset of the
+// rounds of planes pl0..pl1): from the word plane, else the mix32 hash of
+// the env's keys, one hash a word plane that holds one of them.
+__device__ __forceinline__ uint32_t decisions(uint32_t c, uint32_t bits, const ConvArgs& cv,
+                                              const RunGrid& g, int pl0, int pl1, uint32_t k0,
+                                              uint32_t k1, const uint32_t* wrd) {
+  if (wrd != nullptr) return __ldg(wrd + c) & bits;
+  const int lanes = 32 / cv.lane_bits;
+  uint32_t out = 0;
+  for (int pl = pl0; pl <= pl1; ++pl) {
+    const int rb = pl * lanes;  // the plane's first round
+    const uint32_t mine = lanes == 32 ? bits : bits & (((1u << lanes) - 1u) << rb);
+    if (mine == 0) continue;
+    const uint32_t h = fmix32(fmix32((c + (uint32_t)pl * (uint32_t)g.hw) ^ k0) ^ k1);
+    out |= lanes_below(h, cv) << rb;
+  }
+  return out & bits;
+}
+
+// A group of swap rounds in shared memory (see the note above), tile by
+// tile of the band's rows [y0, y1): from src into dst, both in global
+// memory. `tile` is the CTA's shared memory past its scalars.
+__device__ void swap_tiles(const float* src, float* dst, float* tile, const Planes& p,
+                           const ConvArgs& cv, const RunGrid& g, const SwapGroup& sg, int y0,
+                           int y1, uint32_t k0, uint32_t k1, const uint32_t* wrd) {
+  const int H = g.H, W = g.W;
+  const int T = blockDim.x;
+  const int lanes = 32 / cv.lane_bits;
+  const int pl0 = sg.r0 / lanes, pl1 = (sg.r1 - 1) / lanes;
+  const uint32_t rounds =
+      (sg.r1 - sg.r0 == 32 ? ~0u : ((1u << (sg.r1 - sg.r0)) - 1u)) << sg.r0;
+  for (int ty = y0; ty < y1; ty += sg.th) {
+    const int th = min(sg.th, y1 - ty);
+    for (int tx = 0; tx < W; tx += sg.tw) {
+      const int tw = min(sg.tw, W - tx);
+      const int R = th + 2 * sg.hy, C = tw + 2 * sg.hx, n = R * C;
+      float* v = tile;
+      uint32_t* sb = reinterpret_cast<uint32_t*>(v + n);
+      int* row_cell = reinterpret_cast<int*>(sb + n);  // R: the row's first cell
+      uint32_t* row_ok = reinterpret_cast<uint32_t*>(row_cell + R);
+      int* col_x = reinterpret_cast<int*>(row_ok + R);  // C: the column
+      uint32_t* col_ok = reinterpret_cast<uint32_t*>(col_x + C);
+      // Per row and column of the region: where it lies on the torus, and
+      // the rounds whose partner row / column lies in the region.
+      for (int k = threadIdx.x; k < R + C; k += T) {
+        const bool row = k < R;
+        const int i = row ? k : k - R;
+        const int len = row ? R : C, axis = row ? H : W;
+        int at = ((row ? ty - sg.hy : tx - sg.hx) + i) % axis;
+        if (at < 0) at += axis;
+        uint32_t ok = 0;
+        for (int r = sg.r0; r < sg.r1; ++r) {
+          const int d = torus_offset(row ? cv.dy[r] : cv.dx[r], axis);
+          if (i + d >= 0 && i + d < len) ok |= 1u << r;
+        }
+        if (row) {
+          row_cell[i] = at * W;
+          row_ok[i] = ok;
+        } else {
+          col_x[i] = at;
+          col_ok[i] = ok;
+        }
+      }
+      __syncthreads();
+      // The field and each cell's swap bits; cell idx at (i, j), stepped by
+      // (T / C, T % C) with one carry.
+      const int si = T / C, sj = T - si * C;
+      int i = threadIdx.x / C, j = threadIdx.x - i * C;
+      for (int idx = threadIdx.x; idx < n; idx += T) {
+        const int c = row_cell[i] + col_x[j];
+        v[idx] = __ldcg(src + c);
+        uint32_t bits = __ldg(p.lead + c) & rounds & row_ok[i] & col_ok[j];
+        if (bits != 0) bits = decisions((uint32_t)c, bits, cv, g, pl0, pl1, k0, k1, wrd);
+        sb[idx] = bits;
+        i += si;
+        j += sj;
+        if (j >= C) {
+          j -= C;
+          ++i;
+        }
+      }
+      __syncthreads();
+      // Round r moves values at most `reach` rows (the rounds from r on),
+      // so it runs on the rows within that of the tile; every column.
+      int reach = sg.hy;
+      for (int r = sg.r0; r < sg.r1; ++r) {
+        const uint32_t bit = 1u << r;
+        const int dy = torus_offset(cv.dy[r], H);
+        const int off = dy * C + torus_offset(cv.dx[r], W);
+        const int end = (sg.hy + th + reach) * C;
+        for (int idx = (sg.hy - reach) * C + threadIdx.x; idx < end; idx += T) {
+          if (sb[idx] & bit) {
+            const float a = v[idx];
+            v[idx] = v[idx + off];
+            v[idx + off] = a;
+          }
+        }
+        reach -= dy < 0 ? -dy : dy;
+        __syncthreads();
+      }
+      // The interior out, row by row of the tile.
+      const int ti = T / tw, tj = T - ti * tw;
+      int ii = threadIdx.x / tw, jj = threadIdx.x - ii * tw;
+      for (int k = threadIdx.x; k < th * tw; k += T) {
+        dst[(ty + ii) * W + tx + jj] = v[(sg.hy + ii) * C + sg.hx + jj];
+        ii += ti;
+        jj += tj;
+        if (jj >= tw) {
+          jj -= tw;
+          ++ii;
+        }
+      }
+      __syncthreads();  // the region is read out before the next tile's
+    }
+  }
+}
+
+// One round too wide for any tile, on the CTA's band: as a round of
+// swap_runs, from src into dst in global memory, each decision made where
+// it is read (a lead's own, a follower's its lead's). A round reads both
+// partners of a run's cells before it stores (see cluster_run).
+__device__ void swap_wide(const float* src, float* dst, const Planes& p, const ConvArgs& cv,
+                          const RunGrid& g, int rb0, int runs, int r, uint32_t k0, uint32_t k1,
+                          const uint32_t* wrd) {
+  const int H = g.H, W = g.W;
+  const uint32_t bit = 1u << r;
+  const int pl = r / (32 / cv.lane_bits);
+  const int dy = cv.dy[r], dx = cv.dx[r];
+  for (Cursor q = band_first_run(g, rb0); q.r < runs; next_run(q, g)) {
+    const int y0 = q.yb * kRun;
+    const int n = min(kRun, H - y0);
+    int xf = q.x + dx;  // the follower's column of a lead here
+    if (xf >= W) xf -= W;
+    int xl = q.x - dx;  // the lead's column of a follower here
+    if (xl < 0) xl += W;
+    int yf = y0 + dy;  // the follower's row of the run's first cell
+    if (yf >= H) yf -= H;
+    int yl = y0 - dy;  // the lead's row of a follower there
+    if (yl < 0) yl += H;
+    float v[kRun];
+#pragma unroll
+    for (int i = 0; i < kRun; ++i) {
+      v[i] = 0.0f;
+      if (i >= n) continue;
+      const int c = (y0 + i) * W + q.x;
+      const int lead_cell = yl * W + xl;
+      float r_v = __ldcg(src + c);
+      if ((__ldg(p.lead + c) & bit) &&
+          decisions((uint32_t)c, bit, cv, g, pl, pl, k0, k1, wrd)) {
+        r_v = __ldcg(src + yf * W + xf);
+      }
+      if ((__ldg(p.foll + c) & bit) &&
+          decisions((uint32_t)lead_cell, bit, cv, g, pl, pl, k0, k1, wrd)) {
+        r_v = __ldcg(src + lead_cell);
+      }
+      v[i] = r_v;
+      if (++yf == H) yf = 0;
+      if (++yl == H) yl = 0;
+    }
+#pragma unroll
+    for (int i = 0; i < kRun; ++i) {
+      if (i < n) dst[(y0 + i) * W + q.x] = v[i];
+    }
+  }
+}
+
+// The epilogue of a cluster body. With swap rounds: the plan's groups from
+// the field (never the output plane s0) alternately into s1 and s2, the
+// last into s0, a cluster barrier between groups. Without: each thread
+// copies its own cells of the field into s0 where it lies elsewhere (it
+// wrote those cells itself, so no barrier is needed). Rank 0 writes the
+// env's count, flag and barriers.
 __device__ void cluster_finish(const Planes& p, const ConvArgs& cv, const RunGrid& g,
-                               const ClusterArgs& ca, int rank, int b, int rb0, int runs,
-                               const float* field, float* s0, float* s1, int iters, bool conv,
-                               int n_bar) {
+                               const ClusterArgs& ca, float* tile, int rank, int b, int rb0,
+                               int runs, const float* field, float* s0, float* s1, float* s2,
+                               int iters, bool conv, int n_bar) {
   const size_t off = (size_t)b * g.hw;
-  const float* result = field;
   if (cv.n_rounds > 0) {
     uint32_t k0 = 0, k1 = 0;
     const uint32_t* wrd = nullptr;
@@ -1256,16 +1426,29 @@ __device__ void cluster_finish(const Planes& p, const ConvArgs& cv, const RunGri
       k0 = (uint32_t)p.keys[2 * b];
       k1 = (uint32_t)p.keys[2 * b + 1];
     }
-    result = cluster_swaps(field, s0, s1, ca.dec + off, p, cv, g, rb0, runs, k0, k1, wrd,
-                           n_bar);
-  }
-  if (result != s0) {
+    const int y0 = rb0 * kRun, y1 = min(g.H, (rb0 + ca.band_blocks) * kRun);
+    const float* src = field;
+    for (int k = 0; k < ca.plan.n; ++k) {
+      const SwapGroup& sg = ca.plan.g[k];
+      float* dst = k + 1 == ca.plan.n ? s0 : src == s1 ? s2 : s1;
+      if (k > 0) {
+        cluster_sync();
+        ++n_bar;
+      }
+      if (sg.tw > 0) {
+        swap_tiles(src, dst, tile, p, cv, g, sg, y0, y1, k0, k1, wrd);
+      } else {
+        swap_wide(src, dst, p, cv, g, rb0, runs, sg.r0, k0, k1, wrd);
+      }
+      src = dst;
+    }
+  } else if (field != s0) {
     for (Cursor q = band_first_run(g, rb0); q.r < runs; next_run(q, g)) {
       const int y0 = q.yb * kRun;
       const int n = min(kRun, g.H - y0);
       float v[kRun];
 #pragma unroll
-      for (int i = 0; i < kRun; ++i) v[i] = i < n ? __ldcg(result + (y0 + i) * g.W + q.x) : 0.0f;
+      for (int i = 0; i < kRun; ++i) v[i] = i < n ? __ldcg(field + (y0 + i) * g.W + q.x) : 0.0f;
 #pragma unroll
       for (int i = 0; i < kRun; ++i) {
         if (i < n) s0[(y0 + i) * g.W + q.x] = v[i];
@@ -1280,7 +1463,8 @@ __device__ void cluster_finish(const Planes& p, const ConvArgs& cv, const RunGri
 }
 
 // The band of a cluster body's CTA: its rank, env, first row block and
-// runs; the dynamic shared memory holds warps[32] and slots[2][kClusterMax].
+// runs; the dynamic shared memory holds warps[32] and slots[2][kClusterMax],
+// then a tile of the swap rounds.
 struct Band {
   int rank, b, rb0, runs;
 };
@@ -1298,7 +1482,8 @@ __device__ __forceinline__ Band cluster_band(const RunGrid& g, const ClusterArgs
 // of `check_every` sub-iterations, the residual of each chunk's last one
 // deciding the stop, then J(x_f), the swap rounds and the output. The
 // first sub-iteration reads x_prev from temp and writes slot 0; after it
-// x_next overwrites x_prev in place, as in the block body.
+// x_next overwrites x_prev in place, as in the block body. J(x_f) goes into
+// x_prev's slot, or with swap rounds into the spare plane.
 __global__ void __launch_bounds__(kClusterThreads, 1)
     fdm_cheby_cluster_body(Planes p, ConvArgs cv, RunGrid g, ClusterArgs ca,
                            float threshold, int limit, float rho2, float omega0,
@@ -1313,6 +1498,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   const float* dn = p.denom + off;
   float* s0 = p.out + off;
   float* s1 = ca.scratch + off;
+  float* s2 = cv.n_rounds > 0 ? ca.spare + off : nullptr;
   const float tinf = p.tinf[s.b];
   int n_bar = 0, parity = 0;
   float m = 0.0f;
@@ -1346,17 +1532,18 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
     iters = it;
     if (m <= threshold) done = true;
   }
-  // Emit J(x_final) into x_prev's slot.
-  float* field = xp == s1 ? s1 : s0;
+  float* field = s2 != nullptr ? s2 : xp == s1 ? s1 : s0;
   cluster_sweep<kFinal>(p, g, s.rb0, s.runs, x, nullptr, field, cn, dn, tinf, 0.0f, false, m);
   cluster_sync();
   ++n_bar;
-  cluster_finish(p, cv, g, ca, s.rank, s.b, s.rb0, s.runs, field, s0, s1, iters, done, n_bar);
+  cluster_finish(p, cv, g, ca, smem + kClusterScalars, s.rank, s.b, s.rb0, s.runs, field, s0,
+                 s1, s2, iters, done, n_bar);
 }
 
 // K2's (kSolo) and K3's (kBlock) semantics (one env) on a cluster: Jacobi
-// from temp, alternating between the two slots, one cluster max per
-// iteration; then the swap rounds and the output.
+// from temp, alternating between the output and scratch planes (with swap
+// rounds, scratch and spare), one cluster max per iteration; then the swap
+// rounds and the output.
 template <int RULE>
 __global__ void __launch_bounds__(kClusterThreads, 1)
     fdm_jacobi_cluster_body(Planes p, ConvArgs cv, RunGrid g, ClusterArgs ca,
@@ -1371,6 +1558,8 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   const float* dn = p.denom + off;
   float* s0 = p.out + off;
   float* s1 = ca.scratch + off;
+  float* s2 = cv.n_rounds > 0 ? ca.spare + off : nullptr;
+  float* other = s2 != nullptr ? s2 : s0;  // the plane the iterate alternates with s1
   const float tinf = p.tinf[s.b];
   int n_bar = 0, parity = 0;
   float delta = threshold + 1.0f;  // kSolo: the last residual max
@@ -1379,7 +1568,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   int iters = 0;
   const float* x = temp;
   for (int it = 0; it < limit && active; ++it) {
-    float* dst = x == s1 ? s0 : s1;
+    float* dst = x == s1 ? other : s1;
     float m = 0.0f;
     cluster_sweep<kJacobi>(p, g, s.rb0, s.runs, x, nullptr, dst, cn, dn, tinf, 0.0f, true, m);
     m = cluster_max(m, warps, slots, parity, s.rank, ca.cluster);
@@ -1395,7 +1584,8 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
     }
   }
   if (RULE == kSolo) conv = delta <= threshold;
-  cluster_finish(p, cv, g, ca, s.rank, s.b, s.rb0, s.runs, x, s0, s1, iters, conv, n_bar);
+  cluster_finish(p, cv, g, ca, smem + kClusterScalars, s.rank, s.b, s.rb0, s.runs, x, s0, s1,
+                 s2, iters, conv, n_bar);
 }
 
 // ---------------------------------------------------------------------------
@@ -1674,14 +1864,72 @@ int cluster_geometry(int H, int W, int edge_fill, ClusterGeometry* out) {
   geo.threads = (per_slot + 31) / 32 * 32;
   g.step_b = geo.threads / W;
   g.step_x = geo.threads % W;
-  geo.smem = sizeof(float) * (32 + 2 * kClusterMax);
+  geo.smem = sizeof(float) * kClusterScalars;
   geo.grid = g;
   *out = geo;
   return 0;
 }
 
+// The tile of a swap group with reach (hy, hx) on bands of `rows` rows of
+// a W-wide grid: of the tiles th x tw whose region fits kSwapTileBytes,
+// with th and tw even shares of the band's rows and of W, the one whose
+// regions load the fewest cells, into *th, *tw; returns those cells (the
+// band's), 0 where no tile fits.
+long long swap_tile(int rows, int W, int hy, int hx, int* th, int* tw) {
+  const long long cap = (long long)(kSwapTileBytes / 8);  // R * C + R + C
+  long long best = 0;
+  for (int nr = 1; nr <= min(rows, 256); ++nr) {
+    const int h = (rows + nr - 1) / nr;
+    if (nr > 1 && h == (rows + nr - 2) / (nr - 1)) continue;  // the same tiles
+    const long long R = h + 2LL * hy;
+    if (R >= cap) continue;
+    long long w_max = (cap - R) / (R + 1) - 2LL * hx;
+    if (w_max > W) w_max = W;
+    if (w_max < 1) continue;
+    const long long nc = (W + w_max - 1) / w_max;
+    const long long load = (rows + nr * 2LL * hy) * (W + nc * 2LL * hx);
+    if (best == 0 || load < best) {
+      best = load;
+      *th = h;
+      *tw = (int)((W + nc - 1) / nc);
+    }
+  }
+  return best;
+}
+
+// The swap plan of a cluster launch (see the note above the cluster
+// bodies; read by physics/fdm_cuda.py swap_plan through
+// fdm_cluster_swap_plan): from round 0, each
+// group takes consecutive rounds while its summed reach leaves a tile that
+// loads at most kTileLoad times the band's cells; a round that admits none
+// alone is a group of its own (tw = 0). cv's offsets are normalised; *smem
+// receives the largest tile region's bytes (0 without tiles).
+void swap_plan(const ConvArgs& cv, int H, int W, int rows, SwapPlan* plan, size_t* smem) {
+  plan->n = 0;
+  *smem = 0;
+  int r = 0;
+  while (r < cv.n_rounds) {
+    SwapGroup sg = {r, r + 1, 0, 0, 0, 0};
+    int hy = 0, hx = 0;
+    for (int e = r; e < cv.n_rounds; ++e) {
+      const int dy = torus_offset(cv.dy[e], H), dx = torus_offset(cv.dx[e], W);
+      const int ny = hy + (dy < 0 ? -dy : dy), nx = hx + (dx < 0 ? -dx : dx);
+      int th = 0, tw = 0;
+      const long long load = swap_tile(rows, W, ny, nx, &th, &tw);
+      if (load == 0 || load > (long long)kTileLoad * rows * W) break;
+      hy = ny;
+      hx = nx;
+      sg = {r, e + 1, hy, hx, th, tw};
+    }
+    const size_t bytes = sg.tw > 0 ? tile_bytes(sg.th + 2 * sg.hy, sg.tw + 2 * sg.hx) : 0;
+    if (bytes > *smem) *smem = bytes;
+    plan->g[plan->n++] = sg;
+    r = sg.r1;
+  }
+}
+
 // The cluster bodies' launch: K1/K4 (cheby) or K2/K3 (rule) on a cluster
-// per env.
+// per env, with the swap plan of its rounds.
 int cluster_launch(bool cheby, int rule, Planes p, ConvArgs cv, ClusterArgs ca,
                    float threshold, int limit, float rho2, float omega0, int check_every,
                    int B, cudaStream_t stream) {
@@ -1691,21 +1939,31 @@ int cluster_launch(bool cheby, int rule, Planes p, ConvArgs cv, ClusterArgs ca,
   if (B < 1 || (long long)B * geo.cluster > 0x7fffffffLL || check_every < 1) {
     return (int)cudaErrorInvalidValue;
   }
+  if (cv.n_rounds > 0 && ca.spare == nullptr) return (int)cudaErrorInvalidValue;
   normalise_offsets(cv, p.H, p.W);
   ca.cluster = geo.cluster;
   ca.band_blocks = geo.band_blocks;
+  size_t tile = 0;
+  swap_plan(cv, p.H, p.W, min(p.H, geo.band_blocks * kRun), &ca.plan, &tile);
+  const size_t smem = geo.smem + tile;
   const int grid = B * geo.cluster;
   if (cheby) {
-    return launch_cluster(fdm_cheby_cluster_body, grid, geo.cluster, geo.threads, geo.smem,
+    err = prepare(fdm_cheby_cluster_body, smem);
+    if (err) return err;
+    return launch_cluster(fdm_cheby_cluster_body, grid, geo.cluster, geo.threads, smem,
                           stream, p, cv, geo.grid, ca, threshold, limit, rho2, omega0,
                           check_every);
   }
   if (rule == kSolo) {
+    err = prepare(fdm_jacobi_cluster_body<kSolo>, smem);
+    if (err) return err;
     return launch_cluster(fdm_jacobi_cluster_body<kSolo>, grid, geo.cluster, geo.threads,
-                          geo.smem, stream, p, cv, geo.grid, ca, threshold, limit);
+                          smem, stream, p, cv, geo.grid, ca, threshold, limit);
   }
-  return launch_cluster(fdm_jacobi_cluster_body<kBlock>, grid, geo.cluster, geo.threads,
-                        geo.smem, stream, p, cv, geo.grid, ca, threshold, limit);
+  err = prepare(fdm_jacobi_cluster_body<kBlock>, smem);
+  if (err) return err;
+  return launch_cluster(fdm_jacobi_cluster_body<kBlock>, grid, geo.cluster, geo.threads, smem,
+                        stream, p, cv, geo.grid, ca, threshold, limit);
 }
 
 int export_geometry(int E, int H, int W, int* out) {
@@ -1820,14 +2078,39 @@ int fdm_cluster_geometry(int H, int W, int* out) {
   return 0;
 }
 
+// The swap plan of the cluster bodies on an H x W grid for n_rounds
+// offsets (2 * n_rounds ints, dy and dx per round) into out[2 + 6 *
+// n_rounds]: groups, the tile's shared bytes, then r0, r1, hy, hx, th, tw
+// per group.
+int fdm_cluster_swap_plan(int H, int W, const int* offsets, int n_rounds, int* out) {
+  ClusterGeometry geo;
+  int err = cluster_geometry(H, W, 0, &geo);
+  if (err) return err;
+  if (n_rounds < 0 || n_rounds > kMaxRounds) return (int)cudaErrorInvalidValue;
+  ConvArgs cv = make_conv_args(offsets, n_rounds, 8, 0);
+  normalise_offsets(cv, H, W);
+  SwapPlan plan;
+  size_t tile = 0;
+  swap_plan(cv, H, W, min(H, geo.band_blocks * kRun), &plan, &tile);
+  out[0] = plan.n;
+  out[1] = (int)tile;
+  for (int k = 0; k < plan.n; ++k) {
+    const SwapGroup& sg = plan.g[k];
+    const int v[6] = {sg.r0, sg.r1, sg.hy, sg.hx, sg.th, sg.tw};
+    for (int i = 0; i < 6; ++i) out[2 + 6 * k + i] = v[i];
+  }
+  return 0;
+}
+
 // The cluster bodies, one cluster per env, for a plan above one block's
 // shared memory (any plan whose cells a 32-bit index holds): the planes as
-// for K1/K2, the solver's arguments, then `scratch` (B, H, W) float, `dec`
-// (B, H, W) bytes and `barriers` (B,) int32 (each env's cluster barriers),
-// then the convection's arguments. No statistics. `rule` picks the Jacobi
-// stopping rule: 0 K2's (solo), 1 K3's (block).
+// for K1/K2, the solver's arguments, then `scratch` (B, H, W) float,
+// `spare` (B, H, W) float (may be null when n_rounds == 0) and `barriers`
+// (B,) int32 (each env's cluster barriers), then the convection's
+// arguments. No statistics. `rule` picks the Jacobi stopping rule: 0 K2's
+// (solo), 1 K3's (block).
 #define FDM_CLUSTER_PARAMS                                                       \
-  float *scratch, uint8_t *dec, int32_t *barriers, const int *offsets, int n_rounds, \
+  float *scratch, float *spare, int32_t *barriers, const int *offsets, int n_rounds, \
       int lane_bits, int q, void *stream
 #define FDM_CLUSTER_PREPARE                                                      \
   Planes p = make_planes(temp, cnst, denom, tinf, coef, ext, lead, foll, keys,   \
@@ -1835,7 +2118,10 @@ int fdm_cluster_geometry(int H, int W, int* out) {
   int err = check_args(p, n_rounds, 0, 0, 0);                                    \
   if (err) return err;                                                           \
   ConvArgs cv = make_conv_args(offsets, n_rounds, lane_bits, q);                 \
-  ClusterArgs ca = {scratch, dec, barriers, 0, 0}
+  ClusterArgs ca = {};                                                           \
+  ca.scratch = scratch;                                                          \
+  ca.spare = spare;                                                              \
+  ca.barriers = barriers
 
 int fdm_cheby_cluster_launch(FDM_PLANE_PARAMS, float threshold, int limit, float rho2,
                              float omega0, int check_every, FDM_CLUSTER_PARAMS) {

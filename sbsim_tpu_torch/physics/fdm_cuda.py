@@ -26,7 +26,10 @@ kernel, a cluster body with the same semantics, one thread-block cluster
 per env with the iterate pair in global memory: fdm_cheby_cluster for K1
 and K4, fdm_jacobi_cluster for K2 and K3 (each with its stopping rule).
 The plan's size alone picks it (spans_blocks); a plan whose cells overflow
-a 32-bit index, or whose launch the card cannot hold, is refused.
+a 32-bit index, or whose launch the card cannot hold, is refused. Its swap
+rounds run in groups planned from the offsets and the grid (swap_plan):
+each group in one pass through shared memory over halo tiles of a CTA's
+band, a round too wide for any tile as a pass in global memory.
 
 Every block kernel keeps its envs' iterate and partner plane in shared memory for
 the whole solve, and stages const and denom there where they fit, so a
@@ -123,6 +126,10 @@ NVCC_FLAGS = (
 launch_counts = profiling.family("fdm.launches", ("fdm_cheby", "fdm_jacobi", "fdm_cheby_block",
                                                   "fdm_jacobi_block", "fdm_cheby_cluster",
                                                   "fdm_jacobi_cluster"))
+# `fdm.swap_groups`: the groups of the swap plans of the cluster launches,
+# summed over them as the launches are (so a plan's groups per solve is it
+# over the launches of `fdm.launches.fdm_*_cluster`).
+swap_counts = profiling.family("fdm", ("swap_groups",))
 # nvcc's output of the build in this process (ptxas register/smem use).
 build_log = ""
 _lib = None
@@ -176,13 +183,15 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, f"fdm_{body}_geometry").restype = i32
     lib.fdm_blocks_per_sm.argtypes = [i32] * 4
     lib.fdm_blocks_per_sm.restype = i32
-    # scratch, dec, barriers, offsets, n_rounds, lane_bits, q, stream
+    # scratch, spare, barriers, offsets, n_rounds, lane_bits, q, stream
     cluster = [ptr] * 4 + [i32] * 3 + [ptr]
     lib.fdm_cheby_cluster_launch.argtypes = planes + cheby + cluster
     lib.fdm_jacobi_cluster_launch.argtypes = planes + [i32] + jacobi + cluster  # + rule
     lib.fdm_cheby_cluster_launch.restype = lib.fdm_jacobi_cluster_launch.restype = i32
     lib.fdm_cluster_geometry.argtypes = [i32, i32, ptr]
     lib.fdm_cluster_geometry.restype = i32
+    lib.fdm_cluster_swap_plan.argtypes = [i32, i32, ptr, i32, ptr]
+    lib.fdm_cluster_swap_plan.restype = i32
     return lib
 
 
@@ -387,13 +396,54 @@ def cluster_geometry(shape: Tuple[int, int]) -> ClusterGeometry:
                            row_blocks, threads // w, threads % w)
 
 
+class SwapGroup(NamedTuple):
+    """One group of a cluster body's swap plan: rounds [r0, r1); tw > 0: in
+    shared memory over tiles of th x tw cells of a CTA's band with a halo
+    of hy rows and hx columns (the rounds' summed reach); tw == 0: one
+    round too wide for any tile, a pass over the band in global memory."""
+
+    r0: int
+    r1: int
+    hy: int
+    hx: int
+    th: int
+    tw: int
+
+
+class SwapPlan(NamedTuple):
+    groups: Tuple[SwapGroup, ...]
+    smem: int  # shared bytes of the largest tile region (0 without tiles)
+
+
+def swap_plan(shape: Tuple[int, int], offsets: Tuple[Tuple[int, int], ...],
+              lib: Optional[ctypes.CDLL] = None) -> SwapPlan:
+    """The swap plan the cluster bodies run on an (H, W) grid for the
+    rounds' offsets, as the library computes it at launch (swap_plan in
+    csrc/fdm_kernels.cu; `lib`, a host build as in _launch, else the
+    card's): from round 0, each group takes consecutive rounds while their
+    summed reach (each offset its shortest way round the torus) leaves a
+    tile that loads at most 4 times the band's cells; a round that admits
+    none alone is a group of its own. A solve crosses one cluster barrier
+    between groups."""
+    lib = lib or _library()
+    flat = (ctypes.c_int * max(1, 2 * len(offsets)))(*[int(v) for o in offsets for v in o])
+    out = (ctypes.c_int * (2 + 6 * len(offsets)))()
+    err = lib.fdm_cluster_swap_plan(int(shape[0]), int(shape[1]), flat, len(offsets), out)
+    if err:
+        raise ValueError(f"no swap plan for {len(offsets)} rounds on a {shape} grid: "
+                         f"CUDA error {err}")
+    groups = tuple(SwapGroup(*out[2 + 6 * k:8 + 6 * k]) for k in range(out[0]))
+    return SwapPlan(groups, out[1])
+
+
 def cluster_bytes(batch: int, shape: Tuple[int, int]) -> int:
     """Device memory a cluster launch works on: per env temp, const,
-    denom, the output and the scratch plane (float32), the decision bytes,
-    tinf, key, count, flag and barriers; the shared stencil (a_r, a_l, a_b,
-    a_t, the packed coef), exterior and lead/follower planes."""
+    denom, the output, the scratch and the swap rounds' spare plane
+    (float32), tinf, key, count, flag and barriers; the shared stencil
+    (a_r, a_l, a_b, a_t, the packed coef), exterior and lead/follower
+    planes."""
     cells = shape[0] * shape[1]
-    return batch * (cells * (5 * 4 + 1) + 4 + 8 + 4 + 4 + 4) + cells * (4 * 4 + 16 + 4 + 2 * 4)
+    return batch * (cells * 6 * 4 + 4 + 8 + 4 + 4 + 4) + cells * (4 * 4 + 16 + 4 + 2 * 4)
 
 
 def run_neighbours(shape: Tuple[int, int], geo: RunGeometry, edge_fill: bool):
@@ -931,17 +981,20 @@ def _launch_cluster(name: str, inp: KernelInputs, conv, stats, solver_args, lib,
         lib = lib or _library()
         out, iters, flag, _ = _outputs(inp, None)
         scratch = torch.empty_like(inp.temp)
-        dec = torch.empty(inp.temp.shape, dtype=torch.uint8, device=inp.temp.device)
+        spare = torch.empty_like(inp.temp) if conv is not None else None
         if barriers is None:
             barriers = torch.empty(b, dtype=torch.int32, device=inp.temp.device)
         planes, tail = _launch_args(inp, conv, None, out, iters, flag, None, stream)
         offsets, n_rounds, lane_bits, q = tail[:4]
         err = getattr(lib, f"{kernel}_launch")(
-            *planes, *head, *solver_args, scratch.data_ptr(), dec.data_ptr(),
-            barriers.data_ptr(), offsets, n_rounds, lane_bits, q, stream)
+            *planes, *head, *solver_args, scratch.data_ptr(),
+            None if spare is None else spare.data_ptr(), barriers.data_ptr(), offsets,
+            n_rounds, lane_bits, q, stream)
     if err:
         raise RuntimeError(f"{kernel} launch for {name} failed: CUDA error {err}")
     launch_counts[kernel] += 1
+    if conv is not None:
+        swap_counts["swap_groups"] += len(swap_plan(inp.temp.shape[1:], conv.offsets, lib).groups)
     return _result(out, iters, flag > 0, fold_stats(out, stats))
 
 

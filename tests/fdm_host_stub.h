@@ -194,6 +194,15 @@ inline T __ldcg(const T* p) {
   return *p;
 }
 
+// Per byte: 0xff where a's byte is below b's (unsigned), else 0.
+inline uint32_t __vcmpltu4(uint32_t a, uint32_t b) {
+  uint32_t r = 0;
+  for (int k = 0; k < 32; k += 8) {
+    if (((a >> k) & 0xffu) < ((b >> k) & 0xffu)) r |= 0xffu << k;
+  }
+  return r;
+}
+
 inline unsigned cluster_rank() { return fdm_host::cluster_rank; }
 inline void cluster_sync() { fdm_host::cluster_barrier->arrive_and_wait(); }
 inline void cluster_store(float* local, unsigned rank, float v) {

@@ -25,6 +25,7 @@ imports no JAX.
 import collections
 import contextlib
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
@@ -327,24 +328,49 @@ def _cluster_kw(env, kernel, conv, limit=100):
     return kw
 
 
+def _ladder_conv(env, conv):
+    """The doubling ladder's mix32 rounds on the env's plan, with the keys
+    of `conv`."""
+    with warnings.catch_warnings():  # its 36 core offsets, cut to 32 rounds
+        warnings.simplefilter("ignore", UserWarning)
+        b = convection.make_convection_buckets(env.geom, 1.0, -1, rng="mix32")
+    return fdm_cuda.ConvInputs(
+        offsets=b.offsets, lead=fdm_cuda.packed_plane(b.lead_words, env.device),
+        foll=fdm_cuda.packed_plane(b.foll_words, env.device),
+        word_params=convection.decision_word_params(b), keys=conv.keys)
+
+
 @pytest.mark.parametrize("kernel", sorted(CLUSTER_BODY))
 def test_cluster_bodies_at_floor126(floor_env, kernel):
     """floor126's 466 x 721 plan (335,986 cells: one env's planes far above
     a block's shared memory), B = 4: each kernel runs its cluster body (8
     CTAs of 992 threads an env), one launch, with mix32 and word-plane swap
-    rounds and the statistics by the fold, bitwise its plain version; a
-    capped limit converges no env. Each env's barriers are counted."""
+    rounds (the plan's one group of 16 rounds in shared memory) and the
+    doubling ladder's 32 rounds (twelve groups, two of them passes in global
+    memory), the statistics by the fold, bitwise its plain version; a
+    capped limit converges no env. Each env's barriers are its iterations'
+    and the plan's (J(x_f) for Chebyshev, one between groups), and
+    `fdm.swap_groups` counts the plan's groups for the launch."""
     shape = floor_env.geom.shape
     assert shape == (466, 721) and fdm_cuda.spans_blocks(shape)
     assert fdm_cuda.cluster_geometry(shape).cluster == 8
     inp, conv = _inputs(floor_env, 4, seed=41)
-    for c in (conv, _word_plane(floor_env, conv)):
+    assert len(fdm_cuda.swap_plan(shape, conv.offsets).groups) == 1
+    ladder = _ladder_conv(floor_env, conv)
+    plan = fdm_cuda.swap_plan(shape, ladder.offsets)
+    assert len(plan.groups) == 12 and sum(g.tw == 0 for g in plan.groups) == 2
+    for c in (conv, _word_plane(floor_env, conv), ladder):
         kw = _cluster_kw(floor_env, kernel, c)
         barriers = torch.full((4,), -1, dtype=torch.int32, device=floor_env.device)
+        groups = len(fdm_cuda.swap_plan(shape, c.offsets).groups)
+        before = fdm_cuda.swap_counts["swap_groups"]
         got = _counted(CLUSTER_BODY[kernel], getattr(fdm_cuda, f"{kernel}_cuda"), inp,
                        barriers=barriers, **kw)
         _equal(got, getattr(fdm_cuda, f"{kernel}_plain")(inp, **kw))
-        assert bool(got[2].all()) and bool((barriers > got[1]).all())
+        assert bool(got[2].all())
+        fixed = groups - 1 + (1 if kernel.startswith("fdm_cheby") else 0)
+        assert torch.equal(barriers, got[1] + fixed)
+        assert fdm_cuda.swap_counts["swap_groups"] == before + groups
     kw = _cluster_kw(floor_env, kernel, conv, limit=1 if "cheby" in kernel else 3)
     capped = getattr(fdm_cuda, f"{kernel}_cuda")(inp, **kw)
     _equal(capped, getattr(fdm_cuda, f"{kernel}_plain")(inp, **kw))
@@ -358,7 +384,8 @@ def test_floor126_captured_step_equals_plain(floor_env, solver, kernel):
     """One captured step of floor126 at B=4 (bench.make_rollout, one step a
     call) through the cluster body replays bitwise the same step op by op
     through the plain versions, with no host sync and one launch; traced,
-    the call counts each env's barriers (fdm.barriers)."""
+    the call counts each env's barriers (fdm.barriers): its iterations' and
+    those its swap plan predicts."""
     from sbsim_tpu_torch import bench
     from sbsim_tpu_torch.agents import schedule_policy
     from sbsim_tpu_torch.utils import profiling
@@ -383,7 +410,12 @@ def test_floor126_captured_step_equals_plain(floor_env, solver, kernel):
     with profiling.tracing():
         roll(_clone(start))
         counters = profiling.snapshot()["counters"]
-    assert counters["fdm.barriers"] > counters["fdm.iterations"] > 0
+    # Beside one an iteration: J(x_f) (Chebyshev) and one between groups of
+    # the swap plan (floor126's is one group), for each of the 4 envs.
+    groups = len(fdm_cuda.swap_plan(floor_env.geom.shape, floor_env.convection.offsets).groups)
+    fixed = groups - 1 + (1 if solver == "pallas_cheby" else 0)
+    assert counters["fdm.iterations"] > 0
+    assert counters["fdm.barriers"] - counters["fdm.iterations"] == 4 * fixed
 
 
 def test_a_million_cell_plan_steps_bitwise_plain(env):

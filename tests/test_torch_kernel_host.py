@@ -13,12 +13,15 @@ the run length (B <= 13, K3 at E = 1-4); an env whose field holds a NaN follows 
 stopping rule. The cluster bodies (a plan above one block's shared memory:
 one cluster of CTAs per env, the host threads of all its blocks at once,
 meeting at the cluster barrier) are forced on those grids by a shared-memory
-budget of 0 B and must equal the same plain versions bitwise; a grid too
-large for a block runs through them, and a launch the card cannot hold, or
-whose cells overflow a 32-bit index, is refused before launch. It shows
-logic faults (ownership, parity, freezing, counts, the swap rounds' decision
-bytes, the bands' borders), not races or the card's timing. The test skips
-where there is no g++ and takes about a minute.
+budget of 0 B and must equal the same plain versions bitwise, under swap
+plans of one group, of several groups with rounds too wide for any tile,
+and with halo tiles larger than the grid, each env crossing the barriers
+its plan predicts; a grid too large for a block runs through them, and a
+launch the card cannot hold, or whose cells overflow a 32-bit index, is
+refused before launch. It shows logic faults (ownership, parity, freezing,
+counts, the swap rounds' decisions, tiles and halos, the bands' borders),
+not races or the card's timing. The test skips where there is no g++ and
+takes about a minute.
 """
 
 import ctypes
@@ -31,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from sbsim_tpu_torch.core import geometry
 from sbsim_tpu_torch.envs import building_env, presets
 from sbsim_tpu_torch.physics import convection, fdm_cuda
 
@@ -55,10 +59,16 @@ def host_lib(tmp_path_factory):
 def envs():
     sb1 = building_env.BuildingEnv(presets.sb1_config(num_days_in_episode=1), device="cpu")
     small = building_env.BuildingEnv(presets.two_zone_test_config(), device="cpu")
-    return {"sb1": sb1, "small": small}
+    rooms24 = building_env.BuildingEnv(presets.sb1_config(
+        num_days_in_episode=1, floor_plan=geometry.make_synthetic_office_plan(2, 2, room_cvs=24)),
+        device="cpu")
+    return {"sb1": sb1, "small": small, "rooms24": rooms24}
 
 
-def _inputs(env, batch, seed, conv_kind):
+def _inputs(env, batch, seed, conv_kind, buckets=None):
+    """Seeded kernel inputs on the env's grid, and the swap convection of
+    `buckets` (the env's own by default, enabled) with mix32 keys or the
+    threefry word plane."""
     rs = np.random.default_rng(seed)
     shape = (batch,) + env.geom.shape
     t = torch.as_tensor
@@ -72,7 +82,7 @@ def _inputs(env, batch, seed, conv_kind):
     if conv_kind is None:
         return inp, None
     keys = t(rs.integers(0, 2**32, (batch, 2), dtype=np.uint64).astype(np.int64))
-    buckets = dataclasses.replace(env.convection, enabled=True,
+    buckets = dataclasses.replace(buckets or env.convection, enabled=True,
                                   rng="mix32" if conv_kind == "mix32" else "threefry")
     conv = fdm_cuda.ConvInputs(
         offsets=buckets.offsets,
@@ -134,7 +144,11 @@ def test_geometry_matches_python_mirror(host_lib):
                                    (9, 11), (7, 5), (1, 3)])
 def test_cluster_geometry_matches_python_mirror(host_lib, shape):
     """The cluster bodies' C launch geometry equals its Python mirror, and
-    the bands cover every row block once."""
+    the bands cover every row block once. Their swap plan for the
+    distance-5 offsets and the doubling ladder takes consecutive groups over
+    every round, each tile region within a CTA's shared memory, each group
+    of several rounds with a tile; floor126's distance-5 offsets are one
+    group."""
     out = (ctypes.c_int * 8)()
     geo = fdm_cuda.cluster_geometry(shape)
     assert host_lib.fdm_cluster_geometry(*shape, out) == 0
@@ -143,6 +157,19 @@ def test_cluster_geometry_matches_python_mirror(host_lib, shape):
     assert 1 <= geo.cluster <= fdm_cuda.CLUSTER_MAX and geo.threads <= fdm_cuda.CLUSTER_THREADS
     assert (geo.cluster - 1) * geo.band_blocks < geo.row_blocks <= geo.cluster * geo.band_blocks
     assert geo.threads * geo.slots >= geo.band_blocks * shape[1]
+    for offsets in (convection._offset_schedule(5, *shape),
+                    convection._offset_schedule(-1, *shape)[:32]):
+        plan = fdm_cuda.swap_plan(shape, tuple(offsets), host_lib)
+        assert [g.r0 for g in plan.groups] == [0] + [g.r1 for g in plan.groups[:-1]]
+        assert plan.groups[-1].r1 == len(offsets)
+        for g in plan.groups:
+            assert g.tw > 0 or g.r1 == g.r0 + 1
+            if g.tw > 0:
+                region = (g.th + 2 * g.hy) * (g.tw + 2 * g.hx)
+                assert 0 < 8 * region <= plan.smem <= fdm_cuda.SMEM_BUDGET
+    if shape == (466, 721):
+        plan = fdm_cuda.swap_plan(shape, tuple(convection._offset_schedule(5, *shape)), host_lib)
+        assert len(plan.groups) == 1
 
 
 @pytest.mark.parametrize("conv_kind", [None, "mix32", "words"])
@@ -272,7 +299,7 @@ def _meta(batch, h, w):
     (1, 46341, 46341, "overflow the kernels' 32-bit cell index"),
 ])
 def test_what_the_card_cannot_hold_is_refused(host_lib, batch, h, w, match):
-    """12,000 envs of floor126's 466 x 721 plan need ~84.7 GB for the
+    """12,000 envs of floor126's 466 x 721 plan need ~96.8 GB for the
     solve's planes, more than the card's 80 GB; a 46,341 x 46,341 plan has
     more cells than a 32-bit index holds. Both are refused with the bytes
     named, before any allocation or launch, by every kernel."""
@@ -287,29 +314,67 @@ def test_what_the_card_cannot_hold_is_refused(host_lib, batch, h, w, match):
 
 CLUSTER_CASES = [("fdm_cheby", None), ("fdm_cheby_block", 1), ("fdm_jacobi", None),
                  ("fdm_jacobi_block", 1)]
+# Swap schedules beside the envs' own: on the 9 x 11 grid one group whose
+# halo tiles (12 x 13 cells) are larger than the grid; on the 52 x 67 grid
+# (bands of 8 rows, rooms of 14 crossing them) sb1's 10 rounds are two
+# groups and its first 8 one; the doubling ladder's 20 rounds on 2 x 2
+# rooms of 24 cells (57 x 57, bands of 8 rows) eight, the two (16, 0)
+# rounds too wide for any tile, each with pairs in the rooms.
+SCHEDULES = {
+    "wrap": dict(distance=5, schedule=((1, 0, 0), (1, 0, 1), (2, 0, 0), (0, 1, 1))),
+    "one": dict(distance=5, rounds=8, seed=101),
+    "ladder": dict(distance=-1),
+}
 
 
-@pytest.mark.parametrize("conv_kind", [None, "mix32", "words"])
-@pytest.mark.parametrize("kernel,e", CLUSTER_CASES)
-def test_cluster_body_equals_plain(host_lib, envs, kernel, e, conv_kind):
+def _buckets(env, schedule):
+    if schedule is None:
+        return None
+    return convection.make_convection_buckets(env.geom, 1.0, **SCHEDULES[schedule])
+
+
+def _barriers_per_solve(host_lib, kernel, shape, conv):
+    """The cluster barriers a solve crosses beside its iterations: J(x_f)
+    (Chebyshev) and one between two groups of the swap plan."""
+    groups = len(fdm_cuda.swap_plan(shape, conv.offsets, host_lib).groups) if conv else 1
+    return groups - 1 + (1 if kernel.startswith("fdm_cheby") else 0)
+
+
+def _check_cluster(host_lib, env, kernel, e, inp, conv, batch, check_every=4):
+    """The cluster body bitwise its plain version, every env converged, each
+    env's barriers those of its iterations and of the plan, and the plan's
+    groups counted once for the launch."""
+    barriers = torch.full((batch,), -1, dtype=torch.int32)
+    groups = dict(fdm_cuda.swap_counts)
+    got, want = _run(host_lib, kernel, env, inp, conv, env._stats, 100, e, budget=0,
+                     barriers=barriers, check_every=check_every)
+    _equal(got, want)
+    assert bool(got[2].all())
+    per_solve = _barriers_per_solve(host_lib, kernel, env.geom.shape, conv)
+    assert torch.equal(barriers, got[1].to(torch.int32) + per_solve)
+    plan = fdm_cuda.swap_plan(env.geom.shape, conv.offsets, host_lib).groups if conv else ()
+    assert fdm_cuda.swap_counts["swap_groups"] == groups["swap_groups"] + len(plan)
+
+
+@pytest.mark.parametrize("kernel,e,conv_kind,schedule", [
+    pytest.param(k, e, kind, None, id=f"{k}-{e}-{kind}")
+    for kind in (None, "mix32", "words") for k, e in CLUSTER_CASES] + [
+    pytest.param(k, e, kind, "wrap", id=f"{k}-{e}-{kind}-wrap")
+    for kind in ("mix32", "words") for k, e in CLUSTER_CASES])
+def test_cluster_body_equals_plain(host_lib, envs, kernel, e, conv_kind, schedule):
     """Each kernel's cluster body, forced by a budget of 0 B, on the 9 x 11
     grid (3 CTAs of 32 threads an env: bands of one row block, the last a
     run of one cell), B = 5 with statistics (the fold of the output), and
     with a capped limit where no env converges: bitwise the plain version,
-    and each env's barrier count that of the body's passes."""
+    and each env's barrier count that of the body's passes and its swap
+    plan's groups; with the "wrap" schedule one group whose tile region
+    wraps round the grid both ways."""
     env = envs["small"]
-    inp, conv = _inputs(env, 5, seed=21, conv_kind=conv_kind)
-    barriers = torch.full((5,), -1, dtype=torch.int32)
-    got, want = _run(host_lib, kernel, env, inp, conv, env._stats, 100, e, budget=0,
-                     barriers=barriers)
-    _equal(got, want)
-    assert bool(got[2].all())
-    rounds = len(conv.offsets) if conv is not None else 0
-    per_solve = rounds + -(-rounds // 8)  # each round, each group's decision bytes
-    iters = got[1].to(torch.int32)
-    if kernel.startswith("fdm_cheby"):
-        per_solve = per_solve + 1  # J(x_f)
-    assert torch.equal(barriers, iters + per_solve)
+    inp, conv = _inputs(env, 5, seed=21, conv_kind=conv_kind, buckets=_buckets(env, schedule))
+    if schedule == "wrap":
+        (group,) = fdm_cuda.swap_plan(env.geom.shape, conv.offsets, host_lib).groups
+        assert group.th + 2 * group.hy > 9 and group.tw + 2 * group.hx > 11
+    _check_cluster(host_lib, env, kernel, e, inp, conv, 5)
     # Capped: Chebyshev at J(x0) alone, Jacobi after 3 iterations.
     limit = 1 if kernel.startswith("fdm_cheby") else 3
     capped, want = _run(host_lib, kernel, env, inp, conv, None, limit, e, budget=0)
@@ -317,16 +382,29 @@ def test_cluster_body_equals_plain(host_lib, envs, kernel, e, conv_kind):
     assert not bool(capped[2].any())
 
 
-@pytest.mark.parametrize("kernel,e", CLUSTER_CASES)
-def test_cluster_body_equals_plain_sb1(host_lib, envs, kernel, e):
+@pytest.mark.parametrize("kernel,e,conv_kind,schedule", [
+    pytest.param(k, e, "mix32", None, id=f"{k}-{e}") for k, e in CLUSTER_CASES] + [
+    pytest.param(k, e, kind, schedule, id=f"{k}-{e}-{schedule or 'sb1'}-{kind}")
+    for schedule, kind in ((None, "words"), ("one", "mix32"), ("one", "words"),
+                           ("ladder", "mix32"), ("ladder", "words"))
+    for k, e in CLUSTER_CASES])
+def test_cluster_body_equals_plain_sb1(host_lib, envs, kernel, e, conv_kind, schedule):
     """The cluster bodies on the 12-zone sb1 grid (7 CTAs of 160 threads an
-    env: bands of two row blocks over 67 columns), mix32 rounds, B = 2,
-    Chebyshev sampled every sub-iteration: bitwise the plain versions."""
-    env = envs["sb1"]
-    inp, conv = _inputs(env, 2, seed=22, conv_kind="mix32")
-    got, want = _run(host_lib, kernel, env, inp, conv, env._stats, 100, e, budget=0,
-                     check_every=1)
-    _equal(got, want)
+    env: bands of two row blocks over 67 columns, which the rooms cross),
+    B = 2, Chebyshev sampled every sub-iteration: bitwise the plain
+    versions, with mix32 rounds and the threefry word plane, under sb1's
+    schedule (two groups) and its first 8 rounds (one group), and the
+    doubling ladder on larger rooms (eight groups, two rounds too wide for
+    any tile); each env's barriers those its plan predicts."""
+    env = envs["rooms24" if schedule == "ladder" else "sb1"]
+    buckets = _buckets(env, schedule)
+    inp, conv = _inputs(env, 2, seed=22, conv_kind=conv_kind, buckets=buckets)
+    groups = fdm_cuda.swap_plan(env.geom.shape, conv.offsets, host_lib).groups
+    assert len(groups) == {None: 2, "one": 1, "ladder": 8}[schedule]
+    wide = [g.r0 for g in groups if g.tw == 0]
+    assert len(wide) == (2 if schedule == "ladder" else 0)
+    assert all(buckets.lead_masks[r].any() for r in wide)
+    _check_cluster(host_lib, env, kernel, e, inp, conv, 2, check_every=1)
 
 
 @pytest.mark.parametrize("kernel,e", [("fdm_jacobi", None), ("fdm_jacobi_block", 1)])

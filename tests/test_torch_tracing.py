@@ -350,6 +350,8 @@ def test_captured_call_is_a_span_with_its_key():
 
 def test_launch_counts_are_the_registry_family():
     assert fdm_cuda.launch_counts is profiling.family("fdm.launches")
+    assert fdm_cuda.swap_counts is profiling.family("fdm")
+    assert "fdm.swap_groups" in profiling.setup()["counters"]
     with profiling.tracing():
         fdm_cuda.launch_counts["fdm_cheby"] += 2
         fdm_cuda.launch_counts["fdm_cheby"] -= 2
