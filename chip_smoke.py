@@ -509,33 +509,35 @@ def make_env(which: str, device):
     return building_env.BuildingEnv(cfg, device=device)
 
 
+def route_of(env, kname: str):
+    """The env's route of the solver whose body kernel `kname` runs (its
+    solver's arguments, its convection)."""
+    return env.route("pallas_cheby" if kname.startswith("fdm_cheby") else "pallas_env")
+
+
 def block_envs(env, kname: str) -> int:
     """The envs per thread block K3 or K4 (kname) runs for this env's
-    config."""
-    from sbsim_tpu_torch.physics import fdm_cuda
-
-    return fdm_cuda.effective_block_envs(env.geom.shape, env.config.pallas_block_envs,
-                                         cheby=kname.startswith("fdm_cheby"))
+    config: its route's."""
+    return route_of(env, kname).block_envs
 
 
 def kernel_of(env, solver: str) -> str:
-    stack = env.config.pallas_block_mode == "stack" and env.config.pallas_block_envs > 1
-    base = "fdm_cheby" if solver == "pallas_cheby" else "fdm_jacobi"
-    return base + "_block" if stack else base
+    return env.route(solver).kernel
 
 
 def word_conv(env, keys, words: bool):
-    """Fused swap convection of the path (mix32 keys), or with `words` the
+    """Fused swap convection of the env's route from the step keys (mix32
+    keys, or the threefry plane of a threefry env), or with `words` the
     threefry word plane of the same keys."""
     from sbsim_tpu_torch.physics import convection, fdm_cuda
 
-    c = env.convection
-    conv = fdm_cuda.ConvInputs(offsets=c.offsets, lead=env._conv_lead, foll=env._conv_foll)
-    if not words and env._conv_word_params is not None:
-        return dataclasses.replace(conv, word_params=env._conv_word_params, keys=keys)
-    plane = convection.swap_decision_word(dataclasses.replace(c, rng="threefry"), keys,
-                                          env.geom.shape)
-    return dataclasses.replace(conv, words=fdm_cuda.packed_plane(plane, env.device))
+    route = env.route("pallas_cheby")
+    if not words:
+        return route.conv_inputs(keys)
+    plane = convection.swap_decision_word(dataclasses.replace(env.convection, rng="threefry"),
+                                          keys, env.geom.shape)
+    return dataclasses.replace(route.conv, words=fdm_cuda.packed_plane(plane, env.device),
+                               word_params=None)
 
 
 def seeded_inputs(env, batch: int, seed: int, conv_kind):
@@ -582,15 +584,12 @@ def run_kernel(name, env, inp, conv, limit, plain=False, stats=None, e=None, bar
     `barriers` receives a cluster body's barrier counts."""
     from sbsim_tpu_torch.physics import fdm_cuda
 
-    kw = dict(threshold=env.config.convergence_threshold, iteration_limit=limit,
-              conv=conv, stats=stats)
+    route = route_of(env, name)
+    kw = dict(route.solver_args, iteration_limit=limit, conv=conv, stats=stats)
     if barriers is not None:
         kw.update(barriers=barriers)
-    if name.startswith("fdm_cheby"):
-        kw.update(spectral_radius=env._spectral_radius,
-                  check_every=env.config.cheby_check_every)
     if name.endswith("_block"):
-        kw.update(block_envs=e or block_envs(env, name))
+        kw.update(block_envs=e or route.block_envs)
     fn = getattr(fdm_cuda, f"{name}_plain" if plain else f"{name}_cuda")
     return fn(inp, **kw)
 
@@ -1149,7 +1148,7 @@ def main_path_phase(envs, max_err, bw, flops, tag):
         pre, conv_keys = env._step_pre(state, acts[-1])
         inp = fdm_cuda.kernel_inputs(state.temp, state.input_q, pre["ambient"],
                                      pre["h_conv"], env.coeffs)
-        conv = word_conv(env, conv_keys, env._conv_word_params is None) if fused else None
+        conv = word_conv(env, conv_keys, False) if fused else None
         limit = env.config.iteration_limit
         stats = env._stats if with_stats else None
 
@@ -1318,10 +1317,8 @@ def decomposition(envs, tag, sass_dir=None, jacobi_envs=None) -> None:
             inp, _ = seeded_inputs(env, batch, seed=21, conv_kind=None)
             times = []
             for limit in DECOMP_LIMITS:
-                kw = dict(threshold=-1.0, iteration_limit=limit, conv=None)
-                if family == "cheby":
-                    kw.update(spectral_radius=env._spectral_radius,
-                              check_every=env.config.cheby_check_every)
+                kw = dict(route_of(env, name).solver_args, threshold=-1.0,
+                          iteration_limit=limit, conv=None)
                 if e is not None:
                     kw.update(block_envs=e)
                 fn = getattr(fdm_cuda, f"{name}_cuda")
@@ -1661,7 +1658,7 @@ def entry_suite(max_err, bw, flops, tag) -> int:
         inp = fdm_cuda.kernel_inputs(st.temp, st.input_q, pre["ambient"], pre["h_conv"],
                                      env.coeffs)
         fused, with_stats = env.kernel_path("pallas_env")
-        conv = word_conv(env, conv_keys, env._conv_word_params is None) if fused else None
+        conv = word_conv(env, conv_keys, False) if fused else None
         stats = env._stats if with_stats else None
         run = lambda plain=False: run_kernel("fdm_jacobi", env, inp, conv,
                                              env.config.iteration_limit, plain=plain, stats=stats)

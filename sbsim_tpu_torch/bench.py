@@ -129,8 +129,8 @@ def make_rollout(env, actions, n_steps: int, solver: str) -> Callable:
     the counter `fdm.iterations`, kept on the device and summed when read,
     and their number to `env.steps`; where the solve runs on thread-block
     clusters (a plan that spans blocks), the same step's barrier counts
-    (`StepOutput.fdm_barriers`, a third output of the program) to
-    `fdm.barriers`. `call.eager` is the rollout op by op, and
+    (`StepOutput.fdm_barriers`, the program's third output, None on other
+    plans) to `fdm.barriers`. `call.eager` is the rollout op by op, and
     `call.programs` the captured function's."""
     table = torch.tensor(np.asarray(actions), dtype=torch.float32, device=env.device)
     last = table.shape[0] - 1
@@ -141,18 +141,15 @@ def make_rollout(env, actions, n_steps: int, solver: str) -> Callable:
             act = table[states.step_idx.to(torch.int64).clamp(0, last)]
             states, out = env.step_batched(states, act, solver=solver)
             rewards.append(out.reward)
-        mean = torch.stack(rewards).mean()
-        if out.fdm_barriers is None:
-            return states, mean
-        return states, mean, out.fdm_barriers
+        return states, torch.stack(rewards).mean(), out.fdm_barriers
 
     captured = graphs.capture(rollout)
 
     def call(states):
-        states, mean, *barriers = captured(states)
+        states, mean, barriers = captured(states)
         profiling.count_tensor("fdm.iterations", states.fdm_iterations)
-        for t in barriers:
-            profiling.count_tensor("fdm.barriers", t)
+        if barriers is not None:
+            profiling.count_tensor("fdm.barriers", barriers)
         profiling.count("env.steps", states.fdm_iterations.shape[0])
         return states, mean
 

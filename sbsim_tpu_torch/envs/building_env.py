@@ -20,15 +20,13 @@ threefry (bitwise equal to jax.random), and every tensor lives on the env's
 `device`: "cuda" unless the caller asks for the CPU.
 
 The FDM solve of `step_batched` is one batched call: the hand-written CUDA
-kernels (physics/fdm_cuda.py) for the "pallas_*" solver names, in the
-config's block layout (`pallas_block_mode` "stack" runs the block kernels
-with `pallas_block_envs` envs per thread block), the plain batched solvers
-(physics/fdm.py) for "xla_*". Swap convection runs in the kernel, its
-decision words made there from the step keys (mix32) or passed as a word
-plane (threefry); argsort convection runs after the solve. Zone/grid
-statistics come from the kernel's epilogue where the JAX package's rule
-takes them from its kernel (not the interleaved layout, the final field in
-the kernel, at most `kernel_stats_max_zones` zones), else from the
+kernels (physics/fdm_cuda.py) for the "pallas_*" solver names, through the
+env's route for that solver (`route`: fdm_cuda.route decides the kernel,
+its block layout, the fused convection and where the statistics come
+from, from the config's values), the plain batched solvers
+(physics/fdm.py) for "xla_*". Swap convection runs in the kernel;
+argsort convection runs after the solve. Zone/grid statistics come from
+the kernel's epilogue where the route takes them from it, else from the
 gridstats fold after the solve; the sums are bitwise the same either way.
 """
 
@@ -189,9 +187,8 @@ class BuildingEnv:
         self.reward_params = reward_lib.make_reward_params(config.reward, device=dev)
         self.zone_stats = gridstats.make_zone_stat_layout(self.geom)
         self._stats = gridstats.ZoneStats(self.zone_stats, dev)
-        # A plan above one thread block's shared memory: the kernels' routes
-        # run the cluster bodies, which leave the statistics to the fold.
-        self._spans_blocks = fdm_cuda.spans_blocks(self.geom.shape)
+        # The kernels' routes by solver name, made at first use (`route`).
+        self._routes: Dict[str, fdm_cuda.Route] = {}
         self.obs_layout = obs_lib.build_obs_layout(
             self.geom.zone_names,
             config.observation_normalization,
@@ -442,34 +439,41 @@ class BuildingEnv:
         plain = self.resolve_solver(1, solver=solver).startswith("xla_")
         return graphs.capture(fn, op_by_op=op_by_op or plain)
 
+    def route(self, solver: str) -> fdm_cuda.Route:
+        """The FDM route of a kernel solver ("pallas_env": Jacobi,
+        "pallas_cheby": Chebyshev) from the config's values, made at first
+        use and kept as long as the env: a captured program reads its planes
+        by address."""
+        path = self._routes.get(solver)
+        if path is None:
+            if solver not in ("pallas_env", "pallas_cheby"):
+                raise ValueError(f"no kernel route for solver {solver!r}")
+            c = self.config
+            path = self._routes[solver] = fdm_cuda.route(
+                self.coeffs,
+                method="chebyshev" if solver == "pallas_cheby" else "jacobi",
+                threshold=c.convergence_threshold,
+                iteration_limit=c.iteration_limit,
+                spectral_radius=self._spectral_radius,
+                check_every=c.cheby_check_every,
+                block_mode=c.pallas_block_mode,
+                block_envs=c.pallas_block_envs,
+                convection=self.convection,
+                conv_lead=self._conv_lead,
+                conv_foll=self._conv_foll,
+                stats=self._stats,
+                max_stat_zones=c.kernel_stats_max_zones,
+            )
+        return path
+
     def kernel_path(self, solver: str) -> Tuple[bool, bool]:
         """(convection fused into the kernel, statistics from the kernel)
-        for an FDM solver name, by the JAX package's rules
-        (building_env.py:421-447): swap convection fuses into the kernels;
-        statistics come from the kernel when it holds the final field
-        (convection fused or off), the zones fit, and the kernel is not
-        the interleaved K1 nor a cluster body (a plan that spans thread
-        blocks: fdm_cuda.spans_blocks)."""
-        conv = self.convection
-        fuse_conv = (
-            solver in ("pallas_env", "pallas_cheby")
-            and conv.enabled
-            and conv.method == "swap"
-        )
-        interleaved = (
-            solver == "pallas_cheby"
-            and self.config.pallas_block_envs > 1
-            and self.config.pallas_block_mode == "interleave"
-        )
-        kernel_stats = (
-            solver.startswith("pallas")
-            and not interleaved
-            and not self._spans_blocks
-            and (fuse_conv or not conv.enabled)
-            and self.geom.n_zones
-            <= min(fdm_cuda.MAX_STAT_ZONES, self.config.kernel_stats_max_zones)
-        )
-        return fuse_conv, kernel_stats
+        for an FDM solver name: its route's (`route`), and neither for the
+        plain solvers ("xla_*")."""
+        if not solver.startswith("pallas"):
+            return False, False
+        path = self.route(solver)
+        return path.fuse_conv, path.kernel_stats
 
     def step(self, state: EnvState, action: torch.Tensor) -> Tuple[EnvState, StepOutput]:
         """One control step of a single env, held as a batch of one: a
@@ -518,17 +522,12 @@ class BuildingEnv:
             solver = self.resolve_solver(
                 states.temp.shape[0], use_pallas=use_pallas, solver=solver
             )
-            conv = self.convection
-            fuse_conv, kernel_stats = self.kernel_path(solver)
-            barriers = None
+            fuse_conv, _ = self.kernel_path(solver)
+            sums = barriers = None
             with profiling.span("sbsim.env.fdm"):
                 if solver.startswith("pallas"):
-                    if self._spans_blocks and self.device.type == "cuda":
-                        barriers = torch.empty(states.temp.shape[0], dtype=torch.int32,
-                                               device=self.device)
-                    result = self._solve_cuda(states, pre, conv_keys, solver, fuse_conv,
-                                              kernel_stats, barriers)
-                    new_temp, n_iter, converged = result[:3]
+                    new_temp, n_iter, converged, sums, barriers = self.route(solver).solve(
+                        states.temp, states.input_q, pre["ambient"], pre["h_conv"], conv_keys)
                 else:
                     new_temp, converged, n_iter = self._solve_fdm(
                         states.temp,
@@ -537,12 +536,11 @@ class BuildingEnv:
                         pre["h_conv"],
                         kind=solver[len("xla_"):],
                     )
-            if not fuse_conv and conv.enabled:
+            if not fuse_conv and self.convection.enabled:
                 with profiling.span("sbsim.env.convect"):
                     new_temp = self._convect(new_temp, conv_keys)
             with profiling.span("sbsim.env.stats"):
-                if kernel_stats:
-                    sums = result[3]
+                if sums is not None:
                     new_zm = sums.zone_sums / self._stats.sizes
                     new_gm = sums.grid_sums / self.zone_stats.grid_n
                 else:
@@ -554,53 +552,6 @@ class BuildingEnv:
             if barriers is not None:
                 out = dataclasses.replace(out, fdm_barriers=barriers)
             return new_state, out
-
-    def _solve_cuda(self, states, pre, conv_keys, solver, fuse_conv, kernel_stats,
-                    barriers=None):
-        """The FDM solve of `step_batched` through the CUDA kernels (the
-        "pallas_*" names): fdm_cuda.fdm_step_cuda's result; `barriers`
-        receives the cluster bodies' barrier counts."""
-        conv = self.convection
-        kwargs = dict(
-            convergence_threshold=self.config.convergence_threshold,
-            iteration_limit=self.config.iteration_limit,
-            block_envs=self.config.pallas_block_envs,
-            block_mode=self.config.pallas_block_mode,
-        )
-        if solver == "pallas_cheby":
-            kwargs.update(
-                method="chebyshev",
-                spectral_radius=self._spectral_radius,
-                check_every=self.config.cheby_check_every,
-            )
-        if fuse_conv:
-            kwargs.update(
-                conv_offsets=conv.offsets,
-                conv_lead=self._conv_lead,
-                conv_foll=self._conv_foll,
-            )
-            if self._conv_word_params is not None:
-                # mix32: the kernel makes the words from the raw keys.
-                kwargs.update(
-                    conv_keys=conv_keys,
-                    conv_word_params=self._conv_word_params,
-                )
-            else:
-                kwargs.update(conv_word=convection_lib.swap_decision_word(
-                    conv, conv_keys, self.geom.shape
-                ))
-        if kernel_stats:
-            kwargs.update(stat_layout=self._stats)
-        if barriers is not None:
-            kwargs.update(barriers=barriers)
-        return fdm_cuda.fdm_step_cuda(
-            states.temp,
-            states.input_q,
-            pre["ambient"],
-            pre["h_conv"],
-            self.coeffs,
-            **kwargs,
-        )
 
     def _convect(self, temp: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
         """convection.apply_convection with the env's device planes."""

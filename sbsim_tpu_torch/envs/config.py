@@ -224,14 +224,14 @@ class EnvConfig:
     # always check every iteration (reference stopping-rule semantics).
     cheby_check_every: int = 1
     # Envs per program of the JAX package's Pallas kernels. Under "stack"
-    # it is the CUDA block kernels' envs per thread block, clamped to each
-    # kernel's measured best (fdm_cuda.effective_block_envs); "interleave"
-    # runs one env per thread block whatever its value.
+    # a value > 1 runs the CUDA block kernels, at each body's measured best
+    # of one env per thread block (fdm_cuda.route); "interleave" runs one
+    # env per thread block whatever its value.
     pallas_block_envs: int = 1
     # "stack" | "interleave" (the JAX package's Pallas block layouts).
     pallas_block_mode: str = "stack"
     # Zone-count ceiling for kernel-emitted statistics (the JAX package's
-    # rule, BuildingEnv.kernel_path); above it the gridstats fold after the
+    # rule, fdm_cuda.route); above it the gridstats fold after the
     # solve (bitwise-identical sums either way).
     kernel_stats_max_zones: int = 12
     num_days_in_episode: int = 14

@@ -56,13 +56,14 @@ from host data on each call (neither can be captured, and the host data
 would be gone at replay): device constants come from `constant`, built
 once per device.
 
-Launch counts: the kernels' wrappers add one to a Python counter where
-they launch (`fdm_cuda.launch_counts` and `rng.launch_counts`, the tracing
-registry's families `fdm.launches` and `rng.launches`). A capture moves
-the counters without a launch on the device, and a replay launches without
-moving them. So the program takes back what its capture added and adds it
-again at every replay: the counters count launches on the device (the
-first call's, the warm-up's, included).
+Launch counts: the kernels' wrappers add to Python counters where they
+launch (the tracing registry's families of device launches,
+`profiling.family(..., launches=True)`: `fdm.launches`, `rng.launches`
+and `fdm.swap_groups`). A capture moves the counters without a launch on
+the device, and a replay launches without moving them. So the program
+takes back what its capture added and adds it again at every replay: the
+counters count launches on the device (the first call's, the warm-up's,
+included).
 
 Tracing (utils/profiling.py). A capture is the span `sbsim.graphs.capture`
 and adds to the set-up counters `graphs.captures` and `graphs.pool_bytes`
@@ -403,20 +404,20 @@ class Program:
 class CapturedFunction:
     """`fn` captured once per argument shape (see the module docstring).
     `eager` is `fn` op by op; `programs` maps each argument signature to
-    its Program; `counters` are the kernels' launch counts
-    (`fdm_cuda.launch_counts`, `rng.launch_counts`)."""
+    its Program."""
 
     def __init__(self, fn: Callable, op_by_op: bool = False):
-        # Imported here: rng imports this module, and fdm_cuda imports rng.
-        from sbsim_tpu_torch import rng
-        from sbsim_tpu_torch.physics import fdm_cuda
-
         functools.update_wrapper(self, fn)
         self.eager = fn
         self.op_by_op = op_by_op
-        self.counters = (fdm_cuda.launch_counts, rng.launch_counts)
         self.programs: Dict[Any, Program] = {}
         _live.add(self)
+
+    @property
+    def counters(self) -> Tuple[Dict[str, int], ...]:
+        """The counters a program follows: the registry's families of device
+        launches (profiling.launch_families), whichever modules made them."""
+        return profiling.launch_families()
 
     def __call__(self, *args):
         with profiling.span("sbsim.graphs.call"):

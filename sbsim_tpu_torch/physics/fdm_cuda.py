@@ -17,8 +17,14 @@ two device bodies in csrc/fdm_kernels.cu:
              _fdm_kernel_block (:416) and _fdm_cheby_kernel_block (:505):
              E envs per thread block sharing one loop, per-env freezing
              (Chebyshev sampled only at chunk ends), one omega schedule per
-             block. E is clamped (effective_block_envs) to each body's
-             measured best.
+             block.
+
+`route` decides, once per env and solver, which of the four wrappers a
+solve launches and how: the envs per thread block, whether the plan spans
+blocks, whether the swap convection runs in the kernel and whether the
+statistics come from its epilogue. Its `Route` holds the solve's device
+planes and runs it (`Route.solve`); `fdm_step_cuda` is a route made for
+one call.
 
 On a plan above one thread block's shared memory (run_geometry refuses one
 env per block: near 24,800 cells) each wrapper launches, in place of its
@@ -69,7 +75,7 @@ import ctypes
 import dataclasses
 import os
 import weakref
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -103,12 +109,6 @@ MAX_ENVS = 4
 STATIC_SMEM = 2048
 # The shared memory a block may use for the planes of its envs.
 SMEM_BUDGET = SMEM_PER_BLOCK - STATIC_SMEM
-# The E that K4 runs for a larger request: the fastest of E = 1..4 on the
-# main paths' inputs at 12 zones B=2048 on an H100 (PERF.md: E = 1,
-# two blocks per SM of 448 threads; E = 2 3-5% slower, E = 3-4 25-30%).
-CHEBY_BEST_ENVS = 1
-# The E that K3 runs for a larger request, measured the same way (PERF.md).
-JACOBI_BEST_ENVS = 1
 MASK32 = convection_lib.MASK32
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -122,14 +122,15 @@ NVCC_FLAGS = (
 
 # Launches per kernel; a wrapper adds one where it launches its kernel. The
 # tracing registry's set-up counters `fdm.launches.<kernel>`, counted whether
-# tracing is on or off.
+# tracing is on or off, as device launches.
 launch_counts = profiling.family("fdm.launches", ("fdm_cheby", "fdm_jacobi", "fdm_cheby_block",
                                                   "fdm_jacobi_block", "fdm_cheby_cluster",
-                                                  "fdm_jacobi_cluster"))
+                                                  "fdm_jacobi_cluster"), launches=True)
 # `fdm.swap_groups`: the groups of the swap plans of the cluster launches,
-# summed over them as the launches are (so a plan's groups per solve is it
-# over the launches of `fdm.launches.fdm_*_cluster`).
-swap_counts = profiling.family("fdm", ("swap_groups",))
+# summed over them as the launches are, replays of a captured program
+# included (so a plan's groups per solve is it over the launches of
+# `fdm.launches.fdm_*_cluster`).
+swap_counts = profiling.family("fdm", ("swap_groups",), launches=True)
 # nvcc's output of the build in this process (ptxas register/smem use).
 build_log = ""
 _lib = None
@@ -269,20 +270,6 @@ def packed_plane(words, device) -> torch.Tensor:
         words = words.to(torch.int64) & MASK32
         words = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
     return words.contiguous()
-
-
-def effective_block_envs(shape: Tuple[int, int], block_envs: int,
-                         cheby: bool = False) -> int:
-    """The envs per thread block K3 (or with `cheby` K4) runs for a
-    requested `block_envs` on an (H, W) grid: the body's measured fastest,
-    JACOBI_BEST_ENVS or CHEBY_BEST_ENVS (1 each). Asked directly, each
-    block kernel takes up to jacobi_max_envs / cheby_max_envs envs per
-    block, as many as fit four planes each in shared memory (the iterate
-    pair and the staged const/denom: 4 at 52 x 67, 1 at 189 x 124, which
-    then reads const/denom from global memory); see run_geometry."""
-    best, fit = ((CHEBY_BEST_ENVS, cheby_max_envs(shape)) if cheby
-                 else (JACOBI_BEST_ENVS, jacobi_max_envs(shape)))
-    return max(1, min(int(block_envs), best, fit))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -928,9 +915,7 @@ def _launch(name: str, inp: KernelInputs, conv, stats, solver_args, block_envs=N
             cheby_max_envs if name == "fdm_cheby_block" else jacobi_max_envs)((h, w), budget)
         if not 1 <= block_envs <= fit:
             raise ValueError(
-                f"block_envs={block_envs} outside 1..{fit} for {name} on a {h}x{w} "
-                "grid (effective_block_envs clamps it)"
-            )
+                f"block_envs={block_envs} outside 1..{fit} for {name} on a {h}x{w} grid")
     if spans:
         return _launch_cluster(name, inp, conv, stats, solver_args, lib, barriers)
     on_card = lib is None
@@ -1077,6 +1062,149 @@ def fdm_cheby_block_cuda(
         barriers=barriers)
 
 
+# ---------------------------------------------------------------------------
+# Routes
+# ---------------------------------------------------------------------------
+
+
+class Solved(NamedTuple):
+    """A route's solve: the field, iteration counts and converged flags, the
+    kernel's statistics where the route takes them from it, and on a
+    cluster plan on the card each env's cluster barriers (else None)."""
+
+    field: torch.Tensor
+    iterations: torch.Tensor
+    converged: torch.Tensor
+    sums: Optional[GridSums]
+    barriers: Optional[torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Route:
+    """An FDM solve's path through the kernels, made by `route`: the wrapper
+    `kernel` (fdm_cheby, fdm_jacobi, fdm_cheby_block or fdm_jacobi_block,
+    so `fdm.launches.*` keep their names), the envs per thread block a
+    block wrapper takes, whether the plan spans thread blocks (the wrappers
+    then launch their cluster bodies), whether the swap rounds run in the
+    kernel and whether the statistics come from its epilogue. Its device
+    planes (stencil, lead/follower masks, zone statistics) are read by
+    address by a captured program: it lives as long as its env."""
+
+    kernel: str
+    block_envs: int
+    cluster: bool
+    fuse_conv: bool
+    kernel_stats: bool
+    coeffs: StencilCoefficients
+    solver_args: Dict[str, Union[int, float]]  # the wrappers' solver keywords, E aside
+    # The fused rounds' static inputs; the step keys or the word plane come
+    # per solve, the plane from `words_of` (threefry; None: mix32 words).
+    conv: Optional[ConvInputs]
+    words_of: Optional[convection_lib.ConvectionBuckets]
+    stats: Optional[ZoneStats]
+
+    @property
+    def rule(self) -> str:
+        """The stopping rule: "chebyshev", or Jacobi's "solo" (K2: a NaN
+        residual stops its env) or "block" (K3: it runs to the limit)."""
+        if self.kernel.startswith("fdm_cheby"):
+            return "chebyshev"
+        return "block" if self.kernel.endswith("_block") else "solo"
+
+    def conv_inputs(self, step_keys: Optional[torch.Tensor]) -> Optional[ConvInputs]:
+        """The fused convection of a solve from the (B, 2) step keys."""
+        if self.conv is None:
+            return None
+        device = self.conv.lead.device
+        if self.words_of is None:
+            return dataclasses.replace(
+                self.conv, keys=step_keys.to(device, torch.int64).contiguous())
+        word = convection_lib.swap_decision_word(self.words_of, step_keys,
+                                                 tuple(self.conv.lead.shape))
+        return dataclasses.replace(self.conv, words=packed_plane(word, device))
+
+    def run(self, inp: KernelInputs, conv: Optional[ConvInputs] = None,
+            stats: Optional[ZoneStats] = None,
+            barriers: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+        """The wrapper's result on kernel inputs: its kernel for CUDA tensors
+        (`barriers`: see _launch), its plain version for CPU tensors, each
+        looked up when called (so a stand-in set on this module runs)."""
+        if stats is not None and stats.masks.shape[0] > MAX_STAT_ZONES:
+            raise ValueError(f"kernel statistics take at most {MAX_STAT_ZONES} zones; "
+                             f"got {stats.masks.shape[0]}")
+        kw = dict(self.solver_args, conv=conv, stats=stats)
+        if self.kernel.endswith("_block"):
+            kw.update(block_envs=self.block_envs)
+        if inp.temp.device.type == "cpu":
+            return globals()[f"{self.kernel}_plain"](inp, **kw)
+        if barriers is not None:
+            kw.update(barriers=barriers)
+        return globals()[f"{self.kernel}_cuda"](inp, **kw)
+
+    def solve(self, temp: torch.Tensor, input_q: torch.Tensor, t_inf: torch.Tensor,
+              h_conv: torch.Tensor, step_keys: Optional[torch.Tensor] = None) -> Solved:
+        """One batched FDM step ((B, H, W) temp and input_q, (B,) t_inf and
+        h_conv) with the route's convection and statistics."""
+        barriers = None
+        if self.cluster and temp.is_cuda:
+            barriers = torch.empty(temp.shape[0], dtype=torch.int32, device=temp.device)
+        conv = self.conv_inputs(step_keys)
+        inp = kernel_inputs(temp, input_q, t_inf, h_conv, self.coeffs)
+        out = self.run(inp, conv, self.stats if self.kernel_stats else None, barriers)
+        return Solved(*out[:3], out[3] if self.kernel_stats else None, barriers)
+
+
+def route(
+    coeffs: StencilCoefficients, *, method: str, threshold: float, iteration_limit: int,
+    spectral_radius: float = 0.0, check_every: int = 1, block_mode: str = "stack",
+    block_envs: int = 1, convection: Optional[convection_lib.ConvectionBuckets] = None,
+    conv_lead: Optional[torch.Tensor] = None, conv_foll: Optional[torch.Tensor] = None,
+    stats: Optional[ZoneStats] = None, max_stat_zones: int = MAX_STAT_ZONES,
+) -> Route:
+    """The route of an FDM solve on the grid of `coeffs` (its stencil): the
+    one place the kernel choice is made.
+
+    method "jacobi" runs K2, "chebyshev" K1; block_mode "stack" with
+    block_envs > 1 runs K3/K4 at one env per thread block, both bodies'
+    fastest E on the main paths' inputs (12 zones B=2048, H100, PERF.md:
+    two blocks per SM of 448 threads; K4 at E = 2 3-5% slower, E = 3-4
+    25-30%). On a plan that spans thread blocks (spans_blocks) each wrapper
+    launches its cluster body. An enabled `convection` of method "swap"
+    runs in the kernel (`conv_lead`/`conv_foll`: its masks' packed_plane
+    on the device), its words from the step keys (mix32) or a threefry
+    word plane; "argsort" runs after the solve. `stats` come from the
+    kernel's epilogue where it holds the final field (convection fused or
+    off), the zones fit `max_stat_zones` and MAX_STAT_ZONES, the kernel is
+    not the interleaved K1 (the JAX package's rule, building_env.py:421-447)
+    nor a cluster body; else the caller folds the field."""
+    if block_mode not in ("stack", "interleave"):
+        raise ValueError(f"unknown block_mode: {block_mode!r}")
+    if method not in ("jacobi", "chebyshev"):
+        raise ValueError(f"unknown method: {method!r}")
+    cluster = spans_blocks(tuple(coeffs.a_r.shape))
+    cheby = method == "chebyshev"
+    kernel = ("fdm_cheby" if cheby else "fdm_jacobi") + (
+        "_block" if block_mode == "stack" and block_envs > 1 else "")
+    args = dict(threshold=threshold, iteration_limit=iteration_limit)
+    if cheby:
+        args.update(spectral_radius=spectral_radius, check_every=check_every)
+    enabled = convection is not None and convection.enabled
+    fuse_conv = enabled and convection.method == "swap"
+    conv = None
+    if fuse_conv and convection.offsets:
+        conv = ConvInputs(
+            offsets=tuple(tuple(int(v) for v in o) for o in convection.offsets),
+            lead=conv_lead, foll=conv_foll,
+            word_params=convection_lib.decision_word_params(convection))
+    interleaved = cheby and block_envs > 1 and block_mode == "interleave"
+    kernel_stats = (stats is not None and not interleaved and not cluster
+                    and (fuse_conv or not enabled)
+                    and stats.masks.shape[0] <= min(MAX_STAT_ZONES, max_stat_zones))
+    # A block wrapper takes one env per thread block (above).
+    return Route(kernel, 1, cluster, fuse_conv, kernel_stats, coeffs, args, conv,
+                 convection if conv is not None and conv.word_params is None else None, stats)
+
+
 def fdm_step_cuda(
     temp: torch.Tensor,  # (B, H, W)
     input_q: torch.Tensor,  # (B, H, W)
@@ -1100,39 +1228,26 @@ def fdm_step_cuda(
     block_mode: str = "stack",
     barriers: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
-    """The batched FDM step of fdm_step_pallas, with its signature.
+    """The batched FDM step of fdm_step_pallas, with its signature: the
+    route of its arguments (`route`), run on them.
 
     Returns (new_temp, iterations, converged), or with `stat_layout` (a
     gridstats.ZoneStatLayout, or its ZoneStats already on the device)
     (new_temp, iterations, converged, GridSums): the zone and grid sums of
     the final field, computed in the kernel's epilogue (the plain version's
-    fold on CPU tensors). `converged` is the residual criterion itself, so
-    with check_every > 1 the count may exceed the limit by up to
-    check_every - 1 while converged. method "jacobi" runs K2, "chebyshev"
-    K1; block_mode "stack" with block_envs > 1 runs the block kernels K3
-    and K4 with effective_block_envs envs per thread block ("interleave"
-    runs K1/K2, one env per thread block). With `conv_offsets` the swap
-    rounds run in the kernel on the solved field, their decision words read
-    from `conv_word` when given (the threefry words), else made from
-    `conv_keys` with `conv_word_params` (mix32).
-    On a plan that spans thread blocks (spans_blocks) each kernel's cluster
-    body runs, and `barriers`, a (B,) int32 tensor, receives each env's
-    cluster barriers (only a cluster body writes it).
+    fold on CPU tensors, the fold of the output after a cluster body).
+    `converged` is the residual criterion itself, so with check_every > 1
+    the count may exceed the limit by up to check_every - 1 while
+    converged. With `conv_offsets` the swap rounds run in the kernel on the
+    solved field, their decision words read from `conv_word` when given
+    (the threefry words), else made from `conv_keys` with
+    `conv_word_params` (mix32). `barriers`, a (B,) int32 tensor, receives
+    each env's cluster barriers (only a cluster body writes it).
     fdm_step_pallas's unused `conv_params` argument is left out.
     """
-    if block_mode not in ("stack", "interleave"):
-        raise ValueError(f"unknown block_mode: {block_mode!r}")
-    if method not in ("jacobi", "chebyshev"):
-        raise ValueError(f"unknown method: {method!r}")
-    if block_mode == "interleave" and method != "chebyshev":
-        block_envs = 1  # fdm_pallas.py:855-860: Jacobi runs the solo kernel
-    stack = block_mode == "stack" and int(block_envs) > 1
     stats = stat_layout
     if isinstance(stat_layout, ZoneStatLayout):
         stats = ZoneStats(stat_layout, temp.device)
-    if stats is not None and stats.masks.shape[0] > MAX_STAT_ZONES:
-        raise ValueError(f"kernel statistics take at most {MAX_STAT_ZONES} zones; "
-                         f"got {stats.masks.shape[0]}")
     conv = None
     if conv_offsets:
         conv = ConvInputs(
@@ -1149,22 +1264,8 @@ def fdm_step_cuda(
         else:
             raise ValueError("conv_offsets need conv_word, or conv_keys with "
                              "conv_word_params")
+    path = route(coeffs, method=method, threshold=convergence_threshold,
+                 iteration_limit=iteration_limit, spectral_radius=spectral_radius,
+                 check_every=check_every, block_mode=block_mode, block_envs=block_envs)
     inp = kernel_inputs(temp, input_q, t_inf, h_conv, coeffs)
-    on_cpu = temp.device.type == "cpu"
-    kw = dict(threshold=convergence_threshold, iteration_limit=iteration_limit,
-              conv=conv, stats=stats)
-    if stack:
-        kw.update(block_envs=effective_block_envs(temp.shape[-2:], block_envs,
-                                                  cheby=method == "chebyshev"))
-    if method == "chebyshev":
-        kw.update(spectral_radius=spectral_radius, check_every=check_every)
-        plain, cuda = ((fdm_cheby_block_plain, fdm_cheby_block_cuda) if stack
-                       else (fdm_cheby_plain, fdm_cheby_cuda))
-    else:
-        plain, cuda = ((fdm_jacobi_block_plain, fdm_jacobi_block_cuda) if stack
-                       else (fdm_jacobi_plain, fdm_jacobi_cuda))
-    if on_cpu:
-        return plain(inp, **kw)
-    if barriers is not None:
-        kw.update(barriers=barriers)
-    return cuda(inp, **kw)
+    return path.run(inp, conv, stats, barriers)

@@ -54,8 +54,8 @@ NVCC_FLAGS = (
 _EPILOGUES = {"split": 0, "fold_in": 0, "bits": 1, "uniform": 2, "normal": 3, "randint": 4}
 # Launches per draw kind; `_launch` adds one where it launches. The tracing
 # registry's set-up counters `rng.launches.<kind>`, counted whether tracing
-# is on or off.
-launch_counts = profiling.family("rng.launches", tuple(_EPILOGUES))
+# is on or off, as device launches.
+launch_counts = profiling.family("rng.launches", tuple(_EPILOGUES), launches=True)
 _lib = None
 
 

@@ -35,7 +35,8 @@ Set-up records. A span made with `keep=True` is recorded whether tracing
 is on or off, into the set-up records (`setup()`), and into the stretch
 too while tracing is on; so are the counters of a `family`, a dict the
 program adds to whatever the state of tracing: a capture's span, the
-captures and the memory their graphs keep, and the kernels' launch counts.
+captures and the memory their graphs keep, and the kernels' launch counts
+(families of device launches, which captured programs follow at replay).
 
 There is no exporter: spans reach a file through the profiler's trace
 (`device_trace`), and code reads `snapshot()` and `setup()`.
@@ -117,6 +118,7 @@ class Registry:
         self._ids = itertools.count()
         self._stretch: Optional[_Stretch] = None
         self.families: Dict[str, Dict[str, int]] = {}
+        self.launches: List[Dict[str, int]] = []  # the families that count device launches
         self._setup_records: Deque[Record] = collections.deque(maxlen=RING)
         self._setup_spans: Dict[str, List[int]] = {}
 
@@ -311,15 +313,25 @@ def count_tensor(name: str, t: torch.Tensor) -> None:
             tensors[:] = [_fold(tensors)]
 
 
-def family(prefix: str, keys=()) -> Dict[str, int]:
+def family(prefix: str, keys=(), launches: bool = False) -> Dict[str, int]:
     """The set-up counters `<prefix>.<key>` as the registry's own dict (made
     with `keys` at zero the first time): counted whether tracing is on or
     off, and read through `setup()` and, as their change over the stretch,
-    `snapshot()`."""
+    `snapshot()`. With `launches` they count what the device launches (a
+    kernel module's launch counters): a captured program takes back what
+    its capture added to them and adds it again at every replay
+    (`launch_families`, graphs.py)."""
     values = REGISTRY.families.get(prefix)
     if values is None:
         values = REGISTRY.families[prefix] = dict.fromkeys(keys, 0)
+        if launches:
+            REGISTRY.launches.append(values)
     return values
+
+
+def launch_families() -> Tuple[Dict[str, int], ...]:
+    """The families made with `launches`, in the order they were made."""
+    return tuple(REGISTRY.launches)
 
 
 def replay_events():

@@ -370,13 +370,13 @@ def test_stack_step_with_threefry_and_argsort_matches_jax(kind, monkeypatch):
     # The threefry words are passed into the kernel (fused, statistics in
     # the kernel); argsort mixes after it (statistics from the fold).
     seen = []
-    real = fdm_cuda.fdm_step_cuda
+    real = fdm_cuda.Route.run
 
-    def spy(*args, **kwargs):
-        seen.append((kwargs.get("conv_word") is not None, kwargs.get("stat_layout") is not None))
-        return real(*args, **kwargs)
+    def spy(route, inp, conv=None, stats=None, barriers=None):
+        seen.append((conv is not None and conv.words is not None, stats is not None))
+        return real(route, inp, conv, stats, barriers)
 
-    monkeypatch.setattr(fdm_cuda, "fdm_step_cuda", spy)
+    monkeypatch.setattr(fdm_cuda.Route, "run", spy)
     _steps(jenv, tenv, jstate, solver, 1, monkeypatch)
     assert seen[0] == ((True, True) if kind == "threefry" else (False, False))
 

@@ -64,6 +64,14 @@ def _inputs(env, batch, seed):
     return inp, conv
 
 
+def _stack_route(env, kernel, block_envs):
+    """The route of the stack layout at `block_envs` envs per program for
+    kernel's body ("fdm_cheby" or "fdm_jacobi")."""
+    return fdm_cuda.route(env.coeffs, method="chebyshev" if kernel == "fdm_cheby" else "jacobi",
+                          threshold=0.1, iteration_limit=100, block_mode="stack",
+                          block_envs=block_envs)
+
+
 @pytest.mark.parametrize("limit", [100, 3])
 @pytest.mark.parametrize("fused", [False, True])
 def test_cheby_kernel_equals_plain(env, fused, limit):
@@ -204,9 +212,8 @@ def _equal(got, want):
 @pytest.mark.parametrize("conv_kind", ["none", "mix32", "words"])
 @pytest.mark.parametrize("kernel", ["fdm_jacobi", "fdm_cheby"])
 def test_word_plane_and_block_kernels_equal_plain_and_solo(env, kernel, conv_kind):
-    """K3/K4 at E = 2 and 8 (K4 clamped to 1) on a batch of 13 (a partial
-    last block) equal
-    their plain versions and K2/K1 bitwise, with statistics; every kernel
+    """K3/K4 at E = 2 and at the E their route runs for a request of 8
+    (1) on a batch of 13 (a partial last block) equal their plain versions and K2/K1 bitwise, with statistics; every kernel
     reads a word plane as its plain version does."""
     inp, conv = _inputs(env, 13, seed=11)
     conv = {"none": None, "mix32": conv, "words": _word_plane(env, conv)}[conv_kind]
@@ -220,8 +227,9 @@ def test_word_plane_and_block_kernels_equal_plain_and_solo(env, kernel, conv_kin
         block, block_plain = fdm_cuda.fdm_jacobi_block_cuda, fdm_cuda.fdm_jacobi_block_plain
     want = solo(inp, **kw)
     _equal(want, solo_plain(inp, **kw))
-    for e in (2, fdm_cuda.effective_block_envs(env.geom.shape, 8,
-                                               cheby=kernel == "fdm_cheby")):
+    route = _stack_route(env, kernel, 8)
+    assert (route.kernel, route.block_envs) == (f"{kernel}_block", 1)
+    for e in (2, route.block_envs):
         before = fdm_cuda.launch_counts[f"{kernel}_block"]
         got = block(inp, block_envs=e, **kw)
         assert fdm_cuda.launch_counts[f"{kernel}_block"] == before + 1
@@ -232,7 +240,7 @@ def test_word_plane_and_block_kernels_equal_plain_and_solo(env, kernel, conv_kin
 
 def test_block_kernels_refuse_more_envs_than_fit(env):
     inp, _ = _inputs(env, 4, seed=1)
-    assert fdm_cuda.effective_block_envs(env.geom.shape, 16) == fdm_cuda.JACOBI_BEST_ENVS
+    assert _stack_route(env, "fdm_jacobi", 16).block_envs == 1
     too_many = fdm_cuda.jacobi_max_envs(env.geom.shape) + 1
     with pytest.raises(ValueError):
         fdm_cuda.fdm_jacobi_block_cuda(inp, threshold=0.1, iteration_limit=5,
@@ -275,7 +283,7 @@ def test_cheby_body_at_126_rooms(big_env):
     """K1 and K4 (E = 1) on the 189 x 124 grid, where const/denom stay in
     global memory: bitwise against the plain versions and each other."""
     assert big_env.geom.shape == (189, 124)
-    assert fdm_cuda.effective_block_envs(big_env.geom.shape, 4, cheby=True) == 1
+    assert _stack_route(big_env, "fdm_cheby", 4).block_envs == 1
     inp, conv = _inputs(big_env, 4, seed=21)
     kw = dict(threshold=0.1, iteration_limit=100, conv=conv,
               spectral_radius=big_env._spectral_radius, check_every=4)
@@ -385,7 +393,8 @@ def test_floor126_captured_step_equals_plain(floor_env, solver, kernel):
     call) through the cluster body replays bitwise the same step op by op
     through the plain versions, with no host sync and one launch; traced,
     the call counts each env's barriers (fdm.barriers): its iterations' and
-    those its swap plan predicts."""
+    those its swap plan predicts, and the replay's launch and swap plan
+    groups (fdm.launches, fdm.swap_groups)."""
     from sbsim_tpu_torch import bench
     from sbsim_tpu_torch.agents import schedule_policy
     from sbsim_tpu_torch.utils import profiling
@@ -416,6 +425,9 @@ def test_floor126_captured_step_equals_plain(floor_env, solver, kernel):
     fixed = groups - 1 + (1 if solver == "pallas_cheby" else 0)
     assert counters["fdm.iterations"] > 0
     assert counters["fdm.barriers"] - counters["fdm.iterations"] == 4 * fixed
+    # The replay's launch, and its plan's groups, as an op-by-op launch counts them.
+    assert counters[f"fdm.launches.{kernel}"] == 1
+    assert counters["fdm.swap_groups"] == groups
 
 
 def test_a_million_cell_plan_steps_bitwise_plain(env):
@@ -500,7 +512,7 @@ def test_jacobi_body_at_126_rooms(big_env):
     global memory and the decision bytes take their own plane: bitwise
     against the plain versions and each other."""
     assert not fdm_cuda.jacobi_geometry(big_env.geom.shape, 1).staged
-    assert fdm_cuda.effective_block_envs(big_env.geom.shape, 4) == 1
+    assert _stack_route(big_env, "fdm_jacobi", 4).block_envs == 1
     inp, conv = _inputs(big_env, 4, seed=22)
     kw = dict(threshold=0.1, iteration_limit=100, conv=conv)
     solo = _counted("fdm_jacobi", fdm_cuda.fdm_jacobi_cuda, inp, **kw)
@@ -880,6 +892,7 @@ def _trees_equal(a, b):
 def test_rollout_replay_equals_eager(env, solver, kernel):
     from sbsim_tpu_torch import bench
     from sbsim_tpu_torch.agents import schedule_policy
+    from sbsim_tpu_torch.utils import profiling
 
     table = schedule_policy.build_schedule_actions(env)
     start, _ = env.reset(rng.split(rng.PRNGKey(4, device=env.device), 64))
@@ -892,7 +905,11 @@ def test_rollout_replay_equals_eager(env, solver, kernel):
     assert launched == {kernel: 6}
     assert _trees_equal(got, want)
     (program,) = roll.programs.values()
-    assert program.replays == 1 and program.per_replay == [{kernel: 6}, draws]
+    # One replay's launches per family of device launches (fdm, rng, swap groups).
+    per_replay = dict(zip(map(id, profiling.launch_families()), program.per_replay))
+    assert program.replays == 1 and per_replay == {
+        id(fdm_cuda.launch_counts): {kernel: 6}, id(rng.launch_counts): draws,
+        id(fdm_cuda.swap_counts): {}}
 
 
 def test_trainer_replays_equal_eager_across_the_end_and_the_gate(env):

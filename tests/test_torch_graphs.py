@@ -22,7 +22,8 @@ path capturable, on the CPU.
 * The wrapper: on CPU tensors it returns the function's own results; with
   a stub graph on the CPU, the first call returns the warm-up's results,
   the launch counters move once per call (the capture's additions taken
-  back, re-added per replay), a replay leaves the caller's tensors alone,
+  back, re-added per replay), and so does every family registered as
+  device launches, which a captured function hands its programs, a replay leaves the caller's tensors alone,
   hands out fresh outputs but for the in-place-updated buffer it returns,
   and takes that buffer back without a copy; an input updated in place
   and not returned is refused; the cyclic collector is held off during a
@@ -417,6 +418,42 @@ def test_launch_counts_move_once_per_call_with_a_stub_graph():
     for n in range(2, 5):
         program(leaves)
         assert counts["fdm_jacobi"] == n and program.replays == n - 1
+
+
+def test_registered_launch_families_follow_replays_with_a_stub_graph(monkeypatch):
+    """A family the kernel modules register as device launches
+    (`profiling.family(..., launches=True)`: fdm.launches, rng.launches,
+    fdm.swap_groups, and here one of the test's own) is what a captured
+    function hands its programs, and the graphs' own set-up family is not:
+    what the capture adds to it is taken back, and one replay adds it once.
+    """
+    from sbsim_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(profiling.REGISTRY, "families", dict(profiling.REGISTRY.families))
+    monkeypatch.setattr(profiling.REGISTRY, "launches", list(profiling.REGISTRY.launches))
+    mine = profiling.family("test.launches", ("body",), launches=True)
+    counters = graphs.capture(lambda x: x).counters
+    held = {id(c) for c in counters}
+    assert {id(mine), id(fdm_cuda.launch_counts), id(fdm_cuda.swap_counts),
+            id(rng.launch_counts)} <= held
+    assert id(profiling.family("graphs")) not in held
+
+    def fn(x):
+        mine["body"] += 2
+        fdm_cuda.swap_counts["swap_groups"] += 3
+        return x + 1.0
+
+    groups = fdm_cuda.swap_counts["swap_groups"]
+    monkeypatch.setitem(fdm_cuda.swap_counts, "swap_groups", groups)  # restored after
+    leaves = [torch.zeros(2)]
+    program = graphs.Program(fn, tuple(leaves), graphs.flatten(tuple(leaves), []), leaves,
+                             counters, api=_StubGraphs)
+    # The warm-up (the first call) counted once; the capture's additions are
+    # taken back.
+    assert mine["body"] == 2 and fdm_cuda.swap_counts["swap_groups"] == groups + 3
+    for n in range(2, 4):
+        program(leaves)
+        assert mine["body"] == 2 * n and fdm_cuda.swap_counts["swap_groups"] == groups + 3 * n
 
 
 def test_replay_aliasing_rule_with_a_stub_graph():

@@ -9,8 +9,13 @@ at the 12-zone (52 x 67), 126-room (189 x 124) and two-zone test grids,
 for each body, every cell is owned by exactly one run of one thread; the
 neighbours each owned cell reads give, gathered, the Jacobi update of
 `jacobi_update` (its shifts with edge fill, its rolls without) bitwise;
-and the shared memory of a block stays within what a block may use.
+and the shared memory of a block stays within what a block may use. And
+the route `fdm_cuda.route` picks for sb1 envs of 12 to 132 zones, both
+layouts, both convection methods and both word sources, and floor126's
+plan above a block's shared memory (test_route_table).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -108,21 +113,114 @@ def test_shared_memory_within_a_block(name, body):
 
 
 def test_sb1_launch_choices():
-    """12 zones stage const/denom for up to 4 envs per block (the config's
-    E runs at each body's measured best); 126 rooms take one env per block
-    reading them from global memory."""
+    """12 zones stage const/denom for up to 4 envs per block (the route
+    runs E = 1, each body's measured best: test_route_table); 126 rooms
+    take one env per block reading them from global memory."""
     assert fdm_cuda.cheby_max_envs((52, 67)) == 4
     assert fdm_cuda.jacobi_max_envs((52, 67)) == 4
     assert fdm_cuda.jacobi_max_envs((189, 124)) == 1
-    assert fdm_cuda.effective_block_envs((52, 67), 8, cheby=True) == fdm_cuda.CHEBY_BEST_ENVS
-    assert fdm_cuda.effective_block_envs((52, 67), 8) == fdm_cuda.JACOBI_BEST_ENVS
-    assert fdm_cuda.effective_block_envs((189, 124), 4, cheby=True) == 1
-    assert fdm_cuda.effective_block_envs((189, 124), 4) == 1
     assert not fdm_cuda.jacobi_geometry((189, 124), 1).staged
     one = fdm_cuda.cheby_geometry((52, 67), 1)
     assert one.staged and one.threads == 448 and one.slots == 2
     big = fdm_cuda.cheby_geometry((189, 124), 1)
     assert not big.staged and big.threads <= 1024 and big.slots == 6
+
+
+# sb1 envs on the CPU: (floor plan (rooms x, rooms y, room cells) or None
+# for the 12-zone office, EnvConfig changes, convection changes).
+ROUTE_ENVS = {
+    "12zone": (None, {}, {}),
+    "12zone_solo": (None, dict(pallas_block_envs=1), {}),
+    "12zone_stack": (None, dict(pallas_block_mode="stack"), {}),
+    "12zone_threefry": (None, dict(pallas_block_mode="stack"), dict(rng="threefry")),
+    "12zone_argsort": (None, dict(pallas_block_mode="stack"), dict(method="argsort")),
+    "15zone": ((3, 5, 8), {}, {}),
+    "126room": ((9, 14, 12), {}, {}),
+    "126room_stack": ((9, 14, 12), dict(pallas_block_mode="stack"), {}),
+    "126room_stack_zones": ((9, 14, 12), dict(pallas_block_mode="stack",
+                                              kernel_stats_max_zones=1000), {}),
+    "132room_stack_zones": ((11, 12, 6), dict(pallas_block_mode="stack",
+                                              kernel_stats_max_zones=1000), {}),
+    "floor126": ((9, 14, 50), {}, {}),
+    "floor126_stack": ((9, 14, 50), dict(pallas_block_mode="stack", pallas_block_envs=4), {}),
+}
+# (env, solver): (requested E, wrapper, E, stopping rule, cluster, fuse_conv,
+# kernel_stats, word source of the fused rounds).
+ROUTE_TABLE = {
+    ("12zone", "pallas_cheby"): (8, "fdm_cheby", 1, "chebyshev", False, True, False, "mix32"),
+    ("12zone", "pallas_env"): (8, "fdm_jacobi", 1, "solo", False, True, True, "mix32"),
+    ("12zone_solo", "pallas_cheby"): (1, "fdm_cheby", 1, "chebyshev", False, True, True, "mix32"),
+    ("12zone_stack", "pallas_cheby"): (8, "fdm_cheby_block", 1, "chebyshev", False, True, True,
+                                       "mix32"),
+    ("12zone_stack", "pallas_env"): (8, "fdm_jacobi_block", 1, "block", False, True, True,
+                                     "mix32"),
+    ("12zone_threefry", "pallas_cheby"): (8, "fdm_cheby_block", 1, "chebyshev", False, True,
+                                          True, "threefry"),
+    ("12zone_threefry", "pallas_env"): (8, "fdm_jacobi_block", 1, "block", False, True, True,
+                                        "threefry"),
+    ("12zone_argsort", "pallas_cheby"): (8, "fdm_cheby_block", 1, "chebyshev", False, False,
+                                         False, None),
+    ("12zone_argsort", "pallas_env"): (8, "fdm_jacobi_block", 1, "block", False, False, False,
+                                       None),
+    ("15zone", "pallas_env"): (8, "fdm_jacobi", 1, "solo", False, True, False, "mix32"),
+    ("126room", "pallas_cheby"): (4, "fdm_cheby", 1, "chebyshev", False, True, False, "mix32"),
+    ("126room", "pallas_env"): (4, "fdm_jacobi", 1, "solo", False, True, False, "mix32"),
+    ("126room_stack", "pallas_cheby"): (4, "fdm_cheby_block", 1, "chebyshev", False, True,
+                                        False, "mix32"),
+    ("126room_stack", "pallas_env"): (4, "fdm_jacobi_block", 1, "block", False, True, False,
+                                      "mix32"),
+    ("126room_stack_zones", "pallas_cheby"): (4, "fdm_cheby_block", 1, "chebyshev", False,
+                                              True, True, "mix32"),
+    ("132room_stack_zones", "pallas_env"): (4, "fdm_jacobi_block", 1, "block", False, True,
+                                            False, "mix32"),
+    ("floor126", "pallas_cheby"): (1, "fdm_cheby", 1, "chebyshev", True, True, False, "mix32"),
+    ("floor126", "pallas_env"): (1, "fdm_jacobi", 1, "solo", True, True, False, "mix32"),
+    ("floor126_stack", "pallas_cheby"): (4, "fdm_cheby_block", 1, "chebyshev", True, True,
+                                         False, "mix32"),
+    ("floor126_stack", "pallas_env"): (4, "fdm_jacobi_block", 1, "block", True, True, False,
+                                       "mix32"),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _route_env(name):
+    import dataclasses
+
+    from sbsim_tpu_torch.core import geometry
+
+    plan, changes, conv = ROUTE_ENVS[name]
+    kw = {} if plan is None else dict(
+        floor_plan=geometry.make_synthetic_office_plan(*plan[:2], room_cvs=plan[2]),
+        layout="auto")
+    cfg = dataclasses.replace(presets.sb1_config(num_days_in_episode=1, **kw), **changes)
+    cfg = dataclasses.replace(cfg, convection=dataclasses.replace(cfg.convection, **conv))
+    return building_env.BuildingEnv(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("name,solver", list(ROUTE_TABLE))
+def test_route_table(name, solver):
+    """The route of each env and solver: the wrapper, the envs per thread
+    block it takes (a requested E > 1 runs at 1, each body's measured best),
+    its stopping rule, whether the plan spans thread blocks (the cluster
+    bodies), whether the swap rounds fuse into the kernel, whether the
+    statistics come from it (not the interleaved K1, not a cluster body,
+    the final field in the kernel, at most kernel_stats_max_zones and 128
+    zones) and where the rounds' words come from; kernel_path reads it."""
+    want_e, kernel, e, rule, cluster, fuse, stats, words = ROUTE_TABLE[name, solver]
+    env = _route_env(name)
+    route = env.route(solver)
+    assert env.config.pallas_block_envs == want_e
+    assert (route.kernel, route.block_envs, route.rule, route.cluster) == (kernel, e, rule,
+                                                                          cluster)
+    assert cluster == fdm_cuda.spans_blocks(env.geom.shape)
+    assert (route.fuse_conv, route.kernel_stats) == (fuse, stats) == env.kernel_path(solver)
+    assert env.route(solver) is route
+    if words is None:
+        assert route.conv is None
+    else:
+        assert route.conv.lead is env._conv_lead and route.conv.foll is env._conv_foll
+        assert (route.conv.word_params is None) == (words == "threefry")
+        assert (route.words_of is env.convection) == (words == "threefry")
 
 
 def test_launch_runs_on_the_inputs_device(monkeypatch):

@@ -194,7 +194,8 @@ def test_launch_counts_per_kind(host_lib):
     """`rng.launches.<kind>` (the tracing registry's set-up family) moves by
     one per launch of its kind, not for an empty draw, and not for a launch
     the library refuses; captured programs carry it beside
-    `fdm.launches`."""
+    `fdm.launches` and `fdm.swap_groups`, the registry's families of device
+    launches."""
     from sbsim_tpu_torch.physics import fdm_cuda
     from sbsim_tpu_torch.utils import profiling
 
@@ -218,8 +219,10 @@ def test_launch_counts_per_kind(host_lib):
     assert rng.launch_counts == {"split": 1, "fold_in": 0, "bits": 0, "uniform": 2,
                                  "normal": 0, "randint": 0}
     rng.launch_counts.update(saved)
-    assert graphs.capture(lambda x: x).counters == (fdm_cuda.launch_counts,
-                                                    rng.launch_counts)
+    counters = graphs.capture(lambda x: x).counters
+    assert {id(c) for c in counters} >= {id(fdm_cuda.launch_counts), id(fdm_cuda.swap_counts),
+                                         id(rng.launch_counts)}
+    assert not any(c is profiling.family("graphs") for c in counters)
 
 
 def test_env_and_trainer_draw_through_the_host_kernel(host_lib, monkeypatch):

@@ -240,13 +240,13 @@ def test_stats_refuse_more_than_128_zones(sb1):
 
 def _stat_layout_passed(env, solver, monkeypatch):
     seen = []
-    real = fdm_cuda.fdm_step_cuda
+    real = fdm_cuda.Route.run
 
-    def spy(*args, **kwargs):
-        seen.append(kwargs.get("stat_layout") is not None)
-        return real(*args, **kwargs)
+    def spy(route, inp, conv=None, stats=None, barriers=None):
+        seen.append(stats is not None)
+        return real(route, inp, conv, stats, barriers)
 
-    monkeypatch.setattr(fdm_cuda, "fdm_step_cuda", spy)
+    monkeypatch.setattr(fdm_cuda.Route, "run", spy)
     state, _ = env.reset(rng.split(rng.PRNGKey(0), 2))
     env.step_batched(state, torch.zeros(2, env.n_actions), solver=solver)
     return seen == [True]
