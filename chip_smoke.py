@@ -60,9 +60,11 @@ Phases (each prints its own lines; any failure exits non-zero):
      "pallas_cheby" and "pallas_env": each step's solve on K1's and K2's
      cluster bodies (one cluster of 8 CTAs an env), launches equal to the
      steps, then each cluster body alone on its path's last-step inputs
-     against its kernel's plain version (bitwise), its barriers beside the
-     iterations those its swap plan predicts (fdm.swap_groups counting the
-     plan's groups), timed with its bound and with the rounds off. Then the
+     against its kernel's plain version (bitwise), its barriers and tiled
+     sub-iterations beside the iterations those its chunk and swap plans
+     predict (fdm.swap_groups counting the plan's groups), timed with its
+     bound and with the rounds off, and K1's chunk passes timed as the body
+     less its run capped at x1 = J(x0). Then the
      decomposition of K1/K4 and K2/K3 at
      12 zones B=2048 and 126 rooms B=512 (K2/K3 also at B=64) on seeded
      inputs: the solve alone, with mix32 swaps, with the word plane, with
@@ -454,16 +456,23 @@ def cluster_phase(max_err, bw, flops, tag):
         conv = word_conv(env, conv_keys, False)
         limit = env.config.iteration_limit
         plan = fdm_cuda.swap_plan(env.geom.shape, conv.offsets)
-        barriers = torch.empty(batch, dtype=torch.int32, device=dev)
+        barriers, tiled = (torch.empty(batch, dtype=torch.int32, device=dev) for _ in range(2))
         groups = fdm_cuda.swap_counts["swap_groups"]
-        got = run_kernel(kname, env, inp, conv, limit, barriers=barriers)
+        got = run_kernel(kname, env, inp, conv, limit, barriers=barriers, tiled=tiled)
         want = run_kernel(kname, env, inp, conv, limit, plain=True)
         max_err[body] = max(max_err[body], compare(f"{body} at {which} B={batch}", got, want))
-        # One cluster barrier between groups of the plan, and J(x_f).
+        # One cluster barrier an iteration, or a chunk pass (all but x1 =
+        # J(x0) tiled), one between groups of the plan, and J(x_f).
+        chunk = route_of(env, kname).chunk
+        ce = chunk.halo if chunk is not None else 1
+        want_tiled = got[1] - 1 if chunk is not None else 0 * got[1]
         planned = len(plan.groups) - 1 + (1 if kname.startswith("fdm_cheby") else 0)
-        if not torch.equal(barriers, got[1] + planned):
-            fail(f"{body}: barriers {barriers.tolist()} != iterations {got[1].tolist()} "
-                 f"+ {planned} (swap plan {plan.groups})")
+        if not torch.equal(tiled, want_tiled):
+            fail(f"{body}: tiled sub-iterations {tiled.tolist()} != {want_tiled.tolist()} "
+                 f"(chunk plan {chunk})")
+        if not torch.equal(barriers, got[1] - want_tiled + want_tiled // ce + planned):
+            fail(f"{body}: barriers {barriers.tolist()} for iterations {got[1].tolist()}, "
+                 f"chunk plan {chunk}, swap plan {plan.groups}")
         if fdm_cuda.swap_counts["swap_groups"] != groups + len(plan.groups):
             fail(f"{body}: fdm.swap_groups counted {fdm_cuda.swap_counts['swap_groups'] - groups}"
                  f" for a plan of {len(plan.groups)} groups")
@@ -472,6 +481,7 @@ def cluster_phase(max_err, bw, flops, tag):
         p_ms = time_call(lambda: run_kernel(kname, env, inp, conv, limit, plain=True), 1)
         b_ms, b_by = bound_ms(inp, conv, got[1], kname, bw, flops)
         fixed = float((barriers - got[1]).double().mean())
+        mean_tiled = float(tiled.double().mean())
         print(f" {which} B={batch} {solver} ({env.geom.shape[0]}x{env.geom.shape[1]}, "
               f"clusters of {geo.cluster} CTAs x {geo.threads} threads, {geo.slots} runs a "
               f"thread): {steps} steps, launches {launches[body]}; median step {med:.3f} ms "
@@ -484,6 +494,18 @@ def cluster_phase(max_err, bw, flops, tag):
               f"group(s) {k_ms - off_ms:.4f} ms {tag}", flush=True)
         rows[body] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, batch=batch,
                           rounds_off_ms=off_ms, swap_groups=len(plan.groups))
+        if chunk is not None:
+            # The chunk passes: the body less its run capped at x1 = J(x0).
+            x1_ms = time_call(lambda: run_kernel(kname, env, inp, conv, 1), 10)
+            passes = float(((got[1] - 1) // ce).double().mean())
+            print(f"  {body} chunk passes of {ce} ({chunk.th} x {chunk.tw} tiles, "
+                  f"{chunk.smem} B): {k_ms - x1_ms:.4f} ms for {passes:.1f} passes "
+                  f"({(k_ms - x1_ms) / passes:.4f} ms a pass; capped at x1 {x1_ms:.4f} ms); "
+                  f"iterations {float(got[1].double().mean()):.1f}, tiled sub-iterations "
+                  f"{mean_tiled:.1f}, barriers {float(barriers.double().mean()):.1f} a solve "
+                  f"{tag}", flush=True)
+            rows[body].update(chunk_ms=k_ms - x1_ms, chunk_passes=passes,
+                              tiled_sweeps=mean_tiled)
     print(f"  phase 3 (b) {time.time() - t0:.1f} s {tag}", flush=True)
     return launches, rows
 
@@ -578,16 +600,18 @@ def wide_stats(env, seed: int):
     return gridstats.ZoneStats(layout, env.device)
 
 
-def run_kernel(name, env, inp, conv, limit, plain=False, stats=None, e=None, barriers=None):
+def run_kernel(name, env, inp, conv, limit, plain=False, stats=None, e=None, barriers=None,
+               tiled=None):
     """Kernel `name` (its plain version with `plain`) on the env's solver
     settings; K3/K4 with `e` envs per thread block (default: the env's);
-    `barriers` receives a cluster body's barrier counts."""
+    `barriers` and `tiled` receive a cluster body's barrier counts and
+    tiled sub-iterations."""
     from sbsim_tpu_torch.physics import fdm_cuda
 
     route = route_of(env, name)
     kw = dict(route.solver_args, iteration_limit=limit, conv=conv, stats=stats)
     if barriers is not None:
-        kw.update(barriers=barriers)
+        kw.update(barriers=barriers, tiled_sweeps=tiled)
     if name.endswith("_block"):
         kw.update(block_envs=e or route.block_envs)
     fn = getattr(fdm_cuda, f"{name}_plain" if plain else f"{name}_cuda")

@@ -128,10 +128,11 @@ def make_rollout(env, actions, n_steps: int, solver: str) -> Callable:
     call adds the returned states' FDM iterations (the call's last step) to
     the counter `fdm.iterations`, kept on the device and summed when read,
     and their number to `env.steps`; where the solve runs on thread-block
-    clusters (a plan that spans blocks), the same step's barrier counts
-    (`StepOutput.fdm_barriers`, the program's third output, None on other
-    plans) to `fdm.barriers`. `call.eager` is the rollout op by op, and
-    `call.programs` the captured function's."""
+    clusters (a plan that spans blocks), the same step's barrier counts and
+    tiled sub-iterations (`StepOutput.fdm_counts`, the program's third
+    output, None on other plans) to `fdm.barriers` and `fdm.tiled_sweeps`.
+    `call.eager` is the rollout op by op, and `call.programs` the captured
+    function's."""
     table = torch.tensor(np.asarray(actions), dtype=torch.float32, device=env.device)
     last = table.shape[0] - 1
 
@@ -141,15 +142,16 @@ def make_rollout(env, actions, n_steps: int, solver: str) -> Callable:
             act = table[states.step_idx.to(torch.int64).clamp(0, last)]
             states, out = env.step_batched(states, act, solver=solver)
             rewards.append(out.reward)
-        return states, torch.stack(rewards).mean(), out.fdm_barriers
+        return states, torch.stack(rewards).mean(), out.fdm_counts
 
     captured = graphs.capture(rollout)
 
     def call(states):
-        states, mean, barriers = captured(states)
+        states, mean, counts = captured(states)
         profiling.count_tensor("fdm.iterations", states.fdm_iterations)
-        if barriers is not None:
-            profiling.count_tensor("fdm.barriers", barriers)
+        if counts is not None:
+            profiling.count_tensor("fdm.barriers", counts[0])
+            profiling.count_tensor("fdm.tiled_sweeps", counts[1])
         profiling.count("env.steps", states.fdm_iterations.shape[0])
         return states, mean
 

@@ -177,6 +177,18 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// An asynchronous copy of 4 bytes from global into shared memory
+// (cp.async), which holds no register while in flight; wait_async waits for
+// all of this thread's.
+__device__ __forceinline__ void copy_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void wait_async() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
 // Makes this thread's shared-memory writes visible to the bulk engine.
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -1069,19 +1081,44 @@ __global__ void __launch_bounds__(BodyShape<E, STAGED>::kThreads,
 // spare plane; Jacobi alternates between scratch and spare) and the groups
 // alternate between scratch and spare, the last writing the output: no copy
 // and no barrier after the last group.
+//
+// Chebyshev's chunks run the same way. Between two sampled sub-iterations no
+// decision is taken, so the `check_every` sub-iterations of a chunk after x1 =
+// J(x0) run as one chunk pass, tile by tile of the CTA's band: x, x_prev, const
+// and denom (copied by cp.async) and each cell's flags (its exterior pin, and
+// with edge fill which neighbours are t_inf) are loaded over the tile and a
+// halo of `check_every` rows and columns round the torus, sub-iteration s
+// updates the region shrunk by s cells in place (x_next over x_prev, one
+// __syncthreads a sub-iteration; each cell's update is the streamed sweep's
+// float32 sequence on the same inputs, and a halo cell is a real cell of the
+// grid computed from its real neighbours), the last one samples the residual
+// over the tile's interior alone, and the interior's last iterate and the one
+// before it are written out. A neighbour CTA may still be loading its halo from
+// the planes a pass reads, so a pass writes two planes it does not read: the
+// pairs (spare, output) and (scratch, extra) take turns, the first pass reading
+// (scratch, temp). One cluster barrier a chunk, which also carries its residual
+// max. The tile (planned at launch by chunk_plan from the grid and
+// `check_every` alone) is the one that loads fewest cells within kTileBytes,
+// the swap tile's memory, which the solve and the epilogue never use at the
+// same time. Without such a tile, or with `check_every` = 1, the chunks stream
+// as above.
 
 constexpr int kClusterMax = 8;        // CTAs per env: the portable cluster size
 constexpr int kClusterThreads = 1024;  // threads per CTA (at most)
 // Floats at the start of a cluster body's shared memory: the block's warp
 // maxima and the cluster's reduction slots [2][kClusterMax].
 constexpr int kClusterScalars = 32 + 2 * kClusterMax;
-// Shared memory a cluster CTA may give a tile of swap rounds: an SM's
-// 256 KB of unified L1 and shared memory less 96 KB of L1 for the solve's
-// sweeps (a 214 KB tile, which leaves 28 KB, slowed the whole solve by
-// 27-36% on the H100, PERF.md), less the CTA's reserved 1 KB and scalars.
-constexpr size_t kSwapTileBytes = (256 - 96 - 1) * 1024 - sizeof(float) * kClusterScalars;
+// Shared memory a cluster CTA may give a tile of swap rounds or of a chunk
+// pass: an SM's 256 KB of unified L1 and shared memory less 96 KB of L1 for
+// the solve's streamed sweeps (a 214 KB swap tile, which leaves 28 KB,
+// slowed the whole solve by 27-36% on the H100, PERF.md), less the CTA's
+// reserved 1 KB and scalars.
+constexpr size_t kTileBytes = (256 - 96 - 1) * 1024 - sizeof(float) * kClusterScalars;
 // A group's tiles may load at most this many times its band's cells.
 constexpr int kTileLoad = 4;
+// Cells a thread loads into a chunk tile at a time: the planes' copies
+// asynchronous, the exterior's loads all before any flag is stored.
+constexpr int kLoadBatch = 4;
 
 // One group of the swap plan: rounds [r0, r1); tw > 0: in shared memory
 // over tiles of th x tw cells with a halo of hy rows and hx columns; tw ==
@@ -1095,16 +1132,27 @@ struct SwapPlan {
   SwapGroup g[kMaxRounds];
 };
 
+// The tile of Chebyshev's chunk passes: th x tw cells of a CTA's band with
+// a halo of `halo` (check_every) rows and columns; tw == 0: the chunks
+// stream.
+struct ChunkPlan {
+  int halo, th, tw;
+};
+
 // What a cluster body adds to the planes: the second iterate plane, the
-// spare plane of the swap rounds, the per-env barrier counts, the
-// geometry and the swap plan.
+// spare plane of the swap rounds and the chunk passes, the chunk passes'
+// extra plane, the per-env barrier and tiled sub-iteration counts, the
+// geometry and the plans.
 struct ClusterArgs {
   float* scratch;     // (B, H, W)
-  float* spare;       // (B, H, W); null without swap rounds
+  float* spare;       // (B, H, W); null without swap rounds or chunk passes
+  float* extra;       // (B, H, W); null without chunk passes
   int32_t* barriers;  // (B,)
+  int32_t* tiled;     // (B,)
   int cluster;        // CTAs per env
   int band_blocks;    // row blocks a CTA owns (the last may own fewer)
   SwapPlan plan;
+  ChunkPlan chunk;
 };
 
 // A round's offset d, normalised to [0, n), as its shortest way round a
@@ -1118,6 +1166,14 @@ __host__ __device__ __forceinline__ int torus_offset(int d, int n) {
 // rounds whose partner stays in the region.
 size_t tile_bytes(int R, int C) {
   return 8 * ((size_t)R * C + R + C);
+}
+
+// Shared bytes of a chunk tile region of R x C cells: x, x_prev, const and
+// denom per cell, then per row its first cell and per column its x, then
+// each cell's flags and each row's and column's edge flags.
+constexpr int kChunkCellBytes = 17, kChunkLineBytes = 5;
+size_t chunk_bytes(int R, int C) {
+  return kChunkCellBytes * (size_t)R * C + kChunkLineBytes * ((size_t)R + C);
 }
 
 __device__ __forceinline__ Cursor band_first_run(const RunGrid& g, int rb0) {
@@ -1406,16 +1462,213 @@ __device__ void swap_wide(const float* src, float* dst, const Planes& p, const C
   }
 }
 
+// A cell's flags in a chunk tile: its exterior pin, and (edge fill) which
+// of its neighbours lie off the grid and read t_inf.
+enum ChunkFlag : uint8_t { kPin = 1, kUp = 2, kDown = 4, kLeft = 8, kRight = 16 };
+
+// One run of a chunk tile's sub-iteration: the cells of rows i0 .. i0 + n - 1
+// of column j of the region (C columns; a the iterate, b x_prev, which
+// x_next overwrites in place; x the column's place on the grid), each the
+// streamed sweep's update, its stencil read where the cell lies on the
+// grid. EDGE: edge fill, whose flags say which neighbours read t_inf
+// (without it only the pin is flagged, and the reads wrap).
+template <bool FULL, bool EDGE>
+__device__ __forceinline__ void tile_run(const float* __restrict__ a, float* __restrict__ b,
+                                         const float* __restrict__ cs,
+                                         const float* __restrict__ ds,
+                                         const uint8_t* __restrict__ fl,
+                                         const int* __restrict__ row_cell, int x,
+                                         const float4* __restrict__ coef, int C, int i0,
+                                         int n_run, int j, float tinf, float omega_next,
+                                         bool sample, float& m) {
+  const int n = FULL ? kRun : n_run;
+  const int top = i0 * C + j;
+  // The run's stencil first: a read after a store into the tile waits
+  // for it, which would make each cell an L2 round trip of its own.
+  float4 k[kRun];
+#pragma unroll
+  for (int q = 0; q < kRun; ++q) {
+    k[q] = q < n ? __ldg(coef + row_cell[i0 + q] + x) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  float xv[kRun + 2];  // rows i0 - 1 .. i0 + n
+#pragma unroll
+  for (int q = 0; q < kRun + 2; ++q) xv[q] = q <= n + 1 ? a[top + (q - 1) * C] : 0.0f;
+#pragma unroll
+  for (int q = 0; q < kRun; ++q) {
+    if (q >= n) continue;
+    const int c = top + q * C;
+    const uint32_t f = fl[c];
+    const float xl = EDGE && (f & kLeft) ? tinf : a[c - 1];
+    const float xr = EDGE && (f & kRight) ? tinf : a[c + 1];
+    const float xt = EDGE && (f & kUp) ? tinf : xv[q];
+    const float xb = EDGE && (f & kDown) ? tinf : xv[q + 2];
+    b[c] = cell_update<kCheby>(k[q], xr, xl, xb, xt, cs[c], ds[c], tinf, f & kPin, EDGE,
+                               xv[q + 1], b[c], omega_next, sample, m);
+  }
+}
+
+// The `sweeps` sub-iterations of a chunk tile's region of R x C cells, from
+// omega on: sub-iteration s on rows [s, R - s) and columns [s, C - s), in
+// runs of kRun down a column as the streamed sweeps own them, x_next over
+// x_prev in place; the last samples the residual. On return a holds the
+// last iterate and b the one before it.
+template <bool EDGE>
+__device__ __forceinline__ void tile_sweeps(float*& a, float*& b, const float* cs,
+                                            const float* ds, const uint8_t* fl,
+                                            const int* row_cell, const int* col_x,
+                                            const float4* coef, int R, int C, float tinf,
+                                            float rho2, float omega, int sweeps, float& m) {
+  const int T = blockDim.x;
+  float w = omega;
+  for (int s = 1; s <= sweeps; ++s) {
+    w = 1.0f / (1.0f - rho2 * w / 4.0f);
+    const int nc = C - 2 * s, nb = (R - 2 * s + kRun - 1) / kRun;
+    const int sb = T / nc, sx = T - sb * nc;
+    int rb = threadIdx.x / nc, jx = threadIdx.x - rb * nc;
+    for (int r = threadIdx.x; r < nb * nc; r += T) {
+      const int i0 = s + rb * kRun, n_run = min(kRun, R - s - i0);
+      const int gx = col_x[s + jx];
+      if (n_run == kRun) {
+        tile_run<true, EDGE>(a, b, cs, ds, fl, row_cell, gx, coef, C, i0, kRun, s + jx, tinf,
+                             w, s == sweeps, m);
+      } else {
+        tile_run<false, EDGE>(a, b, cs, ds, fl, row_cell, gx, coef, C, i0, n_run, s + jx,
+                              tinf, w, s == sweeps, m);
+      }
+      rb += sb;
+      jx += sx;
+      if (jx >= nc) {
+        jx -= nc;
+        ++rb;
+      }
+    }
+    __syncthreads();
+    float* t = a;
+    a = b;
+    b = t;
+  }
+}
+
+// The chunk passes (see the note above the cluster constants): `sweeps`
+// sub-iterations from (x, xp) with omega from `omega` on, tile by tile of
+// the band's rows [y0, y1) of the H x W grid (edge: edge fill), the
+// interior's x and x_prev written to nx and np. Returns the thread's
+// residual max over the interiors of the last sub-iteration. The tile is
+// the CTA's shared memory past its scalars.
+__device__ float chunk_tiles(const float4* coef, const float* ext, int H, int W, bool edge,
+                             ChunkPlan cp, int y0, int y1, const float* x, const float* xp,
+                             float* nx, float* np, const float* cn, const float* dn, float tinf,
+                             float rho2, float omega, int sweeps) {
+  FDM_DYNAMIC_SMEM(smem);
+  float* tile = smem + kClusterScalars;
+  const int T = blockDim.x, h = cp.halo;
+  float m = 0.0f;
+  for (int ty = y0; ty < y1; ty += cp.th) {
+    const int th = min(cp.th, y1 - ty);
+    for (int tx = 0; tx < W; tx += cp.tw) {
+      const int tw = min(cp.tw, W - tx);
+      const int R = th + 2 * h, C = tw + 2 * h, n = R * C;
+      float* a = tile;
+      float* b = a + n;
+      float* cs = b + n;
+      float* ds = cs + n;
+      int* row_cell = reinterpret_cast<int*>(ds + n);  // R: the row's first cell
+      int* col_x = row_cell + R;                        // C: the column
+      uint8_t* fl = reinterpret_cast<uint8_t*>(col_x + C);
+      uint8_t* row_f = fl + n;
+      uint8_t* col_f = row_f + R;
+      for (int k = threadIdx.x; k < R + C; k += T) {
+        const bool row = k < R;
+        const int i = row ? k : k - R;
+        const int axis = row ? H : W;
+        int at = ((row ? ty : tx) - h + i) % axis;
+        if (at < 0) at += axis;
+        uint8_t f = 0;
+        if (edge && at == 0) f |= row ? kUp : kLeft;
+        if (edge && at == axis - 1) f |= row ? kDown : kRight;
+        if (row) {
+          row_cell[i] = at * W;
+          row_f[i] = f;
+        } else {
+          col_x[i] = at;
+          col_f[i] = f;
+        }
+      }
+      __syncthreads();
+      // The region, cell idx at (i, j), stepped by (T / C, T % C) with one
+      // carry; kLoadBatch cells a thread at a time.
+      const int si = T / C, sj = T - si * C;
+      int i = threadIdx.x / C, j = threadIdx.x - i * C;
+      for (int idx0 = threadIdx.x; idx0 < n; idx0 += kLoadBatch * T) {
+        int c[kLoadBatch];
+        uint8_t f[kLoadBatch];
+#pragma unroll
+        for (int u = 0; u < kLoadBatch; ++u) {
+          const bool in = idx0 + u * T < n;
+          c[u] = in ? row_cell[i] + col_x[j] : -1;
+          f[u] = in ? row_f[i] | col_f[j] : 0;
+          i += si;
+          j += sj;
+          if (j >= C) {
+            j -= C;
+            ++i;
+          }
+        }
+        float e[kLoadBatch];
+#pragma unroll
+        for (int u = 0; u < kLoadBatch; ++u) {
+          if (c[u] < 0) continue;
+          const int idx = idx0 + u * T;
+          copy_async4(a + idx, x + c[u]);
+          copy_async4(b + idx, xp + c[u]);
+          copy_async4(cs + idx, cn + c[u]);
+          copy_async4(ds + idx, dn + c[u]);
+          e[u] = __ldg(ext + c[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < kLoadBatch; ++u) {
+          if (c[u] >= 0) fl[idx0 + u * T] = (e[u] > 0.0f ? kPin : 0) | f[u];
+        }
+      }
+      wait_async();
+      __syncthreads();
+      if (edge) {
+        tile_sweeps<true>(a, b, cs, ds, fl, row_cell, col_x, coef, R, C, tinf, rho2, omega,
+                          sweeps, m);
+      } else {
+        tile_sweeps<false>(a, b, cs, ds, fl, row_cell, col_x, coef, R, C, tinf, rho2, omega,
+                           sweeps, m);
+      }
+      // The interior's x (a) and x_prev (b) out, row by row of the tile.
+      const int ti = T / tw, tj = T - ti * tw;
+      int ii = threadIdx.x / tw, jj = threadIdx.x - ii * tw;
+      for (int k = threadIdx.x; k < th * tw; k += T) {
+        const int c = (ty + ii) * W + tx + jj, at = (h + ii) * C + h + jj;
+        nx[c] = a[at];
+        np[c] = b[at];
+        ii += ti;
+        jj += tj;
+        if (jj >= tw) {
+          jj -= tw;
+          ++ii;
+        }
+      }
+      __syncthreads();  // the region is read out before the next tile's
+    }
+  }
+  return m;
+}
+
 // The epilogue of a cluster body. With swap rounds: the plan's groups from
 // the field (never the output plane s0) alternately into s1 and s2, the
 // last into s0, a cluster barrier between groups. Without: each thread
 // copies its own cells of the field into s0 where it lies elsewhere (it
 // wrote those cells itself, so no barrier is needed). Rank 0 writes the
-// env's count, flag and barriers.
+// env's count, flag, barriers and tiled sub-iterations.
 __device__ void cluster_finish(const Planes& p, const ConvArgs& cv, const RunGrid& g,
                                const ClusterArgs& ca, float* tile, int rank, int b, int rb0,
                                int runs, const float* field, float* s0, float* s1, float* s2,
-                               int iters, bool conv, int n_bar) {
+                               int iters, bool conv, int n_bar, int tiled) {
   const size_t off = (size_t)b * g.hw;
   if (cv.n_rounds > 0) {
     uint32_t k0 = 0, k1 = 0;
@@ -1459,12 +1712,13 @@ __device__ void cluster_finish(const Planes& p, const ConvArgs& cv, const RunGri
     p.iters[b] = iters;
     p.converged[b] = conv ? 1 : 0;
     ca.barriers[b] = n_bar;
+    ca.tiled[b] = tiled;
   }
 }
 
 // The band of a cluster body's CTA: its rank, env, first row block and
 // runs; the dynamic shared memory holds warps[32] and slots[2][kClusterMax],
-// then a tile of the swap rounds.
+// then a tile of a chunk pass or of the swap rounds.
 struct Band {
   int rank, b, rb0, runs;
 };
@@ -1480,10 +1734,13 @@ __device__ __forceinline__ Band cluster_band(const RunGrid& g, const ClusterArgs
 
 // K1's and K4's semantics (one env) on a cluster: x1 = J(x0), then chunks
 // of `check_every` sub-iterations, the residual of each chunk's last one
-// deciding the stop, then J(x_f), the swap rounds and the output. The
-// first sub-iteration reads x_prev from temp and writes slot 0; after it
-// x_next overwrites x_prev in place, as in the block body. J(x_f) goes into
-// x_prev's slot, or with swap rounds into the spare plane.
+// deciding the stop, then J(x_f), the swap rounds and the output. A chunk
+// is one pass in shared memory where the chunk plan has a tile (see the
+// note above the cluster constants; `tiled` counts its sub-iterations),
+// else it streams: the first sub-iteration reads x_prev from temp and
+// writes the output plane, after which x_next overwrites x_prev in place,
+// as in the block body, one cluster barrier a sub-iteration. J(x_f) goes
+// into a plane that does not hold x, with swap rounds never the output.
 __global__ void __launch_bounds__(kClusterThreads, 1)
     fdm_cheby_cluster_body(Planes p, ConvArgs cv, RunGrid g, ClusterArgs ca,
                            float threshold, int limit, float rho2, float omega0,
@@ -1498,9 +1755,11 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   const float* dn = p.denom + off;
   float* s0 = p.out + off;
   float* s1 = ca.scratch + off;
-  float* s2 = cv.n_rounds > 0 ? ca.spare + off : nullptr;
+  float* s2 = ca.spare != nullptr ? ca.spare + off : nullptr;
+  float* s3 = ca.extra != nullptr ? ca.extra + off : nullptr;
+  float* tile = smem + kClusterScalars;
   const float tinf = p.tinf[s.b];
-  int n_bar = 0, parity = 0;
+  int n_bar = 0, parity = 0, tiled = 0;
   float m = 0.0f;
   cluster_sweep<kFirst>(p, g, s.rb0, s.runs, temp, nullptr, s1, cn, dn, tinf, 0.0f, true, m);
   m = cluster_max(m, warps, slots, parity, s.rank, ca.cluster);
@@ -1510,34 +1769,52 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   float omega = omega0;
   const float* x = s1;
   const float* xp = temp;
+  const int y0 = s.rb0 * kRun, y1 = min(g.H, (s.rb0 + ca.band_blocks) * kRun);
   while (it < limit && !done) {
-    for (int kk = 0; kk < check_every; ++kk) {
-      const float omega_next = 1.0f / (1.0f - rho2 * omega / 4.0f);
-      const bool sample = kk == check_every - 1;
-      float* dst = xp == s1 ? s1 : s0;
-      m = 0.0f;
-      cluster_sweep<kCheby>(p, g, s.rb0, s.runs, x, xp, dst, cn, dn, tinf, omega_next, sample,
-                            m);
-      if (sample) {
-        m = cluster_max(m, warps, slots, parity, s.rank, ca.cluster);
-      } else {
-        cluster_sync();
-      }
+    if (ca.chunk.tw > 0) {
+      // One chunk pass from the pair it reads into the other.
+      float* nx = x == s2 ? s1 : s2;
+      float* np = x == s2 ? s3 : s0;
+      m = chunk_tiles(p.coef, p.ext, g.H, g.W, g.edge_fill != 0, ca.chunk, y0, y1, x, xp, nx,
+                      np, cn, dn, tinf, rho2, omega, check_every);
+      m = cluster_max(m, warps, slots, parity, s.rank, ca.cluster);
       ++n_bar;
-      xp = x;
-      x = dst;
-      ++it;
-      omega = omega_next;
+      for (int kk = 0; kk < check_every; ++kk) omega = 1.0f / (1.0f - rho2 * omega / 4.0f);
+      x = nx;
+      xp = np;
+      it += check_every;
+      tiled += check_every;
+    } else {
+      for (int kk = 0; kk < check_every; ++kk) {
+        const float omega_next = 1.0f / (1.0f - rho2 * omega / 4.0f);
+        const bool sample = kk == check_every - 1;
+        float* dst = xp == s1 ? s1 : s0;
+        m = 0.0f;
+        cluster_sweep<kCheby>(p, g, s.rb0, s.runs, x, xp, dst, cn, dn, tinf, omega_next,
+                              sample, m);
+        if (sample) {
+          m = cluster_max(m, warps, slots, parity, s.rank, ca.cluster);
+        } else {
+          cluster_sync();
+        }
+        ++n_bar;
+        xp = x;
+        x = dst;
+        ++it;
+        omega = omega_next;
+      }
     }
     iters = it;
     if (m <= threshold) done = true;
   }
-  float* field = s2 != nullptr ? s2 : xp == s1 ? s1 : s0;
+  // J(x_f) into a plane that does not hold x: with swap rounds never the
+  // output (the last group writes it), without them the output.
+  float* field = cv.n_rounds > 0 ? (x == s2 ? s1 : s2) : (x == s0 ? s1 : s0);
   cluster_sweep<kFinal>(p, g, s.rb0, s.runs, x, nullptr, field, cn, dn, tinf, 0.0f, false, m);
   cluster_sync();
   ++n_bar;
-  cluster_finish(p, cv, g, ca, smem + kClusterScalars, s.rank, s.b, s.rb0, s.runs, field, s0,
-                 s1, s2, iters, done, n_bar);
+  cluster_finish(p, cv, g, ca, tile, s.rank, s.b, s.rb0, s.runs, field, s0, s1, s2, iters, done,
+                 n_bar, tiled);
 }
 
 // K2's (kSolo) and K3's (kBlock) semantics (one env) on a cluster: Jacobi
@@ -1585,7 +1862,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   }
   if (RULE == kSolo) conv = delta <= threshold;
   cluster_finish(p, cv, g, ca, smem + kClusterScalars, s.rank, s.b, s.rb0, s.runs, x, s0, s1,
-                 s2, iters, conv, n_bar);
+                 s2, iters, conv, n_bar, 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -1870,20 +2147,22 @@ int cluster_geometry(int H, int W, int edge_fill, ClusterGeometry* out) {
   return 0;
 }
 
-// The tile of a swap group with reach (hy, hx) on bands of `rows` rows of
-// a W-wide grid: of the tiles th x tw whose region fits kSwapTileBytes,
-// with th and tw even shares of the band's rows and of W, the one whose
-// regions load the fewest cells, into *th, *tw; returns those cells (the
-// band's), 0 where no tile fits.
-long long swap_tile(int rows, int W, int hy, int hx, int* th, int* tw) {
-  const long long cap = (long long)(kSwapTileBytes / 8);  // R * C + R + C
+// The tile th x tw of a region with a halo of hy rows and hx columns on
+// bands of `rows` rows of a W-wide grid, at `cell` bytes a region cell and
+// `line` bytes a region row or column: of the tiles whose region fits
+// `budget` bytes, with th and tw even shares of the band's rows and of W, the
+// one whose regions load the fewest cells, into *th, *tw; returns those
+// cells (the band's), 0 where no tile fits.
+long long best_tile(int rows, int W, int hy, int hx, int cell, int line, size_t budget, int* th,
+                    int* tw) {
+  const long long cap = (long long)budget;  // cell * R * C + line * (R + C)
   long long best = 0;
   for (int nr = 1; nr <= min(rows, 256); ++nr) {
     const int h = (rows + nr - 1) / nr;
     if (nr > 1 && h == (rows + nr - 2) / (nr - 1)) continue;  // the same tiles
     const long long R = h + 2LL * hy;
-    if (R >= cap) continue;
-    long long w_max = (cap - R) / (R + 1) - 2LL * hx;
+    if (line * R >= cap) continue;
+    long long w_max = (cap - line * R) / (cell * R + line) - 2LL * hx;
     if (w_max > W) w_max = W;
     if (w_max < 1) continue;
     const long long nc = (W + w_max - 1) / w_max;
@@ -1895,6 +2174,30 @@ long long swap_tile(int rows, int W, int hy, int hx, int* th, int* tw) {
     }
   }
   return best;
+}
+
+// The tile of a swap group with reach (hy, hx) (tile_bytes).
+long long swap_tile(int rows, int W, int hy, int hx, int* th, int* tw) {
+  return best_tile(rows, W, hy, hx, 8, 8, kTileBytes, th, tw);
+}
+
+// The chunk plan of a Chebyshev cluster launch (see the note above the
+// cluster constants; read by physics/fdm_cuda.py chunk_plan, its mirror,
+// through fdm_cluster_chunk_plan): with check_every >= 2, the tile of
+// halo check_every (chunk_bytes) on bands of `rows` rows; tw = 0 where
+// check_every is 1 or no tile fits. *smem receives its region's bytes (0
+// without).
+ChunkPlan chunk_plan(int W, int rows, int check_every, size_t* smem) {
+  ChunkPlan cp = {check_every, 0, 0};
+  *smem = 0;
+  if (check_every >= 2 &&
+      best_tile(rows, W, check_every, check_every, kChunkCellBytes, kChunkLineBytes,
+                kTileBytes, &cp.th, &cp.tw) > 0) {
+    *smem = chunk_bytes(cp.th + 2 * check_every, cp.tw + 2 * check_every);
+  } else {
+    cp.th = cp.tw = 0;
+  }
+  return cp;
 }
 
 // The swap plan of a cluster launch (see the note above the cluster
@@ -1929,7 +2232,9 @@ void swap_plan(const ConvArgs& cv, int H, int W, int rows, SwapPlan* plan, size_
 }
 
 // The cluster bodies' launch: K1/K4 (cheby) or K2/K3 (rule) on a cluster
-// per env, with the swap plan of its rounds.
+// per env, with the swap plan of its rounds and (cheby) the chunk plan; the
+// spare plane is needed with either plan's tiles, the extra plane with the
+// chunk passes'.
 int cluster_launch(bool cheby, int rule, Planes p, ConvArgs cv, ClusterArgs ca,
                    float threshold, int limit, float rho2, float omega0, int check_every,
                    int B, cudaStream_t stream) {
@@ -1939,13 +2244,19 @@ int cluster_launch(bool cheby, int rule, Planes p, ConvArgs cv, ClusterArgs ca,
   if (B < 1 || (long long)B * geo.cluster > 0x7fffffffLL || check_every < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  if (cv.n_rounds > 0 && ca.spare == nullptr) return (int)cudaErrorInvalidValue;
   normalise_offsets(cv, p.H, p.W);
   ca.cluster = geo.cluster;
   ca.band_blocks = geo.band_blocks;
-  size_t tile = 0;
-  swap_plan(cv, p.H, p.W, min(p.H, geo.band_blocks * kRun), &ca.plan, &tile);
-  const size_t smem = geo.smem + tile;
+  const int rows = min(p.H, geo.band_blocks * kRun);
+  size_t tile = 0, chunk = 0;
+  swap_plan(cv, p.H, p.W, rows, &ca.plan, &tile);
+  ca.chunk = cheby ? chunk_plan(p.W, rows, check_every, &chunk) : ChunkPlan{1, 0, 0};
+  const bool passes = ca.chunk.tw > 0;
+  if (((cv.n_rounds > 0 || passes) && ca.spare == nullptr) || (passes && ca.extra == nullptr) ||
+      ca.barriers == nullptr || ca.tiled == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = geo.smem + max(tile, chunk);
   const int grid = B * geo.cluster;
   if (cheby) {
     err = prepare(fdm_cheby_cluster_body, smem);
@@ -2102,16 +2413,33 @@ int fdm_cluster_swap_plan(int H, int W, const int* offsets, int n_rounds, int* o
   return 0;
 }
 
+// The chunk plan of the Chebyshev cluster body on an H x W grid for
+// `check_every` into out[4]: halo, th, tw (0: the chunks stream) and the
+// tile region's shared bytes.
+int fdm_cluster_chunk_plan(int H, int W, int check_every, int* out) {
+  ClusterGeometry geo;
+  int err = cluster_geometry(H, W, 0, &geo);
+  if (err) return err;
+  if (check_every < 1) return (int)cudaErrorInvalidValue;
+  size_t bytes = 0;
+  const ChunkPlan cp = chunk_plan(W, min(H, geo.band_blocks * kRun), check_every, &bytes);
+  const int v[4] = {cp.halo, cp.th, cp.tw, (int)bytes};
+  for (int i = 0; i < 4; ++i) out[i] = v[i];
+  return 0;
+}
+
 // The cluster bodies, one cluster per env, for a plan above one block's
 // shared memory (any plan whose cells a 32-bit index holds): the planes as
 // for K1/K2, the solver's arguments, then `scratch` (B, H, W) float,
-// `spare` (B, H, W) float (may be null when n_rounds == 0) and `barriers`
-// (B,) int32 (each env's cluster barriers), then the convection's
-// arguments. No statistics. `rule` picks the Jacobi stopping rule: 0 K2's
-// (solo), 1 K3's (block).
-#define FDM_CLUSTER_PARAMS                                                       \
-  float *scratch, float *spare, int32_t *barriers, const int *offsets, int n_rounds, \
-      int lane_bits, int q, void *stream
+// `spare` (B, H, W) float (may be null when n_rounds == 0 and the chunks
+// stream), `extra` (B, H, W) float (may be null when the chunks stream:
+// fdm_cluster_chunk_plan), `barriers` and `tiled` (B,) int32 (each env's
+// cluster barriers and the sub-iterations it ran in chunk passes), then
+// the convection's arguments. No statistics. `rule` picks the Jacobi
+// stopping rule: 0 K2's (solo), 1 K3's (block).
+#define FDM_CLUSTER_PARAMS                                                          \
+  float *scratch, float *spare, float *extra, int32_t *barriers, int32_t *tiled,    \
+      const int *offsets, int n_rounds, int lane_bits, int q, void *stream
 #define FDM_CLUSTER_PREPARE                                                      \
   Planes p = make_planes(temp, cnst, denom, tinf, coef, ext, lead, foll, keys,   \
                          words, out, iters, converged, H, W, edge_fill);         \
@@ -2121,7 +2449,9 @@ int fdm_cluster_swap_plan(int H, int W, const int* offsets, int n_rounds, int* o
   ClusterArgs ca = {};                                                           \
   ca.scratch = scratch;                                                          \
   ca.spare = spare;                                                              \
-  ca.barriers = barriers
+  ca.extra = extra;                                                              \
+  ca.barriers = barriers;                                                        \
+  ca.tiled = tiled
 
 int fdm_cheby_cluster_launch(FDM_PLANE_PARAMS, float threshold, int limit, float rho2,
                              float omega0, int check_every, FDM_CLUSTER_PARAMS) {

@@ -91,9 +91,10 @@ class StepOutput:
     reward: torch.Tensor  # f32 (B,)
     done: torch.Tensor  # bool (B,)
     reward_breakdown: reward_lib.RewardBreakdown
-    # i32 (B,): each env's cluster barriers in the step's FDM solve, where
-    # the kernels ran it on a plan that spans thread blocks; else None.
-    fdm_barriers: Optional[torch.Tensor] = None
+    # i32 (2, B): each env's cluster barriers (row 0) and the sub-iterations
+    # it ran in chunk passes (row 1) in the step's FDM solve, where the
+    # kernels ran it on a plan that spans thread blocks; else None.
+    fdm_counts: Optional[torch.Tensor] = None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -523,10 +524,10 @@ class BuildingEnv:
                 states.temp.shape[0], use_pallas=use_pallas, solver=solver
             )
             fuse_conv, _ = self.kernel_path(solver)
-            sums = barriers = None
+            sums = counts = None
             with profiling.span("sbsim.env.fdm"):
                 if solver.startswith("pallas"):
-                    new_temp, n_iter, converged, sums, barriers = self.route(solver).solve(
+                    new_temp, n_iter, converged, sums, counts = self.route(solver).solve(
                         states.temp, states.input_q, pre["ambient"], pre["h_conv"], conv_keys)
                 else:
                     new_temp, converged, n_iter = self._solve_fdm(
@@ -549,8 +550,8 @@ class BuildingEnv:
                 new_state, out = self._step_post(
                     states, pre, new_temp, converged, n_iter, new_zm, new_gm
                 )
-            if barriers is not None:
-                out = dataclasses.replace(out, fdm_barriers=barriers)
+            if counts is not None:
+                out = dataclasses.replace(out, fdm_counts=counts)
             return new_state, out
 
     def _convect(self, temp: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:

@@ -35,7 +35,10 @@ The plan's size alone picks it (spans_blocks); a plan whose cells overflow
 a 32-bit index, or whose launch the card cannot hold, is refused. Its swap
 rounds run in groups planned from the offsets and the grid (swap_plan):
 each group in one pass through shared memory over halo tiles of a CTA's
-band, a round too wide for any tile as a pass in global memory.
+band, a round too wide for any tile as a pass in global memory. Likewise
+each Chebyshev chunk of `check_every` >= 2 sub-iterations after x1 = J(x0)
+runs as one pass through shared memory over halo tiles of `check_every`
+cells (chunk_plan), where such a tile fits; else the chunk streams.
 
 Every block kernel keeps its envs' iterate and partner plane in shared memory for
 the whole solve, and stages const and denom there where they fit, so a
@@ -131,6 +134,13 @@ launch_counts = profiling.family("fdm.launches", ("fdm_cheby", "fdm_jacobi", "fd
 # included (so a plan's groups per solve is it over the launches of
 # `fdm.launches.fdm_*_cluster`).
 swap_counts = profiling.family("fdm", ("swap_groups",), launches=True)
+# The shared memory a cluster CTA gives a tile of swap rounds or of a chunk
+# pass (kTileBytes: 256 KB of L1 and shared memory less 96 KB of L1, the
+# CTA's reserved 1 KB and its 48 scalars), and a chunk tile's bytes per
+# region cell and per region row or column (kChunkCellBytes,
+# kChunkLineBytes).
+TILE_BYTES = (256 - 96 - 1) * 1024 - 4 * (32 + 2 * CLUSTER_MAX)
+CHUNK_CELL_BYTES, CHUNK_LINE_BYTES = 17, 5
 # nvcc's output of the build in this process (ptxas register/smem use).
 build_log = ""
 _lib = None
@@ -184,8 +194,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, f"fdm_{body}_geometry").restype = i32
     lib.fdm_blocks_per_sm.argtypes = [i32] * 4
     lib.fdm_blocks_per_sm.restype = i32
-    # scratch, spare, barriers, offsets, n_rounds, lane_bits, q, stream
-    cluster = [ptr] * 4 + [i32] * 3 + [ptr]
+    # scratch, spare, extra, barriers, tiled, offsets, n_rounds, lane_bits, q,
+    # stream
+    cluster = [ptr] * 6 + [i32] * 3 + [ptr]
     lib.fdm_cheby_cluster_launch.argtypes = planes + cheby + cluster
     lib.fdm_jacobi_cluster_launch.argtypes = planes + [i32] + jacobi + cluster  # + rule
     lib.fdm_cheby_cluster_launch.restype = lib.fdm_jacobi_cluster_launch.restype = i32
@@ -193,6 +204,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fdm_cluster_geometry.restype = i32
     lib.fdm_cluster_swap_plan.argtypes = [i32, i32, ptr, i32, ptr]
     lib.fdm_cluster_swap_plan.restype = i32
+    lib.fdm_cluster_chunk_plan.argtypes = [i32, i32, i32, ptr]
+    lib.fdm_cluster_chunk_plan.restype = i32
     return lib
 
 
@@ -423,14 +436,71 @@ def swap_plan(shape: Tuple[int, int], offsets: Tuple[Tuple[int, int], ...],
     return SwapPlan(groups, out[1])
 
 
-def cluster_bytes(batch: int, shape: Tuple[int, int]) -> int:
+class ChunkPlan(NamedTuple):
+    """The tile of the Chebyshev cluster body's chunk passes: th x tw cells
+    of a CTA's band with a halo of `halo` (check_every) rows and columns,
+    its region taking `smem` bytes of shared memory."""
+
+    halo: int
+    th: int
+    tw: int
+    smem: int
+
+
+def _best_tile(rows: int, w: int, hy: int, hx: int, cell: int, line: int, budget: int):
+    """(loaded cells, th, tw) of the tile whose region (halo hy x hx,
+    `cell` bytes a cell and `line` a row or column) fits `budget` bytes and
+    loads fewest cells, th and tw even shares of the band's `rows` and of
+    W; None where none fits (best_tile in csrc/fdm_kernels.cu)."""
+    best = None
+    for nr in range(1, min(rows, 256) + 1):
+        h = -(-rows // nr)
+        if nr > 1 and h == -(-rows // (nr - 1)):
+            continue  # the same tiles
+        r = h + 2 * hy
+        if line * r >= budget:
+            continue
+        w_max = min(w, (budget - line * r) // (cell * r + line) - 2 * hx)
+        if w_max < 1:
+            continue
+        nc = -(-w // w_max)
+        load = (rows + nr * 2 * hy) * (w + nc * 2 * hx)
+        if best is None or load < best[0]:
+            best = (load, h, -(-w // nc))
+    return best
+
+
+def chunk_plan(shape: Tuple[int, int], check_every: int) -> Optional[ChunkPlan]:
+    """The chunk plan the Chebyshev cluster body runs on an (H, W) grid,
+    mirroring chunk_plan in csrc/fdm_kernels.cu (which
+    fdm_cluster_chunk_plan exports): with check_every >= 2, the tile of
+    halo check_every that loads fewest cells within a CTA's tile memory;
+    None where check_every is 1 or no tile fits, and the chunks stream. A
+    solve crosses one cluster barrier a chunk pass in place of one a
+    sub-iteration."""
+    h, w = shape
+    ce = int(check_every)
+    if ce < 2:
+        return None
+    rows = min(h, cluster_geometry(shape).band_blocks * RUN)
+    best = _best_tile(rows, w, ce, ce, CHUNK_CELL_BYTES, CHUNK_LINE_BYTES, TILE_BYTES)
+    if best is None:
+        return None
+    _, th, tw = best
+    r, c = th + 2 * ce, tw + 2 * ce
+    return ChunkPlan(ce, th, tw, CHUNK_CELL_BYTES * r * c + CHUNK_LINE_BYTES * (r + c))
+
+
+def cluster_bytes(batch: int, shape: Tuple[int, int], check_every: int = 1) -> int:
     """Device memory a cluster launch works on: per env temp, const,
-    denom, the output, the scratch and the swap rounds' spare plane
-    (float32), tinf, key, count, flag and barriers; the shared stencil
-    (a_r, a_l, a_b, a_t, the packed coef), exterior and lead/follower
-    planes."""
+    denom, the output, the scratch and the spare plane (float32), with
+    chunk passes (chunk_plan) the extra plane, tinf, key, count, flag,
+    barriers and tiled sub-iterations; the shared stencil (a_r, a_l, a_b,
+    a_t, the packed coef), exterior and lead/follower planes."""
     cells = shape[0] * shape[1]
-    return batch * (cells * 6 * 4 + 4 + 8 + 4 + 4 + 4) + cells * (4 * 4 + 16 + 4 + 2 * 4)
+    planes = 7 if chunk_plan(shape, check_every) is not None else 6
+    return (batch * (cells * planes * 4 + 4 + 8 + 4 + 4 + 4 + 4)
+            + cells * (4 * 4 + 16 + 4 + 2 * 4))
 
 
 def run_neighbours(shape: Tuple[int, int], geo: RunGeometry, edge_fill: bool):
@@ -892,7 +962,8 @@ def blocks_per_sm(name: str, shape: Tuple[int, int], block_envs: int = 1,
 
 def _launch(name: str, inp: KernelInputs, conv, stats, solver_args, block_envs=None,
             lib: Optional[ctypes.CDLL] = None, budget: int = SMEM_BUDGET,
-            barriers: Optional[torch.Tensor] = None):
+            barriers: Optional[torch.Tensor] = None,
+            tiled_sweeps: Optional[torch.Tensor] = None):
     """Checks the inputs, allocates the outputs and launches kernel `name`
     (K3/K4 with `block_envs` envs per thread block); raises on a refused
     launch. `solver_args` follow the planes (and E) in the C signature.
@@ -902,13 +973,15 @@ def _launch(name: str, inp: KernelInputs, conv, stats, solver_args, block_envs=N
     on CPU tensors (tests/test_torch_kernel_host.py). Where one env does not
     fit `budget` bytes of a block's shared memory (the card's by default),
     the cluster body of the kernel's semantics runs instead
-    (_launch_cluster), and `barriers`, a (B,) int32 tensor, receives each
-    env's cluster barriers (a block kernel leaves it as it is)."""
+    (_launch_cluster), and `barriers` and `tiled_sweeps`, (B,) int32
+    tensors, receive each env's cluster barriers and the sub-iterations it
+    ran in chunk passes (a block kernel leaves them as they are)."""
     b, h, w = _check_inputs(inp, conv, stats, lib)
-    if barriers is not None and (barriers.shape != (b,) or barriers.dtype != torch.int32
-                                 or barriers.device != inp.temp.device
-                                 or not barriers.is_contiguous()):
-        raise ValueError("barriers must be a contiguous int32 (B,) tensor on the kernel's device")
+    for what, t in (("barriers", barriers), ("tiled_sweeps", tiled_sweeps)):
+        if t is not None and (t.shape != (b,) or t.dtype != torch.int32
+                              or t.device != inp.temp.device or not t.is_contiguous()):
+            raise ValueError(
+                f"{what} must be a contiguous int32 (B,) tensor on the kernel's device")
     spans = spans_blocks((h, w), budget)
     if block_envs is not None:
         fit = 1 if spans else (
@@ -917,7 +990,7 @@ def _launch(name: str, inp: KernelInputs, conv, stats, solver_args, block_envs=N
             raise ValueError(
                 f"block_envs={block_envs} outside 1..{fit} for {name} on a {h}x{w} grid")
     if spans:
-        return _launch_cluster(name, inp, conv, stats, solver_args, lib, barriers)
+        return _launch_cluster(name, inp, conv, stats, solver_args, lib, barriers, tiled_sweeps)
     on_card = lib is None
     with torch.cuda.device(inp.temp.device) if on_card else contextlib.nullcontext():
         stream = torch.cuda.current_stream().cuda_stream if on_card else None
@@ -932,7 +1005,7 @@ def _launch(name: str, inp: KernelInputs, conv, stats, solver_args, block_envs=N
     return _result(out, iters, flag > 0, sums)
 
 
-def _check_capacity(inp: KernelInputs, on_card: bool) -> None:
+def _check_capacity(inp: KernelInputs, on_card: bool, check_every: int) -> None:
     """Refuses a cluster launch whose cells overflow the kernels' 32-bit
     cell index, or which the card cannot hold (cluster_bytes against the
     card's memory; the host build rehearses CARD_BYTES)."""
@@ -941,7 +1014,7 @@ def _check_capacity(inp: KernelInputs, on_card: bool) -> None:
         raise ValueError(
             f"grid {h}x{w}: {h * w} cells, {4 * h * w} B a float32 plane, overflow the "
             f"kernels' 32-bit cell index (at most {MAX_CELLS} cells)")
-    need = cluster_bytes(b, (h, w))
+    need = cluster_bytes(b, (h, w), check_every)
     have = (torch.cuda.get_device_properties(inp.temp.device).total_memory if on_card
             else CARD_BYTES)
     if need > have:
@@ -950,31 +1023,37 @@ def _check_capacity(inp: KernelInputs, on_card: bool) -> None:
             f"planes, more than the card's {have} B")
 
 
-def _launch_cluster(name: str, inp: KernelInputs, conv, stats, solver_args, lib, barriers):
+def _launch_cluster(name: str, inp: KernelInputs, conv, stats, solver_args, lib, barriers,
+                    tiled_sweeps):
     """The cluster body of kernel `name`'s semantics (K1/K4:
-    fdm_cheby_cluster; K2/K3: fdm_jacobi_cluster with the kernel's stopping
-    rule), one cluster per env; the statistics by the gridstats fold of the
-    output. Returns as _launch."""
+    fdm_cheby_cluster, with chunk passes where chunk_plan has a tile; K2/K3:
+    fdm_jacobi_cluster with the kernel's stopping rule), one cluster per
+    env; the statistics by the gridstats fold of the output. Returns as
+    _launch."""
     on_card = lib is None
-    _check_capacity(inp, on_card)
     cheby = name.startswith("fdm_cheby")
+    check_every = int(solver_args[-1]) if cheby else 1  # the last of _cheby_args
+    _check_capacity(inp, on_card, check_every)
+    passes = chunk_plan(inp.temp.shape[1:], check_every) is not None
     kernel = "fdm_cheby_cluster" if cheby else "fdm_jacobi_cluster"
     head = [] if cheby else [0 if name == "fdm_jacobi" else 1]  # the stopping rule
     b = inp.temp.shape[0]
-    with torch.cuda.device(inp.temp.device) if on_card else contextlib.nullcontext():
+    dev = inp.temp.device
+    with torch.cuda.device(dev) if on_card else contextlib.nullcontext():
         stream = torch.cuda.current_stream().cuda_stream if on_card else None
         lib = lib or _library()
         out, iters, flag, _ = _outputs(inp, None)
         scratch = torch.empty_like(inp.temp)
-        spare = torch.empty_like(inp.temp) if conv is not None else None
-        if barriers is None:
-            barriers = torch.empty(b, dtype=torch.int32, device=inp.temp.device)
+        spare = torch.empty_like(inp.temp) if conv is not None or passes else None
+        extra = torch.empty_like(inp.temp) if passes else None
+        counts = [t if t is not None else torch.empty(b, dtype=torch.int32, device=dev)
+                  for t in (barriers, tiled_sweeps)]
         planes, tail = _launch_args(inp, conv, None, out, iters, flag, None, stream)
         offsets, n_rounds, lane_bits, q = tail[:4]
+        ptr = lambda t: None if t is None else t.data_ptr()
         err = getattr(lib, f"{kernel}_launch")(
-            *planes, *head, *solver_args, scratch.data_ptr(),
-            None if spare is None else spare.data_ptr(), barriers.data_ptr(), offsets,
-            n_rounds, lane_bits, q, stream)
+            *planes, *head, *solver_args, ptr(scratch), ptr(spare), ptr(extra),
+            *(ptr(t) for t in counts), offsets, n_rounds, lane_bits, q, stream)
     if err:
         raise RuntimeError(f"{kernel} launch for {name} failed: CUDA error {err}")
     launch_counts[kernel] += 1
@@ -998,12 +1077,14 @@ def fdm_jacobi_cuda(
     conv: Optional[ConvInputs] = None,
     stats: Optional[ZoneStats] = None,
     barriers: Optional[torch.Tensor] = None,
+    tiled_sweeps: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Launches K2 (fdm_jacobi_body with one env per block, the solo
     stopping rule), or on a plan that spans blocks its cluster body
-    (`barriers`: see _launch). Same results as fdm_jacobi_plain."""
-    return _launch("fdm_jacobi", inp, conv, stats,
-                   [float(threshold), int(iteration_limit)], barriers=barriers)
+    (`barriers`, `tiled_sweeps`: see _launch). Same results as
+    fdm_jacobi_plain."""
+    return _launch("fdm_jacobi", inp, conv, stats, [float(threshold), int(iteration_limit)],
+                   barriers=barriers, tiled_sweeps=tiled_sweeps)
 
 
 def fdm_cheby_cuda(
@@ -1016,12 +1097,14 @@ def fdm_cheby_cuda(
     conv: Optional[ConvInputs] = None,
     stats: Optional[ZoneStats] = None,
     barriers: Optional[torch.Tensor] = None,
+    tiled_sweeps: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Launches K1 (fdm_cheby_body with one env per block), or on a plan
-    that spans blocks its cluster body (`barriers`: see _launch). Same
-    results as fdm_cheby_plain."""
+    that spans blocks its cluster body (`barriers`, `tiled_sweeps`: see
+    _launch). Same results as fdm_cheby_plain."""
     return _launch("fdm_cheby", inp, conv, stats, _cheby_args(
-        threshold, iteration_limit, spectral_radius, check_every), barriers=barriers)
+        threshold, iteration_limit, spectral_radius, check_every), barriers=barriers,
+        tiled_sweeps=tiled_sweeps)
 
 
 def fdm_jacobi_block_cuda(
@@ -1033,13 +1116,15 @@ def fdm_jacobi_block_cuda(
     conv: Optional[ConvInputs] = None,
     stats: Optional[ZoneStats] = None,
     barriers: Optional[torch.Tensor] = None,
+    tiled_sweeps: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Launches K3 (fdm_jacobi_body, the block stopping rule) with
     `block_envs` envs per thread block (1 .. jacobi_max_envs; 1 on a plan
     that spans blocks, where its cluster body runs). Same results as
     fdm_jacobi_block_plain."""
     return _launch("fdm_jacobi_block", inp, conv, stats,
-                   [float(threshold), int(iteration_limit)], block_envs, barriers=barriers)
+                   [float(threshold), int(iteration_limit)], block_envs, barriers=barriers,
+                   tiled_sweeps=tiled_sweeps)
 
 
 def fdm_cheby_block_cuda(
@@ -1053,13 +1138,14 @@ def fdm_cheby_block_cuda(
     conv: Optional[ConvInputs] = None,
     stats: Optional[ZoneStats] = None,
     barriers: Optional[torch.Tensor] = None,
+    tiled_sweeps: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Launches K4 (fdm_cheby_body) with `block_envs` envs per thread block
     (1 .. cheby_max_envs; 1 on a plan that spans blocks, where its cluster
     body runs). Same results as fdm_cheby_block_plain."""
     return _launch("fdm_cheby_block", inp, conv, stats, _cheby_args(
         threshold, iteration_limit, spectral_radius, check_every), block_envs,
-        barriers=barriers)
+        barriers=barriers, tiled_sweeps=tiled_sweeps)
 
 
 # ---------------------------------------------------------------------------
@@ -1070,13 +1156,15 @@ def fdm_cheby_block_cuda(
 class Solved(NamedTuple):
     """A route's solve: the field, iteration counts and converged flags, the
     kernel's statistics where the route takes them from it, and on a
-    cluster plan on the card each env's cluster barriers (else None)."""
+    cluster plan on the card each env's counts (else None): a (2, B) int32
+    tensor of its cluster barriers (row 0) and the sub-iterations it ran in
+    chunk passes (row 1)."""
 
     field: torch.Tensor
     iterations: torch.Tensor
     converged: torch.Tensor
     sums: Optional[GridSums]
-    barriers: Optional[torch.Tensor]
+    counts: Optional[torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -1111,6 +1199,15 @@ class Route:
             return "chebyshev"
         return "block" if self.kernel.endswith("_block") else "solo"
 
+    @property
+    def chunk(self) -> Optional[ChunkPlan]:
+        """The chunk plan of a Chebyshev solve on a plan that spans blocks
+        (its chunks as passes through shared memory: chunk_plan), else
+        None (the chunks stream, or no cluster body runs)."""
+        if not self.cluster or self.rule != "chebyshev":
+            return None
+        return chunk_plan(tuple(self.coeffs.a_r.shape), self.solver_args["check_every"])
+
     def conv_inputs(self, step_keys: Optional[torch.Tensor]) -> Optional[ConvInputs]:
         """The fused convection of a solve from the (B, 2) step keys."""
         if self.conv is None:
@@ -1125,10 +1222,12 @@ class Route:
 
     def run(self, inp: KernelInputs, conv: Optional[ConvInputs] = None,
             stats: Optional[ZoneStats] = None,
-            barriers: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+            counts: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
         """The wrapper's result on kernel inputs: its kernel for CUDA tensors
-        (`barriers`: see _launch), its plain version for CPU tensors, each
-        looked up when called (so a stand-in set on this module runs)."""
+        (`counts`, a (2, B) int32 tensor, receives a cluster body's barriers
+        and tiled sub-iterations: see Solved), its plain version for CPU
+        tensors, each looked up when called (so a stand-in set on this
+        module runs)."""
         if stats is not None and stats.masks.shape[0] > MAX_STAT_ZONES:
             raise ValueError(f"kernel statistics take at most {MAX_STAT_ZONES} zones; "
                              f"got {stats.masks.shape[0]}")
@@ -1137,21 +1236,21 @@ class Route:
             kw.update(block_envs=self.block_envs)
         if inp.temp.device.type == "cpu":
             return globals()[f"{self.kernel}_plain"](inp, **kw)
-        if barriers is not None:
-            kw.update(barriers=barriers)
+        if counts is not None:
+            kw.update(barriers=counts[0], tiled_sweeps=counts[1])
         return globals()[f"{self.kernel}_cuda"](inp, **kw)
 
     def solve(self, temp: torch.Tensor, input_q: torch.Tensor, t_inf: torch.Tensor,
               h_conv: torch.Tensor, step_keys: Optional[torch.Tensor] = None) -> Solved:
         """One batched FDM step ((B, H, W) temp and input_q, (B,) t_inf and
         h_conv) with the route's convection and statistics."""
-        barriers = None
+        counts = None
         if self.cluster and temp.is_cuda:
-            barriers = torch.empty(temp.shape[0], dtype=torch.int32, device=temp.device)
+            counts = torch.empty(2, temp.shape[0], dtype=torch.int32, device=temp.device)
         conv = self.conv_inputs(step_keys)
         inp = kernel_inputs(temp, input_q, t_inf, h_conv, self.coeffs)
-        out = self.run(inp, conv, self.stats if self.kernel_stats else None, barriers)
-        return Solved(*out[:3], out[3] if self.kernel_stats else None, barriers)
+        out = self.run(inp, conv, self.stats if self.kernel_stats else None, counts)
+        return Solved(*out[:3], out[3] if self.kernel_stats else None, counts)
 
 
 def route(
@@ -1169,7 +1268,8 @@ def route(
     fastest E on the main paths' inputs (12 zones B=2048, H100, PERF.md:
     two blocks per SM of 448 threads; K4 at E = 2 3-5% slower, E = 3-4
     25-30%). On a plan that spans thread blocks (spans_blocks) each wrapper
-    launches its cluster body. An enabled `convection` of method "swap"
+    launches its cluster body, the Chebyshev one with chunk passes where
+    chunk_plan has a tile (`Route.chunk`). An enabled `convection` of method "swap"
     runs in the kernel (`conv_lead`/`conv_foll`: its masks' packed_plane
     on the device), its words from the step keys (mix32) or a threefry
     word plane; "argsort" runs after the solve. `stats` come from the
@@ -1226,7 +1326,7 @@ def fdm_step_cuda(
     stat_layout: Union[ZoneStatLayout, ZoneStats, None] = None,
     check_every: int = 1,
     block_mode: str = "stack",
-    barriers: Optional[torch.Tensor] = None,
+    counts: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """The batched FDM step of fdm_step_pallas, with its signature: the
     route of its arguments (`route`), run on them.
@@ -1241,8 +1341,9 @@ def fdm_step_cuda(
     converged. With `conv_offsets` the swap rounds run in the kernel on the
     solved field, their decision words read from `conv_word` when given
     (the threefry words), else made from `conv_keys` with
-    `conv_word_params` (mix32). `barriers`, a (B,) int32 tensor, receives
-    each env's cluster barriers (only a cluster body writes it).
+    `conv_word_params` (mix32). `counts`, a (2, B) int32 tensor, receives
+    each env's cluster barriers and tiled sub-iterations (only a cluster
+    body writes it: see Solved).
     fdm_step_pallas's unused `conv_params` argument is left out.
     """
     stats = stat_layout
@@ -1268,4 +1369,4 @@ def fdm_step_cuda(
                  iteration_limit=iteration_limit, spectral_radius=spectral_radius,
                  check_every=check_every, block_mode=block_mode, block_envs=block_envs)
     inp = kernel_inputs(temp, input_q, t_inf, h_conv, coeffs)
-    return path.run(inp, conv, stats, barriers)
+    return path.run(inp, conv, stats, counts)

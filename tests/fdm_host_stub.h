@@ -235,3 +235,6 @@ inline void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t*) {
 inline void bulk_store(void* dst, const void* src, uint32_t bytes) {
   std::memcpy(dst, src, bytes);
 }
+
+inline void copy_async4(void* dst, const void* src) { std::memcpy(dst, src, 4); }
+inline void wait_async() {}

@@ -372,9 +372,9 @@ def test_stack_step_with_threefry_and_argsort_matches_jax(kind, monkeypatch):
     seen = []
     real = fdm_cuda.Route.run
 
-    def spy(route, inp, conv=None, stats=None, barriers=None):
+    def spy(route, inp, conv=None, stats=None, counts=None):
         seen.append((conv is not None and conv.words is not None, stats is not None))
-        return real(route, inp, conv, stats, barriers)
+        return real(route, inp, conv, stats, counts)
 
     monkeypatch.setattr(fdm_cuda.Route, "run", spy)
     _steps(jenv, tenv, jstate, solver, 1, monkeypatch)

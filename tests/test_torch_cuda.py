@@ -322,15 +322,16 @@ CLUSTER_BODY = {"fdm_cheby": "fdm_cheby_cluster", "fdm_cheby_block": "fdm_cheby_
 
 def _plain_for(kernel):
     """Kernel `kernel`'s plain version in its wrapper's place; the
-    wrapper's `barriers`, which only a cluster body writes, is dropped."""
+    wrapper's `barriers` and `tiled_sweeps`, which only a cluster body
+    writes, are dropped."""
     plain = getattr(fdm_cuda, f"{kernel}_plain")
-    return lambda inp, barriers=None, **kw: plain(inp, **kw)
+    return lambda inp, barriers=None, tiled_sweeps=None, **kw: plain(inp, **kw)
 
 
-def _cluster_kw(env, kernel, conv, limit=100):
+def _cluster_kw(env, kernel, conv, limit=100, check_every=4):
     kw = dict(threshold=0.1, iteration_limit=limit, conv=conv, stats=env._stats)
     if kernel.startswith("fdm_cheby"):
-        kw.update(spectral_radius=env._spectral_radius, check_every=4)
+        kw.update(spectral_radius=env._spectral_radius, check_every=check_every)
     if kernel.endswith("_block"):
         kw.update(block_envs=1)
     return kw
@@ -355,9 +356,12 @@ def test_cluster_bodies_at_floor126(floor_env, kernel):
     CTAs of 992 threads an env), one launch, with mix32 and word-plane swap
     rounds (the plan's one group of 16 rounds in shared memory) and the
     doubling ladder's 32 rounds (twelve groups, two of them passes in global
-    memory), the statistics by the fold, bitwise its plain version; a
-    capped limit converges no env. Each env's barriers are its iterations'
-    and the plan's (J(x_f) for Chebyshev, one between groups), and
+    memory), the statistics by the fold, bitwise its plain version, the
+    Chebyshev body at check_every 4 (its chunks as passes through shared
+    memory, six tiles of 60 x 121 a band) and 1 (streamed); a capped limit
+    converges no env. Each env's barriers are one an iteration or chunk
+    pass and the plan's (J(x_f) for Chebyshev, one between groups), its
+    tiled sub-iterations all but x1 = J(x0) with chunk passes (else 0), and
     `fdm.swap_groups` counts the plan's groups for the launch."""
     shape = floor_env.geom.shape
     assert shape == (466, 721) and fdm_cuda.spans_blocks(shape)
@@ -367,17 +371,22 @@ def test_cluster_bodies_at_floor126(floor_env, kernel):
     ladder = _ladder_conv(floor_env, conv)
     plan = fdm_cuda.swap_plan(shape, ladder.offsets)
     assert len(plan.groups) == 12 and sum(g.tw == 0 for g in plan.groups) == 2
-    for c in (conv, _word_plane(floor_env, conv), ladder):
-        kw = _cluster_kw(floor_env, kernel, c)
-        barriers = torch.full((4,), -1, dtype=torch.int32, device=floor_env.device)
+    cheby = kernel.startswith("fdm_cheby")
+    assert fdm_cuda.chunk_plan(shape, 4) == fdm_cuda.ChunkPlan(4, 60, 121, 150109)
+    for c, ce in ((conv, 4), (conv, 1), (_word_plane(floor_env, conv), 4), (ladder, 4)):
+        kw = _cluster_kw(floor_env, kernel, c, check_every=ce)
+        barriers, tiled = (torch.full((4,), -1, dtype=torch.int32, device=floor_env.device)
+                           for _ in range(2))
         groups = len(fdm_cuda.swap_plan(shape, c.offsets).groups)
         before = fdm_cuda.swap_counts["swap_groups"]
         got = _counted(CLUSTER_BODY[kernel], getattr(fdm_cuda, f"{kernel}_cuda"), inp,
-                       barriers=barriers, **kw)
+                       barriers=barriers, tiled_sweeps=tiled, **kw)
         _equal(got, getattr(fdm_cuda, f"{kernel}_plain")(inp, **kw))
         assert bool(got[2].all())
-        fixed = groups - 1 + (1 if kernel.startswith("fdm_cheby") else 0)
-        assert torch.equal(barriers, got[1] + fixed)
+        want_tiled = got[1] - 1 if cheby and ce > 1 else 0 * got[1]
+        assert torch.equal(tiled, want_tiled)
+        fixed = groups - 1 + (1 if cheby else 0)
+        assert torch.equal(barriers, got[1] - want_tiled + want_tiled // ce + fixed)
         assert fdm_cuda.swap_counts["swap_groups"] == before + groups
     kw = _cluster_kw(floor_env, kernel, conv, limit=1 if "cheby" in kernel else 3)
     capped = getattr(fdm_cuda, f"{kernel}_cuda")(inp, **kw)
@@ -392,9 +401,12 @@ def test_floor126_captured_step_equals_plain(floor_env, solver, kernel):
     """One captured step of floor126 at B=4 (bench.make_rollout, one step a
     call) through the cluster body replays bitwise the same step op by op
     through the plain versions, with no host sync and one launch; traced,
-    the call counts each env's barriers (fdm.barriers): its iterations' and
-    those its swap plan predicts, and the replay's launch and swap plan
-    groups (fdm.launches, fdm.swap_groups)."""
+    the call counts each env's barriers (fdm.barriers) and tiled
+    sub-iterations (fdm.tiled_sweeps): Chebyshev's chunks of 4 as passes
+    through shared memory (all but x1 = J(x0) tiled: 8 an env at 9
+    iterations, one barrier a chunk), Jacobi's none, and the barriers its
+    swap plan predicts, and the replay's launch and swap plan groups
+    (fdm.launches, fdm.swap_groups)."""
     from sbsim_tpu_torch import bench
     from sbsim_tpu_torch.agents import schedule_policy
     from sbsim_tpu_torch.utils import profiling
@@ -419,12 +431,19 @@ def test_floor126_captured_step_equals_plain(floor_env, solver, kernel):
     with profiling.tracing():
         roll(_clone(start))
         counters = profiling.snapshot()["counters"]
-    # Beside one an iteration: J(x_f) (Chebyshev) and one between groups of
-    # the swap plan (floor126's is one group), for each of the 4 envs.
+    # One an iteration, or a chunk pass of 4; J(x_f) (Chebyshev) and one
+    # between groups of the swap plan (floor126's is one group), for each of
+    # the 4 envs.
     groups = len(fdm_cuda.swap_plan(floor_env.geom.shape, floor_env.convection.offsets).groups)
-    fixed = groups - 1 + (1 if solver == "pallas_cheby" else 0)
-    assert counters["fdm.iterations"] > 0
-    assert counters["fdm.barriers"] - counters["fdm.iterations"] == 4 * fixed
+    cheby = solver == "pallas_cheby"
+    assert floor_env.route(solver).chunk == (fdm_cuda.ChunkPlan(4, 60, 121, 150109) if cheby
+                                             else None)
+    fixed = groups - 1 + (1 if cheby else 0)
+    iters = counters["fdm.iterations"]
+    tiled = counters["fdm.tiled_sweeps"]
+    assert iters > 0
+    assert tiled == (iters - 4 if cheby else 0)
+    assert counters["fdm.barriers"] == iters - tiled + tiled // 4 + 4 * fixed
     # The replay's launch, and its plan's groups, as an op-by-op launch counts them.
     assert counters[f"fdm.launches.{kernel}"] == 1
     assert counters["fdm.swap_groups"] == groups

@@ -107,18 +107,20 @@ def _equal(got, want):
 
 
 def _run(host_lib, name, env, inp, conv, stats, limit, e=None, budget=fdm_cuda.SMEM_BUDGET,
-         check_every=4, barriers=None):
+         check_every=4, barriers=None, tiled=None):
     """The kernel through the host library (with `budget` bytes of shared
-    memory a block, 0 for the cluster bodies), and its plain version."""
+    memory a block, 0 for the cluster bodies), and its plain version
+    (`env` None: the spectral radius 0.9)."""
     kw = dict(threshold=0.1, iteration_limit=limit, conv=conv, stats=stats)
     args = [0.1, limit]
     if name.startswith("fdm_cheby"):
-        kw.update(spectral_radius=env._spectral_radius, check_every=check_every)
-        args = fdm_cuda._cheby_args(0.1, limit, env._spectral_radius, check_every)
+        rho = 0.9 if env is None else env._spectral_radius
+        kw.update(spectral_radius=rho, check_every=check_every)
+        args = fdm_cuda._cheby_args(0.1, limit, rho, check_every)
     if e is not None:
         kw.update(block_envs=e)
     got = fdm_cuda._launch(name, inp, conv, stats, args, e, lib=host_lib, budget=budget,
-                           barriers=barriers)
+                           barriers=barriers, tiled_sweeps=tiled)
     want = getattr(fdm_cuda, f"{name}_plain")(inp, **kw)
     return got, want
 
@@ -243,19 +245,27 @@ def test_nan_env_follows_each_stopping_rule(host_lib, envs, kernel, e):
     assert not bool(torch.isnan(got[0][0]).any())
 
 
-def _planes(h, w, batch, seed, device="cpu"):
-    """Kernel inputs on an (h, w) grid without a building: edge fill, random
-    stencils whose denominators dominate, so Jacobi converges."""
+def _planes(h, w, batch, seed, device="cpu", edge_fill=True):
+    """Kernel inputs on an (h, w) grid without a building: random stencils
+    whose denominators dominate, so Jacobi converges; with edge fill, or
+    (edge_fill False) a ring exterior whose pin is folded into the
+    coefficients as kernel_inputs folds it, the stencil reads wrapping."""
     rs = np.random.default_rng(seed)
     f = lambda *s: torch.as_tensor(rs.uniform(0.0, 1.0, s).astype(np.float32), device=device)
     a = [f(h, w) for _ in range(4)]
     ext = torch.zeros(h, w, device=device)
     ext[0, :] = ext[-1, :] = ext[:, 0] = ext[:, -1] = 1.0
     denom = (sum(a) + 0.5 + f(batch, h, w)).contiguous()
+    const, tinf = 300.0 * f(batch, h, w), 280.0 + f(batch)
+    if not edge_fill:
+        pin = ext > 0
+        a = [torch.where(pin, 0.0, x).contiguous() for x in a]
+        denom = torch.where(pin, 1.0, denom).contiguous()
+        const = torch.where(pin, tinf.view(-1, 1, 1), const).contiguous()
     return fdm_cuda.KernelInputs(
-        temp=(294.0 + 4.0 * f(batch, h, w)).contiguous(), const=(300.0 * f(batch, h, w)),
-        denom=denom, tinf=280.0 + f(batch), a_r=a[0], a_l=a[1], a_b=a[2], a_t=a[3], ext=ext,
-        edge_fill=True, coef=fdm_cuda.packed_coef(*a))
+        temp=(294.0 + 4.0 * f(batch, h, w)).contiguous(), const=const, denom=denom,
+        tinf=tinf, a_r=a[0], a_l=a[1], a_b=a[2], a_t=a[3], ext=ext, edge_fill=edge_fill,
+        coef=fdm_cuda.packed_coef(*a))
 
 
 def test_grid_too_large_for_a_block_is_refused(host_lib):
@@ -333,27 +343,49 @@ def _buckets(env, schedule):
     return convection.make_convection_buckets(env.geom, 1.0, **SCHEDULES[schedule])
 
 
-def _barriers_per_solve(host_lib, kernel, shape, conv):
-    """The cluster barriers a solve crosses beside its iterations: J(x_f)
-    (Chebyshev) and one between two groups of the swap plan."""
+def _chunk_plan(host_lib, shape, check_every):
+    """The chunk plan the library plans for a launch (fdm_cluster_chunk_plan),
+    as fdm_cuda.chunk_plan gives it (None: the chunks stream)."""
+    out = (ctypes.c_int * 4)()
+    assert host_lib.fdm_cluster_chunk_plan(*shape, check_every, out) == 0
+    return fdm_cuda.ChunkPlan(*out) if out[2] > 0 else None
+
+
+def _barriers_per_solve(host_lib, kernel, shape, conv, iters, check_every):
+    """The cluster barriers and the tiled sub-iterations of each env's
+    solve: one an iteration, or with chunk passes one a chunk of
+    `check_every` (each env's tiled sub-iterations, all but x1 = J(x0)), and
+    J(x_f) (Chebyshev) and one between two groups of the swap plan."""
     groups = len(fdm_cuda.swap_plan(shape, conv.offsets, host_lib).groups) if conv else 1
-    return groups - 1 + (1 if kernel.startswith("fdm_cheby") else 0)
+    cheby = kernel.startswith("fdm_cheby")
+    iters = iters.to(torch.int32)
+    tiled = iters - 1 if cheby and _chunk_plan(host_lib, shape, check_every) else 0 * iters
+    return iters - tiled + tiled // check_every + groups - 1 + int(cheby), tiled
 
 
-def _check_cluster(host_lib, env, kernel, e, inp, conv, batch, check_every=4):
-    """The cluster body bitwise its plain version, every env converged, each
-    env's barriers those of its iterations and of the plan, and the plan's
-    groups counted once for the launch."""
+def _check_cluster(host_lib, env, kernel, e, inp, conv, batch, check_every=4, limit=100,
+                   converged=True):
+    """The cluster body bitwise its plain version (every env converged, or
+    with `converged` False none), each env's barriers and tiled
+    sub-iterations those of its iterations and of the plans, and the swap
+    plan's groups counted once for the launch."""
     barriers = torch.full((batch,), -1, dtype=torch.int32)
+    tiled = torch.full((batch,), -1, dtype=torch.int32)
     groups = dict(fdm_cuda.swap_counts)
-    got, want = _run(host_lib, kernel, env, inp, conv, env._stats, 100, e, budget=0,
-                     barriers=barriers, check_every=check_every)
+    got, want = _run(host_lib, kernel, env, inp, conv, None if env is None else env._stats,
+                     limit, e, budget=0, barriers=barriers, tiled=tiled,
+                     check_every=check_every)
     _equal(got, want)
-    assert bool(got[2].all())
-    per_solve = _barriers_per_solve(host_lib, kernel, env.geom.shape, conv)
-    assert torch.equal(barriers, got[1].to(torch.int32) + per_solve)
-    plan = fdm_cuda.swap_plan(env.geom.shape, conv.offsets, host_lib).groups if conv else ()
+    if converged is not None:
+        assert bool(got[2].all()) if converged else not bool(got[2].any())
+    shape = tuple(inp.temp.shape[1:])
+    want_barriers, want_tiled = _barriers_per_solve(host_lib, kernel, shape, conv, got[1],
+                                                    check_every)
+    assert torch.equal(barriers, want_barriers)
+    assert torch.equal(tiled, want_tiled)
+    plan = fdm_cuda.swap_plan(shape, conv.offsets, host_lib).groups if conv else ()
     assert fdm_cuda.swap_counts["swap_groups"] == groups["swap_groups"] + len(plan)
+    return got
 
 
 @pytest.mark.parametrize("kernel,e,conv_kind,schedule", [
@@ -405,6 +437,113 @@ def test_cluster_body_equals_plain_sb1(host_lib, envs, kernel, e, conv_kind, sch
     assert len(wide) == (2 if schedule == "ladder" else 0)
     assert all(buckets.lead_masks[r].any() for r in wide)
     _check_cluster(host_lib, env, kernel, e, inp, conv, 2, check_every=1)
+
+
+CHUNK_CASES = [("fdm_cheby", None), ("fdm_cheby_block", 1)]
+CHECK_EVERY = (1, 2, 4, 5)
+
+
+@pytest.mark.parametrize("shape", [(466, 721), (721, 466), (826, 1287), (52, 67), (57, 57),
+                                   (9, 11), (8, 3200), (7, 5), (1, 3)])
+def test_chunk_plan_matches_python_mirror(host_lib, shape):
+    """The chunk plan the library plans at launch equals fdm_cuda.chunk_plan
+    for check_every 1-8: none at 1, else a tile of halo check_every whose
+    region fits a CTA's tile memory; floor126's at 4 is six tiles of 60 x
+    121 a band."""
+    for ce in range(1, 9):
+        plan = fdm_cuda.chunk_plan(shape, ce)
+        assert _chunk_plan(host_lib, shape, ce) == plan
+        assert (plan is None) if ce == 1 else plan is not None
+        if plan is not None:
+            r, c = plan.th + 2 * ce, plan.tw + 2 * ce
+            assert plan.halo == ce and plan.smem == (
+                fdm_cuda.CHUNK_CELL_BYTES * r * c + fdm_cuda.CHUNK_LINE_BYTES * (r + c))
+            assert plan.smem <= fdm_cuda.TILE_BYTES
+    if shape == (466, 721):
+        assert fdm_cuda.chunk_plan(shape, 4) == fdm_cuda.ChunkPlan(4, 60, 121, 150109)
+
+
+def _capped_iters(limit, check_every):
+    """A Chebyshev count at `limit`: x1, then whole chunks while below it."""
+    return 1 + check_every * -(-(limit - 1) // check_every)
+
+
+@pytest.mark.parametrize("check_every", CHECK_EVERY)
+@pytest.mark.parametrize("kernel,e", CHUNK_CASES)
+def test_chunk_passes_equal_plain(host_lib, envs, kernel, e, check_every):
+    """K1's and K4's (E = 1) cluster body on the 9 x 11 grid (3 CTAs of
+    32 threads, bands of one row block), B = 5 with mix32 rounds, at
+    check_every 1 (the chunks stream) and 2, 4, 5 (chunk passes, their tile
+    region of 4 + 2 ce rows and 11 + 2 ce columns wider than the grid, from
+    4 on taller too, so it holds cells twice round the torus): bitwise the plain version, each
+    env's barriers one a chunk pass and its tiled sub-iterations all but x1
+    = J(x0); capped at a limit of 3, inside the first chunk, which runs to
+    its end as in the plain version (some envs converge there from 4 on)."""
+    env = envs["small"]
+    inp, conv = _inputs(env, 5, seed=25, conv_kind="mix32")
+    plan = _chunk_plan(host_lib, env.geom.shape, check_every)
+    assert (plan is None) == (check_every == 1)
+    if plan is not None:  # wider than the grid; from 4 on taller too
+        assert plan.tw + 2 * check_every > 11
+        assert (plan.th + 2 * check_every > 9) == (check_every >= 4)
+    _check_cluster(host_lib, env, kernel, e, inp, conv, 5, check_every=check_every)
+    capped = _check_cluster(host_lib, env, kernel, e, inp, conv, 5, check_every=check_every,
+                            limit=3, converged=None)
+    assert bool((capped[1] == _capped_iters(3, check_every)).all())
+
+
+@pytest.mark.parametrize("check_every", CHECK_EVERY)
+@pytest.mark.parametrize("kernel,e,conv_kind", [("fdm_cheby", None, "mix32"),
+                                                ("fdm_cheby", None, "words"),
+                                                ("fdm_cheby_block", 1, "words")])
+def test_chunk_passes_equal_plain_sb1(host_lib, envs, kernel, e, conv_kind, check_every):
+    """On the 12-zone sb1 grid (7 CTAs of 160 threads, bands of 8 rows
+    over 67 columns, a ring exterior whose reads wrap), B = 2, under sb1's
+    mix32 rounds and the threefry word plane: each band one tile whose halo
+    reaches into both neighbouring bands (round the torus at the first and
+    the last), bitwise the plain version with the barriers and tiled
+    sub-iterations its plans predict."""
+    env = envs["sb1"]
+    inp, conv = _inputs(env, 2, seed=26, conv_kind=conv_kind)
+    plan = _chunk_plan(host_lib, env.geom.shape, check_every)
+    assert plan is None if check_every == 1 else (plan.th, plan.tw) == (8, 67)
+    _check_cluster(host_lib, env, kernel, e, inp, conv, 2, check_every=check_every)
+
+
+@pytest.mark.parametrize("check_every", (2, 4, 5))
+@pytest.mark.parametrize("edge_fill", [True, False], ids=["edge", "wrap"])
+def test_chunk_passes_with_several_tiles_a_band(host_lib, edge_fill, check_every):
+    """8 x 3,200 cells (2 CTAs of 800 threads, bands of 4 rows), B = 2, no
+    rounds: each band three to five tiles whose halos cross the other band
+    and, with edge fill, reach off the grid (t_inf there), or with a ring
+    exterior wrap round it; K1's cluster body bitwise its plain version,
+    with the barriers and tiled sub-iterations its plan predicts, converged
+    or capped at the limit of 40 alike."""
+    inp = _planes(8, 3200, 2, seed=27, edge_fill=edge_fill)
+    plan = _chunk_plan(host_lib, (8, 3200), check_every)
+    assert plan.th == 4 and 3 <= -(-3200 // plan.tw) <= 5
+    _check_cluster(host_lib, None, "fdm_cheby", None, inp, None, 2, check_every=check_every,
+                   limit=40, converged=None)
+
+
+@pytest.mark.parametrize("check_every", (1, 4))
+@pytest.mark.parametrize("kernel,e", CHUNK_CASES)
+def test_nan_env_runs_to_the_limit_under_the_chebyshev_cluster_body(host_lib, envs, kernel, e,
+                                                                      check_every):
+    """A NaN in one env's temp: its residual is NaN at every sample, so it
+    never converges and runs whole chunks to the limit, streamed or in
+    chunk passes, as the plain version does; the other envs are
+    untouched."""
+    env = envs["small"]
+    inp, conv = _inputs(env, 3, seed=28, conv_kind="mix32")
+    temp = inp.temp.clone()
+    temp[1, 4, 5] = float("nan")
+    inp = dataclasses.replace(inp, temp=temp)
+    got = _check_cluster(host_lib, env, kernel, e, inp, conv, 3, check_every=check_every,
+                         limit=12, converged=None)
+    assert int(got[1][1]) == _capped_iters(12, check_every)
+    assert not bool(got[2][1]) and bool(torch.isnan(got[0][1]).any())
+    assert not bool(torch.isnan(got[0][0]).any())
 
 
 @pytest.mark.parametrize("kernel,e", [("fdm_jacobi", None), ("fdm_jacobi_block", 1)])

@@ -242,9 +242,9 @@ def _stat_layout_passed(env, solver, monkeypatch):
     seen = []
     real = fdm_cuda.Route.run
 
-    def spy(route, inp, conv=None, stats=None, barriers=None):
+    def spy(route, inp, conv=None, stats=None, counts=None):
         seen.append(stats is not None)
-        return real(route, inp, conv, stats, barriers)
+        return real(route, inp, conv, stats, counts)
 
     monkeypatch.setattr(fdm_cuda.Route, "run", spy)
     state, _ = env.reset(rng.split(rng.PRNGKey(0), 2))
